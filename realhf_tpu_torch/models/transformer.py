@@ -309,11 +309,24 @@ def head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     return params["head"]["w"]
 
 
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., H] @ w [H, N] summed and returned in fp32, never rounded to
+    x's dtype first (the JAX head's ``preferred_element_type=float32``).
+    cuBLAS writes its fp32 accumulator out directly; on the CPU, which
+    has no such GEMM, the operands are widened (each product is exact)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
 def lm_logits(cfg: TransformerConfig, params: Params,
               hidden: torch.Tensor) -> torch.Tensor:
     """[..., H] -> [..., V] fp32 logits (any vocab padding sliced off)."""
-    w = head_weight(cfg, params)
-    logits = (hidden @ w.to(hidden.dtype)).to(torch.float32)
+    logits = _matmul_f32(hidden, head_weight(cfg, params))
     if logits.shape[-1] != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
@@ -323,8 +336,7 @@ def critic_values(cfg: TransformerConfig, params: Params,
                   hidden: torch.Tensor) -> torch.Tensor:
     """[..., H] -> [...] fp32 scalar values."""
     assert cfg.is_critic
-    w = params["head"]["w"]
-    return (hidden @ w.to(hidden.dtype)).to(torch.float32)[..., 0]
+    return _matmul_f32(hidden, params["head"]["w"])[..., 0]
 
 
 # ----------------------------------------------------------------------

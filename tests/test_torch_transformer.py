@@ -79,6 +79,32 @@ def test_forward_hidden_and_logits(name):
                                **TOL)
 
 
+@pytest.mark.parametrize("critic", [False, True],
+                         ids=["lm_logits", "critic_values"])
+def test_head_in_bf16_sums_and_returns_fp32(critic):
+    """bf16 hidden states and head: both sides sum the (exact) bf16
+    products in fp32 and return fp32, so they agree to fp32 summation
+    order, 1e-5 of the outputs' scale. A result rounded to bf16 before
+    widening would be off by up to 2**-9 of it."""
+    h, vocab = 256, 97
+    kw = dict(BASE, n_kv_heads=2, n_q_heads=4, hidden_dim=h,
+              vocab_size=vocab, is_critic=critic, param_dtype="bfloat16",
+              compute_dtype="bfloat16")
+    jcfg, tcfg = JConfig(**kw), TransformerConfig(**kw)
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((h, 1 if critic else vocab)).astype(np.float32)
+    x = rng.standard_normal((3, 4, h)).astype(np.float32)
+    jfn, tfn = ((JT.critic_values, T.critic_values) if critic
+                else (JT.lm_logits, T.lm_logits))
+    want = np.asarray(jfn(jcfg, {"head": {"w": jnp.asarray(w, jnp.bfloat16)}},
+                          jnp.asarray(x, jnp.bfloat16)))
+    got = tfn(tcfg, {"head": {"w": torch.from_numpy(w).bfloat16()}},
+              torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_positions_from_segments():
     seg = np.asarray([[1, 1, 2, 2, 2, 0, 0], [0, 0, 1, 1, 1, 1, 3]],
                      np.int32)
