@@ -9,14 +9,15 @@ exits non-zero):
 1. device  -- the card's name and power limit, PyTorch and CUDA versions.
 2. build   -- compiles every CUDA kernel of the port from this checkout.
 3. kernels -- each kernel against its plain PyTorch version on the card,
-   in bf16, at the main path's shapes and at GQA / hd 64 / ragged /
-   empty-row shapes: max abs error, and the largest error of an output
-   row over that row's RMS beside its limit; a decode call with a
-   planted fault (the newest slot of each stream dropped) must exceed
-   that limit. Then the kernel's time,
-   the plain version's time, one PyTorch library call's time
-   (``scaled_dot_product_attention`` with the same boolean mask, a
-   yardstick only) and the least time the card could take (bound).
+   in bf16, at the main paths' shapes and at GQA / hd 64 / ragged /
+   empty-row / non-causal shapes: max abs error, and the largest error
+   of an output row over that row's RMS beside its limit. Planted
+   faults must exceed the limits: a decode call with the newest slot of
+   each stream dropped (K4), the backward with delta taken as 0 (K3).
+   Then each kernel's time, the plain version's time, one PyTorch
+   library call's time (``scaled_dot_product_attention`` with the same
+   boolean mask, forward or backward, a yardstick only) and the least
+   time the card could take (bound).
 4. main    -- the ``gen`` experiment through the port's
    ``GenerationConfig.build()`` and ``InlineRunner`` at full LLaMA-7B
    width and depth (random weights from the seed, integer tokenizer,
@@ -27,16 +28,42 @@ exits non-zero):
 5. deep    -- the same experiment on a 49-layer model of 7B width, the
    depth at which decoding reads the stacked KV cache through the
    decode kernel's stacked-cache entry.
-7. profile -- a torch.profiler trace of one 7B generate call (8 prompts,
+6. profile -- a torch.profiler trace of one 7B generate call (8 prompts,
    16 new tokens): kernel time and device busy share of prefill and of
    a decode step, and the kernels by time. Reports, never fails.
-8. parity  -- 7B width, 2 layers, 2 prompts: prefill and 8 greedy decode
+7. sft     -- the ``sft`` experiment through ``SFTConfig.build()`` and
+   ``InlineRunner`` at LLaMA-7B width, 8 layers, bf16, gradient
+   checkpointing on: 16 prompt-answer records (100-400 words each side)
+   in 2 microbatches of one ~4 k-token stream, 3 epochs, lr 1e-5 (at
+   1e-4 the loss rises on step 3; phase sft_lr), eval on the same file
+   after the third. Checks that every step's loss is
+   finite and below the one before, that step 1 gave every layer of
+   every parameter leaf a finite, non-zero gradient, and the launch
+   counts: K2 = K3 = 8 layers x 2 microbatches x 3 steps, K1 twice that
+   (forward and checkpoint recompute) plus 8 per eval batch.
+8. sft_profile -- a torch.profiler trace of one more sft step:
+   device time of K1/K2/K3, GEMMs and the rest, and the optimizer step's time.
+   Reports, never fails.
+   sft_lr -- the same cell at lr 1e-4: 3 steps of the port (bf16, the
+   kernels) and of a plain reference on the card (fp32 weights, compute
+   and optimizer, attention through ``packed_attention_plain``) from the
+   same initial weights and batch. Each step's loss must agree; the lr
+   1e-5 trajectory of phase sft must not.
+9. parity  -- 7B width, 2 layers, 2 prompts: prefill and 8 greedy decode
    steps through the port on the card (kernels, bf16) and on the CPU
    (plain versions, fp32) from the same weights; logits must agree. The
    LM head on bf16 hidden states must return fp32 sums, not bf16-rounded
    ones.
+10. train_parity -- three SFT steps at lr 1e-4 on the card (bf16,
+   kernels) and on the CPU (fp32, plain versions) from the same bf16
+   weights and two microbatches (2 layers, hidden 1024, 8 heads of 128,
+   FFN 2816, vocab 32000, ~510 tokens): step 1's loss, grad norm and the
+   cosine similarity (in fp64) of every layer's slice of every gradient
+   leaf, and the loss of steps 2-3, within limits; the same check with
+   layer 1's wq/wk/wv gradients zeroed must fail them.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line
+Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep
+and sft paths, each counted from 0), the ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
@@ -44,6 +71,7 @@ result.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,7 +86,8 @@ NEG_INF = -2.0 ** 30
 # the softmax statistics absolute (lse, m) or relative (l).
 LIMITS = dict(flash_fwd_row_rel=0.1, flash_fwd_lse=6e-6,
               flash_decode_row_rel=0.08, flash_decode_m=5e-6,
-              flash_decode_l_rel=5e-6)
+              flash_decode_l_rel=5e-6, flash_bwd_dq_row_rel=0.07,
+              flash_bwd_dk_row_rel=0.07, flash_bwd_dv_row_rel=0.07)
 
 RESULTS = {}
 
@@ -102,13 +131,19 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def row_rel_err(out, ref, rows) -> float:
+def row_rel_err(out, ref, rows, floor_frac=0.0) -> float:
     """Largest |out - ref| of an output row over the RMS of that row of
     ``ref``, over the rows where ``rows`` (out's shape less its last
     dim) is true. Rows averaging many values are small, so an absolute
-    limit would let a dropped key through where they are."""
+    limit would let a dropped key through where they are. With
+    ``floor_frac``, a row's RMS counts as at least that share of the RMS
+    over all such rows: a gradient row whose exact value is 0 (the first
+    token of a segment attends to itself alone, so its ds = p (dp -
+    delta) cancels) holds rounding noise on both sides."""
     d = (out.float() - ref.float()).abs().amax(-1)
-    rms = ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-6)
+    sq = ref.float().pow(2).mean(-1)
+    floor = floor_frac * float(sq[rows].mean().sqrt())
+    rms = sq.sqrt().clamp_min(max(floor, 1e-6))
     return float((d / rms)[rows].max())
 
 
@@ -198,6 +233,143 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed):
     return rec
 
 
+def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
+                    plant_fault=False):
+    """K2 (dq) and K3 (dk, dv) from K1's o and lse, against the plain
+    backward on the same bf16 values widened to fp32. With
+    ``plant_fault``, the backward is also run with o = 0 (so delta = 0),
+    which must exceed the dk limit."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    dev = seg.device
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, L, nq, hd), (b, L, nkv, hd), (b, L, nkv, hd)))
+    do = torch.randn((b, L, nq, hd), generator=gen, device=dev).bfloat16()
+    o, lse = fa.flash_attention(q, k, v, seg, causal=causal)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), seg,
+                                       o.float(), lse, do.float(),
+                                       causal=causal)
+    tok = seg != 0                                   # [B, L]
+    q_rows = tok[:, :, None].expand(b, L, nq)
+    kv_rows = tok[:, :, None].expand(b, L, nkv)
+    rec = dict(kernel="flash_bwd", case=name, shape=[b, L, nq, nkv, hd],
+               causal=causal, tokens=int(tok.sum()))
+    for key, got, want, rows in (("dq", dq, ref[0], q_rows),
+                                 ("dk", dk, ref[1], kv_rows),
+                                 ("dv", dv, ref[2], kv_rows)):
+        rec[f"{key}_max_abs_err"] = max_err(got, want)
+        rec[f"{key}_row_rel_err"] = row_rel_err(got, want, rows, 0.01)
+        rec[f"{key}_row_rel_limit"] = LIMITS[f"flash_bwd_{key}_row_rel"]
+        rec[f"{key}_pad_rows_zero"] = bool((got.float()[~rows] == 0).all())
+        rec[f"{key}_finite"] = bool(torch.isfinite(got.float()).all())
+    rec["ok"] = all(
+        rec[f"{key}_row_rel_err"] <= rec[f"{key}_row_rel_limit"]
+        and rec[f"{key}_pad_rows_zero"] and rec[f"{key}_finite"]
+        for key in ("dq", "dk", "dv"))
+    if plant_fault:
+        _, dk_bad, _ = fa.flash_attention_bwd(q, k, v, seg,
+                                              torch.zeros_like(o), lse, do,
+                                              causal=causal)
+        rec["planted_fault"] = "delta taken as 0 (o = 0)"
+        rec["planted_fault_dk_row_rel_err"] = row_rel_err(dk_bad, ref[1],
+                                                          kv_rows, 0.01)
+        rec["ok"] &= (rec["planted_fault_dk_row_rel_err"]
+                      > LIMITS["flash_bwd_dk_row_rel"])
+    if timed:
+        kw = dict(causal=causal)
+        rec["dq_ms"] = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, seg, do, lse,
+                                                       delta, **kw))
+        rec["dkv_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, seg, do,
+                                                         lse, delta, **kw))
+        # the plain version computes dq, dk and dv together
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, seg, o, lse, do, **kw), iters=3, warmup=1)
+        rec["library_ms"] = (sdpa_backward_ms(q, k, v, seg, do, causal)
+                             if nq == nkv else None)
+        # only the (query, key) pairs the mask allows, and only the rows
+        # of tokens with seg != 0; lse, delta and seg read once, outputs
+        # written once in full
+        pairs = allowed_pairs(seg, causal) * nq
+        tokens = rec["tokens"]
+        stats = 4 * (2 * lse.numel() + seg.numel())
+        rec["dq_flops"] = 6.0 * hd * pairs
+        rec["dq_bytes"] = 2 * tokens * (2 * nq + 2 * nkv) * hd + stats \
+            + 2 * dq.numel()
+        rec["dkv_flops"] = 8.0 * hd * pairs
+        rec["dkv_bytes"] = 2 * tokens * (2 * nq + 2 * nkv) * hd + stats \
+            + 2 * (dk.numel() + dv.numel())
+        rec["dq_bound_ms"], rec["dq_bound_by"] = bound_ms(rec["dq_flops"],
+                                                          rec["dq_bytes"])
+        rec["dkv_bound_ms"], rec["dkv_bound_by"] = bound_ms(
+            rec["dkv_flops"], rec["dkv_bytes"])
+    del ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sdpa_backward_ms(q, k, v, seg, do, causal) -> float:
+    """The yardstick: the backward of ``scaled_dot_product_attention``
+    with the same boolean mask (dq, dk and dv together). Timed only;
+    the port never calls it."""
+    import torch
+    from realhf_tpu_torch.ops.flash_attention import segment_mask
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    mask = segment_mask(seg, seg, causal)[:, None]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask)
+    g = do.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                               retain_graph=True))
+
+
+def sft_stream_seg(rng, n_segs, L, device):
+    """One packed stream of ``n_segs`` sequences of random lengths with
+    a padded tail, as the SFT packer lays out a microbatch."""
+    import numpy as np
+    import torch
+    lens = rng.integers(L // (2 * n_segs), 2 * L // n_segs, size=n_segs)
+    lens = (lens * (L - 37) / lens.sum()).astype(int)
+    seg = np.zeros((1, L), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[0, off:off + n] = i + 1
+        off += n
+    return torch.from_numpy(seg).to(device)
+
+
+def phase_kernels_bwd():
+    """K2/K3 cases: the SFT microbatch shape (timed, with the planted
+    fault), GQA 32/8 and 32/4, hd 64 (the "1b" shape), ragged L,
+    non-causal, and an all-padding row."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rng = np.random.default_rng(1)
+    recs = [check_flash_bwd("sft_microbatch", 1, 4096, 32, 32, 128,
+                            sft_stream_seg(rng, 8, 4096, "cuda"), True, gen,
+                            timed=True, plant_fault=True)]
+    seg = packed_seg(rng, 2, 1024, 4, {1}, "cuda")   # row 1 all padding
+    recs.append(check_flash_bwd("gqa_32_8_padrow", 2, 1024, 32, 8, 128, seg,
+                                True, gen, timed=False))
+    seg = sft_stream_seg(rng, 4, 2048, "cuda")
+    recs.append(check_flash_bwd("gqa_32_4_hd64", 1, 2048, 32, 4, 64, seg,
+                                True, gen, timed=False))
+    seg = packed_seg(rng, 2, 700, 3, set(), "cuda")   # ragged last tile
+    recs.append(check_flash_bwd("ragged_L700", 2, 700, 8, 8, 128, seg,
+                                True, gen, timed=False))
+    recs.append(check_flash_bwd("noncausal_ragged_gqa", 2, 700, 8, 2, 64,
+                                seg, False, gen, timed=False))
+    del gen
+    torch.cuda.empty_cache()
+    return recs
+
+
 def check_flash_decode(name, b, S, nq, nkv, hd, lengths, gen, timed,
                        stacked_layers=0, layer=0):
     import torch
@@ -281,6 +453,10 @@ def phase_kernels():
     seg = packed_seg(rng, 4, 500, 3, {2}, "cuda")
     recs.append(check_flash_fwd("gqa_packed_ragged", 4, 500, 32, 8, 128, seg,
                                 True, gen, timed=False))
+    # the sft path's microbatch: one stream of ~4 k tokens in 8 segments
+    seg = sft_stream_seg(rng, 8, 4096, "cuda")
+    recs.append(check_flash_fwd("sft_microbatch", 1, 4096, 32, 32, 128, seg,
+                                True, gen, timed=True))
     # hd 64, causal and not
     seg = packed_seg(rng, 3, 256, 2, {1}, "cuda")
     for causal in (True, False):
@@ -307,7 +483,7 @@ def phase_kernels():
 
 
 # ----------------------------------------------------------------------
-# phases 4-7: the gen experiment through the port's entry points, and
+# phases 4-6: the gen experiment through the port's entry points, and
 # a profile of one generate call
 # ----------------------------------------------------------------------
 def write_prompts(path, n, seed, lo=100, hi=512):
@@ -323,7 +499,7 @@ def write_prompts(path, n, seed, lo=100, hi=512):
 def reset_counts():
     from realhf_tpu_torch.ops import decode_attention as da
     from realhf_tpu_torch.ops import flash_attention as fa
-    fa.launches = 0
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
     da.launches = 0
     da.stacked_launches = 0
 
@@ -331,7 +507,8 @@ def reset_counts():
 def read_counts():
     from realhf_tpu_torch.ops import decode_attention as da
     from realhf_tpu_torch.ops import flash_attention as fa
-    return dict(flash_fwd=fa.launches, flash_decode=da.launches,
+    return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                flash_bwd_dkv=fa.dkv_launches, flash_decode=da.launches,
                 flash_decode_stacked=da.stacked_launches)
 
 
@@ -415,7 +592,9 @@ def phase_gen(n_layers, max_new_tokens, smi, with_sampled_step):
                      else "flash_decode_stacked")
         counts_ok = (counts["flash_fwd"] == n_layers * n_calls
                      and counts[decode_key] == n_layers * n_decode
-                     and counts[other_key] == 0)
+                     and counts[other_key] == 0
+                     and counts["flash_bwd_dq"] == 0
+                     and counts["flash_bwd_dkv"] == 0)
         labels = ["greedy"] * greedy_steps + (
             ["sampled_topk50_topp0.9"] if with_sampled_step else [])
         steps = [dict(step=lab, **step_summary(st, smi))
@@ -512,7 +691,275 @@ def phase_profile(smi):
 
 
 # ----------------------------------------------------------------------
-# phase 8: card against CPU
+# phases 7-8: the sft experiment at 7B width, and a profile of one step
+# ----------------------------------------------------------------------
+SFT_LAYERS = 8
+
+
+def write_prompt_answers(path, n, seed, lo=100, hi=400):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def words(k):
+        return " ".join(f"w{int(w)}" for w in rng.integers(0, 5000, size=k))
+
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(json.dumps({
+                "id": i, "prompt": words(int(rng.integers(lo, hi + 1))),
+                "answer": " " + words(int(rng.integers(lo, hi + 1)))}) + "\n")
+
+
+def build_sft_spec(data_path, n_layers, lr="1e-5"):
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.sft_exp import SFTConfig
+    from realhf_tpu_torch.models.config import llama_config
+    cfg = SFTConfig(experiment_name="chip-smoke", trial_name="sft",
+                    total_train_epochs=3)
+    apply_overrides(cfg, {"dataset.path": data_path,
+                          "dataset.valid_path": data_path,
+                          "dataset.train_bs_n_seqs": "16",
+                          "dataset.max_seqlen": "1024",
+                          "n_mbs": "2", "model.optimizer.lr": lr,
+                          "eval_freq_epochs": "3"})
+    spec = cfg.build()
+    mspec = spec.models["default"]
+    mspec.random_init_config = llama_config("7b", n_layers=n_layers)
+    vocab = mspec.random_init_config["vocab_size"]
+    spec.tokenizer = IntegerTokenizer(vocab_size=vocab - 2)
+    return spec
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted paths of a param tree in the engine's (sorted) leaf order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += leaf_names(tree[k], f"{prefix}{k}.")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+def grad_slices(name, g, n_layers):
+    """A leaf's gradient as rows to judge one by one: one per layer for
+    the stacked block leaves, the whole leaf otherwise."""
+    return g.reshape(n_layers, -1) if name.startswith("blocks.") \
+        else g.reshape(1, -1)
+
+
+def capture_first_grads(opt):
+    """Record the fp32 gradient list of the next optimizer step (the
+    accumulated, unclipped sums) by wrapping the optimizer's ``step``;
+    the wrapper keeps a reference, which the caller drops."""
+    seen = []
+    orig = opt.step
+
+    def step(params, grads):
+        if not seen:
+            seen.append([g.clone() for g in grads])
+        return orig(params, grads)
+
+    opt.step = step
+    return seen
+
+
+def phase_sft(smi):
+    """The sft experiment through ``SFTConfig.build()`` and
+    ``InlineRunner`` at 7B width and 8 layers, bf16, gradient
+    checkpointing: 3 epochs over one batch of 16 prompt-answer records
+    in 2 microbatches, then eval on the same file. Checks falling loss,
+    a finite non-zero gradient for every layer of every leaf on step 1,
+    and exact launch counts."""
+    import torch
+    from realhf_tpu_torch.system.inline import InlineRunner
+    from realhf_tpu_torch.interfaces import common
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        spec = build_sft_spec(data, SFT_LAYERS)
+        t0 = time.monotonic()
+        runner = InlineRunner(spec)  # device=None: the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    names = leaf_names(eng.params)
+    seen = capture_first_grads(eng.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng.optimizer.step  # drop the wrapper
+    steps = [st["trainDefault"] for st in runner.step_stats]
+    losses = [st["loss"] for st in steps]
+    loss_ok = (len(losses) == 3
+               and all(math.isfinite(x) for x in losses)
+               and all(b < a for a, b in zip(losses, losses[1:])))
+    grads = {}
+    for name, g in zip(names, seen[0] if seen else []):
+        rows = grad_slices(name, g, SFT_LAYERS).abs().amax(-1)
+        grads[name] = dict(finite=bool(torch.isfinite(g).all()),
+                           min_slice_absmax=float(rows.min()))
+    grads_ok = (len(grads) == len(names)
+                and all(v["finite"] and v["min_slice_absmax"] > 0
+                        for v in grads.values()))
+    n_eval_batches = len(runner.eval_dataloader)
+    evals = [ev for _, _, ev in runner.eval_stats]
+    n_bwd = SFT_LAYERS * 2 * 3  # layers x microbatches x steps
+    want = dict(flash_fwd=2 * n_bwd + SFT_LAYERS * n_eval_batches * len(evals),
+                flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd, flash_decode=0,
+                flash_decode_stacked=0)
+    tokens = runner.last_batch.total_len("packed_input_ids")
+    mb_tokens = [mb.total_len("packed_input_ids") for mb in
+                 common.split_minibatches(runner.last_batch, 2)]
+    rec = dict(n_layers=SFT_LAYERS, setup_secs=setup, card=smi,
+               tokens_per_step=tokens, microbatch_tokens=mb_tokens,
+               losses=losses,
+               grad_norms=[st["grad_norm"] for st in steps],
+               step_secs=list(runner.step_secs),
+               train_tokens_per_s=[tokens / t for t in runner.step_secs],
+               peak_mem_gb=peak, evals=evals, launches=counts,
+               launches_expected=want, launches_ok=counts == want,
+               loss_strictly_falling=loss_ok, step1_grads_ok=grads_ok,
+               step1_grads=grads)
+    rec["eval_ok"] = len(evals) == 1 and math.isfinite(evals[0]["loss"])
+    rec["ok"] = (loss_ok and grads_ok and rec["launches_ok"]
+                 and rec["eval_ok"])
+    return runner, rec
+
+
+def kernel_category(name: str) -> str:
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def phase_sft_profile(runner, smi):
+    """A torch.profiler trace of one more sft step on the same batch:
+    device time by kernel category, the optimizer step's device time
+    (CUDA events around it) and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    opt = runner.models["default"].engine.optimizer
+    orig = opt.step
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(params, grads):
+        ev[0].record()
+        orig(params, grads)
+        ev[1].record()
+
+    opt.step = timed
+    batch = runner.last_batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        runner.run_step(batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    del opt.step
+    cuda = torch.autograd.DeviceType.CUDA
+    by_cat = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            cat = kernel_category(e.key)
+            by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total
+    total_us, top = device_kernel_us(prof)
+    rec = dict(card=smi, step_wall_ms=wall * 1e3,
+               optimizer_step_ms=ev[0].elapsed_time(ev[1]))
+    if total_us is None:
+        rec["device_time"] = "not measured (no device events in the trace)"
+    else:
+        rec.update(kernel_ms=total_us / 1e3,
+                   busy_share=total_us / 1e6 / wall,
+                   ms_by_category={k: v / 1e3 for k, v in by_cat.items()},
+                   share_by_category={k: v / total_us
+                                      for k, v in by_cat.items()},
+                   optimizer_share=rec["optimizer_step_ms"] * 1e3 / total_us,
+                   top=top)
+    return rec
+
+
+# the largest relative loss difference of a step, port against the plain
+# fp32 reference at lr 1e-4: about 3x the sound reading (PERF.md, Findings)
+LR_WITNESS_LIMIT = 0.025
+
+
+def phase_sft_lr(smi):
+    """The sft cell at lr 1e-4, where its loss rises on step 3: 3 steps
+    of the port (bf16, the kernels, through ``InlineRunner``), then 3
+    steps of a plain reference on the card from the same initial weights
+    and batch: fp32 weights, compute and optimizer state, attention
+    through ``packed_attention_plain`` (patched into the model here, for
+    this run only) and an fp32 LM head. Each step's loss must agree
+    within the limit, and the lr 1e-5 trajectory of phase sft must not
+    (so the limit tells trajectories apart)."""
+    import dataclasses
+    import torch
+    from realhf_tpu_torch.api.model import Model
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.interfaces.sft import SFTInterface
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.ops.attention import packed_attention_plain
+    from realhf_tpu_torch.system.inline import InlineRunner
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        runner = InlineRunner(build_sft_spec(data, SFT_LAYERS, lr="1e-4"))
+    model = runner.models["default"]
+    init = _tree_map(lambda t: t.float(), model.engine.params)  # new fp32
+    runner.run()
+    port = [st["trainDefault"]["loss"] for st in runner.step_stats]
+    batch, cfg = runner.last_batch, model.engine.cfg
+    opt_cfg = model.engine.optimizer.cfg
+    n_steps = len(port)
+    del runner
+    model.engine = None
+    torch.cuda.empty_cache()
+    ref_cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+    ref_model = Model(name=model.name, tokenizer=model.tokenizer,
+                      engine=Engine(ref_cfg, init, "cuda", optimizer=opt_cfg,
+                                    total_train_steps=n_steps))
+    del init
+    plain_fp32 = (torch.get_float32_matmul_precision() == "highest"
+                  and not torch.backends.cuda.matmul.allow_tf32)
+    attn, T.packed_attention = T.packed_attention, packed_attention_plain
+    t0 = time.monotonic()
+    try:
+        ref = [SFTInterface().train_step(ref_model, batch, n_mbs=2)["loss"]
+               for _ in range(n_steps)]
+        torch.cuda.synchronize()
+    finally:
+        T.packed_attention = attn
+    ref_secs = time.monotonic() - t0
+    del ref_model
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    rec = dict(card=smi, lr=1e-4, port_losses=port, reference_losses=ref,
+               reference="fp32 weights/compute/optimizer, plain attention",
+               reference_fp32_matmul=plain_fp32, reference_secs=ref_secs,
+               rel_diff=rel(port, ref), limit=LR_WITNESS_LIMIT,
+               port_rises_on_last_step=port[-1] > port[-2],
+               reference_rises_on_last_step=ref[-1] > ref[-2])
+    rec["ok"] = (len(port) == len(ref) == 3 and plain_fp32
+                 and all(math.isfinite(x) for x in port + ref)
+                 and rec["rel_diff"] <= LR_WITNESS_LIMIT)
+    return rec
+
+
+# ----------------------------------------------------------------------
+# phase 9: card against CPU
 # ----------------------------------------------------------------------
 def phase_parity():
     import numpy as np
@@ -597,13 +1044,128 @@ def phase_parity():
                 lm_head_fp32_rel_err=head_rel, lm_head_rel_limit=1e-4, ok=ok)
 
 
+# ----------------------------------------------------------------------
+# phase 10: one SFT step, card against CPU
+# ----------------------------------------------------------------------
+# about 3x the readings of a sound step (PERF.md, Findings)
+TRAIN_PARITY_LIMITS = dict(loss_rel=1e-4, grad_norm_rel=3e-3, min_cos=0.9997,
+                           later_loss_rel=0.022)
+TRAIN_PARITY_STEPS = 3
+
+
+def sft_microbatches(rng, vocab):
+    """Two microbatches of two prompt-answer sequences (~510 tokens in
+    all, unequal answer counts) and their answer-token weights."""
+    import numpy as np
+    from realhf_tpu_torch.interfaces import common
+    sbs = []
+    for lens, plens in (([150, 110], [40, 30]), ([90, 160], [60, 20])):
+        ids = rng.integers(2, vocab, size=sum(lens)).astype(np.int32)
+        pm = np.concatenate([np.arange(n) < p for n, p in zip(lens, plens)])
+        sbs.append(common.build_stream_batch(
+            lens, dict(input_ids=ids, prompt_mask=pm)))
+    sbs = common.pad_stream_batches(sbs)
+    weights = [float((~b.arrays["prompt_mask"] & (b.arrays["seg_ids"] != 0))
+                     .sum()) for b in sbs]
+    return [b.arrays for b in sbs], weights
+
+
+def grad_agreement(names, got, ref, n_layers):
+    """The cosine similarity of each layer slice of each leaf's
+    gradient, card against CPU (0 where either side is all zero), summed
+    in fp64: fp32 sums over the 32.8 M-element head read up to 1.0015."""
+    cos = {}
+    for name, a, b in zip(names, got, ref):
+        a = grad_slices(name, a.double().cpu(), n_layers)
+        b = grad_slices(name, b.double(), n_layers)
+        den = (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-30)
+        cos[name] = ((a * b).sum(-1) / den).tolist()
+    return cos
+
+
+def phase_train_parity():
+    """Three SFT optimizer steps at lr 1e-4 from the same weights and
+    microbatches on the card (bf16, the kernels) and on the CPU (fp32,
+    the plain versions): step 1's loss, grad norm, and the cosine
+    similarity of every layer slice of every leaf's gradient, then the
+    loss of steps 2-3. A copy of the card's gradients with layer 1's
+    wq/wk/wv zeroed (the fault of a kernel output without a gradient)
+    must fail the limits."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces import sft
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig, llama_config
+    from realhf_tpu_torch.models.convert import params_numpy
+    nl = 2
+    base = dict(llama_config("7b", n_layers=nl), hidden_dim=1024,
+                n_q_heads=8, n_kv_heads=8, intermediate_dim=2816,
+                gradient_checkpointing=True)
+    cfgs = {dev: TransformerConfig(**base, param_dtype=dt, compute_dtype=dt)
+            for dev, dt in (("cuda", "bfloat16"), ("cpu", "float32"))}
+    # bf16 weights, the same numbers on both sides
+    weights = params_numpy(T.init_params(cfgs["cuda"], seeding.generator(5),
+                                         "cpu"))
+    mbs, loss_w = sft_microbatches(np.random.default_rng(6),
+                                   base["vocab_size"])
+    opt = OptimizerConfig(lr=1e-4, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0)
+    out, grads, traj = {}, {}, {}
+    for dev, cfg in cfgs.items():
+        eng = Engine(cfg, weights, dev, optimizer=opt)
+        seen = capture_first_grads(eng.optimizer)
+        steps = [eng.train_batch(mbs, sft._make_loss_fn(cfg), loss_w)
+                 for _ in range(TRAIN_PARITY_STEPS)]
+        out[dev], traj[dev] = steps[0], [st["loss"] for st in steps]
+        grads[dev] = seen[0]
+        names = leaf_names(eng.params)
+        del eng, seen
+    torch.cuda.empty_cache()
+    cos = grad_agreement(names, grads["cuda"], grads["cpu"], nl)
+    faulty = [g.clone() for g in grads["cuda"]]
+    for name, g in zip(names, faulty):
+        if name in ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv"):
+            g[1] = 0
+    cos_fault = grad_agreement(names, faulty, grads["cpu"], nl)
+    lim = TRAIN_PARITY_LIMITS
+
+    def rel(k):
+        return abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+
+    min_cos = min(min(v) for v in cos.values())
+    max_cos = max(max(v) for v in cos.values())
+    fault_min_cos = min(min(v) for v in cos_fault.values())
+    later = max(abs(a - b) / abs(b) for a, b in
+                zip(traj["cuda"][1:], traj["cpu"][1:]))
+    rec = dict(layers=nl, hidden=base["hidden_dim"], tokens=int(
+        sum((m["seg_ids"] != 0).sum() for m in mbs)), loss=out,
+        loss_rel_err=rel("loss"), grad_norm_rel_err=rel("grad_norm"),
+        min_cos=min_cos, max_cos=max_cos, cos=cos, losses=traj,
+        later_loss_rel_err=later, limits=lim,
+        planted_fault="layer 1 wq/wk/wv gradients zeroed",
+        planted_fault_min_cos=fault_min_cos)
+    rec["ok"] = (rec["loss_rel_err"] <= lim["loss_rel"]
+                 and rec["grad_norm_rel_err"] <= lim["grad_norm_rel"]
+                 and lim["min_cos"] <= min_cos and max_cos <= 1 + 1e-6
+                 and later <= lim["later_loss_rel"]
+                 and all(math.isfinite(x) for x in traj["cuda"])
+                 and fault_min_cos < lim["min_cos"])
+    return rec
+
+
 def _tree_map(fn, tree):
     return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------
-def kernels_line(kernel_recs, main, deep):
+def kernels_line(kernel_recs, bwd_recs, paths):
+    """One row per kernel. ``launches`` sums the kernel's counts over the
+    paths run (gen, deep and sft), each counted from 0 just before its
+    path and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -612,9 +1174,8 @@ def kernels_line(kernel_recs, main, deep):
         return max(r["max_abs_err"] for r in kernel_recs
                    if r["kernel"] == kernel)
 
-    launches = dict(main["launches"])
-    launches["flash_decode_stacked"] = deep["launches"][
-        "flash_decode_stacked"]
+    launches = {k: sum(p["launches"][k] for p in paths)
+                for k in paths[0]["launches"]}
     rows = [
         ("flash_fwd", "realhf_tpu_torch/csrc/flash_fwd.cu",
          "realhf_tpu/ops/flash_attention.py:55"),
@@ -631,6 +1192,20 @@ def kernels_line(kernel_recs, main, deep):
                         max_abs_err=errmax(name), ms=t["ms"],
                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                         bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    t = next(r for r in bwd_recs if "dq_ms" in r)
+    for name, key, outs, replaces in (
+            ("flash_bwd_dq", "dq", ("dq",),
+             "realhf_tpu/ops/flash_attention.py:157"),
+            ("flash_bwd_dkv", "dkv", ("dk", "dv"),
+             "realhf_tpu/ops/flash_attention.py:195")):
+        out.append(dict(
+            name=name, route="cuda", source="realhf_tpu_torch/csrc/flash_bwd.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=max(r[f"{o}_max_abs_err"] for r in bwd_recs
+                            for o in outs),
+            ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
+            library_ms=t["library_ms"]))
     return {"kernels": out}
 
 
@@ -668,18 +1243,36 @@ def main(argv=None):
          ptxas=per_lib)
 
     kernel_recs = phase_kernels()
-    for r in kernel_recs:
+    bwd_recs = phase_kernels_bwd()
+    for r in kernel_recs + bwd_recs:
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
-    RESULTS["kernels"] = kernel_recs
-    ok = all(r["ok"] for r in kernel_recs)
+    RESULTS["kernels"] = kernel_recs + bwd_recs
+    ok = all(r["ok"] for r in kernel_recs + bwd_recs)
     main_rec = phase_gen(32, 128, smi, with_sampled_step=True)
     emit("main", **main_rec)
     deep_rec = phase_gen(49, 16, smi, with_sampled_step=False)
     emit("deep", **deep_rec)
     emit("profile", **phase_profile(smi))
+    runner, sft_rec = phase_sft(smi)
+    emit("sft", **sft_rec)
+    for key in ("step_secs", "train_tokens_per_s", "peak_mem_gb"):
+        print(f"sft-7bw-l8 {key}: {sft_rec[key]}", flush=True)
+    emit("sft_profile", **phase_sft_profile(runner, smi))
+    del runner
+    torch.cuda.empty_cache()
+    lr_rec = phase_sft_lr(smi)
+    # the limit must tell the lr 1e-4 trajectory from the lr 1e-5 one
+    lr_rec["lr_1e-5_rel_diff"] = max(
+        abs(x - y) / abs(y)
+        for x, y in zip(sft_rec["losses"], lr_rec["reference_losses"]))
+    lr_rec["ok"] &= lr_rec["lr_1e-5_rel_diff"] > LR_WITNESS_LIMIT
+    emit("sft_lr", **lr_rec)
     par = phase_parity()
     emit("parity", **par)
-    ok &= main_rec["ok"] and deep_rec["ok"] and par["ok"]
+    train_par = phase_train_parity()
+    emit("train_parity", **train_par)
+    ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
+           and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -689,7 +1282,8 @@ def main(argv=None):
         print("chip_smoke: a phase failed (see its JSON line).",
               file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line(kernel_recs, main_rec, deep_rec)))
+    print(json.dumps(kernels_line(kernel_recs, bwd_recs,
+                                  [main_rec, deep_rec, sft_rec])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

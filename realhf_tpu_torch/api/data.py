@@ -16,9 +16,15 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Set, Tuple
 
 import numpy as np
 
-from realhf_tpu_torch.base import logging
+from realhf_tpu_torch.base import datapack, logging
 
 logger = logging.getLogger("data_api")
+
+
+@dataclasses.dataclass
+class SequenceSplitSpec:
+    """Contiguous batch partition boundaries: (start, end) per part."""
+    partitions: List[Tuple[int, int]]
 
 
 _VALIDATION_ENABLED = True
@@ -127,6 +133,47 @@ class SequenceSample:
                 trailing_shapes={k: samples[0].trailing_shapes[k] for k in keys},
                 dtypes={k: samples[0].dtypes[k] for k in keys},
                 ids=ids, seqlens=seqlens, data=data, metadata=metadata)
+
+    def get_split_spec(self, k: int, key: Optional[str] = None,
+                       min_size: int = 1) -> SequenceSplitSpec:
+        """A token-balanced contiguous partition into k parts, by the
+        key with the most tokens unless ``key`` is given."""
+        key = key or max(self.keys, key=self.total_len)
+        lens = [sum(l) for l in self.seqlens[key]]
+        return SequenceSplitSpec(
+            partitions=datapack.min_abs_diff_partition(lens, k, min_size))
+
+    def split_with_spec(self, spec: SequenceSplitSpec
+                        ) -> List["SequenceSample"]:
+        samples = []
+        offsets = {k: 0 for k in self.keys}
+        for start, end in spec.partitions:
+            seqlens = {k: l[start:end] for k, l in self.seqlens.items()}
+            chunk = {k: sum(sum(l) for l in v) for k, v in seqlens.items()}
+            if self.data is not None:
+                data = {k: (v[offsets[k]:offsets[k] + chunk[k]]
+                            if v is not None else None)
+                        for k, v in self.data.items()}
+            else:
+                data = None
+            for k in self.keys:
+                offsets[k] += chunk[k]
+            with self.disable_validation():
+                samples.append(SequenceSample(
+                    keys=self.keys,
+                    trailing_shapes=self.trailing_shapes,
+                    dtypes=self.dtypes,
+                    ids=self.ids[start:end],
+                    seqlens=seqlens,
+                    data=data,
+                    metadata={k: v[start:end]
+                              for k, v in self.metadata.items()}))
+        return samples
+
+    def split(self, k: int, key: Optional[str] = None,
+              min_size: int = 1) -> List["SequenceSample"]:
+        """k token-balanced contiguous parts of this batch."""
+        return self.split_with_spec(self.get_split_spec(k, key, min_size))
 
     def select(self, keys: List[str]) -> "SequenceSample":
         """A view holding only the given keys."""

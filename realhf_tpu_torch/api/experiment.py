@@ -6,6 +6,7 @@ from typing import Dict, List, Optional
 
 from realhf_tpu_torch.api.config import DatasetAbstraction
 from realhf_tpu_torch.api.dfg import MFCDef
+from realhf_tpu_torch.engine.optim import OptimizerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,13 +31,24 @@ class ModelSpec:
     # used when path is None (tests, benchmarks, smoke runs)
     random_init_config: Optional[dict] = None
     is_critic: bool = False
+    #: the optimizer of a trained role; None = inference only
+    optimizer: Optional[OptimizerConfig] = None
     parallel: ParallelismConfig = dataclasses.field(
         default_factory=ParallelismConfig)
+    gradient_checkpointing: bool = True
     bf16: bool = True
 
 
 @dataclasses.dataclass
 class SaveEvalControl:
+    """When the runner saves and evaluates trained roles (None = never)
+    and when it stops early. Saving raises until the checkpoint-IO
+    slice of the port."""
+    save_freq_epochs: Optional[int] = None
+    save_freq_steps: Optional[int] = None
+    save_freq_secs: Optional[float] = None
+    eval_freq_epochs: Optional[int] = None
+    eval_freq_steps: Optional[int] = None
     benchmark_steps: Optional[int] = None  # stop early after N steps
 
 
@@ -47,6 +59,7 @@ class ExperimentSpec:
     models: Dict[str, ModelSpec]
     mfcs: List[MFCDef]
     dataset: DatasetAbstraction
+    eval_dataset: Optional[DatasetAbstraction] = None
     tokenizer_path: Optional[str] = None
     tokenizer: Optional[object] = None  # direct object (tests, smoke runs)
     total_train_epochs: int = 1

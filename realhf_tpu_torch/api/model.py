@@ -22,7 +22,11 @@ class Model:
 
 
 class ModelInterface(abc.ABC):
-    """Algorithm handlers; each defaults to unimplemented."""
+    """Algorithm handlers; each defaults to unimplemented (evaluation
+    to no stats)."""
+
+    def evaluate(self, model: Model, eval_dataloader) -> Dict:
+        return {}
 
     def inference(self, model: Model, input_: SequenceSample,
                   n_mbs: Optional[int] = None) -> SequenceSample:

@@ -7,6 +7,9 @@ key=value overrides, run by the inline runner on the CUDA card
     python -m realhf_tpu_torch.apps.quickstart gen \\
         model.random_init_size=7b dataset.path=prompts.jsonl \\
         dataset.train_bs_n_seqs=8 max_new_tokens=128 greedy=true
+    python -m realhf_tpu_torch.apps.quickstart sft \\
+        model.random_init_size=tiny dataset.path=prompt_answer.jsonl \\
+        dataset.train_bs_n_seqs=8 n_mbs=2 device=cpu
 
 Random-weight models without a tokenizer path use the integer test
 tokenizer (``base/testing.py``).

@@ -1,3 +1,7 @@
 """Dataset registrations."""
 
-from realhf_tpu_torch.datasets import prompt, random_prompt  # noqa: F401
+from realhf_tpu_torch.datasets import (  # noqa: F401
+    prompt,
+    prompt_answer,
+    random_prompt,
+)

@@ -13,6 +13,7 @@ from realhf_tpu_torch.api.experiment import (
     ParallelismConfig,
     SaveEvalControl,
 )
+from realhf_tpu_torch.engine.optim import OptimizerConfig
 from realhf_tpu_torch.models.config import llama_config
 
 
@@ -24,17 +25,22 @@ class ModelConfigCLI:
     #: used when ``path`` is None
     random_init_size: Optional[str] = None
     bf16: bool = True
+    gradient_checkpointing: bool = True
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
     parallel: ParallelismConfig = dataclasses.field(
         default_factory=ParallelismConfig)
 
-    def to_spec(self) -> ModelSpec:
-        """The spec of an inference-only model (trainable models come
-        with the training slice of the port)."""
+    def to_spec(self, train: bool = True) -> ModelSpec:
+        """The spec of this model; ``train`` gives it its optimizer."""
         return ModelSpec(
             path=self.path,
             random_init_config=(llama_config(self.random_init_size)
                                 if self.random_init_size else None),
-            parallel=self.parallel, bf16=self.bf16)
+            optimizer=self.optimizer if train else None,
+            parallel=self.parallel,
+            gradient_checkpointing=self.gradient_checkpointing,
+            bf16=self.bf16)
 
 
 @dataclasses.dataclass
@@ -42,6 +48,8 @@ class DatasetConfigCLI:
     path: str = ""
     max_seqlen: int = 1024
     train_bs_n_seqs: int = 256
+    pad_to_max_length: bool = False
+    valid_path: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -51,12 +59,23 @@ class CommonExperimentConfig:
     seed: int = 1
     total_train_epochs: int = 1
     tokenizer_path: Optional[str] = None
+    save_freq_epochs: Optional[int] = None
+    save_freq_steps: Optional[int] = None
+    save_freq_secs: Optional[float] = None
+    eval_freq_epochs: Optional[int] = None
+    eval_freq_steps: Optional[int] = None
     benchmark_steps: Optional[int] = None
     #: "cuda" (None) or "cpu"
     device: Optional[str] = None
 
     def ctl(self) -> SaveEvalControl:
-        return SaveEvalControl(benchmark_steps=self.benchmark_steps)
+        return SaveEvalControl(
+            save_freq_epochs=self.save_freq_epochs,
+            save_freq_steps=self.save_freq_steps,
+            save_freq_secs=self.save_freq_secs,
+            eval_freq_epochs=self.eval_freq_epochs,
+            eval_freq_steps=self.eval_freq_steps,
+            benchmark_steps=self.benchmark_steps)
 
     def build(self):
         raise NotImplementedError()

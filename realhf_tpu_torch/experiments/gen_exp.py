@@ -55,7 +55,7 @@ class GenerationConfig(CommonExperimentConfig):
         return ExperimentSpec(
             experiment_name=self.experiment_name,
             trial_name=self.trial_name,
-            models={"default": self.model.to_spec()},
+            models={"default": self.model.to_spec(train=False)},
             mfcs=[mfc],
             dataset=dataset,
             tokenizer_path=self.tokenizer_path or self.model.path,

@@ -84,8 +84,10 @@ class TransformerConfig:
     # softmax and normalization accumulate in fp32.
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # Training-only knobs, carried for config compatibility: this
-    # package runs inference and generation only so far.
+    # Under autograd, recompute each block in the backward instead of
+    # keeping its activations (models/transformer.py forward). The two
+    # knobs below are carried for config compatibility: the port's
+    # recompute always saves nothing inside a block, and has no pipeline.
     gradient_checkpointing: bool = False
     remat_policy: str = "nothing_saveable"
     pipeline_remat: str = "tick"

@@ -18,9 +18,9 @@ Tree = Dict[str, Any]
 
 
 def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:  # torch wants to own writable memory
-        a = a.copy()
+    # a copy: the tensor never shares memory with the caller's array (a
+    # training engine updates its params in place)
+    a = np.array(a, order="C", copy=True)
     if a.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the bits
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
@@ -29,7 +29,7 @@ def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = t.detach().to("cpu", copy=True)  # never a view of the params
     if t.dtype == torch.bfloat16:
         try:
             import ml_dtypes

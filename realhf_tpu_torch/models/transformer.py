@@ -3,8 +3,9 @@
 Parameters are a plain dict tree of tensors in the JAX package's layout,
 with the block weights stacked along a leading layer axis
 (``params["blocks"][...]`` leaves are ``[n_layers, ...]``), so the two
-packages exchange weights leaf for leaf (``models/convert.py``). Layer
-``l``'s weights are the views ``leaf[l]``.
+packages exchange weights leaf for leaf (``models/convert.py``). Each forward
+takes layer ``l``'s weights as views from one ``torch.unbind`` per
+stacked leaf (``layer_views``).
 
 Batches are packed streams ``[B, L]`` with segment ids (0 = padding);
 positions are derived per segment. Generation keeps a head-major KV
@@ -13,13 +14,17 @@ decode step that writes the cache in place.
 
 Attention goes through ``ops/attention.py``, which runs the CUDA kernels
 on CUDA tensors and the plain PyTorch versions on CPU tensors; the
-projections and MLP are ``torch.matmul``.
+projections and MLP are ``torch.matmul``. Under autograd with
+``cfg.gradient_checkpointing`` each block is recomputed in the backward
+from its input (``torch.utils.checkpoint``), as the JAX package's
+``jax.checkpoint(..., policy=nothing_saveable)`` does.
 """
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.ops.attention import (
@@ -117,10 +122,24 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def layer_params(params: Params, layer: int) -> Params:
-    """Views of layer ``layer``'s weights in the stacked block tree."""
-    return {k: (layer_params(v, layer) if isinstance(v, dict) else v[layer])
-            for k, v in params.items()}
+def layer_views(blocks: Params, n_layers: int) -> List[Params]:
+    """Every layer's weights as views into the stacked block tree, from
+    one ``torch.unbind`` per leaf. Under autograd that is one backward
+    node per leaf, which stacks the layer gradients once; indexing
+    ``leaf[l]`` per layer would give each layer a node that builds a
+    zero-filled gradient of the whole stacked leaf."""
+    views: List[Params] = [{} for _ in range(n_layers)]
+
+    def fill(tree, outs):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(v, [o.setdefault(k, {}) for o in outs])
+            else:
+                for o, t in zip(outs, torch.unbind(v)):
+                    o[k] = t
+
+    fill(blocks, views)
+    return views
 
 
 # ----------------------------------------------------------------------
@@ -290,9 +309,14 @@ def forward(cfg: TransformerConfig, params: Params,
     x = _embed(cfg, params, input_ids.long(), positions)
     cos, sin = _rotary_tables(cfg, positions)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], li)
-        x, (k, v) = _block(cfg, lp, li, x, seg_ids, cos, sin, attention_fn)
+    remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+    for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
+        if remat:
+            x, (k, v) = checkpoint(_block, cfg, lp, li, x, seg_ids, cos, sin,
+                                   attention_fn, use_reentrant=False)
+        else:
+            x, (k, v) = _block(cfg, lp, li, x, seg_ids, cos, sin,
+                               attention_fn)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -309,6 +333,24 @@ def head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     return params["head"]["w"]
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x [M, H] @ w [H, N] with cuBLAS writing its fp32 sums out
+    directly (``torch.mm`` with ``out_dtype`` has no derivative); the
+    backward runs in x's dtype with fp32 accumulation, the gradient of
+    the fp32 logits rounded to it first."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., H] @ w [H, N] summed and returned in fp32, never rounded to
     x's dtype first (the JAX head's ``preferred_element_type=float32``).
@@ -318,7 +360,7 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.to(torch.float32) @ w.to(torch.float32)
 
@@ -431,8 +473,7 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
     stacked = cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS
     base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
 
-    for li in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], li)
+    for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
         ln1 = _norm(cfg, x, lp["ln1"]["scale"], lp["ln1"].get("bias"))
         q, k, v = _qkv(cfg, lp, ln1)  # q [B, nq, hd]; k/v [B, nkv, hd]
         if cfg.apply_rotary:

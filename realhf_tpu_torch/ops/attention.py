@@ -8,9 +8,10 @@
 
 Both choose by the tensors' device alone: a CPU tensor takes the plain
 PyTorch version (``packed_attention_plain`` / ``decode_attention_xla_plain``,
-fp32 scores, soft-cap and sliding window supported); a CUDA tensor
-takes the hand-written kernel (``ops/flash_attention.py``,
-``ops/decode_attention.py``) or raises.
+fp32 scores, soft-cap and sliding window supported, differentiable by
+autograd); a CUDA tensor takes the hand-written kernels
+(``ops/flash_attention.py``: ``FlashAttentionFn``, whose backward is the
+backward kernels; ``ops/decode_attention.py``) or raises.
 """
 
 from typing import Optional
@@ -20,7 +21,7 @@ import torch
 from realhf_tpu_torch.ops import decode_attention as _decode
 from realhf_tpu_torch.ops.flash_attention import (
     NEG_INF,
-    flash_attention,
+    FlashAttentionFn,
     segment_mask,
 )
 
@@ -63,8 +64,7 @@ def packed_attention(q, k, v, seg_ids, *, causal: bool = True,
             "soft-cap and sliding-window prefill attention on the GPU are "
             "deferred to a later slice of the port (model features beyond "
             "LLaMA).")
-    out, _ = flash_attention(q, k, v, seg_ids, causal=causal, scale=scale)
-    return out
+    return FlashAttentionFn.apply(q, k, v, seg_ids, causal, scale)
 
 
 def _no_soft_cap_on_gpu(logits_soft_cap):

@@ -2,17 +2,23 @@
 
 Loads the dataset, walks the dataflow graph level by level over each
 batch (amending every MFC's output into the batch), logs per-step time
-and token counts, and stops after ``ctl.benchmark_steps`` steps when
-set. Models run on the CUDA card unless ``device`` says otherwise.
+and token counts, evaluates trained roles on the eval dataset by the
+eval frequency, and stops after ``ctl.benchmark_steps`` steps when set.
+Models run on the CUDA card unless ``device`` says otherwise.
+
+Saving waits for the checkpoint-IO slice of the port: a configured save
+frequency raises, and the final save that the JAX package's runner
+always makes is not made.
 """
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from realhf_tpu_torch.api import data as data_api
+from realhf_tpu_torch.api.config import ModelInterfaceType
 from realhf_tpu_torch.api.dfg import DFG
 from realhf_tpu_torch.api.experiment import ExperimentSpec
-from realhf_tpu_torch.base import logging, seeding
+from realhf_tpu_torch.base import logging, seeding, timeutil
 from realhf_tpu_torch.base.device import DeviceLike
 from realhf_tpu_torch.system.model_host import ModelHost
 
@@ -23,6 +29,12 @@ class InlineRunner:
 
     def __init__(self, spec: ExperimentSpec, device: DeviceLike = None):
         self.spec = spec
+        ctl = spec.ctl
+        if (ctl.save_freq_epochs, ctl.save_freq_steps,
+                ctl.save_freq_secs) != (None, None, None):
+            raise NotImplementedError(
+                "saving checkpoints is deferred to the checkpoint-IO slice "
+                "of the port; unset save_freq_epochs/steps/secs.")
         seeding.set_random_seed(spec.seed)
         import realhf_tpu_torch.datasets  # noqa: F401 - register datasets
         import realhf_tpu_torch.interfaces  # noqa: F401 - register interfaces
@@ -37,13 +49,28 @@ class InlineRunner:
             tokenizer_or_path=self.tokenizer)
         self.dataloader = data_api.PackedDataLoader(
             self.dataset, batch_size=src.n_seqs, seed=spec.seed)
+        self.eval_dataloader = None
+        if spec.eval_dataset is not None:
+            eval_ds = data_api.make_dataset(
+                spec.eval_dataset, seed=spec.seed, dp_rank=0, world_size=1,
+                tokenizer_or_path=self.tokenizer)
+            self.eval_dataloader = data_api.PackedDataLoader(
+                eval_ds, batch_size=src.n_seqs, shuffle=False)
+        # the learning-rate schedule spans every step of the run
+        total_steps = len(self.dataloader) * spec.total_train_epochs
         self.host = ModelHost(spec, list(spec.models), self.dfg.nodes,
-                              self.tokenizer, device=device)
+                              self.tokenizer, device=device,
+                              total_steps=total_steps)
+        self.eval_ctl = timeutil.EpochStepTimeFreqCtl(
+            freq_epoch=ctl.eval_freq_epochs, freq_step=ctl.eval_freq_steps)
         self.global_step = 0
         #: the last step's batch with every MFC's outputs merged in
         self.last_batch: Optional[data_api.SequenceSample] = None
-        #: seconds of each step run so far
-        self.step_secs = []
+        #: seconds and MFC stats of each step run so far
+        self.step_secs: List[float] = []
+        self.step_stats: List[Dict[str, Dict]] = []
+        #: (global step, MFC name, stats) of each evaluation
+        self.eval_stats: List[Tuple[int, str, Dict]] = []
 
     @property
     def models(self):
@@ -73,6 +100,20 @@ class InlineRunner:
         self.last_batch = batch
         return stats
 
+    def _maybe_eval(self, epochs: int = 0, steps: int = 0):
+        if self.eval_dataloader is None:
+            return
+        if not self.eval_ctl.check(epochs=epochs, steps=steps):
+            return
+        for node in self.dfg.nodes:
+            if node.interface_type != ModelInterfaceType.TRAIN_STEP:
+                continue
+            ev = self.interfaces[node.name].evaluate(
+                self.models[node.role], self.eval_dataloader)
+            if ev:
+                self.eval_stats.append((self.global_step, node.name, ev))
+                logger.info("Eval %s: %s", node.role, ev)
+
     def run(self) -> Dict[str, Dict]:
         """Run the configured epochs (or benchmark steps); returns the
         last step's stats."""
@@ -84,6 +125,7 @@ class InlineRunner:
                 last_stats = self.run_step(batch)
                 dt = time.monotonic() - t0
                 self.step_secs.append(dt)
+                self.step_stats.append(last_stats)
                 self.global_step += 1
                 token_key = next(
                     (k for k in ("packed_input_ids", "packed_prompts")
@@ -92,7 +134,9 @@ class InlineRunner:
                 logger.info("epoch %d step %d (global %d): %.2fs, #tokens %d",
                             epoch, step, self.global_step, dt,
                             batch.total_len(token_key))
+                self._maybe_eval(steps=1)
                 if (spec.ctl.benchmark_steps is not None
                         and self.global_step >= spec.ctl.benchmark_steps):
                     return last_stats
+            self._maybe_eval(epochs=1)
         return last_stats

@@ -1,7 +1,8 @@
 """Model hosting for the inline runner: one engine per model role on
-one device, the algorithm interfaces of the MFCs, and MFC execution."""
+one device (with an optimizer for the roles that train), the algorithm
+interfaces of the MFCs, and MFC execution."""
 
-from typing import List
+from typing import List, Optional
 
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api import model as model_api
@@ -17,9 +18,12 @@ logger = logging.getLogger("model_host", "benchmark")
 
 
 def build_model(role: str, spec, tokenizer, init_seed: int,
-                device: DeviceLike = None) -> model_api.Model:
+                device: DeviceLike = None,
+                total_steps: Optional[int] = None) -> model_api.Model:
     """Instantiate one model role on ``device`` (None = the CUDA card)
-    with random weights drawn from (experiment seed, role)."""
+    with random weights drawn from (experiment seed, role), and its
+    optimizer when the spec has one (``total_steps`` sizes the learning
+    rate schedule)."""
     if spec.path:
         raise NotImplementedError(
             f"Model role {role!r}: loading checkpoints ({spec.path}) is "
@@ -36,6 +40,7 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
             "random_init_config.")
     cfg = TransformerConfig(**spec.random_init_config,
                             is_critic=spec.is_critic)
+    cfg.gradient_checkpointing = spec.gradient_checkpointing
     cfg.compute_dtype = "bfloat16" if spec.bf16 else "float32"
     if spec.bf16:
         cfg.param_dtype = "bfloat16"
@@ -43,20 +48,23 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
     gen = seeding.generator(
         seeding.derive_seed_from(init_seed, "model_init", role), dev)
     params = T.init_params(cfg, gen, dev)
-    return model_api.Model(ModelName(role, 0), Engine(cfg, params, dev),
-                           tokenizer)
+    engine = Engine(cfg, params, dev, optimizer=spec.optimizer,
+                    total_train_steps=total_steps)
+    return model_api.Model(ModelName(role, 0), engine, tokenizer)
 
 
 class ModelHost:
     """The models of some roles plus MFC execution."""
 
     def __init__(self, spec, roles: List[str], nodes: List[MFCDef],
-                 tokenizer, device: DeviceLike = None):
+                 tokenizer, device: DeviceLike = None,
+                 total_steps: Optional[int] = None):
         self.spec = spec
         self.nodes = {n.name: n for n in nodes}
         self.models = {
             role: build_model(role, spec.models[role], tokenizer,
-                              init_seed=spec.seed, device=device)
+                              init_seed=spec.seed, device=device,
+                              total_steps=total_steps)
             for role in roles
         }
         self.interfaces = {n.name: model_api.make_interface(n.interface_impl)
