@@ -62,14 +62,50 @@ exits non-zero):
    leaf, and the loss of steps 2-3, within limits; the same check with
    layer 1's wq/wk/wv gradients zeroed must fail them.
 
-Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep
-and sft paths, each counted from 0), the ``nvidia-smi`` name/power line
+11. ppo    -- the ``ppo`` experiment through ``PPOConfig.build()`` and
+   ``InlineRunner`` at LLaMA-7B width, 4 layers for each of actor,
+   critic, ref and reward, bf16, gradient checkpointing on: 2 steps of
+   16 prompts (100-512 words), up to 128 sampled new tokens (top-p 0.9,
+   top-k 200, temperature 1, the logits mask kept), 4 minibatches per
+   train MFC, lr 1e-5. Checks that all six MFCs ran on both steps, every
+   stat is finite, tokens are in range and inside their logits mask,
+   each step's first-minibatch importance weight and approximate KL are
+   within their limits (the packed forward reproduces the decode path's
+   log-probs), the versions advanced, and the launch counts, derived
+   from the configuration and the decode steps taken: per step K1 = 4L
+   + 2 x N x 2L, K2 = K3 = 2 x N x L, K4 = L x decode steps (L layers, N
+   minibatches). Seconds per MFC (the script times ``host.execute``
+   between device synchronisations), per step, tokens per second and
+   the allocator's peak are reported. Then one step of a second runner
+   with ``auto_offload``: ref and reward report ``offloaded``, the
+   allocated device memory fell by their bytes, and their bits come back.
+12. ppo_profile -- one more step, each MFC under torch.profiler: device
+   time by MFC and by kernel class (K1-K4, GEMMs, the rest), the busy
+   share, the optimizer steps' time. Reports, never fails.
+   kernels (ppo shapes) -- K1-K4 against their plain versions, with the
+   limits and planted faults of phase 3, at the segment matrices the
+   ppo path's packer made: the prefill of 16 left-padded prompts, the
+   ~6 k-token stream of 16 sequences of the three inference MFCs, the
+   longest 4-sequence minibatch stream (forward and backward), and
+   decode at 16 streams.
+13. ppo_parity -- 2 layers, hidden 1024: one greedy rollout on the card,
+   then the same batch through rew_inf, ref_inf, critic_inf, actor_train
+   and critic_train on the card (bf16, kernels, optimizer state
+   offloaded between train calls) and on the CPU (fp32, plain versions)
+   from the same weights: rewards, reference log-probs, values, and each
+   train MFC's first-minibatch loss, grad norm and importance weight
+   within limits; the generation log-probs shifted by one token must
+   read an approximate KL over 10x its limit.
+
+Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
+sft and ppo paths, each counted from 0), the ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
 """
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -831,8 +867,9 @@ def phase_sft(smi):
     return runner, rec
 
 
-def kernel_category(name: str) -> str:
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+def kernel_category(name: str, kernels=("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")) -> str:
+    for kernel in kernels:
         if f"{kernel}_kernel" in name:
             return kernel
     if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -1156,6 +1193,608 @@ def phase_train_parity():
     return rec
 
 
+# ----------------------------------------------------------------------
+# phases 11-13: the ppo experiment at 7B width, its profile, and card
+# against CPU on the same rollout
+# ----------------------------------------------------------------------
+PPO_LAYERS = 4
+PPO_MINIBATCHES = 4
+PPO_ROLES = ("actor", "critic", "ref", "reward")
+PPO_MFCS = ("actor_gen", "rew_inf", "ref_inf", "critic_inf", "actor_train",
+            "critic_train")
+# A step's first minibatch runs on the weights that generated, so the
+# packed forward (K1, the replayed logits mask) must reproduce the decode
+# path's log-probs (K4, per-token LM head): |importance_weight - 1| and
+# |ppo_approx_kl|, each about 3x the largest sound reading (PERF.md,
+# Findings)
+PPO_FIRST_MINIBATCH_LIMITS = dict(importance_weight=3.5e-3,
+                                  ppo_approx_kl=3.5e-3)
+
+
+def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False):
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.ppo_exp import PPOConfig
+    from realhf_tpu_torch.models.config import llama_config
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="ppo",
+                    benchmark_steps=benchmark_steps)
+    apply_overrides(cfg, {"dataset.path": data_path,
+                          "dataset.train_bs_n_seqs": "16",
+                          "dataset.max_seqlen": "512",
+                          "ppo.max_new_tokens": "128",
+                          "ppo.min_new_tokens": "32",
+                          "ppo.ppo_n_minibatches": str(PPO_MINIBATCHES),
+                          "actor.optimizer.lr": "1e-5",
+                          "critic.optimizer.lr": "1e-5"})
+    spec = cfg.build()
+    spec.auto_offload = auto_offload
+    for role in PPO_ROLES:
+        spec.models[role].random_init_config = llama_config(
+            "7b", n_layers=n_layers)
+    vocab = spec.models["actor"].random_init_config["vocab_size"]
+    spec.tokenizer = IntegerTokenizer(vocab_size=vocab - 2)
+    return spec, vocab
+
+
+def watch_ppo_runner(runner) -> dict:
+    """Wrap, on this runner's own objects, what the script reads and the
+    library does not keep: ``host.execute`` (host-clock seconds of each
+    MFC, weight reload and offload hook included, up to a device
+    synchronisation), each train engine's ``train_minibatches`` (every
+    minibatch's own stats; the interface returns their mean) and the
+    segment matrices the packer gave each engine call, which are the
+    shapes the kernels ran at."""
+    import numpy as np
+    import torch
+    host = runner.host
+    seen = dict(mfc_secs={name: [] for name in host.nodes},
+                minibatch_stats=dict(actor_train=[], critic_train=[]),
+                segs=dict(prefill=[], inference=[], minibatch=[]))
+    execute = host.execute
+
+    def timed_execute(name, inp):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = execute(name, inp)
+        torch.cuda.synchronize()
+        seen["mfc_secs"][name].append(time.monotonic() - t0)
+        return out
+
+    host.execute = timed_execute
+
+    def keep_seg(engine, method, kind):
+        orig = getattr(engine, method)
+
+        def call(ids, seg, *args, **kw):
+            seen["segs"][kind].append(np.asarray(seg))
+            return orig(ids, seg, *args, **kw)
+
+        setattr(engine, method, call)
+
+    keep_seg(runner.models["actor"].engine, "generate", "prefill")
+    keep_seg(runner.models["reward"].engine, "forward_values", "inference")
+    keep_seg(runner.models["ref"].engine, "forward_logprobs", "inference")
+    keep_seg(runner.models["critic"].engine, "forward_values", "inference")
+    for role in ("actor", "critic"):
+        engine = runner.models[role].engine
+
+        def train_minibatches(minibatches, *args, _role=role,
+                              _orig=engine.train_minibatches, **kw):
+            seen["segs"]["minibatch"] += [mb["seg_ids"] for mbs in minibatches
+                                          for mb in mbs]
+            out = _orig(minibatches, *args, **kw)
+            seen["minibatch_stats"][f"{_role}_train"].append(out)
+            return out
+
+        engine.train_minibatches = train_minibatches
+    return seen
+
+
+def expected_ppo_launches(n_layers, n_minibatches, gen_stats):
+    """Per generate call: K1 once per layer in prefill, K4 once per layer
+    per decode step. Per step: K1 once per layer in each of rew_inf,
+    ref_inf and critic_inf (one chunk each), and in each train MFC per
+    minibatch (one microbatch) a forward and a checkpoint recompute;
+    K2 and K3 once per layer per minibatch per train MFC."""
+    steps = len(gen_stats)
+    bwd = 2 * n_minibatches * n_layers * steps
+    return dict(
+        flash_fwd=(n_layers + 3 * n_layers) * steps + 2 * bwd,
+        flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
+        flash_decode=n_layers * sum(st["decode_steps"] for st in gen_stats),
+        flash_decode_stacked=0)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
+
+
+def tree_checksum(tree) -> int:
+    """Sum of every leaf's 16-bit words, on whichever device it lies."""
+    import torch
+    return sum(int(t.contiguous().view(torch.int16).sum(dtype=torch.int64))
+               for t in _tree_leaves(tree))
+
+
+def check_ppo_rollout(batch, vocab) -> dict:
+    """Tokens in range, every generated token allowed by its own logits
+    mask (stored True = masked out), log-probs finite and <= 0."""
+    import numpy as np
+    ids = batch.data["packed_input_ids"]
+    gen_idx = np.flatnonzero(~batch.data["prompt_mask"])
+    mask = batch.data["packed_logits_mask"]
+    lp = batch.data["packed_logprobs"]
+    return dict(
+        tokens_in_range=bool(ids.dtype == np.int32 and ids.min() >= 0
+                             and ids.max() < vocab),
+        tokens_inside_mask=bool(
+            not mask[gen_idx - 1, ids[gen_idx]].any()),
+        masked_share=float(mask[gen_idx - 1].mean()),
+        logprobs_ok=bool(np.isfinite(lp).all() and lp.max() <= 0),
+        generated_tokens=int(len(gen_idx)))
+
+
+def ppo_step_records(runner, mfc_secs, smi):
+    recs = []
+    eng = runner.models["actor"].engine
+    for i, secs in enumerate(runner.step_secs):
+        mfc = {name: v[i] for name, v in mfc_secs.items()}
+        gen = eng.generate_stats[i]
+        st = runner.step_stats[i]["actor_train"]
+        tokens = int(st["avg_seq_len"] * st["n_seqs"] + 0.5)
+        recs.append(dict(
+            step=i + 1, step_secs=secs, mfc_secs=mfc,
+            decode_steps=gen["decode_steps"],
+            generated_tokens=gen["generated_tokens"],
+            generated_tokens_per_s=gen["generated_tokens"] / mfc["actor_gen"],
+            batch_tokens=tokens,
+            actor_train_tokens_per_s=tokens / mfc["actor_train"],
+            critic_train_tokens_per_s=tokens / mfc["critic_train"],
+            batch_tokens_per_step_s=tokens / secs, card=smi))
+    return recs
+
+
+def phase_ppo(smi):
+    """The ppo experiment through ``PPOConfig.build()`` and
+    ``InlineRunner`` at 7B width and 4 layers for all four roles, bf16,
+    gradient checkpointing on: 2 steps of 16 prompts (100-512 words), up
+    to 128 sampled new tokens (top-p 0.9, top-k 200, logits mask kept),
+    4 minibatches per train MFC. Then one step of a second runner with
+    ``auto_offload``."""
+    import torch
+    from realhf_tpu_torch.system.inline import InlineRunner
+    lim = PPO_FIRST_MINIBATCH_LIMITS
+    # ``peak_mem_gb`` is the allocator's own peak over the two steps;
+    # ``leftover_gb`` is what earlier phases still held when this one
+    # began and ``resident_gb`` the four models' and optimizers' bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    leftover = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        # 10 batches in the file: the lr schedule spans 10 steps, so the
+        # 8 optimizer steps of these 2 PPO steps stay inside it
+        write_prompts(data, 160, seed=1)
+        spec, vocab = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=2)
+        t0 = time.monotonic()
+        runner = InlineRunner(spec)  # device=None: the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+        resident = torch.cuda.memory_allocated() - leftover
+        seen = watch_ppo_runner(runner)
+        per_mb = seen["minibatch_stats"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        runner.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        actor = runner.models["actor"].engine
+        want = expected_ppo_launches(PPO_LAYERS, PPO_MINIBATCHES,
+                                     actor.generate_stats)
+        firsts = [step[0] for step in per_mb["actor_train"]]
+        stats_finite = all(
+            math.isfinite(v) for step in runner.step_stats
+            for st in step.values() for v in st.values()) and all(
+            math.isfinite(v) for seen in per_mb.values() for step in seen
+            for st in step for v in st.values())
+        rec = dict(
+            n_layers=PPO_LAYERS, setup_secs=setup, card=smi,
+            leftover_gb=leftover / 2 ** 30,
+            resident_gb=resident / 2 ** 30, peak_mem_gb=peak,
+            steps=ppo_step_records(runner, seen["mfc_secs"], smi),
+            mfc_runs={k: len(v) for k, v in seen["mfc_secs"].items()},
+            stats=runner.step_stats,
+            minibatch_stats=per_mb,
+            first_minibatch=dict(
+                importance_weight=[m["importance_weight"] for m in firsts],
+                ppo_approx_kl=[m["ppo_approx_kl"] for m in firsts],
+                limits=lim),
+            rollout=check_ppo_rollout(runner.last_batch, vocab),
+            versions={r: dict(model=runner.models[r].version.global_step,
+                              engine=runner.models[r].engine.version)
+                      for r in ("actor", "critic")},
+            launches=counts, launches_expected=want)
+        rec["first_minibatch_ok"] = len(firsts) == 2 and all(
+            abs(m["importance_weight"] - 1) <= lim["importance_weight"]
+            and abs(m["ppo_approx_kl"]) <= lim["ppo_approx_kl"]
+            for m in firsts)
+        rec["ok"] = bool(
+            rec["mfc_runs"] == dict.fromkeys(PPO_MFCS, 2)
+            and len(runner.step_stats) == 2 and stats_finite
+            and all(rec["rollout"][k] for k in (
+                "tokens_in_range", "tokens_inside_mask", "logprobs_ok"))
+            and rec["first_minibatch_ok"] and counts == want
+            and all(v == dict(model=2, engine=2 * PPO_MINIBATCHES)
+                    for v in rec["versions"].values()))
+        rec["launches_ok"] = counts == want
+        segs = seen["segs"]
+        # the wrappers tie each engine into a reference cycle
+        del runner, actor, per_mb, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one step with ref and reward offloaded after their MFCs
+        spec, _ = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=1,
+                                 auto_offload=True)
+        runner = InlineRunner(spec)
+        off_seen = watch_ppo_runner(runner)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        idle = {r: runner.models[r].engine for r in ("ref", "reward")}
+        sums = {r: tree_checksum(e.params) for r, e in idle.items()}
+        nbytes = sum(tree_bytes(e.params) for e in idle.values())
+        reset_counts()
+        runner.run()
+        torch.cuda.synchronize()
+        off_counts = read_counts()
+        after = torch.cuda.memory_allocated()
+        offloaded = {r: e.offloaded for r, e in idle.items()}
+        host_sums_ok = all(tree_checksum(e.params) == sums[r]
+                           for r, e in idle.items())
+        for e in idle.values():
+            e.ensure_on_device()
+        back = torch.cuda.memory_allocated()
+        off_want = expected_ppo_launches(
+            PPO_LAYERS, PPO_MINIBATCHES,
+            runner.models["actor"].engine.generate_stats)
+        off = dict(
+            offloaded=offloaded, offloaded_bytes=nbytes,
+            allocated_before=before, allocated_after_step=after,
+            allocated_after_reload=back, freed=before - after,
+            step_secs=runner.step_secs[0],
+            mfc_secs={k: v[0] for k, v in off_seen["mfc_secs"].items()},
+            bits_kept_on_host=host_sums_ok,
+            bits_kept_after_reload=all(
+                tree_checksum(e.params) == sums[r]
+                and all(t.is_cuda for t in _tree_leaves(e.params))
+                for r, e in idle.items()),
+            launches=off_counts, launches_expected=off_want)
+        # the freed bytes are the two models' weights (the allocator
+        # rounds each tensor up, so allow 1%)
+        off["ok"] = bool(
+            all(offloaded.values()) and host_sums_ok
+            and off["bits_kept_after_reload"] and off_counts == off_want
+            and abs((before - after) - nbytes) <= 0.01 * nbytes
+            and abs(back - before) <= 0.01 * nbytes
+            # the first runner is gone: only this one's models are held
+            and abs(before - leftover - resident) <= 0.01 * resident
+            and not runner.models["actor"].engine.offloaded)
+        rec["auto_offload"] = off
+        rec["ok"] = rec["ok"] and off["ok"]
+        # hand the runner on as it was built
+        del runner.host.execute
+        for role in PPO_ROLES:
+            for method in ("generate", "forward_values", "forward_logprobs",
+                           "train_minibatches"):
+                vars(runner.models[role].engine).pop(method, None)
+    return runner, segs, rec
+
+
+def phase_kernels_ppo(segs, max_new_tokens=128):
+    """K1-K4 against their plain versions at the shapes the ppo path ran
+    them at, from the segment matrices its packer made (``segs``, kept
+    by ``watch_ppo_runner``): K1 on the prefill of 16 left-padded
+    prompts, on the one ~6 k-token stream of 16 sequences that rew_inf,
+    ref_inf and critic_inf each forward, and on the longest minibatch
+    stream of the train MFCs (4 sequences); K2/K3 on that minibatch
+    stream, with the planted fault; K4 at 16 streams over the cache of
+    prompt length + ``max_new_tokens`` slots, half the new tokens
+    written. Same limits as phase 3; all timed."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def on_card(seg):
+        return torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+
+    def longest(kind):
+        return on_card(max(segs[kind], key=lambda a: a.size))
+
+    prefill, stream, mb = (on_card(segs["prefill"][0]), longest("inference"),
+                           longest("minibatch"))
+    fwd = [check_flash_fwd(name, seg.shape[0], seg.shape[1], 32, 32, 128,
+                           seg, True, gen, timed=True)
+           for name, seg in (("ppo_prefill", prefill),
+                             ("ppo_inference_stream", stream),
+                             ("ppo_minibatch", mb))]
+    for rec, seg in zip(fwd, (prefill, stream, mb)):
+        rec["segments"] = int(seg.max()) if seg.shape[0] == 1 else 1
+    b, lp = prefill.shape
+    spans = [(lp - int(n), lp + max_new_tokens // 2)
+             for n in (prefill != 0).sum(-1)]
+    fwd.append(check_flash_decode("ppo_decode", b, lp + max_new_tokens, 32,
+                                  32, 128, spans, gen, timed=True))
+    bwd = [check_flash_bwd("ppo_minibatch", mb.shape[0], mb.shape[1], 32, 32,
+                           128, mb, True, gen, timed=True, plant_fault=True)]
+    bwd[0]["segments"] = int(mb.max())
+    del gen
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+PPO_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")
+
+
+def phase_ppo_profile(runner, smi):
+    """One more ppo step (on the ``auto_offload`` runner), each MFC under
+    its own torch.profiler trace: device time by kernel class (K1-K4,
+    GEMMs, the rest), the device-busy share, and the optimizer steps'
+    device time (CUDA events around each, inside the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    host = runner.host
+    orig_execute = host.execute
+    per_mfc = {}
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def execute(name, inp):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            out = orig_execute(name, inp)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        by_cat = {}
+        for e in prof.key_averages():
+            if e.device_type == cuda:
+                cat = kernel_category(e.key, PPO_KERNELS)
+                by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total
+        per_mfc[name] = dict(wall_ms=wall * 1e3, us_by_class=by_cat)
+        return out
+
+    events = {}
+    for role in ("actor", "critic"):
+        opt = runner.models[role].engine.optimizer
+        events[role] = []
+
+        def timed(params, grads, opt=opt, evs=events[role]):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            type(opt).step(opt, params, grads)
+            ev[1].record()
+            evs.append(ev)
+
+        opt.step = timed
+    host.execute = execute
+    try:
+        runner.run_step(next(iter(runner.dataloader)))
+        torch.cuda.synchronize()
+    finally:
+        del host.execute
+        for role in events:
+            del runner.models[role].engine.optimizer.step
+    mfc_wall = sum(m["wall_ms"] for m in per_mfc.values())
+    rec = dict(card=smi, mfc_wall_ms=mfc_wall, optimizer_step_ms={
+        role: sum(a.elapsed_time(b) for a, b in evs)
+        for role, evs in events.items()})
+    if not any(m["us_by_class"] for m in per_mfc.values()):
+        rec["device_time"] = "not measured (no device events in the trace)"
+        return rec
+    total = {}
+    for name, m in per_mfc.items():
+        us = m.pop("us_by_class")
+        kernel_us = sum(us.values())
+        m.update(kernel_ms=kernel_us / 1e3,
+                 busy_share=kernel_us / 1e3 / m["wall_ms"],
+                 ms_by_class={k: v / 1e3 for k, v in us.items()})
+        for k, v in us.items():
+            total[k] = total.get(k, 0.0) + v
+    all_us = sum(total.values())
+    rec.update(by_mfc=per_mfc, kernel_ms=all_us / 1e3,
+               busy_share=all_us / 1e3 / mfc_wall,
+               ms_by_class={k: v / 1e3 for k, v in total.items()},
+               share_by_class={k: v / all_us for k, v in total.items()},
+               optimizer_share=sum(rec["optimizer_step_ms"].values()) * 1e3
+               / all_us)
+    return rec
+
+
+# card (bf16, the kernels) against CPU (fp32, the plain versions) on one
+# rollout; each about 3x the sound reading (PERF.md, Findings)
+PPO_PARITY_LIMITS = dict(
+    rewards_rel=0.025, values_rel=0.03, ref_logprobs_abs=0.05,
+    ref_logprobs_mean_abs=0.012, actor_loss_abs=2e-4,
+    actor_grad_norm_rel=1e-3, importance_weight_abs=3.5e-3,
+    approx_kl_abs=3.5e-3, value_loss_rel=1e-4, critic_grad_norm_rel=4e-3)
+
+
+def phase_ppo_parity():
+    """At ``train_parity``'s reduced size (2 layers, hidden 1024, 8 heads
+    of 128, FFN 2816, vocab 32000): one greedy rollout on the card, then
+    the same ``SequenceSample`` through rew_inf, ref_inf, critic_inf on
+    the card (bf16, kernels) and on the CPU (fp32, plain versions) from
+    the same weights; then, with the card's inference outputs merged in,
+    actor_train and critic_train on both (2 minibatches, the optimizer
+    state offloaded to the host between train calls on the card): the
+    first minibatch's loss, grad norm and importance weight. A copy of
+    the batch with the generation log-probs shifted by one token must
+    read an approximate KL over 10x its limit (its importance weight, a
+    mean of ratios on either side of 1, moves little and decides
+    nothing)."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.api.config import ModelName
+    from realhf_tpu_torch.api.data import SequenceSample
+    from realhf_tpu_torch.api.model import Model
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces.ppo import (
+        PPOActorInterface,
+        PPOCriticInterface,
+    )
+    from realhf_tpu_torch.interfaces.rw import PairedRewardInterface
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig, llama_config
+    from realhf_tpu_torch.models.convert import params_numpy
+    nl = 2
+    base = dict(llama_config("7b", n_layers=nl), hidden_dim=1024,
+                n_q_heads=8, n_kv_heads=8, intermediate_dim=2816,
+                gradient_checkpointing=True)
+    tok = IntegerTokenizer(vocab_size=base["vocab_size"] - 2)
+    opt = OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0, offload=True)
+    critics = dict(actor=False, ref=False, critic=True, reward=True)
+    # bf16 weights, the same numbers on both sides
+    weights = {
+        role: params_numpy(T.init_params(
+            TransformerConfig(**base, is_critic=c, param_dtype="bfloat16",
+                              compute_dtype="bfloat16"),
+            seeding.generator(20 + i), "cpu"))
+        for i, (role, c) in enumerate(critics.items())}
+
+    def models(dev, dt):
+        return {role: Model(ModelName(role, 0), Engine(
+            TransformerConfig(**base, is_critic=c, param_dtype=dt,
+                              compute_dtype=dt), weights[role], dev,
+            optimizer=opt if role in ("actor", "critic") else None), tok)
+            for role, c in critics.items()}
+
+    gconfig = dict(max_new_tokens=32, min_new_tokens=8, greedy=True)
+    actor_kw = dict(n_minibatches=2, gconfig=gconfig, value_norm=True,
+                    early_stop_imp_ratio=5.0)
+    critic_kw = dict(n_minibatches=2, value_norm=True)
+    rng = np.random.default_rng(12)
+    plens = [int(x) for x in rng.integers(30, 121, size=8)]
+    prompts = SequenceSample.from_default(
+        plens, list(range(8)), dict(packed_prompts=rng.integers(
+            2, base["vocab_size"], size=sum(plens)).astype(np.int32)))
+
+    card = models("cuda", "bfloat16")
+    reset = read_counts()
+    batch = PPOActorInterface(**actor_kw).generate(card["actor"], prompts)
+
+    def inference(ms):
+        out = {}
+        for role, itf, key in (
+                ("reward", PairedRewardInterface(), "rewards"),
+                ("ref", PPOActorInterface(**actor_kw), "packed_ref_logprobs"),
+                ("critic", PPOCriticInterface(**critic_kw), "values")):
+            keys = ["packed_input_ids"] + (
+                ["packed_logits_mask"] if role == "ref" else [])
+            out[key] = itf.inference(ms[role], batch.select(keys))
+        return out
+
+    def train(model, itf, sample):
+        """The first minibatch's own stats of one train MFC."""
+        per_mb = []
+        orig = model.engine.train_minibatches
+
+        def train_minibatches(*args, **kw):
+            per_mb.extend(orig(*args, **kw))
+            return per_mb
+
+        model.engine.train_minibatches = train_minibatches
+        try:
+            itf.train_step(model, sample, n_mbs=1)
+        finally:
+            del model.engine.train_minibatches
+        return per_mb[0]
+
+    def train_both(ms):
+        return dict(
+            actor=train(ms["actor"], PPOActorInterface(**actor_kw), batch),
+            critic=train(ms["critic"], PPOCriticInterface(**critic_kw),
+                         batch))
+
+    inf_card = inference(card)
+    for s in inf_card.values():
+        batch.update_(s)
+    # the planted fault first, with an early stop that skips its updates
+    shifted = batch.select(list(batch.keys))  # its own data dict
+    lp = batch.data["packed_logprobs"].copy()
+    lp[1:] = lp[:-1]
+    shifted.data["packed_logprobs"] = lp
+    fault = train(card["actor"], PPOActorInterface(**dict(
+        actor_kw, early_stop_imp_ratio=0.0)), shifted)
+    fault_skipped = (fault["early_stop_skipped"] == 1.0
+                     and card["actor"].engine.optimizer.count == 0)
+    got = train_both(card)
+    opt_offloaded = all(card[r].engine.optimizer.offloaded
+                        for r in ("actor", "critic"))
+    launched = {k: v - reset[k] for k, v in read_counts().items()}
+    del card
+    torch.cuda.empty_cache()
+
+    cpu = models("cpu", "float32")
+    inf_cpu = inference(cpu)
+    ref = train_both(cpu)
+    del cpu
+    lim = PPO_PARITY_LIMITS
+
+    def rel_max(key):
+        a, b = inf_card[key].data[key], inf_cpu[key].data[key]
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def rel(role, k):
+        return abs(got[role][k] - ref[role][k]) / abs(ref[role][k])
+
+    d_ref = np.abs(inf_card["packed_ref_logprobs"].data["packed_ref_logprobs"]
+                   - inf_cpu["packed_ref_logprobs"]
+                   .data["packed_ref_logprobs"])
+    errs = dict(
+        rewards_rel=rel_max("rewards"), values_rel=rel_max("values"),
+        ref_logprobs_abs=float(d_ref.max()),
+        ref_logprobs_mean_abs=float(d_ref.mean()),
+        actor_loss_abs=abs(got["actor"]["actor_loss"]
+                           - ref["actor"]["actor_loss"]),
+        actor_grad_norm_rel=rel("actor", "grad_norm"),
+        importance_weight_abs=max(
+            abs(got["actor"]["importance_weight"] - 1),
+            abs(ref["actor"]["importance_weight"] - 1)),
+        approx_kl_abs=max(abs(got["actor"]["ppo_approx_kl"]),
+                          abs(ref["actor"]["ppo_approx_kl"])),
+        value_loss_rel=rel("critic", "value_loss"),
+        critic_grad_norm_rel=rel("critic", "grad_norm"))
+    fault_errs = dict(
+        importance_weight_abs=abs(fault["importance_weight"] - 1),
+        approx_kl_abs=abs(fault["ppo_approx_kl"]))
+    seqlens = [l[0] for l in batch.seqlens["packed_input_ids"]]
+    rec = dict(layers=nl, hidden=base["hidden_dim"], prompts=plens,
+               seqlens=seqlens, card=got, cpu=ref, errors=errs, limits=lim,
+               planted_fault="generation log-probs shifted by one token",
+               planted_fault_errors=fault_errs,
+               planted_fault_update_skipped=fault_skipped,
+               optimizer_state_offloaded=opt_offloaded, launches=launched)
+    rec["ok"] = bool(
+        all(math.isfinite(v) and v <= lim[k] for k, v in errs.items())
+        and fault_errs["approx_kl_abs"] > 10 * lim["approx_kl_abs"]
+        and fault_skipped and opt_offloaded
+        and all(launched[k] > 0 for k in PPO_KERNELS))
+    return rec
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
+
+
 def _tree_map(fn, tree):
     return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
@@ -1164,8 +1803,8 @@ def _tree_map(fn, tree):
 # ----------------------------------------------------------------------
 def kernels_line(kernel_recs, bwd_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
-    paths run (gen, deep and sft), each counted from 0 just before its
-    path and read just after it."""
+    paths run (gen, deep, sft and the two ppo steps), each counted from 0
+    just before its path and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -1271,8 +1910,29 @@ def main(argv=None):
     emit("parity", **par)
     train_par = phase_train_parity()
     emit("train_parity", **train_par)
+    runner, ppo_segs, ppo_rec = phase_ppo(smi)
+    emit("ppo", **ppo_rec)
+    for st in ppo_rec["steps"]:
+        print(f"ppo-7bw-l4 step {st['step']}: {json.dumps(st)}", flush=True)
+    print(f"ppo-7bw-l4 peak_mem_gb: {ppo_rec['peak_mem_gb']} "
+          f"(max_memory_allocated; {ppo_rec['leftover_gb']} of it left by "
+          f"earlier phases; {smi})", flush=True)
+    emit("ppo_profile", **phase_ppo_profile(runner, smi))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppo_fwd, ppo_bwd = phase_kernels_ppo(ppo_segs)
+    for r in ppo_fwd + ppo_bwd:
+        print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
+    kernel_recs += ppo_fwd
+    bwd_recs += ppo_bwd
+    RESULTS["kernels"] = kernel_recs + bwd_recs
+    ok &= all(r["ok"] for r in ppo_fwd + ppo_bwd)
+    ppo_par = phase_ppo_parity()
+    emit("ppo_parity", **ppo_par)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
-           and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"])
+           and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
+           and ppo_rec["ok"] and ppo_par["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1283,7 +1943,7 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     print(json.dumps(kernels_line(kernel_recs, bwd_recs,
-                                  [main_rec, deep_rec, sft_rec])))
+                                  [main_rec, deep_rec, sft_rec, ppo_rec])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,12 @@ from realhf_tpu_torch.api.config import (
 
 
 @dataclasses.dataclass
+class OffloadHook:
+    """Post-hook: move the model's weights to host memory after the MFC
+    completes."""
+
+
+@dataclasses.dataclass
 class MFCDef:
     """One model function call node.
 
@@ -48,6 +54,7 @@ class MFCDef:
 
     # Filled by build_graph; not user-set.
     _G: Optional["Graph"] = None
+    _post_hooks: List[OffloadHook] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
         if isinstance(self.model_name, str):
@@ -63,6 +70,13 @@ class MFCDef:
     def role(self) -> str:
         return self.model_name.role
 
+    def add_post_hook(self, h: OffloadHook):
+        if not isinstance(h, OffloadHook):
+            raise NotImplementedError(
+                f"{type(h).__name__}: parameter reallocation between "
+                "replicas is deferred to the parallelism slice of the port.")
+        self._post_hooks.append(h)
+
     @property
     def is_src(self) -> bool:
         return not self._G.preds[self.name]
@@ -70,6 +84,23 @@ class MFCDef:
     @property
     def is_dst(self) -> bool:
         return not self._G.succs[self.name]
+
+    def all_successors(self) -> List["MFCDef"]:
+        """Every node reachable from this one."""
+        seen, stack = [], list(self._G.succs[self.name])
+        while stack:
+            n = stack.pop()
+            if n not in seen:
+                seen.append(n)
+                stack.extend(self._G.succs[n])
+        return [self._G.nodes[n] for n in seen]
+
+    @property
+    def is_dst_of_model_role(self) -> bool:
+        """True iff no (transitive) successor runs on the same model
+        role: this MFC is the last user of these weights in a step, so
+        an offload hook may follow it."""
+        return not any(r.role == self.role for r in self.all_successors())
 
 
 @dataclasses.dataclass

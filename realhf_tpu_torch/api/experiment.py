@@ -65,3 +65,7 @@ class ExperimentSpec:
     total_train_epochs: int = 1
     seed: int = 1
     ctl: SaveEvalControl = dataclasses.field(default_factory=SaveEvalControl)
+    #: roles that no MFC trains (ref, reward) move their weights to the
+    #: host after their last MFC of a step, freeing device memory for
+    #: the train MFCs, and reload before their next use
+    auto_offload: bool = False

@@ -10,15 +10,32 @@ from realhf_tpu_torch.api.data import SequenceSample
 
 
 @dataclasses.dataclass
+class ModelVersion:
+    """Train steps an interface has taken on a model (one per
+    ``train_step`` call, however many optimizer steps it makes)."""
+    epoch: int = 0
+    epoch_step: int = 0
+    global_step: int = 0
+
+    def inc(self):
+        self.epoch_step += 1
+        self.global_step += 1
+
+
+@dataclasses.dataclass
 class Model:
     """One model instance on one device."""
     name: ModelName
     engine: Any  # realhf_tpu_torch.engine.engine.Engine
     tokenizer: Any
+    version: ModelVersion = dataclasses.field(default_factory=ModelVersion)
 
     @property
     def config(self):
         return self.engine.cfg
+
+    def inc_version(self):
+        self.version.inc()
 
 
 class ModelInterface(abc.ABC):
@@ -27,6 +44,11 @@ class ModelInterface(abc.ABC):
 
     def evaluate(self, model: Model, eval_dataloader) -> Dict:
         return {}
+
+    def save(self, model: Model, save_dir: str):
+        raise NotImplementedError(
+            "saving a model is deferred to the checkpoint-IO slice of the "
+            "port.")
 
     def inference(self, model: Model, input_: SequenceSample,
                   n_mbs: Optional[int] = None) -> SequenceSample:

@@ -3,11 +3,18 @@
 One ``Engine`` holds one model's parameters on one device. It runs the
 inference forwards (hidden states, next-token log-probs, critic
 values), batch generation, and, when built with an optimizer, one
-optimizer step over a list of microbatches (``train_batch``): per
-microbatch a forward and backward, the gradients accumulated in fp32 with
-the microbatch's loss weight, then the JAX package's AdamW
-(``engine/optim.py``). The engine owns the tensors it is given: a
-training engine updates them in place.
+optimizer step over a list of microbatches (``train_batch``) or one per
+minibatch of a list (``train_minibatches``): per microbatch a forward
+and backward, the gradients accumulated in fp32 with the microbatch's
+loss weight, then the JAX package's AdamW (``engine/optim.py``). The
+engine owns the tensors it is given: a training engine updates them in
+place.
+
+Between uses the weights can wait on the host (``offload`` /
+``ensure_on_device``), and with ``OptimizerConfig.offload`` the
+optimizer state does so between steps: pinned host buffers, made once
+and reused, copies on PyTorch's current stream, synchronised before the
+device tensors are dropped. On ``device="cpu"`` only the flags move.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -17,7 +24,7 @@ import torch
 
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.engine import generation as gen_mod
-from realhf_tpu_torch.engine import optim
+from realhf_tpu_torch.engine import offload, optim
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
@@ -39,17 +46,16 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = None
+        #: the weights wait on the host (``offload``) until the next use
+        self.offloaded = False
+        self._host_params = None  # pinned buffers, made at the first offload
         self.set_params(params)
-        #: optimizer steps taken (train_batch calls)
+        #: optimizer steps taken or skipped (one per minibatch trained)
         self.version = 0
         #: stats of each generate call (decode steps, tokens, seconds)
         self.generate_stats = []
         self.optimizer: Optional[optim.AdamW] = None
         if optimizer is not None and optimizer.type != "empty":
-            if optimizer.offload:
-                raise NotImplementedError(
-                    "optimizer offload is deferred to the PPO slice of the "
-                    "port.")
             if optimizer.zero1:
                 raise NotImplementedError(
                     "ZeRO-1 optimizer-state sharding is deferred to the "
@@ -68,10 +74,11 @@ class Engine:
             lambda a: a.to(device=self.device, dtype=pdt), params)
 
     def set_params(self, params):
-        """Install new weights (a tensor or numpy tree). The optimizer
-        state, fp32 master copies included, is kept, as in the JAX
-        package."""
+        """Install new weights (a tensor or numpy tree) on the device.
+        The optimizer state, fp32 master copies included, is kept, as in
+        the JAX package."""
         self.params = self._cast_param_dtype(params)
+        self.offloaded = False
 
     def params_numpy(self):
         """Host numpy copy with the JAX package's paths and shapes."""
@@ -96,8 +103,34 @@ class Engine:
         discards the step: params, moments and step count stay, and
         ``early_stop_skipped`` is 1. ``loss_fn_key`` names the loss for
         the JAX package's compile cache and is unused here."""
+        return self.train_minibatches(
+            [microbatches], loss_fn,
+            None if loss_weights is None else [loss_weights])[0]
+
+    def train_minibatches(self,
+                          minibatches: List[List[Dict[str, np.ndarray]]],
+                          loss_fn: LossFn,
+                          loss_weights: Optional[List[List[float]]] = None,
+                          loss_fn_key: Optional[str] = None
+                          ) -> List[Dict[str, float]]:
+        """One optimizer step per minibatch, in order, each over its
+        microbatches as ``train_batch`` describes; returns one stats dict
+        per minibatch and advances ``version`` by their number (a
+        skipped update still counts). With ``OptimizerConfig.offload``
+        the optimizer state, which the first update brings to the device,
+        goes back to the host after the last. ``loss_fn_key`` is unused,
+        as in ``train_batch``."""
         if self.optimizer is None:
             raise RuntimeError("Engine has no optimizer (inference-only).")
+        if loss_weights is None:
+            loss_weights = [None] * len(minibatches)
+        out = [self._train_step(mbs, loss_fn, w)
+               for mbs, w in zip(minibatches, loss_weights)]
+        if self.optimizer.cfg.offload:
+            self.optimizer.offload()
+        return out
+
+    def _train_step(self, microbatches, loss_fn, loss_weights):
         n = len(microbatches)
         w = np.asarray(loss_weights if loss_weights is not None
                        else [1.0] * n, np.float32)
@@ -137,10 +170,29 @@ class Engine:
         self.version += 1
         return out
 
-    def train_minibatches(self, *args, **kwargs):
-        raise NotImplementedError(
-            "several optimizer steps in one call (the PPO minibatch loop) "
-            "are deferred to the PPO slice of the port.")
+    # ------------------------------------------------------------------
+    # Weight offload
+    # ------------------------------------------------------------------
+    def offload(self):
+        """Move the weights to pinned host memory and free their device
+        memory. Whoever runs the model next calls ``ensure_on_device``
+        first (``ModelHost.execute`` does, before every MFC)."""
+        if self.offloaded:
+            return
+        if self.device.type == "cuda":
+            self._host_params = offload.to_pinned_host(
+                list(_leaves(self.params)), self._host_params)
+            _set_leaves(self.params, self._host_params)
+        self.offloaded = True
+
+    def ensure_on_device(self):
+        """Bring offloaded weights back to this engine's device."""
+        if not self.offloaded:
+            return
+        if self.device.type == "cuda":
+            _set_leaves(self.params, offload.to_device(self._host_params,
+                                                       self.device))
+        self.offloaded = False
 
     # ------------------------------------------------------------------
     # Inference
@@ -195,6 +247,20 @@ def _leaves(tree):
             yield from _leaves(tree[k])
         else:
             yield tree[k]
+
+
+def _set_leaves(tree, leaves):
+    """Put ``leaves`` (in ``_leaves`` order) into the tree, in place."""
+    it = iter(leaves)
+
+    def fill(t):
+        for k in sorted(t):
+            if isinstance(t[k], dict):
+                fill(t[k])
+            else:
+                t[k] = next(it)
+
+    fill(tree)
 
 
 def _tree_map(fn, tree):

@@ -17,7 +17,9 @@ that update written out over a list of tensors, not
   ``[H]`` scale is not.
 
 Params, master copies and moments are updated in place (the JAX package
-returns new arrays that XLA aliases in place).
+returns new arrays that XLA aliases in place). With
+``OptimizerConfig.offload`` the engine keeps the state in pinned host
+memory between train calls (``AdamW.offload`` / ``ensure_on_device``).
 """
 
 import dataclasses
@@ -25,6 +27,8 @@ import math
 from typing import Callable, List, Optional
 
 import torch
+
+from realhf_tpu_torch.engine import offload
 
 
 @dataclasses.dataclass
@@ -41,8 +45,8 @@ class OptimizerConfig:
     lr_scheduler_type: str = "cosine"  # linear | cosine | constant
     warmup_steps_proportion: float = 0.02
     gradient_clipping: float = 1.0
-    #: keep the optimizer state on the host between steps: raises until
-    #: the PPO slice of the port, which needs it for colocated models
+    #: keep the optimizer state (master weights and moments) in pinned
+    #: host memory between train calls, on the device only during them
     offload: bool = False
     #: shard the optimizer state over data-parallel ranks (ZeRO-1):
     #: raises until the parallelism slice of the port
@@ -106,11 +110,44 @@ class AdamW:
         self.m = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.v = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.decay = [p.ndim >= 2 for p in params]
+        self.device = params[0].device
+        #: the state waits on the host (``offload``) until the next step
+        self.offloaded = False
+        self._host = None  # pinned buffers, made at the first offload
+
+    def _state(self) -> List[torch.Tensor]:
+        return [w for w in self.master if w is not None] + self.m + self.v
+
+    def _set_state(self, tensors: List[torch.Tensor]):
+        it = iter(tensors)
+        self.master = [None if w is None else next(it) for w in self.master]
+        self.m = [next(it) for _ in self.m]
+        self.v = [next(it) for _ in self.v]
+
+    def offload(self):
+        """Move master weights and moments to pinned host memory and
+        free their device memory (on a CPU engine only the flag moves)."""
+        if self.offloaded:
+            return
+        if self.device.type == "cuda":
+            self._host = offload.to_pinned_host(self._state(), self._host)
+            self._set_state(self._host)
+        self.offloaded = True
+
+    def ensure_on_device(self):
+        """Bring offloaded state back before a step."""
+        if not self.offloaded:
+            return
+        if self.device.type == "cuda":
+            self._set_state(offload.to_device(self._host, self.device))
+        self.offloaded = False
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
-        """One update from the fp32 ``grads`` (clipped here, in place)."""
+        """One update from the fp32 ``grads`` (clipped here, in place);
+        offloaded state comes back to the device first."""
         cfg = self.cfg
+        self.ensure_on_device()
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             gnorm = global_norm(grads)
             if gnorm >= cfg.gradient_clipping:

@@ -78,6 +78,22 @@ def segment_ids(info: PackInfo) -> np.ndarray:
     return out
 
 
+def unpack_tokens(info: PackInfo, arr: np.ndarray,
+                  seqlens: Optional[Sequence[int]] = None) -> np.ndarray:
+    """Gather [S, L, ...] back into the flat packed 1D layout."""
+    lens = list(seqlens) if seqlens is not None else info.length
+    return np.concatenate(
+        [arr[info.stream[i], info.offset[i]:info.offset[i] + ln]
+         for i, ln in enumerate(lens)], axis=0)
+
+
+def per_seq_gather(info: PackInfo, arr: np.ndarray,
+                   index_in_seq: Sequence[int]) -> np.ndarray:
+    """One element per sequence (e.g. the last token's value)."""
+    return np.stack([arr[info.stream[i], info.offset[i] + idx]
+                     for i, idx in enumerate(index_in_seq)], axis=0)
+
+
 def left_padded_prompts(prompts: List[np.ndarray], pad_id: int,
                         bucket: int = DEFAULT_BUCKET
                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -24,6 +24,8 @@ class ModelConfigCLI:
     #: named LLaMA size ("tiny", "125m", "1b", "7b") of random weights,
     #: used when ``path`` is None
     random_init_size: Optional[str] = None
+    #: a scalar value head in place of the LM head (critic, reward)
+    is_critic: bool = False
     bf16: bool = True
     gradient_checkpointing: bool = True
     optimizer: OptimizerConfig = dataclasses.field(
@@ -37,6 +39,7 @@ class ModelConfigCLI:
             path=self.path,
             random_init_config=(llama_config(self.random_init_size)
                                 if self.random_init_size else None),
+            is_critic=self.is_critic,
             optimizer=self.optimizer if train else None,
             parallel=self.parallel,
             gradient_checkpointing=self.gradient_checkpointing,

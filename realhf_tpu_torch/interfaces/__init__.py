@@ -1,3 +1,3 @@
 """Interface registrations."""
 
-from realhf_tpu_torch.interfaces import gen, sft  # noqa: F401
+from realhf_tpu_torch.interfaces import gen, ppo, rw, sft  # noqa: F401

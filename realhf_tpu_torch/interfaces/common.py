@@ -9,6 +9,14 @@ import numpy as np
 from realhf_tpu_torch.api.data import SequenceSample
 from realhf_tpu_torch.base.datapack import flat2d
 from realhf_tpu_torch.engine import packing
+from realhf_tpu_torch.models import transformer as T
+
+
+def seqlens_of(input_: SequenceSample,
+               key: str = "packed_input_ids") -> List[int]:
+    """Total length per batch element for a key (an element may hold
+    several sequences, e.g. a reward pair)."""
+    return [sum(l) for l in input_.seqlens[key]]
 
 
 def flat_seqlens(input_: SequenceSample,
@@ -60,9 +68,53 @@ def split_minibatches(input_: SequenceSample, n: int,
     return input_.split(n, min_size=min_size)
 
 
+def forward_with_aux(cfg, params, input_ids, seg_ids):
+    """Model forward returning (hidden, aux-loss dict). A dense model
+    has no auxiliary loss; a mixture-of-experts model (whose router
+    losses would go here) raises in the forward until its slice of the
+    port."""
+    h, _ = T.forward(cfg, params, input_ids, seg_ids)
+    return h, {}
+
+
+def run_train_microbatched(engine, sample: SequenceSample, build_sb,
+                           loss_fn, loss_fn_key, n_mbs: Optional[int],
+                           weight_key: str = "loss_mask") -> Dict:
+    """One optimizer step over ``n_mbs`` memory microbatches of
+    ``sample``, each built by ``build_sb``; see
+    ``run_train_minibatches``."""
+    return run_train_minibatches(engine, [sample], build_sb, loss_fn,
+                                 loss_fn_key, n_mbs, weight_key)[0]
+
+
+def run_train_minibatches(engine, minibatch_samples, build_sb, loss_fn,
+                          loss_fn_key, n_mbs: Optional[int],
+                          weight_key: str = "loss_mask") -> List[Dict]:
+    """The PPO-style minibatch loop: one optimizer step per minibatch
+    sample, each accumulating over ``n_mbs`` memory microbatches.
+
+    A microbatch's gradient is weighted by its LOSS-MASK token count,
+    which makes the accumulated gradient the one-big-batch gradient
+    (each microbatch loss is a mean over its own masked tokens;
+    weighting by all tokens would over-weight the response tokens of a
+    prompt-heavy microbatch). The microbatches of one minibatch are
+    padded to a common [S, L]; minibatches keep their own shapes (eager
+    PyTorch stacks nothing, and padding tokens change no stat)."""
+    stacks, weights = [], []
+    for sample in minibatch_samples:
+        sbs = pad_stream_batches(
+            [build_sb(m) for m in split_minibatches(sample, n_mbs or 1)])
+        w = [float(np.asarray(sb.arrays[weight_key]).sum()) for sb in sbs]
+        if not any(x > 0 for x in w):  # degenerate batch: avoid 0/0
+            w = [float(sb.n_tokens) for sb in sbs]
+        stacks.append([sb.arrays for sb in sbs])
+        weights.append(w)
+    return engine.train_minibatches(stacks, loss_fn, weights, loss_fn_key)
+
+
 def pad_stream_batches(batches: List[StreamBatch]) -> List[StreamBatch]:
-    """Pad stream batches to a common [S, L] (the JAX package stacks
-    its microbatches into one array, so the port keeps its shapes)."""
+    """Pad stream batches to a common [S, L] (per-pair and per-sequence
+    vectors are left as they are)."""
     s = max(b.arrays["seg_ids"].shape[0] for b in batches)
     l = max(b.arrays["seg_ids"].shape[1] for b in batches)
     out = []

@@ -7,7 +7,7 @@ from typing import List, Optional
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api import model as model_api
 from realhf_tpu_torch.api.config import ModelInterfaceType, ModelName
-from realhf_tpu_torch.api.dfg import MFCDef
+from realhf_tpu_torch.api.dfg import MFCDef, OffloadHook
 from realhf_tpu_torch.base import logging, seeding
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.engine.engine import Engine
@@ -69,11 +69,29 @@ class ModelHost:
         }
         self.interfaces = {n.name: model_api.make_interface(n.interface_impl)
                            for n in nodes}
+        if spec.auto_offload:
+            self._resolve_offload_hooks(nodes)
+
+    @staticmethod
+    def _resolve_offload_hooks(nodes: List[MFCDef]):
+        """Attach an ``OffloadHook`` to the LAST MFC of every role that
+        no MFC trains: the role's weights wait on the host between
+        steps."""
+        trainable = {n.role for n in nodes
+                     if n.interface_type == ModelInterfaceType.TRAIN_STEP}
+        for node in nodes:
+            if (node.role not in trainable and node.is_dst_of_model_role
+                    and not node._post_hooks):
+                node.add_post_hook(OffloadHook())
+                logger.info("Offload post-hook on %s (%s).", node.name,
+                            node.role)
 
     def execute(self, node_name: str, inp: data_api.SequenceSample):
-        """Run one MFC on its role's model."""
+        """Run one MFC on its role's model: reload offloaded weights,
+        the interface call, then the post-hooks (offload)."""
         node = self.nodes[node_name]
         model = self.models[node.role]
+        model.engine.ensure_on_device()
         if node.input_key_remap:
             inp = inp.select(list(inp.keys))
             inp.remap_keys_(node.input_key_remap)
@@ -88,6 +106,11 @@ class ModelHost:
             raise NotImplementedError(node.interface_type)
         if isinstance(out, data_api.SequenceSample) and node.output_key_remap:
             out.remap_keys_(node.output_key_remap)
+        for h in node._post_hooks:
+            if isinstance(h, OffloadHook):
+                model.engine.offload()
+                logger.info("Offloaded %s weights to host after %s.",
+                            node.role, node_name)
         return out
 
     def execute_level(self, named_inputs):

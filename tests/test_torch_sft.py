@@ -3,8 +3,8 @@ JAX package's on the same weights (carried with ``params_from_numpy``)
 and the same two microbatches of unequal answer-token counts: loss,
 grad norm, stats and every updated leaf; then a 3-step trajectory; the
 reserved ``__skip_update__`` stat; gradient checkpointing; the
-minibatch split and stream packing; and the options this slice leaves
-for later.
+minibatch split and stream packing; and the option that still waits
+for a later slice.
 
 Tolerances: fp32 on the CPU on both sides, sums in different orders.
 Losses of order 5 agree to ~1e-6 relative. After one AdamW step (lr
@@ -209,17 +209,22 @@ def test_minibatch_split_and_stream_packing_match_jax():
 
 
 def test_options_of_later_slices_raise():
+    """ZeRO-1 waits for the parallelism slice; optimizer offload and
+    ``train_minibatches`` arrived with PPO
+    (``tests/test_torch_ppo_engine.py``)."""
     cfg = TransformerConfig(**TINY)
     params = _port_params()
-    for kw in (dict(offload=True), dict(zero1=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, params, device="cpu", optimizer=OptimizerConfig(**kw))
+    with pytest.raises(NotImplementedError, match="parallelism"):
+        Engine(cfg, params, device="cpu", optimizer=OptimizerConfig(zero1=True))
     eng = Engine(cfg, params, device="cpu")
     with pytest.raises(RuntimeError, match="no optimizer"):
         eng.train_batch(_microbatches()[0], sft._make_loss_fn(cfg))
-    with pytest.raises(NotImplementedError, match="PPO"):
-        Engine(cfg, params, device="cpu",
-               optimizer=OptimizerConfig()).train_minibatches([], None)
+    eng = Engine(cfg, params, device="cpu",
+                 optimizer=OptimizerConfig(offload=True))
+    mbs, weights = _microbatches()
+    out = eng.train_minibatches([mbs, mbs], sft._make_loss_fn(cfg),
+                                [weights, weights])
+    assert len(out) == 2 and eng.version == 2 and eng.optimizer.offloaded
 
 
 def test_sft_interface_rejects_unknown_arguments():
