@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``realhf_tpu_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``realhf_tpu_torch``) on the GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -18,6 +18,14 @@ exits non-zero):
    library call's time (``scaled_dot_product_attention`` with the same
    boolean mask, forward or backward, a yardstick only) and the least
    time the card could take (bound).
+   K6 (``ring_attention``) against ``ring_attention_plain`` (fp32 on the
+   card) over members on ``member_devices(n)`` (cuda:0..3 on a machine of
+   four cards, else all on cuda:0): at the ctx-7b-c4 stream (n 4, lc
+   8192; timed; planted faults: member 1 skipping round 1, local in place
+   of global offsets), GQA 8/2 at hd 64 with ragged tiles, non-causal, a
+   sliding window, unidirectional, n 2, n 8 and one member; the library
+   yardstick is SDPA over the gathered stream with the same boolean mask.
+   Then the push kernel alone at the ctx path's halves (bit-exact).
 4. main    -- the ``gen`` experiment through the port's
    ``GenerationConfig.build()`` and ``InlineRunner`` at full LLaMA-7B
    width and depth (random weights from the seed, integer tokenizer,
@@ -96,9 +104,22 @@ exits non-zero):
    train MFC's first-minibatch loss, grad norm and importance weight
    within limits; the generation log-probs shifted by one token must
    read an approximate KL over 10x its limit.
+14. ctx -- ``Engine.forward_logprobs`` of a 32-layer LLaMA-7B (random bf16
+   weights) over one packed stream of 32768 tokens (documents of 12288,
+   7168, 6144, 4096 and 2816 tokens, then 256 of padding) on a c4 layout
+   over ``member_devices(4)``, then on c1 with the same weight tensors
+   (K1 over the whole stream): seconds, tokens/s, peak memory, exact
+   launch counts (c4: K6 rounds 32 x 4 x 4, pushes 32 x 3 x 4, K1 none),
+   and c4 against c1 on the log-probs of the valid positions.
+15. ppo_ctx -- the ppo cell with ref and reward at
+   ``context_parallel_size=4``: one step; ref_inf and rew_inf each launch
+   K6 exactly (layers x 4 x 4 rounds) and K1 never; the step's batch then
+   goes through ref_inf and rew_inf of a c1 host from the same seed:
+   reference log-probs and rewards within limits.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
-sft and ppo paths, each counted from 0), the ``nvidia-smi`` name/power line
+sft, ppo, ctx and ppo_ctx paths, each counted from 0), the ``nvidia-smi``
+name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
@@ -123,7 +144,8 @@ NEG_INF = -2.0 ** 30
 LIMITS = dict(flash_fwd_row_rel=0.1, flash_fwd_lse=6e-6,
               flash_decode_row_rel=0.08, flash_decode_m=5e-6,
               flash_decode_l_rel=5e-6, flash_bwd_dq_row_rel=0.07,
-              flash_bwd_dk_row_rel=0.07, flash_bwd_dv_row_rel=0.07)
+              flash_bwd_dk_row_rel=0.07, flash_bwd_dv_row_rel=0.07,
+              ring_row_rel=0.06)
 
 RESULTS = {}
 
@@ -519,6 +541,309 @@ def phase_kernels():
 
 
 # ----------------------------------------------------------------------
+# phase 3, K6: the ring against the plain ring
+# ----------------------------------------------------------------------
+PEAK_LINK_BYTES = 450e9    # H100 SXM NVLink, each way
+CTX_MEMBERS = 4
+# the ctx-7b-c4 stream: five documents, then padding (32768 tokens)
+CTX_DOCS = (12288, 7168, 6144, 4096, 2816)
+CTX_PAD = 256
+
+
+def member_devices(n):
+    """Member i on ``cuda:(i mod cards)``: the members spread over four
+    cards when the machine has them, and all sit on cuda:0 (passed
+    explicitly) when it has one."""
+    import torch
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def doc_stream_seg(docs, pad, device):
+    """[1, L] segment ids: the documents one after another, then pad."""
+    import torch
+    seg = torch.zeros((1, sum(docs) + pad), dtype=torch.int32, device=device)
+    off = 0
+    for i, n in enumerate(docs):
+        seg[0, off:off + n] = i + 1
+        off += n
+    return seg
+
+
+def ring_shards(t, devs):
+    """[B, L, ...] -> member i's contiguous i-th shard along L on devs[i]."""
+    lc = t.shape[1] // len(devs)
+    return [t[:, i * lc:(i + 1) * lc].to(d).contiguous()
+            for i, d in enumerate(devs)]
+
+
+def ring_gather(shards):
+    import torch
+    return torch.cat([s.to("cuda:0") for s in shards], dim=1)
+
+
+def sync_all():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def ring_bound(seg, devs, nq, nkv, hd, causal, window):
+    """The least time for the ring's work on these cards, counting only
+    what the function needs: per card the FLOPs of the (query, key) pairs
+    its members' rows are allowed; the HBM bytes of their q/k/v rows of
+    seg != 0 tokens, o and seg; and the NVLink bytes of the k/v/seg rows
+    of its shards that a query on another card is allowed to see, once
+    per such card (sent by this card, received by that one, each way at
+    ``PEAK_LINK_BYTES``). Not what the ring schedule moves: a row no
+    other card needs need not leave its card. The slowest card's largest
+    term."""
+    from realhf_tpu_torch.ops.flash_attention import segment_mask
+    n = len(devs)
+    b, L = seg.shape
+    lc = L // n
+    mask = segment_mask(seg, seg, causal, window)   # [B, Lq, Lk]
+    row_bytes = 2 * 2 * nkv * hd + 4
+    shards = {}
+    for j, d in enumerate(devs):
+        shards.setdefault(d, []).append(slice(j * lc, (j + 1) * lc))
+    cards = {d: dict(flops=0.0, bytes=0.0, link_out=0.0, link_in=0.0)
+             for d in shards}
+    for d, rows in shards.items():
+        c = cards[d]
+        for r in rows:
+            c["flops"] += 4.0 * hd * nq * float(mask[:, r].sum())
+            tokens = int((seg[:, r] != 0).sum())
+            c["bytes"] += 2 * tokens * (nq + 2 * nkv) * hd \
+                + 2 * b * lc * nq * hd + 4 * b * lc
+    for src, keys in shards.items():
+        for dst, queries in shards.items():
+            if dst == src:
+                continue
+            for kr in keys:
+                need = keys_seen(mask, queries, kr)
+                cards[src]["link_out"] += need * row_bytes
+                cards[dst]["link_in"] += need * row_bytes
+    times = []
+    for c in cards.values():
+        terms = {"operations": c["flops"] / PEAK_BF16_FLOPS,
+                 "bytes": max(c["bytes"] / PEAK_BYTES,
+                              max(c["link_out"], c["link_in"])
+                              / PEAK_LINK_BYTES)}
+        times.append((max(terms.values()), max(terms, key=terms.get)))
+    t, by = max(times)
+    return t * 1e3, by, {str(d): c for d, c in cards.items()}
+
+
+def keys_seen(mask, query_slices, key_slice) -> int:
+    """How many (stream, key) of ``key_slice`` some query of
+    ``query_slices`` may see under ``mask`` [B, Lq, Lk]."""
+    need = None
+    for qr in query_slices:
+        seen = mask[:, qr, key_slice].any(dim=1)
+        need = seen if need is None else need | seen
+    return int(need.sum())
+
+
+def check_ring(name, b, n, nq, nkv, hd, seg, gen, **kw):
+    """K6 on random bf16 q/k/v over the stream ``seg`` [B, L], sharded
+    over ``member_devices(n)``: ``compare_ring``."""
+    import torch
+    devs = member_devices(n)
+    q = torch.randn((b, seg.shape[1], nq, hd), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((b, seg.shape[1], nkv, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    shards = [ring_shards(t, devs) for t in (q, k, v, seg)]
+    del q, k, v
+    return compare_ring(name, *shards, **kw)
+
+
+def compare_ring(name, qs, ks, vs, segs, *, causal=True, window=None,
+                 scale=None, bidirectional=True, timed=False,
+                 plant_faults=False):
+    """K6 (ring_attention_fused on CUDA members) against
+    ring_attention_plain on the same bf16 values widened to fp32, with
+    the members on the devices their shards lie on: the largest error of
+    a row over that row's RMS, padding rows exactly 0. With
+    ``plant_faults``, two broken rings must exceed the limit: member 1
+    skipping round 1, and local in place of global offsets."""
+    import torch
+    from realhf_tpu_torch.ops import ring_attention as ra
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    devs = [t.device for t in qs]
+    n = len(qs)
+    b, lc, nq, hd = qs[0].shape
+    nkv = ks[0].shape[2]
+    L = n * lc
+    seg = ring_gather(segs)
+    kw = dict(causal=causal, sliding_window=window, scale=scale)
+
+    def call():
+        return rf.ring_attention_fused(qs, ks, vs, segs,
+                                       bidirectional=bidirectional, **kw)
+
+    def plain():
+        return ra.ring_attention_plain(
+            [t.float() for t in qs], [t.float() for t in ks],
+            [t.float() for t in vs], segs, block_q=1024, block_k=1024, **kw)
+
+    with torch.no_grad():
+        o = ring_gather(call())
+        sync_all()
+        ref = ring_gather(plain())
+    rows = (seg != 0)[:, :, None].expand(b, L, nq)
+    limit = LIMITS["ring_row_rel"]
+    n_dirs = rf._plan_dirs(lc, 512, bidirectional)[0] if n > 1 else 1
+    rec = dict(kernel="ring_attention", case=name, shape=[b, L, nq, nkv, hd],
+               members=n, member_devices=[str(d) for d in devs], lc=lc,
+               n_dirs=n_dirs, causal=causal, sliding_window=window,
+               max_abs_err=max_err(o, ref), row_rel_err=row_rel_err(o, ref, rows),
+               row_rel_limit=limit,
+               masked_rows_zero=bool((o.float()[~rows] == 0).all()),
+               finite=bool(torch.isfinite(o.float()).all()))
+    rec["ok"] = (rec["row_rel_err"] <= limit and rec["masked_rows_zero"]
+                 and rec["finite"])
+    if plant_faults:
+        orig = rf._launch_round
+
+        def broken(fault):
+            calls = [0]
+
+            def launch(q_, seg_q, kv, *a, q_off, k_offs, **kw_):
+                i = calls[0]
+                calls[0] += 1
+                if fault == "skip" and i == n + 1:   # member 1, round 1
+                    return
+                if fault == "local":
+                    lch = kv[0][0].shape[1]
+                    q_off, k_offs = 0, [d * lch for d in range(len(kv))]
+                orig(q_, seg_q, kv, *a, q_off=q_off, k_offs=k_offs, **kw_)
+
+            rf._launch_round = launch
+            try:
+                with torch.no_grad():
+                    bad = ring_gather(call())
+            finally:
+                rf._launch_round = orig
+            return row_rel_err(bad, ref, rows)
+
+        rec["planted_faults"] = {
+            "member 1 skips round 1": broken("skip"),
+            "local offsets in place of global": broken("local")}
+        rec["ok"] &= all(e > limit for e in rec["planted_faults"].values())
+    if timed:
+        import torch.nn.functional as tf
+        from realhf_tpu_torch.ops.flash_attention import segment_mask
+        with torch.no_grad():
+            rec["ms"] = cuda_ms(call, iters=3, warmup=1)
+            rec["plain_ms"] = cuda_ms(plain, iters=1, warmup=0)
+            if nq == nkv:
+                mask = segment_mask(seg, seg, causal, window)[:, None]
+                qt, kt, vt = (ring_gather(t).transpose(1, 2).contiguous()
+                              for t in (qs, ks, vs))
+                rec["library_ms"] = cuda_ms(lambda: tf.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale), iters=3, warmup=1)
+                del mask, qt, kt, vt
+            else:
+                rec["library_ms"] = None
+        rec["bound_ms"], rec["bound_by"], rec["bound_per_card"] = ring_bound(
+            seg, devs, nq, nkv, hd, causal, window)
+        if n > 1 and len(set(devs)) == 1:
+            # the same work with one member per card, for the reading
+            # of a machine of n cards (the bound needs no such card)
+            rec["bound_ms_card_per_member"], rec["bound_by_card_per_member"], _ \
+                = ring_bound(seg, [torch.device("cuda", j) for j in range(n)],
+                             nq, nkv, hd, causal, window)
+    del o, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_ring_push(b, lch, nkv, hd, gen, timed):
+    """The push kernel alone at the ctx path's halves: member 0's six
+    ranges (k, v and seg of each direction) into member 1 (direction 0)
+    and member n - 1 (direction 1) of ``member_devices``; the copies must
+    be bit-exact."""
+    import torch
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    devs = member_devices(CTX_MEMBERS)
+    src, right, left = devs[0], devs[1], devs[-1]
+    pairs = []
+    for dst_dev in (right, left):
+        k = torch.randn((b, lch, nkv, hd), generator=gen,
+                        device="cuda").bfloat16().to(src)
+        v = torch.randn_like(k)
+        s = torch.randint(0, 9, (b, lch), dtype=torch.int32, device=src)
+        pairs += [(t, torch.empty_like(t, device=dst_dev)) for t in (k, v, s)]
+    for d in (right, left):
+        if d != src:
+            rf._enable_peer(src, d)
+    with torch.cuda.device(src):
+        rf._launch_push(pairs)
+    sync_all()
+    rec = dict(kernel="ring_push", case="ctx_7b_c4_halves",
+               member_devices=[str(d) for d in devs],
+               bytes=sum(s.numel() * s.element_size() for s, _ in pairs),
+               max_abs_err=max(max_err(s, d.to(src)) for s, d in pairs))
+    rec["ok"] = all(torch.equal(s, d.to(src)) for s, d in pairs)
+    if timed:
+        srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+        with torch.cuda.device(src):
+            rec["ms"] = cuda_ms(lambda: rf._launch_push(pairs))
+            rec["plain_ms"] = cuda_ms(
+                lambda: [d.copy_(s) for s, d in pairs])
+            foreach = getattr(torch, "_foreach_copy_", None)
+            rec["library_ms"] = (cuda_ms(lambda: foreach(dsts, srcs))
+                                 if foreach is not None else None)
+        half = rec["bytes"] // 2
+        # each range read once and written once; to another card the
+        # writes cross NVLink (both directions leave this card)
+        link = sum(half for d in (right, left) if d != src)
+        local = sum(half for d in (right, left) if d == src)
+        t_bytes = (rec["bytes"] + local) / PEAK_BYTES
+        t_link = link / PEAK_LINK_BYTES
+        rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_link) * 1e3, "bytes"
+    del pairs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_ring():
+    """K6 cases: the ctx-7b-c4 stream (n 4, lc 8192, 32/32 heads, hd
+    128; timed, with the planted faults), GQA 8/2 at hd 64 with ragged
+    tiles and an all-padding row, non-causal, a sliding window,
+    unidirectional, n 2, n 8 and one member; then the push kernel at the
+    ctx path's halves."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rng = np.random.default_rng(3)
+    main = doc_stream_seg(CTX_DOCS, CTX_PAD, "cuda")
+    recs = [check_ring("ctx_7b_c4", 1, CTX_MEMBERS, 32, 32, 128, main, gen,
+                       timed=True, plant_faults=True)]
+    seg = packed_seg(rng, 3, 800, 4, {1}, "cuda")   # lc 200, halves of 100
+    recs.append(check_ring("gqa_8_2_hd64_ragged", 3, 4, 8, 2, 64, seg, gen))
+    seg = packed_seg(rng, 2, 2048, 3, set(), "cuda")
+    recs.append(check_ring("noncausal", 2, 4, 8, 8, 128, seg, gen,
+                           causal=False))
+    recs.append(check_ring("window_300", 2, 4, 8, 8, 128, seg, gen,
+                           window=300))
+    recs.append(check_ring("unidirectional", 2, 4, 8, 8, 128, seg, gen,
+                           bidirectional=False))
+    recs.append(check_ring("n2", 2, 2, 8, 4, 128, seg, gen))
+    seg = packed_seg(rng, 1, 4096, 6, set(), "cuda")
+    recs.append(check_ring("n8", 1, 8, 16, 16, 128, seg, gen))
+    recs.append(check_ring("n1", 1, 1, 16, 16, 128, seg[:, :1024], gen))
+    lch = sum(CTX_DOCS + (CTX_PAD,)) // CTX_MEMBERS // 2
+    recs.append(check_ring_push(1, lch, 32, 128, gen, timed=True))
+    del gen
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ----------------------------------------------------------------------
 # phases 4-6: the gen experiment through the port's entry points, and
 # a profile of one generate call
 # ----------------------------------------------------------------------
@@ -535,17 +860,21 @@ def write_prompts(path, n, seed, lo=100, hi=512):
 def reset_counts():
     from realhf_tpu_torch.ops import decode_attention as da
     from realhf_tpu_torch.ops import flash_attention as fa
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     da.launches = 0
     da.stacked_launches = 0
+    rf.round_launches = rf.push_launches = 0
 
 
 def read_counts():
     from realhf_tpu_torch.ops import decode_attention as da
     from realhf_tpu_torch.ops import flash_attention as fa
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
     return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
                 flash_bwd_dkv=fa.dkv_launches, flash_decode=da.launches,
-                flash_decode_stacked=da.stacked_launches)
+                flash_decode_stacked=da.stacked_launches,
+                ring_round=rf.round_launches, ring_push=rf.push_launches)
 
 
 def build_gen_spec(data_path, n_layers, max_new_tokens, benchmark_steps):
@@ -630,7 +959,8 @@ def phase_gen(n_layers, max_new_tokens, smi, with_sampled_step):
                      and counts[decode_key] == n_layers * n_decode
                      and counts[other_key] == 0
                      and counts["flash_bwd_dq"] == 0
-                     and counts["flash_bwd_dkv"] == 0)
+                     and counts["flash_bwd_dkv"] == 0
+                     and counts["ring_round"] == counts["ring_push"] == 0)
         labels = ["greedy"] * greedy_steps + (
             ["sampled_topk50_topp0.9"] if with_sampled_step else [])
         steps = [dict(step=lab, **step_summary(st, smi))
@@ -847,7 +1177,7 @@ def phase_sft(smi):
     n_bwd = SFT_LAYERS * 2 * 3  # layers x microbatches x steps
     want = dict(flash_fwd=2 * n_bwd + SFT_LAYERS * n_eval_batches * len(evals),
                 flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd, flash_decode=0,
-                flash_decode_stacked=0)
+                flash_decode_stacked=0, ring_round=0, ring_push=0)
     tokens = runner.last_batch.total_len("packed_input_ids")
     mb_tokens = [mb.total_len("packed_input_ids") for mb in
                  common.split_minibatches(runner.last_batch, 2)]
@@ -1211,7 +1541,8 @@ PPO_FIRST_MINIBATCH_LIMITS = dict(importance_weight=3.5e-3,
                                   ppo_approx_kl=3.5e-3)
 
 
-def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False):
+def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False,
+                   ctx=1):
     from realhf_tpu_torch.base.testing import IntegerTokenizer
     from realhf_tpu_torch.experiments.common import apply_overrides
     from realhf_tpu_torch.experiments.ppo_exp import PPOConfig
@@ -1225,7 +1556,9 @@ def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False):
                           "ppo.min_new_tokens": "32",
                           "ppo.ppo_n_minibatches": str(PPO_MINIBATCHES),
                           "actor.optimizer.lr": "1e-5",
-                          "critic.optimizer.lr": "1e-5"})
+                          "critic.optimizer.lr": "1e-5",
+                          "ref.parallel.context_parallel_size": str(ctx),
+                          "rew.parallel.context_parallel_size": str(ctx)})
     spec = cfg.build()
     spec.auto_offload = auto_offload
     for role in PPO_ROLES:
@@ -1302,7 +1635,7 @@ def expected_ppo_launches(n_layers, n_minibatches, gen_stats):
         flash_fwd=(n_layers + 3 * n_layers) * steps + 2 * bwd,
         flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
         flash_decode=n_layers * sum(st["decode_steps"] for st in gen_stats),
-        flash_decode_stacked=0)
+        flash_decode_stacked=0, ring_round=0, ring_push=0)
 
 
 def tree_bytes(tree) -> int:
@@ -1787,6 +2120,318 @@ def phase_ppo_parity():
     return rec
 
 
+# ----------------------------------------------------------------------
+# ctx and ppo_ctx: context-parallel inference through the entry points
+# ----------------------------------------------------------------------
+# c4 against c1 on the same bf16 weights (K6 against K1 over 32 layers):
+# log-probs of the stream's valid positions, and ppo_ctx's reference
+# log-probs and rewards, each about 3x the sound reading; and c4's mean
+# distance from a plain fp32 reference at most ``fp32_mean_ratio`` times
+# c1's (PERF.md, Findings)
+CTX_LIMITS = dict(logprobs_abs=0.6, logprobs_mean_abs=0.033,
+                  fp32_mean_ratio=1.5, ref_logprobs_abs=0.22,
+                  ref_logprobs_mean_abs=0.024, rewards_rel=0.035)
+# timed forward calls per engine in phase ctx, after the counted one
+CTX_TIMED_CALLS = 3
+
+
+def reset_peaks(devs):
+    import torch
+    for d in dict.fromkeys(devs):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def read_peaks(devs) -> dict:
+    """``max_memory_allocated`` of every distinct member device, GiB."""
+    import torch
+    return {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
+            for d in dict.fromkeys(devs)}
+
+
+def ctx_launches(n_layers, n_members):
+    """K6 per context-parallel forward: one round launch per layer per
+    round per member, one push per layer per round but the last per
+    member; K1 none."""
+    return dict(ring_round=n_layers * n_members * n_members,
+                ring_push=n_layers * (n_members - 1) * n_members,
+                flash_fwd=0)
+
+
+def phase_ctx(smi):
+    """``Engine.forward_logprobs`` of a 32-layer LLaMA-7B (random bf16
+    weights) over one packed stream of 32768 tokens (documents of 12288,
+    7168, 6144, 4096 and 2816 tokens, then 256 of padding) on a c4
+    layout over ``member_devices(4)``, then on c1 with the same weight
+    tensors, where K1 runs over the whole stream. Each engine's first
+    call is counted and checked; the seconds are the median of the
+    ``CTX_TIMED_CALLS`` calls after it (host clock, every card
+    synchronised), the peak memory that of every member device. Two bf16
+    paths that round in other places drift apart over 32 layers; a plain fp32
+    reference on the card (the same weights widened, ``forward_ctx`` with
+    ``ring_attention_plain``) tells rounding from a fault: c4 must be no
+    further from it than c1, within ``fp32_mean_ratio``."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig, llama_config
+    from realhf_tpu_torch.ops import functional as F
+    from realhf_tpu_torch.ops.ring_attention import ring_attention_plain
+    from realhf_tpu_torch.parallel.mesh import ParallelismConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(**llama_config("7b"), param_dtype="bfloat16",
+                            compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    params = T.init_params(cfg, gen, "cuda")
+    devs = member_devices(CTX_MEMBERS)
+    engines = dict(
+        c4=Engine(cfg, params, "cuda:0", parallel=ParallelismConfig(
+            context_parallel_size=CTX_MEMBERS), devices=devs),
+        c1=Engine(cfg, params, "cuda:0"))
+    seg = doc_stream_seg(CTX_DOCS, CTX_PAD, "cpu").numpy()
+    ids = np.random.default_rng(5).integers(
+        2, cfg.vocab_size, size=seg.shape).astype(np.int32)
+    # positions whose next token continues the document
+    valid = np.zeros(seg.shape, bool)
+    valid[:, :-1] = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
+    runs, lps = {}, {}
+    for tag, eng in engines.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peaks(devs)
+        # the first call is the path whose launches are counted and whose
+        # output is checked; it also warms the engine up; then
+        # CTX_TIMED_CALLS timed calls, their median and spread reported
+        reset_counts()
+        sync_all()
+        lp = eng.forward_logprobs(ids, seg)
+        sync_all()
+        counts = read_counts()
+        lps[tag] = lp.float().cpu().numpy()
+        secs = []
+        for _ in range(CTX_TIMED_CALLS):
+            t0 = time.monotonic()
+            eng.forward_logprobs(ids, seg)
+            sync_all()
+            secs.append(time.monotonic() - t0)
+        med = float(np.median(secs))
+        peaks = read_peaks(devs)
+        runs[tag] = dict(secs=med, secs_all=secs,
+                         secs_spread=(max(secs) - min(secs)) / med,
+                         tokens_per_s=seg.size / med,
+                         peak_mem_gb=max(peaks.values()),
+                         peak_mem_gb_by_device=peaks,
+                         launches=counts, shape=list(lp.shape))
+    # the plain fp32 reference over the c4 members
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain_fp32 = (torch.get_float32_matmul_precision() == "highest"
+                  and not torch.backends.cuda.matmul.allow_tf32)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = {d: _tree_map(lambda t, d=d: t.to(d, torch.float32), params)
+           for d in dict.fromkeys(devs)}
+    members = [p32[d] for d in devs]
+    ids_t = torch.as_tensor(ids, device="cuda")
+    seg_t = torch.as_tensor(seg, device="cuda")
+    labels, lvalid = F.next_token_labels(ids_t, seg_t)
+    t0 = time.monotonic()
+    with torch.no_grad():
+        hs = T.forward_ctx(
+            cfg32, members, ring_shards(ids_t, devs), ring_shards(seg_t, devs),
+            ring_shards(T.positions_from_segments(seg_t), devs),
+            attention_fn=functools.partial(ring_attention_plain,
+                                           block_q=1024, block_k=1024))
+        lps["fp32"] = ring_gather([F.logprobs_from_hidden(
+            cfg32, p, h, lab, val) for p, h, lab, val in zip(
+                members, hs, ring_shards(labels, devs),
+                ring_shards(lvalid, devs))]).cpu().numpy()
+    sync_all()
+    ref_secs = time.monotonic() - t0
+    del p32, members, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = np.abs(lps["c4"] - lps["c1"])[valid]
+    to_fp32 = {tag: np.abs(lps[tag] - lps["fp32"])[valid]
+               for tag in ("c4", "c1")}
+    want = ctx_launches(cfg.n_layers, CTX_MEMBERS)
+    lim = CTX_LIMITS
+    rec = dict(n_layers=cfg.n_layers, tokens=int(seg.size), docs=CTX_DOCS,
+               pad=CTX_PAD, member_devices=[str(x) for x in devs], card=smi,
+               runs=runs, logprobs_abs=float(d.max()),
+               logprobs_mean_abs=float(d.mean()),
+               logprob_mean=float(lps["c1"][valid].mean()),
+               fp32_reference=dict(
+                   secs=ref_secs, plain_fp32_matmul=plain_fp32,
+                   **{f"{tag}_abs": float(x.max())
+                      for tag, x in to_fp32.items()},
+                   **{f"{tag}_mean_abs": float(x.mean())
+                      for tag, x in to_fp32.items()}),
+               limits={k: lim[k] for k in ("logprobs_abs",
+                                            "logprobs_mean_abs",
+                                            "fp32_mean_ratio")},
+               launches_expected=dict(c4=want, c1=dict(
+                   flash_fwd=cfg.n_layers, ring_round=0, ring_push=0)))
+    # the c4 run's counts, for the kernels line
+    rec["launches"] = runs["c4"]["launches"]
+    c4, c1 = runs["c4"]["launches"], runs["c1"]["launches"]
+    rec["launches_ok"] = (all(c4[k] == v for k, v in want.items())
+                          and c1["flash_fwd"] == cfg.n_layers
+                          and c1["ring_round"] == c1["ring_push"] == 0)
+    rec["outputs_ok"] = bool(
+        all(r["shape"] == list(seg.shape) for r in runs.values())
+        and all(np.isfinite(x).all() and (x[~valid] == 0).all()
+                and (x[valid] <= 0).all() for x in lps.values()))
+    ref = rec["fp32_reference"]
+    rec["ok"] = bool(rec["launches_ok"] and rec["outputs_ok"] and plain_fp32
+                     and rec["logprobs_abs"] <= lim["logprobs_abs"]
+                     and rec["logprobs_mean_abs"] <= lim["logprobs_mean_abs"]
+                     and ref["c4_mean_abs"]
+                     <= lim["fp32_mean_ratio"] * ref["c1_mean_abs"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_ppo_ctx(smi):
+    """The ppo-7bw-l4 cell's configuration and traffic with ref and
+    reward at ``context_parallel_size=4`` on ``member_devices(4)``: one
+    step through ``PPOConfig.build()`` and ``InlineRunner``. ref_inf and
+    rew_inf must launch K6 exactly (layers x 4 rounds x 4 members) and K1
+    never; then the step's rollout batch goes through ref_inf and rew_inf
+    of a c1 host built from the same seed, whose reference log-probs and
+    rewards must agree."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.system.inline import InlineRunner
+    from realhf_tpu_torch.system.model_host import ModelHost
+    gc.collect()
+    torch.cuda.empty_cache()
+    devs = member_devices(CTX_MEMBERS)
+    # the first ring call of ref_inf (its layer 0), kept for K6's case at
+    # this path's own shapes
+    mfc, first_ring = [None], {}
+    ring = T.ring_attention_fused
+
+    def watched_ring(qs, ks, vs, segs, **kw):
+        if mfc[0] == "ref_inf" and not first_ring:
+            first_ring.update(shards=[[t.detach().clone() for t in g]
+                                      for g in (qs, ks, vs, segs)], kw=kw)
+        return ring(qs, ks, vs, segs, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 160, seed=1)
+        spec, _ = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=1,
+                                 ctx=CTX_MEMBERS)
+        runner = InlineRunner(spec, role_devices=dict(ref=devs, reward=devs))
+        seen = watch_ppo_runner(runner)
+        host = runner.host
+        timed_execute = host.execute
+        per_mfc = {}
+
+        def counted(name, inp):
+            before = read_counts()
+            mfc[0] = name
+            out = timed_execute(name, inp)
+            mfc[0] = None
+            per_mfc[name] = {k: v - before[k]
+                             for k, v in read_counts().items()}
+            return out
+
+        host.execute = counted
+        T.ring_attention_fused = watched_ring
+        try:
+            reset_peaks(devs)
+            reset_counts()
+            runner.run()
+            sync_all()
+            counts = read_counts()
+        finally:
+            T.ring_attention_fused = ring
+        peaks = read_peaks(devs)
+        batch = runner.last_batch
+        gen_stats = runner.models["actor"].engine.generate_stats
+        want_ring = ctx_launches(PPO_LAYERS, CTX_MEMBERS)
+        want = expected_ppo_launches(PPO_LAYERS, PPO_MINIBATCHES, gen_stats)
+        want["flash_fwd"] -= 2 * PPO_LAYERS   # ref_inf and rew_inf: K6
+        want["ring_round"] = 2 * want_ring["ring_round"]
+        want["ring_push"] = 2 * want_ring["ring_push"]
+        mfc_ok = all(per_mfc[m][k] == v for m in ("ref_inf", "rew_inf")
+                     for k, v in want_ring.items())
+        step = ppo_step_records(runner, seen["mfc_secs"], smi)[0]
+        inf_tokens = batch.total_len("packed_input_ids")
+        del host.execute
+        for role in PPO_ROLES:
+            for method in ("generate", "forward_values", "forward_logprobs",
+                           "train_minibatches"):
+                vars(runner.models[role].engine).pop(method, None)
+        del seen, timed_execute, host
+        runner_ref = {k: batch.data[k].copy()
+                      for k in ("packed_ref_logprobs", "rewards")}
+        # the same batch through a c1 host built from the same seed
+        spec1, _ = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=1)
+        host1 = ModelHost(spec1, ["ref", "reward"],
+                          [n for n in runner.dfg.nodes
+                           if n.name in ("ref_inf", "rew_inf")],
+                          spec1.tokenizer)
+        reset_counts()
+        c1 = {}
+        for name, key in (("ref_inf", "packed_ref_logprobs"),
+                          ("rew_inf", "rewards")):
+            node = host1.nodes[name]
+            inp = batch.select([k for k in node.input_keys
+                                if k in batch.keys])
+            c1[key] = host1.execute(name, inp).data[key]
+        c1_counts = read_counts()
+        del host1, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    d = np.abs(runner_ref["packed_ref_logprobs"] - c1["packed_ref_logprobs"])
+    rewards_rel = float(np.abs(runner_ref["rewards"] - c1["rewards"]).max()
+                        / np.abs(c1["rewards"]).max())
+    lim = CTX_LIMITS
+    rec = dict(n_layers=PPO_LAYERS, member_devices=[str(x) for x in devs],
+               card=smi, step=step, peak_mem_gb=max(peaks.values()),
+               peak_mem_gb_by_device=peaks, ref_rew_tokens=int(inf_tokens),
+               ref_rew_tokens_per_s={
+                   m: inf_tokens / step["mfc_secs"][m]
+                   for m in ("ref_inf", "rew_inf")},
+               launches=counts, launches_expected=want,
+               launches_by_mfc=per_mfc, c1_launches=c1_counts,
+               ref_logprobs_abs=float(d.max()),
+               ref_logprobs_mean_abs=float(d.mean()),
+               rewards_rel=rewards_rel,
+               limits={k: lim[k] for k in ("ref_logprobs_abs",
+                                            "ref_logprobs_mean_abs",
+                                            "rewards_rel")})
+    rec["launches_ok"] = bool(counts == want and mfc_ok
+                              and c1_counts["flash_fwd"] == 2 * PPO_LAYERS
+                              and c1_counts["ring_round"] == 0)
+    rec["ok"] = bool(
+        rec["launches_ok"] and len(runner_ref["rewards"]) == len(c1["rewards"])
+        and np.isfinite(runner_ref["rewards"]).all()
+        and all(rec[k] <= v for k, v in rec["limits"].items()))
+    return rec, first_ring
+
+
+def check_ring_ppo_ctx(first_ring):
+    """K6 against its plain version on the q/k/v/seg shards of ref_inf's
+    first ring call in phase ppo_ctx (the path's own stream: ragged KV
+    halves at hd 128), timed like the ctx-7b-c4 case."""
+    kw = first_ring["kw"]
+    return compare_ring("ppo_ctx_ref_inf", *first_ring["shards"],
+                        causal=kw["causal"], window=kw["sliding_window"],
+                        scale=kw["scale"], timed=True)
+
+
 def _tree_leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1801,10 +2446,10 @@ def _tree_map(fn, tree):
 
 
 # ----------------------------------------------------------------------
-def kernels_line(kernel_recs, bwd_recs, paths):
+def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
-    paths run (gen, deep, sft and the two ppo steps), each counted from 0
-    just before its path and read just after it."""
+    paths run (gen, deep, sft, the two ppo steps, ctx and ppo_ctx), each
+    counted from 0 just before its path and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -1845,6 +2490,18 @@ def kernels_line(kernel_recs, bwd_recs, paths):
             ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
             bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
             library_ms=t["library_ms"]))
+    for name, count in (("ring_attention", "ring_round"),
+                        ("ring_push", "ring_push")):
+        recs = [r for r in ring_recs if r["kernel"] == name]
+        t = next(r for r in recs if "ms" in r)
+        out.append(dict(
+            name=name, route="cuda",
+            source="realhf_tpu_torch/csrc/ring_attention.cu",
+            replaces="realhf_tpu/ops/ring_attention_fused.py:103",
+            launches=launches[count],
+            max_abs_err=max(r["max_abs_err"] for r in recs), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     return {"kernels": out}
 
 
@@ -1883,10 +2540,11 @@ def main(argv=None):
 
     kernel_recs = phase_kernels()
     bwd_recs = phase_kernels_bwd()
-    for r in kernel_recs + bwd_recs:
+    ring_recs = phase_kernels_ring()
+    for r in kernel_recs + bwd_recs + ring_recs:
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
-    RESULTS["kernels"] = kernel_recs + bwd_recs
-    ok = all(r["ok"] for r in kernel_recs + bwd_recs)
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
+    ok = all(r["ok"] for r in kernel_recs + bwd_recs + ring_recs)
     main_rec = phase_gen(32, 128, smi, with_sampled_step=True)
     emit("main", **main_rec)
     deep_rec = phase_gen(49, 16, smi, with_sampled_step=False)
@@ -1926,13 +2584,27 @@ def main(argv=None):
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
     kernel_recs += ppo_fwd
     bwd_recs += ppo_bwd
-    RESULTS["kernels"] = kernel_recs + bwd_recs
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
     ok &= all(r["ok"] for r in ppo_fwd + ppo_bwd)
     ppo_par = phase_ppo_parity()
     emit("ppo_parity", **ppo_par)
+    ctx_rec = phase_ctx(smi)
+    emit("ctx", **ctx_rec)
+    for tag, run in ctx_rec["runs"].items():
+        print(f"ctx-7b-c4 {tag}: {json.dumps(run)} ({smi})", flush=True)
+    ppo_ctx_rec, first_ring = phase_ppo_ctx(smi)
+    emit("ppo_ctx", **ppo_ctx_rec)
+    ring_ppo = check_ring_ppo_ctx(first_ring)
+    del first_ring
+    torch.cuda.empty_cache()
+    print(json.dumps(dict(phase="kernels", card=smi, **ring_ppo)), flush=True)
+    ring_recs.append(ring_ppo)
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
+    ok &= ring_ppo["ok"]
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
-           and ppo_rec["ok"] and ppo_par["ok"])
+           and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
+           and ppo_ctx_rec["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1942,8 +2614,9 @@ def main(argv=None):
         print("chip_smoke: a phase failed (see its JSON line).",
               file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line(kernel_recs, bwd_recs,
-                                  [main_rec, deep_rec, sft_rec, ppo_rec])))
+    print(json.dumps(kernels_line(
+        kernel_recs, bwd_recs, ring_recs,
+        [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

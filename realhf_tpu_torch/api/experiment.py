@@ -7,21 +7,10 @@ from typing import Dict, List, Optional
 from realhf_tpu_torch.api.config import DatasetAbstraction
 from realhf_tpu_torch.api.dfg import MFCDef
 from realhf_tpu_torch.engine.optim import OptimizerConfig
+from realhf_tpu_torch.parallel.mesh import ParallelismConfig
 
-
-@dataclasses.dataclass(frozen=True)
-class ParallelismConfig:
-    """Layout of one model. This slice runs every model on one device;
-    a layout of more than one device raises when the model is built."""
-    data_parallel_size: int = 1
-    tensor_parallel_size: int = 1
-    pipeline_parallel_size: int = 1
-    context_parallel_size: int = 1
-
-    @property
-    def world_size(self) -> int:
-        return (self.data_parallel_size * self.tensor_parallel_size
-                * self.pipeline_parallel_size * self.context_parallel_size)
+__all__ = ["ExperimentSpec", "ModelSpec", "ParallelismConfig",
+           "SaveEvalControl"]
 
 
 @dataclasses.dataclass

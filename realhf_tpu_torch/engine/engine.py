@@ -1,7 +1,8 @@
 """The per-model execution engine: train, inference and generate.
 
-One ``Engine`` holds one model's parameters on one device. It runs the
-inference forwards (hidden states, next-token log-probs, critic
+One ``Engine`` holds one model's parameters on one device, or on the
+members of a context-parallel layout (below). It runs the inference
+forwards (hidden states, next-token log-probs, critic
 values), batch generation, and, when built with an optimizer, one
 optimizer step over a list of microbatches (``train_batch``) or one per
 minibatch of a list (``train_minibatches``): per microbatch a forward
@@ -15,6 +16,18 @@ Between uses the weights can wait on the host (``offload`` /
 optimizer state does so between steps: pinned host buffers, made once
 and reused, copies on PyTorch's current stream, synchronised before the
 device tensors are dropped. On ``device="cpu"`` only the flags move.
+
+Context parallelism (``parallel.context_parallel_size = n > 1``, over
+``devices``: n entries, repeats allowed, default ``cuda:0 .. n-1``): the
+inference forwards pad each stream's L to a multiple of ``n * 8`` with
+segment id 0, take positions and next-token labels from the whole
+stream, give member i the i-th contiguous shard of every stream, run
+``transformer.forward_ctx`` (ring attention between each block's
+halves) and gather the ``[S, L]`` outputs back on the first member's
+device. The weights are placed once per distinct device; members that
+share a device share that copy. Training and generation on such a layout
+raise (later slices). ``offload`` keeps one pinned host copy and frees
+every device's; ``ensure_on_device`` places it on every device again.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -24,12 +37,21 @@ import torch
 
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.engine import generation as gen_mod
-from realhf_tpu_torch.engine import offload, optim
+from realhf_tpu_torch.engine import offload, optim, packing
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
 from realhf_tpu_torch.ops import functional as F
 from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+from realhf_tpu_torch.parallel.mesh import (
+    ParallelismConfig,
+    default_devices,
+    make_mesh,
+)
+
+_CTX_TRAIN = ("training on a context-parallel layout (the differentiable "
+              "ring on CUDA) is a later slice of the port (ROADMAP.md, "
+              "queue 5).")
 
 #: loss_fn(params, microbatch tensors) -> (scalar loss, {name: scalar})
 LossFn = Callable[[Any, Dict[str, torch.Tensor]],
@@ -41,11 +63,25 @@ class Engine:
     def __init__(self, cfg: TransformerConfig, params: Any,
                  device: DeviceLike = None,
                  optimizer: Optional[optim.OptimizerConfig] = None,
-                 total_train_steps: Optional[int] = None):
+                 total_train_steps: Optional[int] = None, *,
+                 parallel: Optional[ParallelismConfig] = None,
+                 devices: Optional[List[DeviceLike]] = None):
         T.check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.parallel = parallel or ParallelismConfig()
+        n = self.parallel.world_size
+        if n > 1:
+            #: the context-parallel members' devices, in ring order
+            self.members = list(make_mesh(
+                self.parallel, devices if devices is not None
+                else default_devices(n, device)).devices)
+        else:
+            self.members = [resolve_device(
+                devices[0] if devices is not None else device)]
+        self.device = self.members[0]
+        self._ctx = n > 1
         self.params = None
+        self._member_params = None
         #: the weights wait on the host (``offload``) until the next use
         self.offloaded = False
         self._host_params = None  # pinned buffers, made at the first offload
@@ -56,6 +92,8 @@ class Engine:
         self.generate_stats = []
         self.optimizer: Optional[optim.AdamW] = None
         if optimizer is not None and optimizer.type != "empty":
+            if self._ctx:
+                raise NotImplementedError(_CTX_TRAIN)
             if optimizer.zero1:
                 raise NotImplementedError(
                     "ZeRO-1 optimizer-state sharding is deferred to the "
@@ -78,7 +116,17 @@ class Engine:
         The optimizer state, fp32 master copies included, is kept, as in
         the JAX package."""
         self.params = self._cast_param_dtype(params)
+        self._place_members()
         self.offloaded = False
+
+    def _place_members(self):
+        """Every member's weights: this engine's copy on the first
+        member's device, one more copy per other distinct device."""
+        on = {self.device: self.params}
+        for d in self.members:
+            if d not in on:
+                on[d] = _tree_map(lambda a, d=d: a.to(d), self.params)
+        self._member_params = [on[d] for d in self.members]
 
     def params_numpy(self):
         """Host numpy copy with the JAX package's paths and shapes."""
@@ -120,6 +168,8 @@ class Engine:
         the optimizer state, which the first update brings to the device,
         goes back to the host after the last. ``loss_fn_key`` is unused,
         as in ``train_batch``."""
+        if self._ctx:
+            raise NotImplementedError(_CTX_TRAIN)
         if self.optimizer is None:
             raise RuntimeError("Engine has no optimizer (inference-only).")
         if loss_weights is None:
@@ -183,6 +233,7 @@ class Engine:
             self._host_params = offload.to_pinned_host(
                 list(_leaves(self.params)), self._host_params)
             _set_leaves(self.params, self._host_params)
+            self._member_params = None  # other devices' copies go too
         self.offloaded = True
 
     def ensure_on_device(self):
@@ -192,6 +243,7 @@ class Engine:
         if self.device.type == "cuda":
             _set_leaves(self.params, offload.to_device(self._host_params,
                                                        self.device))
+            self._place_members()
         self.offloaded = False
 
     # ------------------------------------------------------------------
@@ -199,6 +251,9 @@ class Engine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def forward_hidden(self, input_ids, seg_ids) -> torch.Tensor:
+        if self._ctx:
+            n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
+            return self._gather(self._ctx_hidden(ids, seg), n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
                          self._tensor(seg_ids))
         return h
@@ -207,6 +262,9 @@ class Engine:
     def forward_logprobs(self, input_ids, seg_ids, temperature: float = 1.0,
                          logits_mask=None) -> torch.Tensor:
         """Next-token log-probs [S, L] fp32 (0 at segment ends and pads)."""
+        if self._ctx:
+            return self._ctx_logprobs(input_ids, seg_ids, temperature,
+                                      logits_mask)
         ids, seg = self._tensor(input_ids), self._tensor(seg_ids)
         h, _ = T.forward(self.cfg, self.params, ids, seg)
         mask = (None if logits_mask is None
@@ -220,6 +278,11 @@ class Engine:
         """Critic or reward scalar outputs [S, L] fp32."""
         if not self.cfg.is_critic:
             raise ValueError("forward_values needs a critic model.")
+        if self._ctx:
+            n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
+            hs = self._ctx_hidden(ids, seg)
+            return self._gather([T.critic_values(self.cfg, p, h) for p, h
+                                 in zip(self._member_params, hs)], n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
                          self._tensor(seg_ids))
         return T.critic_values(self.cfg, self.params, h)
@@ -231,12 +294,67 @@ class Engine:
                  ) -> gen_mod.GenerationOutput:
         """Batch generation from [B, Lp] left-padded prompts (numpy or
         tensors); ``generator`` must live on this engine's device."""
+        if self._ctx:
+            raise NotImplementedError(
+                "generation on a context-parallel layout (the JAX "
+                "package's decode view, engine.py:653) is a later slice of "
+                "the port.")
         out = gen_mod.generate(
             self.cfg, self.params, self._tensor(prompt_ids),
             self._tensor(prompt_seg), self._tensor(prompt_pos), generator,
             gconfig, eos_token_id=eos_token_id, pad_token_id=pad_token_id)
         self.generate_stats.append(dict(out.stats))
         return out
+
+    # ------------------------------------------------------------------
+    # Context parallelism
+    # ------------------------------------------------------------------
+    def _ctx_pad(self, input_ids, seg_ids):
+        """-> (the caller's L, ids, seg): [S, L] padded to a multiple of
+        n * 8 with segment id 0, on the first member's device."""
+        mult = 8 * len(self.members)
+        seg_ids = np.asarray(seg_ids)
+        return (seg_ids.shape[1],
+                self._tensor(packing.pad_stream_len(input_ids, mult)),
+                self._tensor(packing.pad_stream_len(seg_ids, mult)))
+
+    def _split(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """[S, L, ...] -> member i's contiguous i-th shard along L, on
+        its device."""
+        return [c.to(d).contiguous() for c, d in
+                zip(t.chunk(len(self.members), dim=1), self.members)]
+
+    def _gather(self, shards: List[torch.Tensor], n_real: int):
+        """Members' [S, lc, ...] outputs -> [S, L, ...] on this engine's
+        device, cut back to the caller's L."""
+        return torch.cat([s.to(self.device) for s in shards],
+                         dim=1)[:, :n_real]
+
+    def _ctx_hidden(self, ids, seg) -> List[torch.Tensor]:
+        """Members' final hidden states of padded [S, L] streams; the
+        positions come from the whole streams."""
+        pos = T.positions_from_segments(seg)
+        return T.forward_ctx(self.cfg, self._member_params, self._split(ids),
+                             self._split(seg), self._split(pos))
+
+    def _ctx_logprobs(self, input_ids, seg_ids, temperature, logits_mask):
+        n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
+        # labels and validity from the whole stream: a shard's last
+        # token predicts the next shard's first
+        labels, valid = F.next_token_labels(ids, seg)
+        hs = self._ctx_hidden(ids, seg)
+        masks = [None] * len(self.members)
+        if logits_mask is not None:
+            mask = packing.pad_stream_len(logits_mask, 8 * len(self.members),
+                                          fill=True)
+            masks = self._split(self._tensor(mask, dtype=torch.bool))
+        lps = [F.logprobs_from_hidden(self.cfg, p, h, lab, val,
+                                      temperature=temperature,
+                                      logits_mask=m)
+               for p, h, lab, val, m in zip(
+                   self._member_params, hs, self._split(labels),
+                   self._split(valid), masks)]
+        return self._gather(lps, n_real)
 
 
 def _leaves(tree):

@@ -113,3 +113,16 @@ def left_padded_prompts(prompts: List[np.ndarray], pad_id: int,
         seg[i, lp - len(p):] = 1
         pos[i, lp - len(p):] = np.arange(len(p))
     return ids, seg, pos
+
+
+def pad_stream_len(arr: np.ndarray, multiple: int, fill=0) -> np.ndarray:
+    """Pad the L axis (axis 1) of ``[S, L, ...]`` up to a multiple of
+    ``multiple`` with ``fill``; returned as is when it already is one.
+    Context parallelism pads to ``n * 8`` (n members) with segment id 0,
+    so that every member's shard has a tile of 8 tokens."""
+    arr = np.asarray(arr)
+    pad = -arr.shape[1] % multiple
+    if pad == 0:
+        return arr
+    widths = [(0, 0), (0, pad)] + [(0, 0)] * (arr.ndim - 2)
+    return np.pad(arr, widths, constant_values=fill)

@@ -14,7 +14,10 @@ decode step that writes the cache in place.
 
 Attention goes through ``ops/attention.py``, which runs the CUDA kernels
 on CUDA tensors and the plain PyTorch versions on CPU tensors; the
-projections and MLP are ``torch.matmul``. Under autograd with
+projections and MLP are ``torch.matmul``. ``forward_ctx`` runs the same
+blocks over context-parallel members that each hold a shard of every
+stream, with ring attention (``ops/ring_attention_fused.py``) between
+each block's two halves. Under autograd with
 ``cfg.gradient_checkpointing`` each block is recomputed in the backward
 from its input (``torch.utils.checkpoint``), as the JAX package's
 ``jax.checkpoint(..., policy=nothing_saveable)`` does.
@@ -32,6 +35,7 @@ from realhf_tpu_torch.ops.attention import (
     packed_attention,
     stacked_decode_attention,
 )
+from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 
 Params = Dict[str, Any]
@@ -228,28 +232,42 @@ def _attn_scale(cfg: TransformerConfig, layer_idx: int) -> float:
     return scale
 
 
-def _block(cfg: TransformerConfig, lp: Params, layer_idx: int,
-           x: torch.Tensor, seg_ids: torch.Tensor, cos: torch.Tensor,
-           sin: torch.Tensor, attention_fn=None):
-    """One block over packed streams [B, L, H] -> (residual output,
-    (k, v)); k/v feed the prefill KV cache."""
+def _attn_in(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+             cos: torch.Tensor, sin: torch.Tensor):
+    """The block up to attention: norm, q/k/v projections and rotary
+    over [B, L, H] -> q [B, L, nq, hd], k/v [B, L, nkv, hd]."""
     ln1 = _norm(cfg, x, lp["ln1"]["scale"], lp["ln1"].get("bias"))
     q, k, v = _qkv(cfg, lp, ln1)
     if cfg.apply_rotary:
         q = apply_rotary(q, cos, sin, cfg.rotary_interleaved)
         k = apply_rotary(k, cos, sin, cfg.rotary_interleaved)
-    attn_impl = attention_fn or packed_attention
-    attn = attn_impl(q, k.contiguous(), v.contiguous(), seg_ids, causal=True,
-                     scale=_attn_scale(cfg, layer_idx),
-                     sliding_window=cfg.sliding_window)
+    return q, k.contiguous(), v.contiguous()
+
+
+def _attn_out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+              attn: torch.Tensor) -> torch.Tensor:
+    """The block after attention: output projection and residual, norm,
+    MLP and residual -> the block's output [B, L, H]."""
     attn = attn.reshape(*x.shape[:-1], cfg.n_q_heads * cfg.head_dim)
     proj = attn @ lp["attn"]["wo"].to(x.dtype)
     if "bo" in lp["attn"]:
         proj = proj + lp["attn"]["bo"].to(x.dtype)
     x = x + proj
     ln2 = _norm(cfg, x, lp["ln2"]["scale"], lp["ln2"].get("bias"))
-    x = x + _mlp(cfg, lp, ln2)
-    return x, (k, v)
+    return x + _mlp(cfg, lp, ln2)
+
+
+def _block(cfg: TransformerConfig, lp: Params, layer_idx: int,
+           x: torch.Tensor, seg_ids: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor, attention_fn=None):
+    """One block over packed streams [B, L, H] -> (residual output,
+    (k, v)); k/v feed the prefill KV cache."""
+    q, k, v = _attn_in(cfg, lp, x, cos, sin)
+    attn_impl = attention_fn or packed_attention
+    attn = attn_impl(q, k, v, seg_ids, causal=True,
+                     scale=_attn_scale(cfg, layer_idx),
+                     sliding_window=cfg.sliding_window)
+    return _attn_out(cfg, lp, x, attn), (k, v)
 
 
 def positions_from_segments(seg_ids: torch.Tensor) -> torch.Tensor:
@@ -323,6 +341,47 @@ def forward(cfg: TransformerConfig, params: Params,
     x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
     kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     return x, kvs
+
+
+def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
+                input_ids: List[torch.Tensor], seg_ids: List[torch.Tensor],
+                positions: List[torch.Tensor], *,
+                attention_fn=None) -> List[torch.Tensor]:
+    """Context-parallel forward: member ``i`` holds the contiguous
+    shard ``[B, lc]`` of every stream's tokens, its segment ids and its
+    positions within the WHOLE stream, on its own device, with
+    ``member_params[i]`` there (members that share a device share one
+    tree). Returns each member's final hidden states [B, lc, H] after
+    the final norm.
+
+    The layers run layer-major over the members: a member's attention at
+    layer l needs every member's K/V of layer l, so each layer runs the
+    first half of the block (``_attn_in``) on every member, then the ring
+    (``attention_fn``, default ``ring_attention_fused``) over all of
+    them, then the second half (``_attn_out``). JAX gets this order from
+    SPMD; one process driving the members writes it out."""
+    check_supported(cfg)
+    ring = attention_fn or ring_attention_fused
+    views = {}
+    for p in member_params:
+        if id(p) not in views:
+            views[id(p)] = layer_views(p["blocks"], cfg.n_layers)
+    layers = [views[id(p)] for p in member_params]
+    segs = [s.to(torch.int32).contiguous() for s in seg_ids]
+    xs = [_embed(cfg, p, ids.long(), pos)
+          for p, ids, pos in zip(member_params, input_ids, positions)]
+    tables = [_rotary_tables(cfg, pos) for pos in positions]
+    for li in range(cfg.n_layers):
+        qkv = [_attn_in(cfg, lv[li], x, cos, sin)
+               for lv, x, (cos, sin) in zip(layers, xs, tables)]
+        q, k, v = (list(t) for t in zip(*qkv))
+        attn = ring(q, k, v, segs, causal=True,
+                    scale=_attn_scale(cfg, li),
+                    sliding_window=cfg.sliding_window)
+        xs = [_attn_out(cfg, lv[li], x, a)
+              for lv, x, a in zip(layers, xs, attn)]
+    return [_norm(cfg, x, p["ln_f"]["scale"], p["ln_f"].get("bias"))
+            for p, x in zip(member_params, xs)]
 
 
 def head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
@@ -474,11 +533,8 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
     base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
 
     for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
-        ln1 = _norm(cfg, x, lp["ln1"]["scale"], lp["ln1"].get("bias"))
-        q, k, v = _qkv(cfg, lp, ln1)  # q [B, nq, hd]; k/v [B, nkv, hd]
-        if cfg.apply_rotary:
-            q = apply_rotary(q, cos, sin, cfg.rotary_interleaved)
-            k = apply_rotary(k, cos, sin, cfg.rotary_interleaved)
+        # q [B, nq, hd]; k/v [B, nkv, hd]
+        q, k, v = _attn_in(cfg, lp, x, cos, sin)
         # In-place slot write into the stacked cache: replaces the
         # dynamic_update_slice / scatter of realhf_tpu/models/
         # transformer.py:618-626 without copying the cache.
@@ -499,12 +555,7 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
                                     scale=scale,
                                     sliding_window=cfg.sliding_window,
                                     slot=slot)
-        proj = attn.reshape(b, -1) @ lp["attn"]["wo"].to(x.dtype)
-        if "bo" in lp["attn"]:
-            proj = proj + lp["attn"]["bo"].to(x.dtype)
-        x = x + proj
-        ln2 = _norm(cfg, x, lp["ln2"]["scale"], lp["ln2"].get("bias"))
-        x = x + _mlp(cfg, lp, ln2)
+        x = _attn_out(cfg, lp, x, attn)
     x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
     new_cache = {"k": k_all, "v": v_all, "valid": valid,
                  "length": slot + 1}

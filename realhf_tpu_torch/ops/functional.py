@@ -50,6 +50,38 @@ def _chunked(fn, hidden, chunk, *per_chunk, fixed=()):
     return torch.cat(outs, dim=1)
 
 
+def next_token_labels(input_ids: torch.Tensor, seg_ids: torch.Tensor):
+    """(labels, valid) [S, L]: the token at t + 1 and whether it
+    continues t's segment (not padding, not another segment's start).
+    Taken over whole streams: a context-parallel shard's last token
+    needs the next shard's first."""
+    s = input_ids.shape[0]
+    zeros = torch.zeros((s, 1), dtype=input_ids.dtype,
+                        device=input_ids.device)
+    labels = torch.cat([input_ids[:, 1:], zeros], dim=1).long()
+    valid = torch.cat([(seg_ids[:, 1:] == seg_ids[:, :-1])
+                       & (seg_ids[:, 1:] != 0), zeros.bool()], dim=1)
+    return labels, valid
+
+
+def logprobs_from_hidden(
+    cfg: TransformerConfig,
+    params,
+    hidden: torch.Tensor,       # [S, L, H] final hidden states
+    labels: torch.Tensor,       # [S, L] the token each position predicts
+    valid: torch.Tensor,        # [S, L] bool
+    *,
+    chunk: int = 1024,
+    temperature: float = 1.0,
+    logits_mask: Optional[torch.Tensor] = None,  # [S, L, V] bool, True=allowed
+) -> torch.Tensor:
+    """log p(labels[t] | ...) at every position t, 0 where not ``valid``:
+    [S, L] fp32."""
+    lp = _chunked(_chunk_logprobs, hidden, chunk, labels, logits_mask,
+                  fixed=(cfg, params, temperature))
+    return torch.where(valid, lp, 0.0)
+
+
 def shifted_logprobs_from_hidden(
     cfg: TransformerConfig,
     params,
@@ -63,15 +95,10 @@ def shifted_logprobs_from_hidden(
 ) -> torch.Tensor:
     """log p(input_ids[t+1] | ...) at every position t, 0 where t+1
     starts another segment or is padding: [S, L] fp32."""
-    s = hidden.shape[0]
-    zeros = torch.zeros((s, 1), dtype=input_ids.dtype,
-                        device=input_ids.device)
-    labels = torch.cat([input_ids[:, 1:], zeros], dim=1).long()
-    valid = torch.cat([(seg_ids[:, 1:] == seg_ids[:, :-1])
-                       & (seg_ids[:, 1:] != 0), zeros.bool()], dim=1)
-    lp = _chunked(_chunk_logprobs, hidden, chunk, labels, logits_mask,
-                  fixed=(cfg, params, temperature))
-    return torch.where(valid, lp, 0.0)
+    labels, valid = next_token_labels(input_ids, seg_ids)
+    return logprobs_from_hidden(cfg, params, hidden, labels, valid,
+                                chunk=chunk, temperature=temperature,
+                                logits_mask=logits_mask)
 
 
 def entropy_from_hidden(cfg: TransformerConfig, params,

@@ -4,7 +4,9 @@ Loads the dataset, walks the dataflow graph level by level over each
 batch (amending every MFC's output into the batch), logs per-step time
 and token counts, evaluates trained roles on the eval dataset by the
 eval frequency, and stops after ``ctl.benchmark_steps`` steps when set.
-Models run on the CUDA card unless ``device`` says otherwise.
+Models run on the CUDA card unless ``device`` says otherwise;
+``role_devices`` places a context-parallel role's members
+(``ModelHost``).
 
 Saving waits for the checkpoint-IO slice of the port: a configured save
 frequency raises, and the final save that the JAX package's runner
@@ -12,7 +14,7 @@ always makes is not made.
 """
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api.config import ModelInterfaceType
@@ -27,7 +29,9 @@ logger = logging.getLogger("InlineRunner", "benchmark")
 
 class InlineRunner:
 
-    def __init__(self, spec: ExperimentSpec, device: DeviceLike = None):
+    def __init__(self, spec: ExperimentSpec, device: DeviceLike = None,
+                 role_devices: Optional[Dict[str, Sequence[DeviceLike]]]
+                 = None):
         self.spec = spec
         ctl = spec.ctl
         if (ctl.save_freq_epochs, ctl.save_freq_steps,
@@ -60,7 +64,8 @@ class InlineRunner:
         total_steps = len(self.dataloader) * spec.total_train_epochs
         self.host = ModelHost(spec, list(spec.models), self.dfg.nodes,
                               self.tokenizer, device=device,
-                              total_steps=total_steps)
+                              total_steps=total_steps,
+                              role_devices=role_devices)
         self.eval_ctl = timeutil.EpochStepTimeFreqCtl(
             freq_epoch=ctl.eval_freq_epochs, freq_step=ctl.eval_freq_steps)
         self.global_step = 0

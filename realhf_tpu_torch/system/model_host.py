@@ -1,8 +1,10 @@
 """Model hosting for the inline runner: one engine per model role on
-one device (with an optimizer for the roles that train), the algorithm
-interfaces of the MFCs, and MFC execution."""
+one device (with an optimizer for the roles that train), or, for a role
+that no MFC trains or generates with, on the members of a
+context-parallel layout; the algorithm interfaces of the MFCs, and MFC
+execution."""
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api import model as model_api
@@ -19,21 +21,33 @@ logger = logging.getLogger("model_host", "benchmark")
 
 def build_model(role: str, spec, tokenizer, init_seed: int,
                 device: DeviceLike = None,
-                total_steps: Optional[int] = None) -> model_api.Model:
+                total_steps: Optional[int] = None,
+                devices: Optional[Sequence[DeviceLike]] = None,
+                inference_only: bool = False) -> model_api.Model:
     """Instantiate one model role on ``device`` (None = the CUDA card)
     with random weights drawn from (experiment seed, role), and its
     optimizer when the spec has one (``total_steps`` sizes the learning
-    rate schedule)."""
+    rate schedule).
+
+    A context-parallel layout (``spec.parallel``: c > 1, d = t = p = 1)
+    builds for an ``inference_only`` role (no MFC trains or generates
+    with it) over ``devices`` (default ``cuda:0 .. c-1``, or c times the
+    CPU when ``device`` is the CPU); the weights are drawn on the first
+    member's device. Every other layout of more than one device
+    raises."""
     if spec.path:
         raise NotImplementedError(
             f"Model role {role!r}: loading checkpoints ({spec.path}) is "
             "deferred to the checkpoint-IO slice of the port; use "
             "random_init_config.")
-    if spec.parallel.world_size > 1:
+    par = spec.parallel
+    if par.world_size > 1 and (par.context_parallel_size != par.world_size
+                               or not inference_only):
         raise NotImplementedError(
-            f"Model role {role!r}: layouts over more than one device "
-            f"({spec.parallel}) are deferred to the parallelism slice of "
-            "the port.")
+            f"Model role {role!r}: layout {par} over more than one device "
+            "is deferred to the parallelism slice of the port (ROADMAP.md, "
+            "queue 5); this slice runs context parallelism alone, on roles "
+            "that no MFC trains or generates with.")
     if spec.random_init_config is None:
         raise ValueError(
             f"Model role {role!r} has neither a checkpoint path nor a "
@@ -44,27 +58,39 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
     cfg.compute_dtype = "bfloat16" if spec.bf16 else "float32"
     if spec.bf16:
         cfg.param_dtype = "bfloat16"
-    dev = resolve_device(device)
+    dev = resolve_device(devices[0] if devices else device)
     gen = seeding.generator(
         seeding.derive_seed_from(init_seed, "model_init", role), dev)
     params = T.init_params(cfg, gen, dev)
-    engine = Engine(cfg, params, dev, optimizer=spec.optimizer,
-                    total_train_steps=total_steps)
+    engine = Engine(cfg, params, device, optimizer=spec.optimizer,
+                    total_train_steps=total_steps, parallel=par,
+                    devices=devices)
     return model_api.Model(ModelName(role, 0), engine, tokenizer)
 
 
 class ModelHost:
-    """The models of some roles plus MFC execution."""
+    """The models of some roles plus MFC execution.
+
+    ``role_devices`` names the devices of a role with a layout of more
+    than one device (the JAX package's ``devices_fn``); a role it does
+    not name takes ``build_model``'s default."""
 
     def __init__(self, spec, roles: List[str], nodes: List[MFCDef],
                  tokenizer, device: DeviceLike = None,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None,
+                 role_devices: Optional[Dict[str, Sequence[DeviceLike]]]
+                 = None):
         self.spec = spec
         self.nodes = {n.name: n for n in nodes}
+        busy = {n.role for n in nodes if n.interface_type in (
+            ModelInterfaceType.TRAIN_STEP, ModelInterfaceType.GENERATE)}
+        role_devices = role_devices or {}
         self.models = {
             role: build_model(role, spec.models[role], tokenizer,
                               init_seed=spec.seed, device=device,
-                              total_steps=total_steps)
+                              total_steps=total_steps,
+                              devices=role_devices.get(role),
+                              inference_only=role not in busy)
             for role in roles
         }
         self.interfaces = {n.name: model_api.make_interface(n.interface_impl)
