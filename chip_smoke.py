@@ -13,7 +13,13 @@ exits non-zero):
    empty-row / non-causal shapes: max abs error, and the largest error
    of an output row over that row's RMS beside its limit. Planted
    faults must exceed the limits: a decode call with the newest slot of
-   each stream dropped (K4), the backward with delta taken as 0 (K3).
+   each stream dropped (K4), the backward with delta taken as 0 (K3), the
+   forward held against the plain version on segment boundaries shifted
+   by one token (K1). K1's cases include the edges of its tile skipping:
+   ids that recur out of order, one segment over many tiles then short
+   ones, rows whose first q tiles are all padding; each prints the
+   (query, key) pairs the kernel walks (``visited_key_tiles``) beside the
+   pairs the mask allows.
    Then each kernel's time, the plain version's time, one PyTorch
    library call's time (``scaled_dot_product_attention`` with the same
    boolean mask, forward or backward, a yardstick only) and the least
@@ -97,13 +103,17 @@ exits non-zero):
    longest 4-sequence minibatch stream (forward and backward), and
    decode at 16 streams.
 13. ppo_parity -- 2 layers, hidden 1024: one greedy rollout on the card,
-   then the same batch through rew_inf, ref_inf, critic_inf, actor_train
-   and critic_train on the card (bf16, kernels, optimizer state
-   offloaded between train calls) and on the CPU (fp32, plain versions)
-   from the same weights: rewards, reference log-probs, values, and each
-   train MFC's first-minibatch loss, grad norm and importance weight
-   within limits; the generation log-probs shifted by one token must
-   read an approximate KL over 10x its limit.
+   then the same batch through rew_inf, ref_inf and critic_inf on the
+   card (bf16, kernels) and on the CPU (fp32, plain versions) from the
+   same weights: rewards, reference log-probs and values within limits;
+   then actor_train and critic_train on the card (bf16, kernels,
+   optimizer state offloaded between train calls) against a plain fp32
+   reference of the same step on the card: each first-minibatch loss,
+   grad norm and importance weight within limits (the card's bf16 step
+   with the plain attention, and the CPU's fp32 one, are reported
+   beside). The generation log-probs shifted by one token must read an
+   approximate KL over 10x its limit, the old values shifted by one
+   token a value loss over 10x its limit.
 14. ctx -- ``Engine.forward_logprobs`` of a 32-layer LLaMA-7B (random bf16
    weights) over one packed stream of 32768 tokens (documents of 12288,
    7168, 6144, 4096 and 2816 tokens, then 256 of padding) on a c4 layout
@@ -234,6 +244,51 @@ def packed_seg(rng, b, L, n_segs, pad_rows, device):
     return torch.from_numpy(seg).to(device)
 
 
+def recurring_seg(rng, b, L, device):
+    """Pieces of 1-150 tokens whose ids, drawn from 1-4, recur out of
+    order (3, 1, 3, 2, ...), some padding pieces among them."""
+    import numpy as np
+    import torch
+    seg = np.zeros((b, L), np.int32)
+    for bi in range(b):
+        off = 0
+        while off < L:
+            n = int(rng.integers(1, 151))
+            seg[bi, off:off + n] = int(rng.integers(0, 5))
+            off += n
+    return torch.from_numpy(seg).to(device)
+
+
+def long_then_short_seg(rng, L, first, device):
+    """One segment of ``first`` tokens, then segments of 5-60 tokens,
+    then a padded tail."""
+    import numpy as np
+    import torch
+    seg = np.zeros((1, L), np.int32)
+    seg[0, :first] = 1
+    off, sid = first, 2
+    while off < L - 40:
+        n = int(rng.integers(5, 61))
+        seg[0, off:min(off + n, L - 40)] = sid
+        off, sid = off + n, sid + 1
+    return torch.from_numpy(seg).to(device)
+
+
+def leading_pad_seg(rng, b, L, pads, device):
+    """Row i starts with ``pads[i]`` padding tokens (a whole row of them
+    when it is L), then 3 segments."""
+    import numpy as np
+    import torch
+    seg = np.zeros((b, L), np.int32)
+    for bi, pad in enumerate(pads):
+        if pad >= L:
+            continue
+        cuts = np.sort(rng.choice(np.arange(pad + 1, L), 2, replace=False))
+        for sid, (lo, hi) in enumerate(zip([pad, *cuts], [*cuts, L])):
+            seg[bi, lo:hi] = sid + 1
+    return torch.from_numpy(seg).to(device)
+
+
 def allowed_pairs(seg, causal) -> int:
     """(query, key) pairs the mask allows: the attention work this
     input needs."""
@@ -241,7 +296,34 @@ def allowed_pairs(seg, causal) -> int:
     return int(segment_mask(seg, seg, causal).sum())
 
 
-def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed):
+def walked_pairs(seg, causal) -> int:
+    """(query, key) pairs K1 computes: those of the (q tile, key tile)
+    pairs ``visited_key_tiles`` keeps, rows and keys past L left out."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    vis = fa.visited_key_tiles(seg, causal, fa.K1_BQ, fa.K1_BK)
+    L = seg.shape[1]
+    rows = (L - torch.arange(vis.shape[1], device=seg.device) * fa.K1_BQ
+            ).clamp(max=fa.K1_BQ)
+    keys = (L - torch.arange(vis.shape[2], device=seg.device) * fa.K1_BK
+            ).clamp(max=fa.K1_BK)
+    return int((vis * rows[:, None] * keys[None, :]).sum())
+
+
+def shifted_boundaries(seg):
+    """The segment ids moved one token later along the stream: every
+    segment boundary shifts by one token."""
+    import torch
+    out = seg.clone()
+    out[:, 1:] = seg[:, :-1]
+    return out
+
+
+def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
+                    plant_fault=False):
+    """K1 against its plain version. With ``plant_fault``, the kernel's
+    output is also held against the plain version on segment boundaries
+    shifted by one token, which must exceed the row-error limit."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     dev = seg.device
@@ -267,6 +349,16 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed):
     rec["ok"] = (rec["row_rel_err"] <= LIMITS["flash_fwd_row_rel"]
                  and err_lse <= LIMITS["flash_fwd_lse"] and rec["finite"]
                  and rec["masked_rows_zero"] and lse_sentinel_ok)
+    rec["walked_pairs"] = walked_pairs(seg, causal)
+    rec["allowed_pairs"] = allowed_pairs(seg, causal)
+    if plant_fault:
+        o_bad, lse_bad = fa.flash_attention_plain(
+            q, k, v, shifted_boundaries(seg), causal=causal)
+        rows = o_rows & (lse_bad > NEG_INF / 2).transpose(1, 2)
+        rec["planted_fault"] = "segment boundaries shifted by one token"
+        rec["planted_fault_row_rel_err"] = row_rel_err(o, o_bad, rows)
+        rec["ok"] &= (rec["planted_fault_row_rel_err"]
+                      > LIMITS["flash_fwd_row_rel"])
     if timed:
         scale = hd ** -0.5
         rec["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, seg,
@@ -279,8 +371,7 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed):
         rec["library_ms"] = (cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                                   scale=scale))
                              if nq == nkv else None)
-        pairs = allowed_pairs(seg, causal)
-        flops = 4.0 * hd * pairs * nq
+        flops = 4.0 * hd * rec["allowed_pairs"] * nq
         # q/k/v rows of pad tokens (seg 0) are never needed; o and lse
         # are written in full
         tokens = int((seg != 0).sum())
@@ -514,12 +605,28 @@ def phase_kernels():
     # the sft path's microbatch: one stream of ~4 k tokens in 8 segments
     seg = sft_stream_seg(rng, 8, 4096, "cuda")
     recs.append(check_flash_fwd("sft_microbatch", 1, 4096, 32, 32, 128, seg,
-                                True, gen, timed=True))
+                                True, gen, timed=True, plant_fault=True))
     # hd 64, causal and not
     seg = packed_seg(rng, 3, 256, 2, {1}, "cuda")
     for causal in (True, False):
         recs.append(check_flash_fwd(f"hd64_causal{int(causal)}", 3, 256, 16,
                                     4, 64, seg, causal, gen, timed=False))
+    # the tile-skipping rule at its edges: ids that recur out of order,
+    # one segment over many tiles then short ones, and a row whose first
+    # q tiles are all padding
+    for causal in (True, False):
+        recs.append(check_flash_fwd(
+            f"recurring_ids_causal{int(causal)}", 2, 1000, 16, 8, 128,
+            recurring_seg(rng, 2, 1000, "cuda"), causal, gen, timed=False,
+            plant_fault=causal))
+    recs.append(check_flash_fwd(
+        "long_then_short", 1, 2100, 16, 16, 128,
+        long_then_short_seg(rng, 2100, 1500, "cuda"), True, gen,
+        timed=False, plant_fault=True))
+    recs.append(check_flash_fwd(
+        "leading_pad_tiles_hd64", 3, 777, 8, 2, 64,
+        leading_pad_seg(rng, 3, 777, (300, 0, 777), "cuda"), True, gen,
+        timed=False))
     # K4 at the main path's decode shape: B 8, S 640, MHA; low slots of
     # each stream invalid (left padding), stream 5 empty
     spans = [(512 - n, 512 + 64) for n in lengths]
@@ -1944,28 +2051,43 @@ def phase_ppo_profile(runner, smi):
     return rec
 
 
-# card (bf16, the kernels) against CPU (fp32, the plain versions) on one
-# rollout; each about 3x the sound reading (PERF.md, Findings)
+# one greedy rollout through the inference MFCs: card (bf16, the
+# kernels) against the CPU (fp32, the plain versions); then the train
+# MFCs' first minibatch: card bf16 with the kernels against a plain fp32
+# reference of the same step on the card. The inference limits are each
+# about 3x the sound reading (PERF.md, Findings). The four train limits
+# (loss, grad norms) are about 3x the largest of ten readings (seeds
+# 12-16, two builds of K1), each within 1.5x of what the card's bf16
+# step with the plain attention read: bf16 rounding, not the kernels
+# (PERF.md, Findings).
 PPO_PARITY_LIMITS = dict(
     rewards_rel=0.025, values_rel=0.03, ref_logprobs_abs=0.05,
-    ref_logprobs_mean_abs=0.012, actor_loss_abs=2e-4,
-    actor_grad_norm_rel=1e-3, importance_weight_abs=3.5e-3,
-    approx_kl_abs=3.5e-3, value_loss_rel=1e-4, critic_grad_norm_rel=4e-3)
+    ref_logprobs_mean_abs=0.012, actor_loss_abs=1.6e-3,
+    actor_grad_norm_rel=5e-3, importance_weight_abs=3.5e-3,
+    approx_kl_abs=3.5e-3, value_loss_rel=6e-3, critic_grad_norm_rel=8e-3)
+PPO_PARITY_SEED = 12
 
 
-def phase_ppo_parity():
+def phase_ppo_parity(seed=PPO_PARITY_SEED):
     """At ``train_parity``'s reduced size (2 layers, hidden 1024, 8 heads
     of 128, FFN 2816, vocab 32000): one greedy rollout on the card, then
     the same ``SequenceSample`` through rew_inf, ref_inf, critic_inf on
     the card (bf16, kernels) and on the CPU (fp32, plain versions) from
-    the same weights; then, with the card's inference outputs merged in,
-    actor_train and critic_train on both (2 minibatches, the optimizer
-    state offloaded to the host between train calls on the card): the
-    first minibatch's loss, grad norm and importance weight. A copy of
-    the batch with the generation log-probs shifted by one token must
-    read an approximate KL over 10x its limit (its importance weight, a
-    mean of ratios on either side of 1, moves little and decides
-    nothing)."""
+    the same weights: rewards, values and reference log-probs within
+    limits. Then, with the card's inference outputs merged in,
+    actor_train and critic_train (2 minibatches, the optimizer state
+    offloaded to the host between train calls on the card) from the same
+    weights four ways: on the card in bf16 with the kernels (the port),
+    on the card in bf16 with the plain attention patched in (what bf16
+    rounding alone gives), on the card in fp32 with the plain attention
+    (the reference) and on the CPU in fp32. The port's first-minibatch
+    loss and grad norm must sit within limits of the reference; the
+    other two are reported beside it. Planted faults: the generation
+    log-probs shifted by one token must read an approximate KL over 10x
+    its limit (its importance weight, a mean of ratios on either side of
+    1, moves little and decides nothing), and the old values shifted by
+    one token must read a value loss over 10x its limit from the
+    reference's."""
     import numpy as np
     import torch
     from realhf_tpu_torch.api.config import ModelName
@@ -1983,6 +2105,7 @@ def phase_ppo_parity():
     from realhf_tpu_torch.models import transformer as T
     from realhf_tpu_torch.models.config import TransformerConfig, llama_config
     from realhf_tpu_torch.models.convert import params_numpy
+    from realhf_tpu_torch.ops.attention import packed_attention_plain
     nl = 2
     base = dict(llama_config("7b", n_layers=nl), hidden_dim=1024,
                 n_q_heads=8, n_kv_heads=8, intermediate_dim=2816,
@@ -1999,18 +2122,21 @@ def phase_ppo_parity():
             seeding.generator(20 + i), "cpu"))
         for i, (role, c) in enumerate(critics.items())}
 
-    def models(dev, dt):
-        return {role: Model(ModelName(role, 0), Engine(
-            TransformerConfig(**base, is_critic=c, param_dtype=dt,
-                              compute_dtype=dt), weights[role], dev,
+    def model(role, dev, dt):
+        return Model(ModelName(role, 0), Engine(
+            TransformerConfig(**base, is_critic=critics[role],
+                              param_dtype=dt, compute_dtype=dt),
+            weights[role], dev,
             optimizer=opt if role in ("actor", "critic") else None), tok)
-            for role, c in critics.items()}
+
+    def models(dev, dt):
+        return {role: model(role, dev, dt) for role in critics}
 
     gconfig = dict(max_new_tokens=32, min_new_tokens=8, greedy=True)
     actor_kw = dict(n_minibatches=2, gconfig=gconfig, value_norm=True,
                     early_stop_imp_ratio=5.0)
     critic_kw = dict(n_minibatches=2, value_norm=True)
-    rng = np.random.default_rng(12)
+    rng = np.random.default_rng(seed)
     plens = [int(x) for x in rng.integers(30, 121, size=8)]
     prompts = SequenceSample.from_default(
         plens, list(range(8)), dict(packed_prompts=rng.integers(
@@ -2053,16 +2179,28 @@ def phase_ppo_parity():
             critic=train(ms["critic"], PPOCriticInterface(**critic_kw),
                          batch))
 
+    def shifted(key):
+        """A copy of the batch with ``key`` moved one token later."""
+        out = batch.select(list(batch.keys))  # its own data dict
+        x = batch.data[key].copy()
+        x[1:] = x[:-1]
+        out.data[key] = x
+        return out
+
+    def plain_attention(run):
+        attn, T.packed_attention = T.packed_attention, packed_attention_plain
+        try:
+            return run()
+        finally:
+            T.packed_attention = attn
+
     inf_card = inference(card)
-    for s in inf_card.values():
-        batch.update_(s)
-    # the planted fault first, with an early stop that skips its updates
-    shifted = batch.select(list(batch.keys))  # its own data dict
-    lp = batch.data["packed_logprobs"].copy()
-    lp[1:] = lp[:-1]
-    shifted.data["packed_logprobs"] = lp
+    for smp in inf_card.values():
+        batch.update_(smp)
+    # the actor's planted fault first, with an early stop that skips its
+    # updates
     fault = train(card["actor"], PPOActorInterface(**dict(
-        actor_kw, early_stop_imp_ratio=0.0)), shifted)
+        actor_kw, early_stop_imp_ratio=0.0)), shifted("packed_logprobs"))
     fault_skipped = (fault["early_stop_skipped"] == 1.0
                      and card["actor"].engine.optimizer.count == 0)
     got = train_both(card)
@@ -2070,11 +2208,29 @@ def phase_ppo_parity():
                         for r in ("actor", "critic"))
     launched = {k: v - reset[k] for k, v in read_counts().items()}
     del card
+    # the critic's planted fault on a critic of its own, from the same
+    # weights
+    critic = model("critic", "cuda", "bfloat16")
+    critic_fault = train(critic, PPOCriticInterface(**critic_kw),
+                         shifted("values"))
+    del critic
     torch.cuda.empty_cache()
+
+    def train_on_card(dt):
+        ms = {r: model(r, "cuda", dt) for r in ("actor", "critic")}
+        out = plain_attention(lambda: train_both(ms))
+        del ms
+        torch.cuda.empty_cache()
+        return out
+
+    plain_bf16 = train_on_card("bfloat16")
+    ref_fp32 = (torch.get_float32_matmul_precision() == "highest"
+                and not torch.backends.cuda.matmul.allow_tf32)
+    ref = train_on_card("float32")
 
     cpu = models("cpu", "float32")
     inf_cpu = inference(cpu)
-    ref = train_both(cpu)
+    cpu_train = train_both(cpu)
     del cpu
     lim = PPO_PARITY_LIMITS
 
@@ -2082,8 +2238,16 @@ def phase_ppo_parity():
         a, b = inf_card[key].data[key], inf_cpu[key].data[key]
         return float(np.abs(a - b).max() / np.abs(b).max())
 
-    def rel(role, k):
-        return abs(got[role][k] - ref[role][k]) / abs(ref[role][k])
+    def train_errs(x):
+        """One run's first-minibatch stats against the reference's."""
+        def rel(role, k):
+            return abs(x[role][k] - ref[role][k]) / abs(ref[role][k])
+        return dict(
+            actor_loss_abs=abs(x["actor"]["actor_loss"]
+                               - ref["actor"]["actor_loss"]),
+            actor_grad_norm_rel=rel("actor", "grad_norm"),
+            value_loss_rel=rel("critic", "value_loss"),
+            critic_grad_norm_rel=rel("critic", "grad_norm"))
 
     d_ref = np.abs(inf_card["packed_ref_logprobs"].data["packed_ref_logprobs"]
                    - inf_cpu["packed_ref_logprobs"]
@@ -2092,30 +2256,36 @@ def phase_ppo_parity():
         rewards_rel=rel_max("rewards"), values_rel=rel_max("values"),
         ref_logprobs_abs=float(d_ref.max()),
         ref_logprobs_mean_abs=float(d_ref.mean()),
-        actor_loss_abs=abs(got["actor"]["actor_loss"]
-                           - ref["actor"]["actor_loss"]),
-        actor_grad_norm_rel=rel("actor", "grad_norm"),
+        **train_errs(got),
         importance_weight_abs=max(
             abs(got["actor"]["importance_weight"] - 1),
             abs(ref["actor"]["importance_weight"] - 1)),
         approx_kl_abs=max(abs(got["actor"]["ppo_approx_kl"]),
-                          abs(ref["actor"]["ppo_approx_kl"])),
-        value_loss_rel=rel("critic", "value_loss"),
-        critic_grad_norm_rel=rel("critic", "grad_norm"))
+                          abs(ref["actor"]["ppo_approx_kl"])))
     fault_errs = dict(
         importance_weight_abs=abs(fault["importance_weight"] - 1),
-        approx_kl_abs=abs(fault["ppo_approx_kl"]))
+        approx_kl_abs=abs(fault["ppo_approx_kl"]),
+        value_loss_rel=abs(critic_fault["value_loss"]
+                           - ref["critic"]["value_loss"])
+        / abs(ref["critic"]["value_loss"]))
     seqlens = [l[0] for l in batch.seqlens["packed_input_ids"]]
-    rec = dict(layers=nl, hidden=base["hidden_dim"], prompts=plens,
-               seqlens=seqlens, card=got, cpu=ref, errors=errs, limits=lim,
-               planted_fault="generation log-probs shifted by one token",
+    rec = dict(layers=nl, hidden=base["hidden_dim"], seed=seed,
+               prompts=plens, seqlens=seqlens, card=got, reference=ref,
+               reference_is="card, fp32 weights/compute/optimizer, plain "
+               "attention", reference_fp32_matmul=ref_fp32,
+               errors=errs, limits=lim,
+               plain_bf16_errors=train_errs(plain_bf16),
+               cpu_fp32_errors=train_errs(cpu_train),
+               planted_faults=["generation log-probs shifted by one token",
+                               "old values shifted by one token"],
                planted_fault_errors=fault_errs,
                planted_fault_update_skipped=fault_skipped,
                optimizer_state_offloaded=opt_offloaded, launches=launched)
     rec["ok"] = bool(
         all(math.isfinite(v) and v <= lim[k] for k, v in errs.items())
         and fault_errs["approx_kl_abs"] > 10 * lim["approx_kl_abs"]
-        and fault_skipped and opt_offloaded
+        and fault_errs["value_loss_rel"] > 10 * lim["value_loss_rel"]
+        and fault_skipped and opt_offloaded and ref_fp32
         and all(launched[k] > 0 for k in PPO_KERNELS))
     return rec
 
@@ -2533,7 +2703,8 @@ def main(argv=None):
     t0 = time.monotonic()
     built = _build.build()
     per_lib = {n: [ln.strip() for ln in _build.build_log.get(n, "")
-                   .splitlines() if "registers" in ln or "spill" in ln]
+                   .splitlines() if "registers" in ln or "spill" in ln
+                   or "wgmma" in ln]
                for n in _build.SOURCES}
     emit("build", seconds=time.monotonic() - t0, per_library_secs=built,
          ptxas=per_lib)

@@ -61,9 +61,11 @@ class SFTInterface(model_api.ModelInterface):
                    for b in batches]
         if not any(w > 0 for w in weights):
             weights = [float(b.n_tokens) for b in batches]
-        return engine.train_batch([b.arrays for b in batches],
-                                  _make_loss_fn(model.config),
-                                  loss_weights=weights, loss_fn_key="sft")
+        stats = engine.train_batch([b.arrays for b in batches],
+                                   _make_loss_fn(model.config),
+                                   loss_weights=weights, loss_fn_key="sft")
+        model.inc_version()
+        return stats
 
     def evaluate(self, model: model_api.Model, eval_dataloader) -> Dict:
         losses, tokens = [], []

@@ -49,6 +49,48 @@ def segment_mask(seg_q: torch.Tensor, seg_k: torch.Tensor, causal: bool,
     return mask
 
 
+#: query rows of one warpgroup of K1 and keys of one of its K/V tiles:
+#: the tile grid on which ``visited_key_tiles`` states its skip rule
+K1_BQ = 64
+K1_BK = 64
+
+
+def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
+                      bk: int = K1_BK) -> torch.Tensor:
+    """[B, ceil(L/bq), ceil(L/bk)] bool: the (q tile, key tile) pairs K1
+    computes; it skips every other pair. A pair is visited when the
+    ranges [min, max] of the two tiles' non-zero segment ids meet, the
+    sets of those ids' residues mod 64 meet, and, when causal, the key
+    tile starts at or before the q tile's last row. Sound for any ids
+    (every pair that ``segment_mask`` allows lies in a visited pair of
+    tiles); tight to the tile edges when fewer than 64 ids lie near each
+    other, in whatever order the packer placed them."""
+    b, l = seg_ids.shape
+    n_q, n_k = -(-l // bq), -(-l // bk)
+    big = torch.iinfo(torch.int64).max
+
+    def tiles(n, t):
+        s = torch.nn.functional.pad(seg_ids.to(torch.int64),
+                                    (0, n * t - l)).reshape(b, n, t)
+        nz = s != 0
+        residues = torch.nn.functional.one_hot(s & 63, 64) & nz[..., None]
+        return (torch.where(nz, s, big).amin(-1),
+                torch.where(nz, s, -big).amax(-1),
+                residues.any(-2).to(torch.float32))
+
+    q_lo, q_hi, q_res = tiles(n_q, bq)
+    k_lo, k_hi, k_res = tiles(n_k, bk)
+    vis = ((k_lo[:, None, :] <= q_hi[:, :, None])
+           & (k_hi[:, None, :] >= q_lo[:, :, None])
+           & (q_res @ k_res.transpose(1, 2) > 0))
+    if causal:
+        dev = seg_ids.device
+        last_q = (torch.arange(1, n_q + 1, device=dev) * bq).clamp(max=l) - 1
+        k0 = torch.arange(n_k, device=dev) * bk
+        vis = vis & (k0[None, :] <= last_q[:, None])[None]
+    return vis
+
+
 def flash_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
                           scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -89,6 +89,11 @@ def test_sft_experiment_matches_jax(tmp_path):
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
         np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=1e-4)
     assert got_steps[-1]["loss"] < got_steps[0]["loss"]
+    # one version step per train_step, as the JAX interface counts them
+    want_v = jr.models["default"].version
+    got_v = runner.models["default"].version
+    assert (got_v.epoch, got_v.epoch_step, got_v.global_step) == \
+        (want_v.epoch, want_v.epoch_step, want_v.global_step)
 
 
 def test_quickstart_cli_runs_sft_on_cpu(tmp_path):
