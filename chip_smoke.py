@@ -29,7 +29,10 @@ exits non-zero):
    four cards, else all on cuda:0): at the ctx-7b-c4 stream (n 4, lc
    8192; timed; planted faults: member 1 skipping round 1, local in place
    of global offsets), GQA 8/2 at hd 64 with ragged tiles, non-causal, a
-   sliding window, unidirectional, n 2, n 8 and one member; the library
+   sliding window, unidirectional, n 2, n 8, one member and ids that
+   recur out of order across shards; each prints the pairs the kernel
+   walks over the whole ring (``visited_key_tiles`` on global offsets)
+   beside the pairs the mask allows. The library
    yardstick is SDPA over the gathered stream with the same boolean mask.
    Then the push kernel alone at the ctx path's halves (bit-exact).
 4. main    -- the ``gen`` experiment through the port's
@@ -289,25 +292,55 @@ def leading_pad_seg(rng, b, L, pads, device):
     return torch.from_numpy(seg).to(device)
 
 
-def allowed_pairs(seg, causal) -> int:
+def allowed_pairs(seg, causal, window=None) -> int:
     """(query, key) pairs the mask allows: the attention work this
     input needs."""
     from realhf_tpu_torch.ops.flash_attention import segment_mask
-    return int(segment_mask(seg, seg, causal).sum())
+    return int(segment_mask(seg, seg, causal, window).sum())
+
+
+def tile_pairs(vis, lq, lk) -> int:
+    """(query, key) pairs inside the visited tile pairs ``vis`` [B, q
+    tiles, key tiles] of K1's grid, rows past ``lq`` and keys past ``lk``
+    left out."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    dev = vis.device
+    rows = (lq - torch.arange(vis.shape[1], device=dev) * fa.K1_BQ
+            ).clamp(max=fa.K1_BQ)
+    keys = (lk - torch.arange(vis.shape[2], device=dev) * fa.K1_BK
+            ).clamp(max=fa.K1_BK)
+    return int((vis * rows[:, None] * keys[None, :]).sum())
 
 
 def walked_pairs(seg, causal) -> int:
     """(query, key) pairs K1 computes: those of the (q tile, key tile)
-    pairs ``visited_key_tiles`` keeps, rows and keys past L left out."""
-    import torch
+    pairs ``visited_key_tiles`` keeps."""
     from realhf_tpu_torch.ops import flash_attention as fa
-    vis = fa.visited_key_tiles(seg, causal, fa.K1_BQ, fa.K1_BK)
     L = seg.shape[1]
-    rows = (L - torch.arange(vis.shape[1], device=seg.device) * fa.K1_BQ
-            ).clamp(max=fa.K1_BQ)
-    keys = (L - torch.arange(vis.shape[2], device=seg.device) * fa.K1_BK
-            ).clamp(max=fa.K1_BK)
-    return int((vis * rows[:, None] * keys[None, :]).sum())
+    return tile_pairs(fa.visited_key_tiles(seg, causal), L, L)
+
+
+def ring_walked_pairs(seg, n, n_dirs, causal, window=None) -> int:
+    """(query, key) pairs K6 computes over a whole ring of ``n`` members
+    on the stream ``seg`` [B, L]: summed over members, rounds and
+    directions, those of the (warpgroup, key tile) pairs that
+    ``visited_key_tiles`` keeps for the member's q shard against the KV
+    half it holds, on global offsets."""
+    from realhf_tpu_torch.ops import flash_attention as fa
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    lc = seg.shape[1] // n
+    lch = lc // n_dirs
+    total = 0
+    for j in range(n):
+        seg_q = seg[:, j * lc:(j + 1) * lc]
+        for r in range(n):
+            for k_off in rf.round_key_offsets(j, r, n, lc, lch, n_dirs):
+                vis = fa.visited_key_tiles(
+                    seg_q, causal, seg_k=seg[:, k_off:k_off + lch],
+                    q_off=j * lc, k_off=k_off, window=window)
+                total += tile_pairs(vis, lc, lch)
+    return total
 
 
 def shifted_boundaries(seg):
@@ -811,6 +844,8 @@ def compare_ring(name, qs, ks, vs, segs, *, causal=True, window=None,
                finite=bool(torch.isfinite(o.float()).all()))
     rec["ok"] = (rec["row_rel_err"] <= limit and rec["masked_rows_zero"]
                  and rec["finite"])
+    rec["walked_pairs"] = ring_walked_pairs(seg, n, n_dirs, causal, window)
+    rec["allowed_pairs"] = allowed_pairs(seg, causal, window)
     if plant_faults:
         orig = rf._launch_round
 
@@ -920,8 +955,8 @@ def phase_kernels_ring():
     """K6 cases: the ctx-7b-c4 stream (n 4, lc 8192, 32/32 heads, hd
     128; timed, with the planted faults), GQA 8/2 at hd 64 with ragged
     tiles and an all-padding row, non-causal, a sliding window,
-    unidirectional, n 2, n 8 and one member; then the push kernel at the
-    ctx path's halves."""
+    unidirectional, n 2, n 8, one member and ids that recur across
+    shards; then the push kernel at the ctx path's halves."""
     import numpy as np
     import torch
     gen = torch.Generator(device="cuda")
@@ -943,6 +978,10 @@ def phase_kernels_ring():
     seg = packed_seg(rng, 1, 4096, 6, set(), "cuda")
     recs.append(check_ring("n8", 1, 8, 16, 16, 128, seg, gen))
     recs.append(check_ring("n1", 1, 1, 16, 16, 128, seg[:, :1024], gen))
+    # ids that recur out of order more than 64 tokens apart, across
+    # shards: the residue test on global offsets
+    recs.append(check_ring("recurring_ids", 2, 4, 8, 8, 128,
+                           recurring_seg(rng, 2, 2048, "cuda"), gen))
     lch = sum(CTX_DOCS + (CTX_PAD,)) // CTX_MEMBERS // 2
     recs.append(check_ring_push(1, lch, 32, 128, gen, timed=True))
     del gen

@@ -12,7 +12,9 @@
 // one `ring_push` per member per round but the last on its comm stream;
 // the Python wrapper (ops/ring_attention_fused.py) orders them with CUDA
 // events, the TPU kernel's slot handshake with events in place of
-// semaphores. No kernel waits on another member's flag.
+// semaphores. No kernel waits on another member's flag: members that
+// share a card would spin on every SM and starve the push they wait for,
+// so the state stays in HBM between a member's rounds.
 //
 // ring_round: member `my` accumulates its q shard [B, lc, nq, hd] against
 // the KV halves it holds this round, one per direction: direction 0 holds
@@ -23,31 +25,53 @@
 // k_off + key), the key is not later (causal) and less than `window`
 // behind (sliding window, window < 0 = none). GQA: q head h reads KV head
 // h / (nq / nkv). The fp32 state m / l / acc of each row lives in a
-// per-member buffer between rounds: round 0 (`first`) starts it, the last
-// round (`last`) normalises into o (bf16) and writes a row that saw no
-// valid key as 0, never NaN; the rounds between load and store it.
+// per-member buffer between rounds; round 0 (`first`) starts it and the
+// last round (`last`) normalises into o (bf16), a row that saw no valid
+// key as 0, never NaN.
 //
 // Layouts (row-major, contiguous): q/o [B, lc, nq, hd], segq [B, lc]
 // int32; each direction's k/v [B, lch, nkv, hd] and seg [B, lch]; state
 // m/l [B, nq, lc] and acc [B, nq, lc, hd] fp32.
 //
-// What bounds it on the H100: for one LLaMA-7B layer over a 32768-token
-// stream of 5 documents on 4 members (the ctx-7b-c4 path) the allowed
-// (query, key) pairs are ~132 M per head, ~2.2e12 FLOPs in all: 2.2 ms
-// of tensor-core time on one card, against ~0.3 ms for the ~1.1 GB of
-// q/k/v/o, so operations bound it. On four cards the FLOPs split (the
-// member holding the stream's end does the most) and each member also
-// sends its two KV halves (k and v, 67 MB a half) on three times, ~400 MB
-// out of each card, ~0.9 ms at NVLink's 450 GB/s each way. The design
-// is K1's (csrc/flash_fwd.cu): one CTA of 4 warps per (q tile of 64 rows,
-// q head, batch row), 64-key tiles staged in shared memory with 16-byte
-// loads, QK^T and PV through WMMA 16x16x16 bf16 fragments with fp32
-// accumulation, the softmax statistics and output accumulator fp32 in
-// shared memory. The one shortcut: a key tile that causality masks for
-// every row of the q tile is not visited. Every tile before it is, however
-// its segments fall, so on a packed stream the kernel does several times
-// the allowed work; skipping tiles by segment, TMA + wgmma and keeping the
-// state in registers across rounds are later work.
+// What bounds it on the H100: over a 32768-token stream of 5 documents
+// on 4 members (the ctx-7b-c4 path, one LLaMA-7B layer, 32 heads, hd
+// 128) the mask allows ~132 M (query, key) pairs per head, ~2.2e12
+// FLOPs: 2.2 ms of tensor-core time on one card against ~0.3 ms for the
+// q/k/v/o bytes, so operations bound it. At the ppo_ctx shards (6400
+// tokens of 16 sequences, lc 1600, halves of 800) the pairs are few and
+// the bytes of q/k/v/o bound it (~0.06 ms). What a kernel loses is the
+// pairs it walks without need, the tensor cores it leaves idle, and the
+// fp32 state it moves between rounds. The design (K1's, csrc/flash_fwd.cu,
+// through the tile machinery both share in csrc/attn_tile.cuh):
+//
+// 1. Tile skipping on global offsets. A CTA owns 128 query rows (two
+//    warpgroups of 64) of one head of one batch row and reduces each
+//    warpgroup's non-zero q ids to a range and a residue set mod 64. Over
+//    one tile index space, direction 0's 64-key tiles then direction 1's,
+//    it marks a tile for a warpgroup when the ranges and the residue sets
+//    meet, (causal) the tile's first global key is at or before the
+//    warpgroup's last global row, and (window) the tile's last global key
+//    is less than `window` behind the warpgroup's first global row.
+//    Inside a visited tile the mask is the exact per-pair test.
+//    ops/flash_attention.py `visited_key_tiles` (with seg_k, q_off, k_off
+//    and window) states the rule in PyTorch. Tiles are walked in order,
+//    direction 0 then 1, ascending within a half.
+// 2. K1's tile step: S = Q K^T and O += P V as wgmma with S, P and O in
+//    registers, the online softmax on the accumulators, a two-stage
+//    `cp.async` ring of K/V/seg tiles in the 128-byte swizzle; keys past
+//    lch are zero-filled by the copy, never read. Both kernels run the one
+//    `tile_step`, so c4 (this kernel) and c1 (K1) round alike and differ
+//    only in the order the tiles arrive.
+// 3. State traffic only where a round has work. The state of a row with
+//    no valid key yet is m = NEG_INF, l = 0 and acc unwritten. A
+//    warpgroup that marked no tile this round, in a round neither first
+//    nor last, leaves its rows' state untouched (a CTA where neither did
+//    exits at once). Round 0 writes m and l for every row and acc only for
+//    rows that saw a valid key; a later round loads acc only for rows
+//    whose stored m is above NEG_INF / 2 and starts the others at 0, so
+//    memory the first round did not write never enters the arithmetic.
+// 4. Tiles and occupancy as K1: 256 threads, ~98 KB of shared memory at
+//    hd 128, one CTA per SM by registers; hd 64 halves Q, K and V.
 //
 // ring_push: a grid-stride copy of up to six contiguous byte ranges (k, v
 // and seg of each direction) from this member's current slot into its
@@ -55,61 +79,54 @@
 // neighbour is another card (peer access enabled by ring_enable_peer) and
 // as a device-local copy when it shares this card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define NEG_INF (-1073741824.0f)  // -2^30, the JAX package's sentinel
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA
-constexpr int BK = 64;   // keys per staged tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;  // 16: one WMMA row block
+using namespace attn;
+
 constexpr int MAX_COPIES = 6;
 
-template <int HD>
-struct Layout {
-  // Padded leading dimensions: multiples of 8 (bf16) / 4 (fp32) as WMMA
-  // requires, and off the 128-byte period to spread shared-memory banks.
-  static constexpr int LDB = HD + 8;  // bf16 Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = HD + 4;  // fp32 output accumulator
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + sizeof(bf16) * BQ * LDB;
-  static constexpr size_t V = K + sizeof(bf16) * BK * LDB;
-  static constexpr size_t S = V + sizeof(bf16) * BK * LDB;
-  static constexpr size_t P = S + sizeof(float) * BQ * LDS;
-  static constexpr size_t O = P + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t M = O + sizeof(float) * BQ * LDO;
-  static constexpr size_t LSUM = M + sizeof(float) * BQ;
-  static constexpr size_t ALPHA = LSUM + sizeof(float) * BQ;
-  static constexpr size_t SEGQ = ALPHA + sizeof(float) * BQ;
-  static constexpr size_t SEGK = SEGQ + sizeof(int) * BQ;
-  static constexpr size_t TOTAL = SEGK + sizeof(int) * BK;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
+// A thread's row `OFF / 2` (0: qi, 1: qi + 8) of the state: loaded from
+// m/l/acc when the stored m says the row has seen a valid key, else left
+// as cleared.
+template <int HD, int OFF>
+__device__ __forceinline__ void load_row(const float* m_st, const float* l_st,
+                                         const float* acc_st, size_t t, int tq,
+                                         float& m, float& l, float (&acc)[HD / 2]) {
+  const float mv = m_st[t];
+  if (!(mv > NEG_INF / 2)) return;
+  m = mv;
+  l = l_st[t];
+  const float* a = acc_st + t * HD + 2 * tq;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int i = 0; i < HD / 8; ++i) {
+    const float2 x = *reinterpret_cast<const float2*>(a + 8 * i);
+    acc[4 * i + OFF] = x.x;
+    acc[4 * i + OFF + 1] = x.y;
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The inverse: m and l (from the quad's first thread), and acc only for a
+// row that has seen a valid key.
+template <int HD, int OFF>
+__device__ __forceinline__ void store_row(float* m_st, float* l_st, float* acc_st, size_t t,
+                                          int tq, float m, float l,
+                                          const float (&acc)[HD / 2]) {
+  const bool seen = l > 0.f;
+  if (tq == 0) {
+    m_st[t] = seen ? m : NEG_INF;
+    l_st[t] = seen ? l : 0.f;
+  }
+  if (!seen) return;
+  float* a = acc_st + t * HD + 2 * tq;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int i = 0; i < HD / 8; ++i)
+    *reinterpret_cast<float2*>(a + 8 * i) = make_float2(acc[4 * i + OFF], acc[4 * i + OFF + 1]);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
                   const bf16* __restrict__ k0, const bf16* __restrict__ v0,
                   const int* __restrict__ sk0, const bf16* __restrict__ k1,
@@ -118,208 +135,138 @@ ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
                   float* __restrict__ acc_st, bf16* __restrict__ o, int lc, int lch,
                   int nq, int nkv, int q_off, int k_off0, int k_off1, int n_dirs,
                   int first, int last, float scale, int causal, int window) {
-  using LY = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + LY::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + LY::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + LY::V);
-  float* Ss = reinterpret_cast<float*>(smem + LY::S);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + LY::P);
-  float* Os = reinterpret_cast<float*>(smem + LY::O);
-  float* m_s = reinterpret_cast<float*>(smem + LY::M);
-  float* l_s = reinterpret_cast<float*>(smem + LY::LSUM);
-  float* a_s = reinterpret_cast<float*>(smem + LY::ALPHA);
-  int* segq_s = reinterpret_cast<int*>(smem + LY::SEGQ);
-  int* segk_s = reinterpret_cast<int*>(smem + LY::SEGK);
+  using SM = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t sbase;
+  unsigned char* smem = smem_base(smem_raw, sbase);
+  int* seg_s = reinterpret_cast<int*>(smem + SM::SEG);
+  int* red = reinterpret_cast<int*>(smem + SM::RED);
+  uint32_t* vis = reinterpret_cast<uint32_t*>(smem + SM::MASK);
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (nq / nkv);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = warp * ROWS_PER_WARP;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;            // this thread's warpgroup
+  const int wq0 = q0 + wg * WG_ROWS;  // its first query row (local)
 
-  const size_t q_row = (size_t)nq * HD;    // elements between tokens of q/o
-  const size_t kv_row = (size_t)nkv * HD;  // elements between tokens of k/v
+  const size_t q_row = (size_t)nq * HD;
+  const size_t kv_row = (size_t)nkv * HD;
   const bf16* qb = q + (size_t)b * lc * q_row + (size_t)h * HD;
   const int* segqb = segq + (size_t)b * lc;
-  const size_t st0 = ((size_t)b * nq + h) * lc;  // (b, h, token 0) in m/l
-  constexpr int CHUNKS = HD / 8;   // 16-byte chunks of a bf16 row
-  constexpr int CHUNKS4 = HD / 4;  // 16-byte chunks of an fp32 row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const size_t half = (size_t)b * lch * kv_row + (size_t)kvh * HD;
+  const bf16* kb0 = k0 + half;
+  const bf16* vb0 = v0 + half;
+  const bf16* kb1 = k1 + half;
+  const bf16* vb1 = v1 + half;
+  const int* sb0 = sk0 + (size_t)b * lch;
+  const int* sb1 = sk1 + (size_t)b * lch;
 
-  for (int i = tid; i < BQ * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS, t = q0 + r;
-    uint4 val = zero;
-    if (t < lc) val = *reinterpret_cast<const uint4*>(qb + (size_t)t * q_row + c * 8);
-    *reinterpret_cast<uint4*>(Qs + r * LY::LDB + c * 8) = val;
-  }
-  // This round's starting state: fresh in round 0, else the last round's.
-  for (int r = tid; r < BQ; r += NTHREADS) {
-    const int t = q0 + r;
-    const bool in = t < lc;
-    segq_s[r] = in ? segqb[t] : 0;
-    m_s[r] = (first || !in) ? NEG_INF : m_st[st0 + t];
-    l_s[r] = (first || !in) ? 0.f : l_st[st0 + t];
-  }
-  for (int i = tid; i < BQ * CHUNKS4; i += NTHREADS) {
-    const int r = i / CHUNKS4, c = i % CHUNKS4, t = q0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (!first && t < lc)
-      val = *reinterpret_cast<const float4*>(acc_st + (st0 + t) * HD + c * 4);
-    *reinterpret_cast<float4*>(Os + r * LY::LDO + c * 4) = val;
+  // --- 1. each warpgroup's range and residue set of non-zero q ids, and
+  // its first and last global rows --------------------------------------
+  int q_lo[NWG], q_hi[NWG], q_first[NWG], q_last[NWG];
+  uint64_t q_bits[NWG];
+  q_id_summary(segqb, q0, lc, tid, red, q_lo, q_hi, q_bits);
+#pragma unroll
+  for (int g = 0; g < NWG; ++g) {
+    q_first[g] = q_off + q0 + g * WG_ROWS;
+    q_last[g] = q_off + min(q0 + g * WG_ROWS + WG_ROWS, lc) - 1;
   }
 
-  const int q_hi = q_off + q0 + BQ - 1;  // the tile's last global q position
-  for (int d = 0; d < n_dirs; ++d) {
-    const size_t half = (size_t)b * lch * kv_row + (size_t)kvh * HD;
-    const bf16* kb = (d ? k1 : k0) + half;
-    const bf16* vb = (d ? v1 : v0) + half;
-    const int* skb = (d ? sk1 : sk0) + (size_t)b * lch;
-    const int k_off = d ? k_off1 : k_off0;
-    int n_tiles = (lch + BK - 1) / BK;
-    if (causal) {  // tiles wholly after the q tile's last row are masked
-      const int reach = q_hi - k_off + 1;  // keys [0, reach) may be seen
-      n_tiles = reach <= 0 ? 0 : min(n_tiles, (reach + BK - 1) / BK);
+  // --- 2. mark the key tiles each warpgroup needs: direction 0's half,
+  // then direction 1's, in one index space --------------------------------
+  const int nth = (lch + BK - 1) / BK;  // tiles of one half
+  const int n_tiles = n_dirs * nth;
+  const int nwords = (n_tiles + 31) >> 5;
+  const bool vec0 = (lch & 3) == 0 && (reinterpret_cast<uintptr_t>(sb0) & 15) == 0;
+  const bool vec1 = (lch & 3) == 0 && (reinterpret_cast<uintptr_t>(sb1) & 15) == 0;
+  mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
+    const int d = j >= nth;
+    const int kl = (j - d * nth) * BK;      // first key of the tile in its half
+    const int n = min(BK, lch - kl);
+    const int kg = (d ? k_off1 : k_off0) + kl;  // ... and in the stream
+    bool reach[NWG], any = false;
+#pragma unroll
+    for (int g = 0; g < NWG; ++g) {
+      reach[g] = (!causal || kg <= q_last[g]) && (window < 0 || q_first[g] - (kg + n - 1) < window);
+      any |= reach[g];
     }
+    if (!any) return;
+    int lo = INT_MAX, hi = INT_MIN;
+    uint64_t bits = 0ull;
+    key_tile_ids(d ? sb1 : sb0, kl, n, d ? vec1 : vec0, lo, hi, bits);
+#pragma unroll
+    for (int g = 0; g < NWG; ++g)
+      mark[g] = reach[g] && lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0;
+  });
 
-    for (int j = 0; j < n_tiles; ++j) {
-      const int k0t = j * BK;
-      __syncthreads();  // every warp is done with the previous K/V tile
-      for (int i = tid; i < BK * CHUNKS; i += NTHREADS) {
-        const int r = i / CHUNKS, c = i % CHUNKS, t = k0t + r;
-        uint4 kv = zero, vv = zero;  // zero rows past lch: 0 * garbage could be NaN
-        if (t < lch) {
-          kv = *reinterpret_cast<const uint4*>(kb + (size_t)t * kv_row + c * 8);
-          vv = *reinterpret_cast<const uint4*>(vb + (size_t)t * kv_row + c * 8);
-        }
-        *reinterpret_cast<uint4*>(Ks + r * LY::LDB + c * 8) = kv;
-        *reinterpret_cast<uint4*>(Vs + r * LY::LDB + c * 8) = vv;
-      }
-      for (int r = tid; r < BK; r += NTHREADS) {
-        const int t = k0t + r;
-        segk_s[r] = t < lch ? skb[t] : 0;  // seg 0 never matches a valid query
-      }
-      __syncthreads();
+  // A CTA with no tile this round, in a round neither first nor last,
+  // leaves its rows' state as the last round stored it.
+  const int j0 = next_tile(vis, nwords, -1);
+  if (j0 < 0 && !first && !last) return;
 
-      // Scores of this warp's 16 rows against the tile: S = Q K^T.
-      {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, Qs + r0 * LY::LDB + kk * 16, LY::LDB);
-#pragma unroll
-          for (int n = 0; n < BK / 16; ++n) {
-            // K^T as a column-major [HD, BK] operand is K row-major.
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-            wmma::load_matrix_sync(bt, Ks + n * 16 * LY::LDB + kk * 16, LY::LDB);
-            wmma::mma_sync(acc[n], a, bt, acc[n]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n)
-          wmma::store_matrix_sync(Ss + r0 * LY::LDS + n * 16, acc[n], LY::LDS,
-                                  wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      // Online softmax on global positions; lane owns columns lane, lane + 32.
-      for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-        const int r = r0 + rr;
-        const int qg = q_off + q0 + r;
-        const int sq = segq_s[r];
-        float s[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = lane + 32 * c;
-          const int kg = k_off + k0t + col;
-          const bool keep = sq != 0 && segk_s[col] == sq && (!causal || qg >= kg) &&
-                            (window < 0 || qg - kg < window);
-          s[c] = keep ? Ss[r * LY::LDS + col] * scale : NEG_INF;
-        }
-        const float m_old = m_s[r];
-        const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-        // A row that has seen no valid key keeps m == NEG_INF: its p = 1
-        // garbage is wiped by alpha = 0 once a valid key arrives (in this
-        // round or a later one), or zeroed when the last round finalises.
-        const float p0 = expf(s[0] - m_new);
-        const float p1 = expf(s[1] - m_new);
-        const float psum = warp_sum(p0 + p1);
-        const float alpha = expf(m_old - m_new);
-        Ps[r * LY::LDP + lane] = __float2bfloat16(p0);
-        Ps[r * LY::LDP + lane + 32] = __float2bfloat16(p1);
-        __syncwarp();
-        if (lane == 0) {
-          m_s[r] = m_new;
-          l_s[r] = l_s[r] * alpha + psum;
-          a_s[r] = alpha;
-        }
-        __syncwarp();
-      }
-
-      // O = alpha * O + P V for this warp's rows.
-      for (int i = lane; i < ROWS_PER_WARP * HD; i += 32) {
-        const int rr = i / HD, c = i % HD;
-        Os[(r0 + rr) * LY::LDO + c] *= a_s[r0 + rr];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-        wmma::load_matrix_sync(oacc, Os + r0 * LY::LDO + n * 16, LY::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(a, Ps + r0 * LY::LDP + kk * 16, LY::LDP);
-          wmma::load_matrix_sync(bv, Vs + kk * 16 * LY::LDB + n * 16, LY::LDB);
-          wmma::mma_sync(oacc, a, bv, oacc);
-        }
-        wmma::store_matrix_sync(Os + r0 * LY::LDO + n * 16, oacc, LY::LDO, wmma::mem_row_major);
-      }
-      __syncwarp();
-    }
+  // --- 3. the walk, the state loaded while the first tile is in flight --
+  const uint32_t sQ = sbase + SM::Q, sK = sbase + SM::K, sV = sbase + SM::V;
+  const uint32_t sSeg = sbase + SM::SEG;
+  auto load = [&](int j, int st) {
+    const int d = j >= nth;
+    load_kv_tile<HD>(sK, sV, sSeg, d ? kb1 : kb0, d ? vb1 : vb0, d ? sb1 : sb0, kv_row,
+                     (j - d * nth) * BK, lch, st, tid);
+  };
+  if (j0 >= 0) {
+    load_q_tile<HD>(sQ, qb, q_row, q0, lc, tid);
+    load(j0, 0);
   }
-  __syncthreads();  // the state loaded above is read below, tiles or none
 
-  // Epilogue, per warp over its own rows: the last round normalises and
-  // writes o (0 for a row that saw no valid key); the others store the
-  // state for the next round.
+  // This thread's two rows of its warpgroup's 64 (the accumulator layout):
+  // local rows qi0 and qi0 + 8, columns 8 i + 2 tq + {0, 1}.
+  const int tq = lane & 3;
+  const int qi0 = wq0 + (warp & 3) * 16 + (lane >> 2);
+  const int qi1 = qi0 + 8;
+  const int sq0 = qi0 < lc ? segqb[qi0] : 0;
+  const int sq1 = qi1 < lc ? segqb[qi1] : 0;
+  const int qg0 = q_off + qi0, qg1 = q_off + qi1;
+  const size_t s0 = ((size_t)b * nq + h) * lc;  // (b, h, row 0) in m/l
+  // this warpgroup reads and writes the state only in a round where it
+  // has work, and in the first and last
+  const bool touch = first || last || any_marked(vis, nwords, wg);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m0 = minus_inf(), m1 = minus_inf(), l0 = 0.f, l1 = 0.f;
+  if (!first && touch) {
+    if (qi0 < lc) load_row<HD, 0>(m_st, l_st, acc_st, s0 + qi0, tq, m0, l0, acc);
+    if (qi1 < lc) load_row<HD, 2>(m_st, l_st, acc_st, s0 + qi1, tq, m1, l1, acc);
+  }
+
+  walk_tiles(vis, nwords, wg, j0, load, [&](int j, int st) {
+    const int d = j >= nth;
+    const int kg = (d ? k_off1 : k_off0) + (j - d * nth) * BK;
+    // whether some pair of the tile may break causality or the window;
+    // the per-pair tests run only then
+    const bool diag = causal && kg + BK - 1 > q_off + wq0;
+    const bool wide = window >= 0 && q_off + wq0 + WG_ROWS - 1 - kg >= window;
+    tile_step<HD>(acc, m0, m1, l0, l1, sQ, wg, sK + st * SM::KV_BYTES, sV + st * SM::KV_BYTES,
+                  seg_s + st * BK, tq, scale, [&](int r, int c, int id) {
+                    const int sq = r ? sq1 : sq0;
+                    const int dq = (r ? qg1 : qg0) - (kg + c);  // global distance
+                    return sq != 0 && id == sq && (!diag || dq >= 0) && (!wide || dq < window);
+                  });
+  });
+
+  // --- 4. epilogue: the last round normalises into o (0 for a row that
+  // saw no valid key); the others store the state for the next ----------
   if (last) {
-    for (int i = lane; i < ROWS_PER_WARP * CHUNKS; i += 32) {
-      const int rr = i / CHUNKS, c = i % CHUNKS;
-      const int r = r0 + rr, t = q0 + r;
-      if (t >= lc) continue;
-      const float m = m_s[r], l = l_s[r];
-      const bool valid = m > NEG_INF / 2;
-      const float safe_l = l > 0.f ? l : 1.f;
-      __align__(16) bf16 vals[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        vals[e] = __float2bfloat16(valid ? Os[r * LY::LDO + c * 8 + e] / safe_l : 0.f);
-      *reinterpret_cast<uint4*>(o + ((size_t)b * lc + t) * q_row + (size_t)h * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(vals);
-    }
-  } else {
-    for (int i = lane; i < ROWS_PER_WARP * CHUNKS4; i += 32) {
-      const int rr = i / CHUNKS4, c = i % CHUNKS4;
-      const int r = r0 + rr, t = q0 + r;
-      if (t >= lc) continue;
-      *reinterpret_cast<float4*>(acc_st + (st0 + t) * HD + c * 4) =
-          *reinterpret_cast<const float4*>(Os + r * LY::LDO + c * 4);
-    }
-    if (lane < ROWS_PER_WARP) {
-      const int r = r0 + lane, t = q0 + r;
-      if (t < lc) {
-        m_st[st0 + t] = m_s[r];
-        l_st[st0 + t] = l_s[r];
-      }
-    }
+    bf16* ob = o + (size_t)b * lc * q_row + (size_t)h * HD + 2 * tq;
+    if (qi0 < lc) store_o_row<HD, 0>(ob + (size_t)qi0 * q_row, acc, l0);
+    if (qi1 < lc) store_o_row<HD, 2>(ob + (size_t)qi1 * q_row, acc, l1);
+  } else if (touch) {
+    if (qi0 < lc) store_row<HD, 0>(m_st, l_st, acc_st, s0 + qi0, tq, m0, l0, acc);
+    if (qi1 < lc) store_row<HD, 2>(m_st, l_st, acc_st, s0 + qi1, tq, m1, l1, acc);
   }
 }
 
@@ -368,7 +315,8 @@ int launch_round(const void* q, const void* segq, const void* k0, const void* v0
                  void* m, void* l, void* acc, void* o, int B, int lc, int lch, int nq,
                  int nkv, int q_off, int k_off0, int k_off1, int n_dirs, int first,
                  int last, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = Layout<HD>::TOTAL;
+  if (B == 0 || lc == 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes<HD>(n_dirs * ((lch + BK - 1) / BK));
   cudaError_t err = cudaFuncSetAttribute(
       ring_round_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -3,7 +3,8 @@
 Each source in ``realhf_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, on
 first use, under ``realhf_tpu_torch/csrc/build/``. The library's file
-name carries a digest of its source and flags, so an edited source is
+name carries a digest of its source, of every header (``*.cuh``) in
+``csrc`` and of the flags, so an edited source or shared header is
 rebuilt and a stale library is never loaded. ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them. A failed
 build raises with the compiler's output.
@@ -48,8 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -66,7 +69,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         compiler = compiler or nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.monotonic())

@@ -49,45 +49,62 @@ def segment_mask(seg_q: torch.Tensor, seg_k: torch.Tensor, causal: bool,
     return mask
 
 
-#: query rows of one warpgroup of K1 and keys of one of its K/V tiles:
-#: the tile grid on which ``visited_key_tiles`` states its skip rule
+#: query rows of one warpgroup of K1 (and K6) and keys of one of its K/V
+#: tiles: the tile grid on which ``visited_key_tiles`` states its skip rule
 K1_BQ = 64
 K1_BK = 64
 
 
 def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
-                      bk: int = K1_BK) -> torch.Tensor:
-    """[B, ceil(L/bq), ceil(L/bk)] bool: the (q tile, key tile) pairs K1
-    computes; it skips every other pair. A pair is visited when the
-    ranges [min, max] of the two tiles' non-zero segment ids meet, the
-    sets of those ids' residues mod 64 meet, and, when causal, the key
-    tile starts at or before the q tile's last row. Sound for any ids
-    (every pair that ``segment_mask`` allows lies in a visited pair of
-    tiles); tight to the tile edges when fewer than 64 ids lie near each
-    other, in whatever order the packer placed them."""
-    b, l = seg_ids.shape
-    n_q, n_k = -(-l // bq), -(-l // bk)
+                      bk: int = K1_BK, *, seg_k: Optional[torch.Tensor] = None,
+                      q_off: int = 0, k_off: int = 0,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """[B, ceil(Lq/bq), ceil(Lk/bk)] bool: the (q tile, key tile) pairs a
+    kernel computes; it skips every other pair. The queries carry
+    ``seg_ids`` [B, Lq], the keys ``seg_k`` [B, Lk] (``seg_ids`` itself
+    by default), and both lie at global stream offsets ``q_off`` and
+    ``k_off`` (K6 holds a member's q shard against a KV half of another
+    shard). A pair is visited when the ranges [min, max] of the two
+    tiles' non-zero segment ids meet, the sets of those ids' residues mod
+    64 meet, when causal the key tile's first global key is at or before
+    the q tile's last global row, and with a ``window`` the key tile's
+    last global key is less than ``window`` behind the q tile's first
+    global row. Sound for any ids (every pair that ``segment_mask``
+    allows on global positions lies in a visited pair of tiles); tight to
+    the tile edges when fewer than 64 ids lie near each other, in
+    whatever order the packer placed them. With the defaults it is K1's
+    rule."""
+    seg_k = seg_ids if seg_k is None else seg_k
+    b, lq = seg_ids.shape
+    lk = seg_k.shape[1]
+    n_q, n_k = -(-lq // bq), -(-lk // bk)
     big = torch.iinfo(torch.int64).max
 
-    def tiles(n, t):
-        s = torch.nn.functional.pad(seg_ids.to(torch.int64),
-                                    (0, n * t - l)).reshape(b, n, t)
+    def tiles(seg, n, t):
+        s = torch.nn.functional.pad(seg.to(torch.int64),
+                                    (0, n * t - seg.shape[1])).reshape(b, n, t)
         nz = s != 0
         residues = torch.nn.functional.one_hot(s & 63, 64) & nz[..., None]
         return (torch.where(nz, s, big).amin(-1),
                 torch.where(nz, s, -big).amax(-1),
                 residues.any(-2).to(torch.float32))
 
-    q_lo, q_hi, q_res = tiles(n_q, bq)
-    k_lo, k_hi, k_res = tiles(n_k, bk)
+    q_lo, q_hi, q_res = tiles(seg_ids, n_q, bq)
+    k_lo, k_hi, k_res = tiles(seg_k, n_k, bk)
     vis = ((k_lo[:, None, :] <= q_hi[:, :, None])
            & (k_hi[:, None, :] >= q_lo[:, :, None])
            & (q_res @ k_res.transpose(1, 2) > 0))
+    dev = seg_ids.device
+    first_q = q_off + torch.arange(n_q, device=dev) * bq
+    last_q = q_off + (torch.arange(1, n_q + 1, device=dev) * bq).clamp(
+        max=lq) - 1
+    first_k = k_off + torch.arange(n_k, device=dev) * bk
+    last_k = k_off + (torch.arange(1, n_k + 1, device=dev) * bk).clamp(
+        max=lk) - 1
     if causal:
-        dev = seg_ids.device
-        last_q = (torch.arange(1, n_q + 1, device=dev) * bq).clamp(max=l) - 1
-        k0 = torch.arange(n_k, device=dev) * bk
-        vis = vis & (k0[None, :] <= last_q[:, None])[None]
+        vis = vis & (first_k[None, :] <= last_q[:, None])[None]
+    if window is not None:
+        vis = vis & ((first_q[:, None] - last_k[None, :]) < window)[None]
     return vis
 
 

@@ -71,6 +71,16 @@ def _plan_dirs(lc: int, block_k: int, want_bidir: bool):
     return 1, lc, _fit_block(lc, block_k, MIN_TILE)
 
 
+def round_key_offsets(member: int, rnd: int, n: int, lc: int, lch: int,
+                      n_dirs: int) -> List[int]:
+    """Global stream offsets of the KV halves ``member`` holds in round
+    ``rnd``, one per direction: direction 0 the first ``lch`` tokens of
+    shard (member - rnd) % n, direction 1 the half from ``lch`` of shard
+    (member + rnd) % n (a unidirectional ring: whole shards, lch = lc)."""
+    return [((member - rnd) % n) * lc,
+            ((member + rnd) % n) * lc + lch][:n_dirs]
+
+
 # ----------------------------------------------------------------------
 # The round and the push: plain versions and launches
 # ----------------------------------------------------------------------
@@ -306,9 +316,10 @@ def _run_ring(qs, ks, vs, segs, *, n_dirs: int, lch: int, scale: float,
             with step(j, False, arrived, ("c", j, r)):
                 kv = [(kslot[j][cur, d], vslot[j][cur, d], sslot[j][cur, d])
                       for d in range(n_dirs)]
-                k_offs = [((j - r) % n) * lc, ((j + r) % n) * lc + lch]
                 _launch_round(qs[j], segs[j], kv, ms[j], ls[j], accs[j],
-                              outs[j], q_off=j * lc, k_offs=k_offs[:n_dirs],
+                              outs[j], q_off=j * lc,
+                              k_offs=round_key_offsets(j, r, n, lc, lch,
+                                                       n_dirs),
                               scale=scale, causal=causal,
                               sliding_window=sliding_window, first=r == 0,
                               last=r == n - 1)
