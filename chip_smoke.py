@@ -14,12 +14,13 @@ exits non-zero):
    of an output row over that row's RMS beside its limit. Planted
    faults must exceed the limits: a decode call with the newest slot of
    each stream dropped (K4), the backward with delta taken as 0 (K3), the
-   forward held against the plain version on segment boundaries shifted
-   by one token (K1). K1's cases include the edges of its tile skipping:
-   ids that recur out of order, one segment over many tiles then short
-   ones, rows whose first q tiles are all padding; each prints the
-   (query, key) pairs the kernel walks (``visited_key_tiles``) beside the
-   pairs the mask allows.
+   forward (K1) and the backward (K2 and K3) held against the plain
+   version on segment boundaries shifted by one token. K1's and K2/K3's
+   cases include the edges of their tile skipping: ids that recur out of
+   order, one segment over many tiles then short ones, rows whose first q
+   tiles are all padding; each prints the (query, key) pairs the kernel
+   walks (``visited_key_tiles``; K3 ``visited_q_tiles``) beside the pairs
+   the mask allows. Two launches of K2 and K3 must give the same bits.
    Then each kernel's time, the plain version's time, one PyTorch
    library call's time (``scaled_dot_product_attention`` with the same
    boolean mask, forward or backward, a yardstick only) and the least
@@ -321,6 +322,14 @@ def walked_pairs(seg, causal) -> int:
     return tile_pairs(fa.visited_key_tiles(seg, causal), L, L)
 
 
+def dkv_walked_pairs(seg, causal) -> int:
+    """(query, key) pairs K3 computes: those of the (key tile, q tile)
+    pairs ``visited_q_tiles`` keeps (K1's and K2's pairs, transposed)."""
+    from realhf_tpu_torch.ops import flash_attention as fa
+    L = seg.shape[1]
+    return tile_pairs(fa.visited_q_tiles(seg, causal), L, L)
+
+
 def ring_walked_pairs(seg, n, n_dirs, causal, window=None) -> int:
     """(query, key) pairs K6 computes over a whole ring of ``n`` members
     on the stream ``seg`` [B, L]: summed over members, rounds and
@@ -418,9 +427,13 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
 def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
                     plant_fault=False):
     """K2 (dq) and K3 (dk, dv) from K1's o and lse, against the plain
-    backward on the same bf16 values widened to fp32. With
-    ``plant_fault``, the backward is also run with o = 0 (so delta = 0),
-    which must exceed the dk limit."""
+    backward on the same bf16 values widened to fp32; a second launch of
+    each must give the same bits. With ``plant_fault``, the backward is
+    also run with o = 0 (so delta = 0), which must exceed the dk limit,
+    and the kernels' dq and dk are held against the plain backward on
+    segment boundaries shifted by one token, which must exceed the dq and
+    dk limits (a skip rule too tight at the edges of a segment would pass
+    it)."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     dev = seg.device
@@ -448,10 +461,18 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
         rec[f"{key}_row_rel_limit"] = LIMITS[f"flash_bwd_{key}_row_rel"]
         rec[f"{key}_pad_rows_zero"] = bool((got.float()[~rows] == 0).all())
         rec[f"{key}_finite"] = bool(torch.isfinite(got.float()).all())
-    rec["ok"] = all(
+    dq2 = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, causal=causal)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal=causal)
+    rec["deterministic"] = all(torch.equal(x, y) for x, y in
+                               ((dq, dq2), (dk, dk2), (dv, dv2)))
+    del dq2, dk2, dv2
+    rec["ok"] = rec["deterministic"] and all(
         rec[f"{key}_row_rel_err"] <= rec[f"{key}_row_rel_limit"]
         and rec[f"{key}_pad_rows_zero"] and rec[f"{key}_finite"]
         for key in ("dq", "dk", "dv"))
+    rec["walked_pairs"] = walked_pairs(seg, causal)
+    rec["dkv_walked_pairs"] = dkv_walked_pairs(seg, causal)
+    rec["allowed_pairs"] = allowed_pairs(seg, causal)
     if plant_fault:
         _, dk_bad, _ = fa.flash_attention_bwd(q, k, v, seg,
                                               torch.zeros_like(o), lse, do,
@@ -461,6 +482,20 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
                                                           kv_rows, 0.01)
         rec["ok"] &= (rec["planted_fault_dk_row_rel_err"]
                       > LIMITS["flash_bwd_dk_row_rel"])
+        del dk_bad
+        shifted = shifted_boundaries(seg)
+        bad = fa.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), shifted, o.float(), lse,
+            do.float(), causal=causal)
+        both = tok & (shifted != 0)
+        rec["planted_fault_2"] = "segment boundaries shifted by one token"
+        for key, got, want, heads in (("dq", dq, bad[0], nq),
+                                      ("dk", dk, bad[1], nkv)):
+            err = row_rel_err(got, want,
+                              both[:, :, None].expand(b, L, heads), 0.01)
+            rec[f"planted_fault_2_{key}_row_rel_err"] = err
+            rec["ok"] &= err > LIMITS[f"flash_bwd_{key}_row_rel"]
+        del bad
     if timed:
         kw = dict(causal=causal)
         rec["dq_ms"] = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, seg, do, lse,
@@ -526,8 +561,10 @@ def sft_stream_seg(rng, n_segs, L, device):
 
 def phase_kernels_bwd():
     """K2/K3 cases: the SFT microbatch shape (timed, with the planted
-    fault), GQA 32/8 and 32/4, hd 64 (the "1b" shape), ragged L,
-    non-causal, and an all-padding row."""
+    faults), GQA 32/8 and 32/4, hd 64 (the "1b" shape), ragged L,
+    non-causal, an all-padding row, and K1's tile-skipping edges: ids
+    that recur out of order (causal and not), one long segment then short
+    ones, rows whose first q tiles are all padding (hd 64)."""
     import numpy as np
     import torch
     gen = torch.Generator(device="cuda")
@@ -547,6 +584,19 @@ def phase_kernels_bwd():
                                 True, gen, timed=False))
     recs.append(check_flash_bwd("noncausal_ragged_gqa", 2, 700, 8, 2, 64,
                                 seg, False, gen, timed=False))
+    for causal in (True, False):
+        recs.append(check_flash_bwd(
+            f"recurring_ids_causal{int(causal)}", 2, 1000, 16, 8, 128,
+            recurring_seg(rng, 2, 1000, "cuda"), causal, gen, timed=False,
+            plant_fault=causal))
+    recs.append(check_flash_bwd(
+        "long_then_short", 1, 2100, 16, 16, 128,
+        long_then_short_seg(rng, 2100, 1500, "cuda"), True, gen,
+        timed=False, plant_fault=True))
+    recs.append(check_flash_bwd(
+        "leading_pad_tiles_hd64", 3, 777, 8, 2, 64,
+        leading_pad_seg(rng, 3, 777, (300, 0, 777), "cuda"), True, gen,
+        timed=False))
     del gen
     torch.cuda.empty_cache()
     return recs

@@ -1,9 +1,10 @@
 // Flash-attention backward over packed segments, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels realhf_tpu/ops/flash_attention.py
-// `_bwd_dq_kernel` (K2) and `_bwd_dkv_kernel` (K3), launched by
-// `_flash_bwd`: the backward of the forward in flash_fwd.cu (K1). The
-// probabilities are recomputed from the forward's saved log-sum-exp,
+// `_bwd_dq_kernel:157` (K2) and `_bwd_dkv_kernel:195` (K3), launched by
+// `_flash_bwd` (`:260`, `:284`): the backward of the forward in
+// flash_fwd.cu (K1). The probabilities are recomputed from the forward's
+// saved log-sum-exp,
 //   p  = exp(scale * q.k - lse)          where the mask allows (q, k), else 0
 //   ds = p * (do.v - delta)              delta = rowsum(o * do), computed
 //                                        beside the kernels (as JAX does)
@@ -12,26 +13,11 @@
 //   q head of the KV head's GQA group    (K3)
 // with the forward's mask: same non-zero segment id and, when causal,
 // the key not later in the stream. A row whose lse is NEG_INF (it saw no
-// valid key) contributes 0, never NaN.
+// valid key) contributes 0, never NaN; rows of seg 0 get zero gradients.
 //
 // Layouts (row-major, contiguous): q/do/dq [B, L, nq, hd], k/v/dk/dv
 // [B, L, nkv, hd], seg [B, L] int32 (0 = padding), lse/delta [B, nq, L]
-// fp32. bf16 in and out; every sum is fp32.
-//
-// Structure: the TPU's two passes, so nothing needs atomics and every run
-// gives the same bits. K2: one CTA of 4 warps per (q tile of 64 rows, q
-// head, batch row), looping over the 64-key tiles up to the causal
-// diagonal. K3: one CTA per (key tile of 64, KV head, batch row), looping
-// over the q heads of its group and, for each, over the q tiles from the
-// diagonal on; summing the group inside the CTA replaces the TPU's
-// [B, nq, L, hd] fp32 per-head partials and the reduction after them.
-// Each warp owns 16 rows of the CTA's tile end to end (16 q rows in K2,
-// 16 key rows in K3), so only the staging of the streamed tiles needs
-// block-wide barriers. The products run on the tensor cores through WMMA
-// 16x16x16 bf16 fragments with fp32 accumulators; the output accumulators
-// stay in registers for the whole loop; p and ds are rounded to bf16 for
-// the products that consume them, as in flash-attention 2. Any L works:
-// rows past L are zero-filled (0 x garbage could be NaN) and masked.
+// fp32. bf16 in and out; every sum is fp32. hd 64 or 128, any L.
 //
 // What bounds it on the H100: per allowed (q, k) pair and q head K2 does
 // ~6 hd FLOPs (q.k, do.v, ds.k) and K3 ~8 hd (q.k, do.v, p.do, ds.q);
@@ -39,201 +25,167 @@
 // once, and the outputs once. At the SFT shape (one ~4 k-token stream of
 // 8 segments, 32 heads of 128) that is 29 GFLOP against 167 MB (K2) and
 // 38 GFLOP against 201 MB (K3), under the bf16 ridge point (~295
-// FLOP/byte): both are bound by bytes, at ~50-60 us. This first version
-// is right and simple, not fast: it computes every tile up to the causal
-// diagonal whatever its segments (~7x the allowed pairs at that shape),
-// scores round-trip through shared memory and nothing overlaps the tile
-// loads. Skipping the tiles of segments that cannot match, then TMA +
-// wgmma with register-resident scores, are the later work, as for K1.
+// FLOP/byte): both are bound by bytes, at ~50-60 us.
+//
+// Structure: the TPU's two passes, so nothing needs atomics and every run
+// gives the same bits. Both kernels run on K1's tile machinery
+// (attn_tile.cuh): CTAs of 256 threads, two consumer warpgroups of 64
+// rows; `wgmma.mma_async` products from 128-byte-swizzled shared tiles,
+// scores and gradients in registers; a two-stage ring of 64-row tiles
+// filled by `cp.async` one marked tile ahead; segment-aware tile skipping.
+//
+// K2 (dq): a CTA owns 128 query rows of one q head (Q and dO staged once)
+// and runs K1's `q_id_summary` and `mark_tiles` with K1's rule, so it
+// walks exactly K1's (q tile, key tile) pairs: ranges of non-zero ids
+// meet, residues mod 64 meet, and, causal, the key tile starts at or
+// before the warpgroup's last row (ops/flash_attention.py
+// `visited_key_tiles`). K, V and their seg ids stream through the ring
+// (`load_kv_tile`, `walk_tiles`). Per marked tile a warpgroup computes
+// S = Q K^T and dP = dO V^T (SS, one commit), p and ds on the accumulator
+// registers with the exact per-pair mask, ds rounded to bf16 and packed as
+// the register A operand, and dQ += dS K as K1's O += P V (K read
+// MN-major). dQ stays in registers for the whole walk.
+//
+// K3 (dk, dv): the transposed walk. A CTA owns 128 key rows of one KV head
+// (K and V staged once), summarises each warpgroup's 64 key ids with the
+// same `q_id_summary`, and marks the 64-row q tiles a warpgroup needs:
+// the ranges and residues mod 64 meet and, causal, the q tile's last row
+// is at or after the warpgroup's first key. That is
+// `visited_key_tiles(seg).transpose(-1, -2)` (`visited_q_tiles`), so K3
+// walks the same pairs as K1 and K2. Q, dO, their seg ids, lse and delta
+// stream through the ring; the walk runs over (q head of the GQA group,
+// marked q tile) pairs in one sequence, so the group is summed inside the
+// CTA with no partials and no bubble between heads. Per marked q tile:
+// S^T = K Q^T and dP^T = V dO^T (SS, one commit), then P^T and dS^T =
+// P^T (dP^T - delta) on the registers, packed to bf16 as they are made,
+// then dV += P^T dO and dK += dS^T Q (RS, one commit).
+//
+// Registers: K3 holds dK and dV (64 + 64 fp32 a thread at hd 128); the
+// fp32 S^T and dP^T tiles (32 + 32) are live together only until each
+// 16-column group is turned into its two packed fragments, so the peak is
+// dK + dV + S^T + dP^T = 192 plus addressing. ptxas (-Xptxas -v, nvcc
+// 12.8, sm_90a): K3 244 registers at hd 128 and 184 at hd 64, K2 174 and
+// 150, 0 bytes spilled by any (the WMMA version of K3 spilled 36 bytes
+// at 255). Shared memory ~131 KB at hd 128 (two 128-row tiles, two
+// stages of two 64-row tiles, seg / lse / delta and the bitmasks), so
+// one CTA of 8 warps runs per SM.
+//
+// Every partial sum is taken in the order the WMMA version took it (per
+// marked tile, 16 keys or queries per product), and a skipped tile only
+// ever added exact zeros there: on the cases of chip_smoke.py's phase
+// `kernels` this version's dq, dk and dv are bit-equal to that one's
+// (scripts/torch_bwd_build_compare.py).
+//
+// Left for later: a TMA producer warp (the copies are issued by the
+// consumer threads), a third stage, and one tile's elementwise work under
+// the next tile's products (each tile waits on its own products twice).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define NEG_INF (-1073741824.0f)  // -2^30, the JAX package's sentinel
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = 16;  // one WMMA row block
+using namespace attn;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRowFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BColFrag;
-
-// Padded leading dimensions: multiples of 8 (bf16) / 4 (fp32) as WMMA
-// requires, and off the 128-byte period to spread shared-memory banks.
-// Every region below starts on a 32-byte boundary (WMMA's alignment).
+// Shared memory of both kernels, byte offsets from a 1024-byte aligned
+// base. A CTA keeps 128 rows of two tensors of its own (K2: Q and dO; K3:
+// K and V) and streams 64-row tiles of two others through the ring (K2: K
+// and V; K3: Q and dO), with the streamed rows' seg ids and, in K3, their
+// lse and delta. Every tile starts on a 1024-byte boundary.
 template <int HD>
-struct Pad {
-  static constexpr int LDB = HD + 8;  // bf16 q / k / v / do tiles
-  static constexpr int LDS = 64 + 4;  // fp32 score-shaped tiles
-  static constexpr int LDP = 64 + 8;  // bf16 p / ds tiles
-  static constexpr int LDO = HD + 4;  // fp32 output staging
-  static constexpr size_t TILE_B = sizeof(bf16) * 64 * LDB;
-  static constexpr size_t TILE_S = sizeof(float) * 64 * LDS;
-  static constexpr size_t TILE_P = sizeof(bf16) * 64 * LDP;
-  static_assert(sizeof(float) * 64 * LDO <= 2 * TILE_S, "staging fits");
-  static_assert(sizeof(float) * 64 * LDO <= 2 * TILE_B, "staging fits");
+struct Layout {
+  static constexpr int ROWS_BYTES = BQ * HD * 2;  // 128 rows
+  static constexpr int TILE_BYTES = BK * HD * 2;  // 64 rows, one stage
+  static_assert(TILE_BYTES == Smem<HD>::KV_BYTES, "load_kv_tile's stage stride");
+  static constexpr int OWN_A = 0;
+  static constexpr int OWN_B = OWN_A + ROWS_BYTES;
+  static constexpr int RING_A = OWN_B + ROWS_BYTES;          // [STAGES] tiles
+  static constexpr int RING_B = RING_A + STAGES * TILE_BYTES;  // [STAGES] tiles
+  static constexpr int SEG = RING_B + STAGES * TILE_BYTES;   // [STAGES][BK] int
+  static constexpr int LSE = SEG + STAGES * BK * 4;          // [STAGES][BK] float
+  static constexpr int DELTA = LSE + STAGES * BK * 4;        // [STAGES][BK] float
+  static constexpr int RED = DELTA + STAGES * BK * 4;        // [NWG * 2 warps][4] int
+  static constexpr int MASK = RED + NWG * 2 * 4 * 4;         // [NWG][nwords] u32
 };
 
 template <int HD>
-struct DqLayout : Pad<HD> {
-  using P = Pad<HD>;
-  static constexpr size_t Q = 0;
-  static constexpr size_t DO = Q + P::TILE_B;
-  static constexpr size_t K = DO + P::TILE_B;
-  static constexpr size_t V = K + P::TILE_B;
-  static constexpr size_t S = V + P::TILE_B;   // then DP: staging for dq
-  static constexpr size_t DP = S + P::TILE_S;
-  static constexpr size_t DS = DP + P::TILE_S;
-  static constexpr size_t LSE = DS + P::TILE_P;
-  static constexpr size_t DELTA = LSE + sizeof(float) * BQ;
-  static constexpr size_t SEGQ = DELTA + sizeof(float) * BQ;
-  static constexpr size_t SEGK = SEGQ + sizeof(int) * BQ;
-  static constexpr size_t TOTAL = SEGK + sizeof(int) * BK;
-};
-
-template <int HD>
-struct DkvLayout : Pad<HD> {
-  using P = Pad<HD>;
-  static constexpr size_t K = 0;
-  static constexpr size_t V = K + P::TILE_B;
-  static constexpr size_t Q = V + P::TILE_B;   // then DO: staging for dv
-  static constexpr size_t DO = Q + P::TILE_B;
-  static constexpr size_t ST = DO + P::TILE_B;  // then DPT: staging for dk
-  static constexpr size_t DPT = ST + P::TILE_S;
-  static constexpr size_t PT = DPT + P::TILE_S;
-  static constexpr size_t DST = PT + P::TILE_P;
-  static constexpr size_t LSE = DST + P::TILE_P;
-  static constexpr size_t DELTA = LSE + sizeof(float) * BQ;
-  static constexpr size_t SEGQ = DELTA + sizeof(float) * BQ;
-  static constexpr size_t SEGK = SEGQ + sizeof(int) * BQ;
-  static constexpr size_t TOTAL = SEGK + sizeof(int) * BK;
-};
-
-// Copy rows [t0, t0 + 64) of one head of a [B, L, heads, HD] tensor into
-// a padded shared tile with 16-byte loads; rows past L are zero.
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t row_stride,
-                                           int t0, int L, int tid) {
-  constexpr int CHUNKS = HD / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < 64 * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS, t = t0 + r;
-    uint4 val = zero;
-    if (t < L) val = *reinterpret_cast<const uint4*>(src + (size_t)t * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Pad<HD>::LDB + c * 8) = val;
-  }
+size_t layout_bytes(int n_tiles) {
+  const int nwords = (n_tiles + 31) / 32;
+  return 1024 + Layout<HD>::MASK + (size_t)NWG * nwords * 4;
 }
 
-// out[r0 .. r0+15, 0 .. 63] = A[r0 .. r0+15, :] . B[0 .. 63, :]^T over HD:
-// A and B are padded bf16 row tiles, so B^T is B read column-major.
+// acc[64 x 64] = A[64 x HD] B[64 x HD]^T over hd: A rows wg * 64.. of a
+// 128-row tile at sA, B a 64-row tile at sB, both K-major and swizzled.
+// Issues the products without committing.
 template <int HD>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* A, const bf16* B,
-                                                  int r0) {
-  constexpr int LDB = Pad<HD>::LDB, LDS = Pad<HD>::LDS;
-  AccFrag acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
+__device__ __forceinline__ void rows_dot_tile(float (&acc)[BK / 2], uint32_t sA, int wg,
+                                              uint32_t sB) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    AFrag a;
-    wmma::load_matrix_sync(a, A + r0 * LDB + kk * 16, LDB);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      BColFrag bt;
-      wmma::load_matrix_sync(bt, B + n * 16 * LDB + kk * 16, LDB);
-      wmma::mma_sync(acc[n], a, bt, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out + r0 * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-}
-
-// acc[n] += W[r0 .. r0+15, 0 .. 63] . X[0 .. 63, n*16 .. n*16+15] for every
-// n: W a padded bf16 [64 x 64] tile (p or ds), X a padded bf16 row tile.
-template <int HD>
-__device__ __forceinline__ void accumulate_rows(AccFrag (&acc)[HD / 16], const bf16* W,
-                                                const bf16* X, int r0) {
-  constexpr int LDB = Pad<HD>::LDB, LDP = Pad<HD>::LDP;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    AFrag a;
-    wmma::load_matrix_sync(a, W + r0 * LDP + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      BRowFrag bx;
-      wmma::load_matrix_sync(bx, X + kk * 16 * LDB + n * 16, LDB);
-      wmma::mma_sync(acc[n], a, bx, acc[n]);
-    }
+    const uint32_t col = (kk & 3) * 32;  // 16 columns = 32 bytes into the atom
+    const uint64_t da = make_desc(sA + (kk >> 2) * BQ * 128 + wg * WG_ROWS * 128 + col, 16);
+    const uint64_t db = make_desc(sB + (kk >> 2) * BK * 128 + col, 16);
+    wgmma_ss_m64n64k16(acc, da, db, kk > 0);
   }
 }
 
-// Write one warp's 16 accumulated rows (times `mul`) as bf16 to rows
-// t0 + r0 .. of a [B, L, heads, HD] tensor, through fp32 staging.
+// out[64 x HD] += W[64 x 64] X[64 x HD]: W the packed bf16 A fragments of a
+// score-shaped tile, X a 64-row tile at sX read MN-major. Issues the
+// products without committing.
 template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, size_t row_stride, float* stage,
-                                           AccFrag (&acc)[HD / 16], float mul, int t0,
-                                           int r0, int L, int lane) {
-  constexpr int LDO = Pad<HD>::LDO, CHUNKS = HD / 8;
+__device__ __forceinline__ void frags_times_tile(float (&out)[HD / 2],
+                                                 const uint32_t (&w)[BK / 16][4], uint32_t sX) {
 #pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(stage + r0 * LDO + n * 16, acc[n], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < ROWS_PER_WARP * CHUNKS; i += 32) {
-    const int r = r0 + i / CHUNKS, c = i % CHUNKS, t = t0 + r;
-    if (t >= L) continue;
-    __align__(16) bf16 vals[8];
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<HD>(out, w[kk], make_desc(sX + kk * 16 * 128, BK * 128));
+}
+
+// Packs the 8 values of 16-column group kk of a score-shaped accumulator
+// into the A fragment of that group (the accumulator layout of S is the A
+// fragment layout: columns 16 kk + 2 tq (+8) of rows r, r + 8).
+__device__ __forceinline__ void pack_group(uint32_t (&a)[4], const float (&x)[8]) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
+}
+
+// Writes a thread's row of an accumulator times `mul` as bf16 at `row`
+// (this thread's first column, 2 tq), from acc[4 i + OFF + {0, 1}].
+template <int HD, int OFF>
+__device__ __forceinline__ void store_row(bf16* row, const float (&acc)[HD / 2], float mul) {
+  uint32_t* out = reinterpret_cast<uint32_t*>(row);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(stage[r * LDO + c * 8 + e] * mul);
-    *reinterpret_cast<uint4*>(dst + (size_t)t * row_stride + c * 8) =
-        *reinterpret_cast<const uint4*>(vals);
-  }
+  for (int i = 0; i < HD / 8; ++i)
+    out[4 * i] = pack_bf16(acc[4 * i + OFF] * mul, acc[4 * i + OFF + 1] * mul);
 }
 
 // ---------------------------------------------------------------------
 // K2: dq
 // ---------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ seg,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq, int L, int nq,
                     int nkv, float scale, int causal) {
-  using LY = DqLayout<HD>;
-  constexpr int LDS = LY::LDS, LDP = LY::LDP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + LY::Q);
-  bf16* DOs = reinterpret_cast<bf16*>(smem + LY::DO);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + LY::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + LY::V);
-  float* Ss = reinterpret_cast<float*>(smem + LY::S);
-  float* DPs = reinterpret_cast<float*>(smem + LY::DP);
-  bf16* DSs = reinterpret_cast<bf16*>(smem + LY::DS);
-  float* lse_s = reinterpret_cast<float*>(smem + LY::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + LY::DELTA);
-  int* segq = reinterpret_cast<int*>(smem + LY::SEGQ);
-  int* segk = reinterpret_cast<int*>(smem + LY::SEGK);
+  using LY = Layout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t sbase;
+  unsigned char* smem = smem_base(smem_raw, sbase);
+  const int* seg_s = reinterpret_cast<const int*>(smem + LY::SEG);
+  int* red = reinterpret_cast<int*>(smem + LY::RED);
+  uint32_t* vis = reinterpret_cast<uint32_t*>(smem + LY::MASK);
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal walks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (nq / nkv);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = warp * ROWS_PER_WARP;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int wq0 = q0 + wg * WG_ROWS;
 
   const size_t q_row = (size_t)nq * HD;
   const size_t kv_row = (size_t)nkv * HD;
@@ -243,171 +195,298 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* segb = seg + (size_t)b * L;
   const size_t stat_off = ((size_t)b * nq + h) * L;
 
-  stage_rows<HD>(Qs, q + q_off, q_row, q0, L, tid);
-  stage_rows<HD>(DOs, dout + q_off, q_row, q0, L, tid);
-  for (int r = tid; r < BQ; r += NTHREADS) {
-    const int t = q0 + r;
-    segq[r] = t < L ? segb[t] : 0;
-    lse_s[r] = t < L ? lse[stat_off + t] : NEG_INF;
-    delta_s[r] = t < L ? delta[stat_off + t] : 0.f;
-  }
-
-  AccFrag acc[HD / 16];
+  // --- K1's marks: the key tiles each warpgroup needs ---------------------
+  int q_lo[NWG], q_hi[NWG], q_last[NWG];
+  uint64_t q_bits[NWG];
+  q_id_summary(segb, q0, L, tid, red, q_lo, q_hi, q_bits);
 #pragma unroll
-  for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int n_tiles_all = (L + BK - 1) / BK;
-  const int n_tiles = causal ? min((q0 + BQ + BK - 1) / BK, n_tiles_all) : n_tiles_all;
-
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int g = 0; g < NWG; ++g) q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+  const int n_all = (L + BK - 1) / BK;
+  const int n_tiles = causal ? min(n_all, (min(q0 + BQ, L) - 1) / BK + 1) : n_all;
+  const int nwords = (n_tiles + 31) >> 5;
+  const bool seg_vec = (L & 3) == 0;
+  mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_rows<HD>(Ks, kb, kv_row, k0, L, tid);
-    stage_rows<HD>(Vs, vb, kv_row, k0, L, tid);
-    for (int r = tid; r < BK; r += NTHREADS) {
-      const int t = k0 + r;
-      segk[r] = t < L ? segb[t] : 0;  // seg 0 never matches a valid query
-    }
-    __syncthreads();
-
-    rows_times_tile_t<HD>(Ss, Qs, Ks, r0);    // S  = Q K^T
-    rows_times_tile_t<HD>(DPs, DOs, Vs, r0);  // dP = dO V^T
-    __syncwarp();
-
-    // p and ds, one row at a time; lane owns columns lane, lane + 32.
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = r0 + rr;
-      const int qi = q0 + r;
-      const int sq = segq[r];
-      const float l = lse_s[r];
-      const float dl = delta_s[r];
+    int lo = INT_MAX, hi = INT_MIN;
+    uint64_t bits = 0ull;
+    key_tile_ids(segb, k0, min(BK, L - k0), seg_vec, lo, hi, bits);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        const bool keep = sq != 0 && segk[col] == sq && (!causal || qi >= k0 + col) &&
-                          l > NEG_INF / 2;
-        const float p = keep ? expf(Ss[r * LDS + col] * scale - l) : 0.f;
-        DSs[r * LDP + col] = __float2bfloat16(p * (DPs[r * LDS + col] - dl));
-      }
-    }
-    __syncwarp();
+    for (int g = 0; g < NWG; ++g)
+      mark[g] = lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0 &&
+                (!causal || k0 <= q_last[g]);
+  });
 
-    accumulate_rows<HD>(acc, DSs, Ks, r0);  // dq += dS K
+  // --- this thread's two rows (the accumulator layout) --------------------
+  const int tq = lane & 3;
+  const int qi0 = wq0 + (warp & 3) * 16 + (lane >> 2);
+  const int qi1 = qi0 + 8;
+  const float lse0 = qi0 < L ? lse[stat_off + qi0] : NEG_INF;
+  const float lse1 = qi1 < L ? lse[stat_off + qi1] : NEG_INF;
+  const float dl0 = qi0 < L ? delta[stat_off + qi0] : 0.f;
+  const float dl1 = qi1 < L ? delta[stat_off + qi1] : 0.f;
+  // a row that saw no valid key (lse NEG_INF) matches no key: id 0
+  const int sq0 = qi0 < L && lse0 > NEG_INF / 2 ? segb[qi0] : 0;
+  const int sq1 = qi1 < L && lse1 > NEG_INF / 2 ? segb[qi1] : 0;
+
+  // --- the walk ------------------------------------------------------------
+  const uint32_t sQ = sbase + LY::OWN_A, sDO = sbase + LY::OWN_B;
+  const uint32_t sK = sbase + LY::RING_A, sV = sbase + LY::RING_B;
+  const uint32_t sSeg = sbase + LY::SEG;
+  auto load = [&](int j, int st) {
+    load_kv_tile<HD>(sK, sV, sSeg, kb, vb, segb, kv_row, j * BK, L, st, tid);
+  };
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  const int j0 = next_tile(vis, nwords, -1);
+  if (j0 >= 0) {
+    load_q_tile<HD>(sQ, q + q_off, q_row, q0, L, tid);
+    load_q_tile<HD>(sDO, dout + q_off, q_row, q0, L, tid);
+    load(j0, 0);
   }
-  __syncthreads();  // the staging below overwrites other warps' S / dP rows
-  store_rows<HD>(dq + q_off, q_row, Ss, acc, scale, q0, r0, L, lane);
+  walk_tiles(vis, nwords, wg, j0, load, [&](int j, int st) {
+    const int k0 = j * BK;
+    const bool diag = causal && k0 + BK - 1 > wq0;
+    const uint32_t sKt = sK + st * LY::TILE_BYTES, sVt = sV + st * LY::TILE_BYTES;
+    const int* seg_tile = seg_s + st * BK;
+
+    // S = Q K^T, dP = dO V^T
+    float s[BK / 2], dp[BK / 2];
+    wgmma_fence();
+    rows_dot_tile<HD>(s, sQ, wg, sKt);
+    rows_dot_tile<HD>(dp, sDO, wg, sVt);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p and ds in registers, packed to bf16 16 keys at a time
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      float x[8];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {  // column blocks i = 2 kk + h2
+        const int i = 2 * kk + h2;
+        const int2 ids = *reinterpret_cast<const int2*>(seg_tile + 8 * i + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * i + 2 * tq + e;
+          const int id = e ? ids.y : ids.x;
+          const bool keep0 = sq0 != 0 && id == sq0 && (!diag || qi0 >= k0 + c);
+          const bool keep1 = sq1 != 0 && id == sq1 && (!diag || qi1 >= k0 + c);
+          const float p0 = keep0 ? expf(s[4 * i + e] * scale - lse0) : 0.f;
+          const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - lse1) : 0.f;
+          x[4 * h2 + e] = keep0 ? p0 * (dp[4 * i + e] - dl0) : 0.f;
+          x[4 * h2 + 2 + e] = keep1 ? p1 * (dp[4 * i + 2 + e] - dl1) : 0.f;
+        }
+      }
+      pack_group(da[kk], x);
+    }
+
+    // dQ += dS K
+    fence_regs(acc);
+    wgmma_fence();
+    frags_times_tile<HD>(acc, da, sKt);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(da[kk]);
+  });
+
+  // --- epilogue: dq = scale * acc; rows with no valid key hold 0 -----------
+  bf16* out = dq + q_off + 2 * tq;
+  if (qi0 < L) store_row<HD, 0>(out + (size_t)qi0 * q_row, acc, scale);
+  if (qi1 < L) store_row<HD, 2>(out + (size_t)qi1 * q_row, acc, scale);
 }
 
 // ---------------------------------------------------------------------
 // K3: dk, dv (the GQA group summed inside the CTA)
 // ---------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ seg,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int L, int nq, int nkv, float scale, int causal) {
-  using LY = DkvLayout<HD>;
-  constexpr int LDS = LY::LDS, LDP = LY::LDP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + LY::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + LY::V);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + LY::Q);
-  bf16* DOs = reinterpret_cast<bf16*>(smem + LY::DO);
-  float* STs = reinterpret_cast<float*>(smem + LY::ST);
-  float* DPTs = reinterpret_cast<float*>(smem + LY::DPT);
-  bf16* PTs = reinterpret_cast<bf16*>(smem + LY::PT);
-  bf16* DSTs = reinterpret_cast<bf16*>(smem + LY::DST);
-  float* lse_s = reinterpret_cast<float*>(smem + LY::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + LY::DELTA);
-  int* segq = reinterpret_cast<int*>(smem + LY::SEGQ);
-  int* segk = reinterpret_cast<int*>(smem + LY::SEGK);
+  using LY = Layout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t sbase;
+  unsigned char* smem = smem_base(smem_raw, sbase);
+  const int* seg_s = reinterpret_cast<const int*>(smem + LY::SEG);
+  const float* lse_s = reinterpret_cast<const float*>(smem + LY::LSE);
+  const float* delta_s = reinterpret_cast<const float*>(smem + LY::DELTA);
+  int* red = reinterpret_cast<int*>(smem + LY::RED);
+  uint32_t* vis = reinterpret_cast<uint32_t*>(smem + LY::MASK);
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * BQ;  // causal: the first key tiles walk the most
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int group = nq / nkv;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = warp * ROWS_PER_WARP;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int wk0 = k0 + wg * WG_ROWS;  // this warpgroup's first key
 
   const size_t q_row = (size_t)nq * HD;
   const size_t kv_row = (size_t)nkv * HD;
   const size_t kv_off = (size_t)b * L * kv_row + (size_t)kvh * HD;
   const int* segb = seg + (size_t)b * L;
 
-  stage_rows<HD>(Ks, k + kv_off, kv_row, k0, L, tid);
-  stage_rows<HD>(Vs, v + kv_off, kv_row, k0, L, tid);
-  for (int r = tid; r < BK; r += NTHREADS) {
-    const int t = k0 + r;
-    segk[r] = t < L ? segb[t] : 0;
-  }
+  // --- each warpgroup's range and residue set of non-zero key ids ---------
+  int k_lo[NWG], k_hi[NWG];
+  uint64_t k_bits[NWG];
+  q_id_summary(segb, k0, L, tid, red, k_lo, k_hi, k_bits);
 
-  AccFrag dk_acc[HD / 16], dv_acc[HD / 16];
+  // --- mark the q tiles each warpgroup needs (K1's rule, transposed) ------
+  const int n_tiles = (L + BK - 1) / BK;
+  const int nwords = (n_tiles + 31) >> 5;
+  const bool seg_vec = (L & 3) == 0;
+  mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
+    const int t0 = j * BK;
+    const int last = min(t0 + BK, L) - 1;
+    if (causal && last < k0) return;  // every query before every key
+    int lo = INT_MAX, hi = INT_MIN;
+    uint64_t bits = 0ull;
+    key_tile_ids(segb, t0, min(BK, L - t0), seg_vec, lo, hi, bits);
 #pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
+    for (int g = 0; g < NWG; ++g)
+      mark[g] = lo <= k_hi[g] && hi >= k_lo[g] && (bits & k_bits[g]) != 0 &&
+                (!causal || last >= k0 + g * WG_ROWS);
+  });
 
-  const int n_q_tiles = (L + BQ - 1) / BQ;
-  // The first q tile that can hold a query at or after this key tile's
-  // first key: the forward's causal stop seen from the key side.
-  const int start = causal ? k0 / BQ : 0;
+  // --- this thread's two key rows (the accumulator layout) ---------------
+  const int tq = lane & 3;
+  const int kr0 = wk0 + (warp & 3) * 16 + (lane >> 2);
+  const int kr1 = kr0 + 8;
+  const int sk0 = kr0 < L ? segb[kr0] : 0;
+  const int sk1 = kr1 < L ? segb[kr1] : 0;
 
-  for (int g = 0; g < group; ++g) {
+  // --- the walk over (q head of the group, marked q tile) ----------------
+  const uint32_t sK = sbase + LY::OWN_A, sV = sbase + LY::OWN_B;
+  const uint32_t sQ = sbase + LY::RING_A, sDO = sbase + LY::RING_B;
+  const uint32_t sSeg = sbase + LY::SEG, sLse = sbase + LY::LSE, sDelta = sbase + LY::DELTA;
+  auto load = [&](int g, int j, int st) {
     const int h = kvh * group + g;
     const size_t q_off = (size_t)b * L * q_row + (size_t)h * HD;
     const size_t stat_off = ((size_t)b * nq + h) * L;
-    for (int i = start; i < n_q_tiles; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      stage_rows<HD>(Qs, q + q_off, q_row, q0, L, tid);
-      stage_rows<HD>(DOs, dout + q_off, q_row, q0, L, tid);
-      for (int r = tid; r < BQ; r += NTHREADS) {
-        const int t = q0 + r;
-        segq[r] = t < L ? segb[t] : 0;
-        lse_s[r] = t < L ? lse[stat_off + t] : NEG_INF;
-        delta_s[r] = t < L ? delta[stat_off + t] : 0.f;
-      }
-      __syncthreads();
+    const int t0 = j * BK;
+    const int r = tid & (BK - 1), t = t0 + r;
+    const bool in = t < L;
+    if (tid >= BK && tid < 2 * BK)  // the copies join the tile's group
+      cp_async4(sLse + (st * BK + r) * 4, lse + stat_off + (in ? t : 0), in);
+    else if (tid >= 2 * BK && tid < 3 * BK)
+      cp_async4(sDelta + (st * BK + r) * 4, delta + stat_off + (in ? t : 0), in);
+    load_kv_tile<HD>(sQ, sDO, sSeg, q + q_off, dout + q_off, segb, q_row, t0, L, st, tid);
+  };
 
-      rows_times_tile_t<HD>(STs, Ks, Qs, r0);    // S^T  = K Q^T
-      rows_times_tile_t<HD>(DPTs, Vs, DOs, r0);  // dP^T = V dO^T
-      __syncwarp();
-
-      // p^T and ds^T for this warp's 16 keys; lane owns q columns lane,
-      // lane + 32.
-      for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-        const int r = r0 + rr;
-        const int kj = k0 + r;
-        const int sk = segk[r];
+  float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = lane + 32 * c;
-          const int sq = segq[col];
-          const float l = lse_s[col];
-          const bool keep = sq != 0 && sq == sk && (!causal || q0 + col >= kj) &&
-                            l > NEG_INF / 2;
-          const float p = keep ? expf(STs[r * LDS + col] * scale - l) : 0.f;
-          PTs[r * LDP + col] = __float2bfloat16(p);
-          DSTs[r * LDP + col] = __float2bfloat16(p * (DPTs[r * LDS + col] - delta_s[col]));
-        }
-      }
-      __syncwarp();
-
-      accumulate_rows<HD>(dv_acc, PTs, DOs, r0);  // dv += P^T dO
-      accumulate_rows<HD>(dk_acc, DSTs, Qs, r0);  // dk += dS^T Q
-    }
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int j0 = next_tile(vis, nwords, -1);
+  if (j0 >= 0) {
+    load_q_tile<HD>(sK, k + kv_off, kv_row, k0, L, tid);
+    load_q_tile<HD>(sV, v + kv_off, kv_row, k0, L, tid);
+    load(0, j0, 0);
   }
-  __syncthreads();  // the staging below overwrites tiles other warps read
-  bf16* dkb = dk + kv_off;
-  bf16* dvb = dv + kv_off;
-  store_rows<HD>(dkb, kv_row, STs, dk_acc, scale, k0, r0, L, lane);
-  store_rows<HD>(dvb, kv_row, reinterpret_cast<float*>(smem + LY::Q), dv_acc, 1.f, k0, r0,
-                 L, lane);
+  int g = 0, j = j0, st = 0;
+  while (j >= 0) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile j is in stage st; every warpgroup left stage st ^ 1
+    int gn = g, jn = next_tile(vis, nwords, j);
+    if (jn < 0 && g + 1 < group) {  // the group's next q head, from its first tile
+      gn = g + 1;
+      jn = j0;
+    }
+    if (jn >= 0) load(gn, jn, st ^ 1);
+    if ((vis[wg * nwords + (j >> 5)] >> (j & 31)) & 1u) {
+      const int q0 = j * BK;
+      const bool diag = causal && q0 < wk0 + WG_ROWS - 1;
+      const uint32_t sQt = sQ + st * LY::TILE_BYTES, sDOt = sDO + st * LY::TILE_BYTES;
+      const int* seg_tile = seg_s + st * BK;
+      const float* lse_tile = lse_s + st * BK;
+      const float* delta_tile = delta_s + st * BK;
+
+      // S^T = K Q^T, dP^T = V dO^T
+      float s[BK / 2], dp[BK / 2];
+      wgmma_fence();
+      rows_dot_tile<HD>(s, sK, wg, sQt);
+      rows_dot_tile<HD>(dp, sV, wg, sDOt);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T and dS^T in registers, packed to bf16 16 queries at a time
+      uint32_t pa[BK / 16][4], da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        float xp[8], xd[8];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = 2 * kk + h2;
+          const int c2 = 8 * i + 2 * tq;
+          const int2 ids = *reinterpret_cast<const int2*>(seg_tile + c2);
+          const float2 ls = *reinterpret_cast<const float2*>(lse_tile + c2);
+          const float2 dls = *reinterpret_cast<const float2*>(delta_tile + c2);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = q0 + c2 + e;
+            const int id = e ? ids.y : ids.x;
+            const float l = e ? ls.y : ls.x;
+            const float dl = e ? dls.y : dls.x;
+            const bool ok = id != 0 && l > NEG_INF / 2;
+            const bool keep0 = ok && id == sk0 && (!diag || qc >= kr0);
+            const bool keep1 = ok && id == sk1 && (!diag || qc >= kr1);
+            const float p0 = keep0 ? expf(s[4 * i + e] * scale - l) : 0.f;
+            const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - l) : 0.f;
+            xp[4 * h2 + e] = p0;
+            xp[4 * h2 + 2 + e] = p1;
+            xd[4 * h2 + e] = keep0 ? p0 * (dp[4 * i + e] - dl) : 0.f;
+            xd[4 * h2 + 2 + e] = keep1 ? p1 * (dp[4 * i + 2 + e] - dl) : 0.f;
+          }
+        }
+        pack_group(pa[kk], xp);
+        pack_group(da[kk], xd);
+      }
+
+      // dV += P^T dO, dK += dS^T Q
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+      frags_times_tile<HD>(dv_acc, pa, sDOt);
+      frags_times_tile<HD>(dk_acc, da, sQt);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+    }
+    g = gn;
+    j = jn;
+    st ^= 1;
+  }
+
+  // --- epilogue: dk = scale * dk_acc, dv; keys with no valid query hold 0 --
+  bf16* dkb = dk + kv_off + 2 * tq;
+  bf16* dvb = dv + kv_off + 2 * tq;
+  if (kr0 < L) {
+    store_row<HD, 0>(dkb + (size_t)kr0 * kv_row, dk_acc, scale);
+    store_row<HD, 0>(dvb + (size_t)kr0 * kv_row, dv_acc, 1.f);
+  }
+  if (kr1 < L) {
+    store_row<HD, 2>(dkb + (size_t)kr1 * kv_row, dk_acc, scale);
+    store_row<HD, 2>(dvb + (size_t)kr1 * kv_row, dv_acc, 1.f);
+  }
 }
 
 template <typename Kernel>
@@ -420,7 +499,8 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int L, int nq, int nkv,
               float scale, int causal, cudaStream_t stream) {
-  const size_t smem = DqLayout<HD>::TOTAL;
+  if (B == 0 || L == 0) return (int)cudaSuccess;
+  const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, nq, B);
@@ -436,10 +516,11 @@ template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
                const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                int B, int L, int nq, int nkv, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = DkvLayout<HD>::TOTAL;
+  if (B == 0 || L == 0) return (int)cudaSuccess;
+  const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BK - 1) / BK, nkv, B);
+  dim3 grid((L + BQ - 1) / BQ, nkv, B);
   flash_bwd_dkv_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),

@@ -55,6 +55,21 @@ K1_BQ = 64
 K1_BK = 64
 
 
+def _tile_ids(seg: torch.Tensor, t: int):
+    """Per tile of ``t`` tokens of ``seg`` [B, L] (the last one ragged):
+    the least and largest non-zero id (int64 max / min when it has none)
+    and the set of those ids' residues mod 64 as a float [64] row."""
+    b, n = seg.shape[0], -(-seg.shape[1] // t)
+    big = torch.iinfo(torch.int64).max
+    s = torch.nn.functional.pad(seg.to(torch.int64),
+                                (0, n * t - seg.shape[1])).reshape(b, n, t)
+    nz = s != 0
+    residues = torch.nn.functional.one_hot(s & 63, 64) & nz[..., None]
+    return (torch.where(nz, s, big).amin(-1),
+            torch.where(nz, s, -big).amax(-1),
+            residues.any(-2).to(torch.float32))
+
+
 def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
                       bk: int = K1_BK, *, seg_k: Optional[torch.Tensor] = None,
                       q_off: int = 0, k_off: int = 0,
@@ -75,22 +90,10 @@ def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
     whatever order the packer placed them. With the defaults it is K1's
     rule."""
     seg_k = seg_ids if seg_k is None else seg_k
-    b, lq = seg_ids.shape
-    lk = seg_k.shape[1]
+    lq, lk = seg_ids.shape[1], seg_k.shape[1]
     n_q, n_k = -(-lq // bq), -(-lk // bk)
-    big = torch.iinfo(torch.int64).max
-
-    def tiles(seg, n, t):
-        s = torch.nn.functional.pad(seg.to(torch.int64),
-                                    (0, n * t - seg.shape[1])).reshape(b, n, t)
-        nz = s != 0
-        residues = torch.nn.functional.one_hot(s & 63, 64) & nz[..., None]
-        return (torch.where(nz, s, big).amin(-1),
-                torch.where(nz, s, -big).amax(-1),
-                residues.any(-2).to(torch.float32))
-
-    q_lo, q_hi, q_res = tiles(seg_ids, n_q, bq)
-    k_lo, k_hi, k_res = tiles(seg_k, n_k, bk)
+    q_lo, q_hi, q_res = _tile_ids(seg_ids, bq)
+    k_lo, k_hi, k_res = _tile_ids(seg_k, bk)
     vis = ((k_lo[:, None, :] <= q_hi[:, :, None])
            & (k_hi[:, None, :] >= q_lo[:, :, None])
            & (q_res @ k_res.transpose(1, 2) > 0))
@@ -105,6 +108,30 @@ def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
         vis = vis & (first_k[None, :] <= last_q[:, None])[None]
     if window is not None:
         vis = vis & ((first_q[:, None] - last_k[None, :]) < window)[None]
+    return vis
+
+
+def visited_q_tiles(seg_ids: torch.Tensor, causal: bool, bk: int = K1_BK,
+                    bq: int = K1_BQ) -> torch.Tensor:
+    """[B, ceil(L/bk), ceil(L/bq)] bool: the (key tile, q tile) pairs K3
+    computes, stated from the key side as K3 marks them. A key tile (one
+    warpgroup's ``bk`` keys) visits a q tile of ``bq`` rows when the
+    ranges [min, max] of their non-zero ids meet, their residue sets mod
+    64 meet and, when causal, the q tile's last row is at or after the key
+    tile's first key. This is ``visited_key_tiles(seg_ids, causal, bq,
+    bk)`` transposed, so K1, K2 and K3 walk the same pairs."""
+    l = seg_ids.shape[1]
+    n_k, n_q = -(-l // bk), -(-l // bq)
+    k_lo, k_hi, k_res = _tile_ids(seg_ids, bk)
+    q_lo, q_hi, q_res = _tile_ids(seg_ids, bq)
+    vis = ((q_lo[:, None, :] <= k_hi[:, :, None])
+           & (q_hi[:, None, :] >= k_lo[:, :, None])
+           & (k_res @ q_res.transpose(1, 2) > 0))
+    if causal:
+        dev = seg_ids.device
+        first_k = torch.arange(n_k, device=dev) * bk
+        last_q = (torch.arange(1, n_q + 1, device=dev) * bq).clamp(max=l) - 1
+        vis = vis & (last_q[None, :] >= first_k[:, None])[None]
     return vis
 
 

@@ -26,11 +26,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_other(src):
-    """(library, ptxas log) of ``src`` built with the port's flags."""
+def build_other(src, name="flash_fwd"):
+    """(library, ptxas log) of ``src`` built with the port's flags, as
+    the library ``name``-other."""
     from realhf_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "libflash_fwd-other.so"
+    out = _build.BUILD_DIR / f"lib{name}-other.so"
     cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I",
            os.path.dirname(os.path.abspath(src)), "-o", str(out), src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -42,7 +43,7 @@ def build_other(src):
 
 def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
 
 def main(argv=None):
