@@ -13,7 +13,8 @@ exits non-zero):
    empty-row / non-causal shapes: max abs error, and the largest error
    of an output row over that row's RMS beside its limit. Planted
    faults must exceed the limits: a decode call with the newest slot of
-   each stream dropped (K4), the backward with delta taken as 0 (K3), the
+   each stream dropped (K4), a decode merge with one warp's partial left
+   out, the backward with delta taken as 0 (K3), the
    forward (K1) and the backward (K2 and K3) held against the plain
    version on segment boundaries shifted by one token. K1's and K2/K3's
    cases include the edges of their tile skipping: ids that recur out of
@@ -21,6 +22,12 @@ exits non-zero):
    tiles are all padding; each prints the (query, key) pairs the kernel
    walks (``visited_key_tiles``; K3 ``visited_q_tiles``) beside the pairs
    the mask allows. Two launches of K2 and K3 must give the same bits.
+   K4/K5 cases (gen and GQA shapes, B 1, a sliding window, a stream
+   kept only in its last tile, interior holes, a stacked-cache layer)
+   run twice (the same bits); each prints the slots of the tiles walked
+   beside the slots kept. Timed K4/K5 cases rotate over >= 200 MB of
+   layer caches and queue the launches ahead of the device
+   (``queued_ms``), for the kernel and the library call alike.
    Then each kernel's time, the plain version's time, one PyTorch
    library call's time (``scaled_dot_product_attention`` with the same
    boolean mask, forward or backward, a yardstick only) and the least
@@ -602,69 +609,171 @@ def phase_kernels_bwd():
     return recs
 
 
-def check_flash_decode(name, b, S, nq, nkv, hd, lengths, gen, timed,
-                       stacked_layers=0, layer=0):
+def queued_ms(calls, reps=3, tries=4):
+    """Device ms per call of ``calls`` (thunks) run back to back, the
+    launches queued ahead of the device: ``torch.cuda._sleep`` holds the
+    stream while the host enqueues them all, so the events between the
+    first and the last launch time the device alone, not the host's
+    enqueue rate. The median of ``reps`` rounds (after one warm-up
+    round), the host us per call of the same loop, and whether every
+    round's enqueue ended inside the sleep: a round whose enqueue
+    outlasts it (a host stall) is taken again with the sleep doubled, up
+    to ``tries`` times, and a reading that never fits is still returned,
+    marked ``False``."""
+    import torch
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(1_000_000)
+    ev[1].record()
+    ev[1].synchronize()
+    cycles_per_ms = 1e6 / ev[0].elapsed_time(ev[1])
+    sleep_ms = 5.0 + 0.2 * len(calls)
+    dev, host, queued = [], [], True
+    for _ in range(reps):
+        for attempt in range(tries):
+            torch.cuda.synchronize()
+            ev[0].record()
+            torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+            ev[1].record()
+            t0 = time.perf_counter()
+            for c in calls:
+                c()
+            host_s = time.perf_counter() - t0
+            ev[2].record()
+            ev[2].synchronize()
+            fits = host_s * 1e3 < ev[0].elapsed_time(ev[1])
+            if fits:
+                break
+            sleep_ms *= 2
+        queued &= fits
+        dev.append(ev[1].elapsed_time(ev[2]) / len(calls))
+        host.append(host_s * 1e6 / len(calls))
+    return sorted(dev)[reps // 2], sorted(host)[reps // 2], queued
+
+
+def decode_valid(b, S, spans, device):
+    """[b, S] bool: stream i valid on the slot intervals of ``spans[i]``,
+    one (lo, hi) or a list of them (low invalid slots: left padding)."""
+    import torch
+    valid = torch.zeros((b, S), dtype=torch.bool, device=device)
+    for i, sp in enumerate(spans):
+        for lo, hi in ([sp] if isinstance(sp[0], int) else sp):
+            valid[i, lo:hi] = True
+    return valid
+
+
+def walked_slots(keep) -> int:
+    """Cache slots in the tiles the decode kernel walks (the tiles that
+    hold a kept slot), over all streams (``decode_split_plan``)."""
+    from realhf_tpu_torch.ops import decode_attention as da
+    S = keep.shape[1]
+    return sum(min(da.TILE, S - t * da.TILE)
+               for tiles in da.decode_split_plan(keep.cpu()) for t in tiles)
+
+
+def check_flash_decode(name, b, S, nq, nkv, hd, spans, gen, timed,
+                       stacked_layers=0, layer=0, window=None):
+    """K4 (or, with ``stacked_layers``, K5 at ``layer``) against
+    ``decode_attention_plain`` at one shape: out rows, m and l (every
+    stream, the empty ones included), empty rows exactly 0, two launches
+    bit-equal; planted faults: the newest kept slot of every stream
+    dropped, and warp 1's partial left out of the kernel's merge. Timed
+    cases rotate over enough layer caches (>= 200 MB, four at least)
+    that each launch finds its cache cold, as a decode step does, and time
+    the kernel and SDPA queued ahead of the device (``queued_ms``;
+    ``queued`` says whether every round's enqueue fitted its sleep);
+    ``warm_ms`` is the older reading (CUDA events over 20 back-to-back
+    calls on one cache)."""
     import torch
     from realhf_tpu_torch.ops import decode_attention as da
     dev = "cuda"
     q = torch.randn((b, nq, hd), generator=gen, device=dev).bfloat16()
-    nl = max(stacked_layers, 1)
+    layer_bytes = 2 * b * nkv * S * hd * 2
+    n_rot = max(4, -(-200_000_000 // layer_bytes)) if timed else 1
+    nl = max(stacked_layers, n_rot)
     shape = (nl, b, nkv, S, hd)
     k_all = torch.randn(shape, generator=gen, device=dev).bfloat16()
     v_all = torch.randn(shape, generator=gen, device=dev).bfloat16()
-    valid = torch.zeros((b, S), dtype=torch.bool, device=dev)
-    for i, (lo, hi) in enumerate(lengths):  # invalid low slots (left pad)
-        valid[i, lo:hi] = True
-    keep = da.window_keep(valid, None, None)
+    valid = decode_valid(b, S, spans, dev)
+    slot = None
+    if window is not None:  # the newest slot of each stream
+        slot = (S - 1 - valid.flip(-1).int().argmax(-1)).int()
+    keep = da.window_keep(valid, window, slot)
+    kw = dict(sliding_window=window, slot=slot)
 
-    def call(valid_mask, **kw):
+    def call(valid_mask, li=layer, **extra):
         if stacked_layers:
             return da.flash_decode_attention_stacked(
-                q, k_all, v_all, valid_mask, layer, **kw)
-        return da.flash_decode_attention(q, k_all[0], v_all[0], valid_mask,
-                                         **kw)
+                q, k_all, v_all, valid_mask, li, **kw, **extra)
+        return da.flash_decode_attention(q, k_all[li], v_all[li],
+                                         valid_mask, **kw, **extra)
 
     out, m, l = call(valid, return_stats=True)
+    again = call(valid, return_stats=True)
     torch.cuda.synchronize()
     ref = da.decode_attention_plain(q, k_all[layer], v_all[layer], keep,
                                     return_stats=True)
-    rows = valid.any(-1)[:, None].expand(b, nq)     # non-empty streams
-    # planted fault: the newest valid slot of every stream dropped
-    newest = S - 1 - valid.flip(-1).int().argmax(-1)
+    rows = keep.any(-1)[:, None].expand(b, nq)     # non-empty streams
+    limit = LIMITS["flash_decode_row_rel"]
+    # planted fault: the newest kept slot of every stream dropped
+    newest = S - 1 - keep.flip(-1).int().argmax(-1)
     dropped = valid.clone()
     dropped[torch.arange(b, device=dev)[rows[:, 0]], newest[rows[:, 0]]] = \
         False
     fault = row_rel_err(call(dropped), ref[0], rows)
-    limit = LIMITS["flash_decode_row_rel"]
     rec = dict(kernel="flash_decode_stacked" if stacked_layers
                else "flash_decode", case=name, shape=[b, S, nq, nkv, hd],
-               layer=layer, max_abs_err=max_err(out, ref[0]),
+               layer=layer, window=window,
+               max_abs_err=max_err(out, ref[0]),
                row_rel_err=row_rel_err(out, ref[0], rows),
                row_rel_limit=limit, planted_fault_row_rel_err=fault,
                empty_rows_zero=bool((out.float()[~rows] == 0).all()),
-               finite=bool(torch.isfinite(out.float()).all()))
+               finite=bool(torch.isfinite(out.float()).all()),
+               deterministic=all(torch.equal(x, y)
+                                 for x, y in zip((out, m, l), again)),
+               kept_slots=int(keep.sum()), walked_slots=walked_slots(keep))
     rec["m_max_abs_err"] = max_err(m, ref[1])
     rec["l_max_rel_err"] = float(((l - ref[2]).abs()
                                   / ref[2].abs().clamp_min(1e-6)).max())
     rec["ok"] = (rec["row_rel_err"] <= limit and fault > limit
                  and rec["empty_rows_zero"] and rec["finite"]
+                 and rec["deterministic"]
                  and rec["m_max_abs_err"] <= LIMITS["flash_decode_m"]
                  and rec["l_max_rel_err"] <= LIMITS["flash_decode_l_rel"])
+
+    # planted fault in the merge: warp 1's partial left out
+    rec["merge_fault_row_rel_err"] = row_rel_err(
+        da._launch(q, k_all[layer], v_all[layer], valid, window, slot,
+                   hd ** -0.5, False, drop_warp=1), ref[0], rows)
+    rec["ok"] &= rec["merge_fault_row_rel_err"] > limit
+    del out, m, l, again, ref
     if timed:
-        rec["ms"] = cuda_ms(lambda: call(valid))
+        n = n_rot * max(1, -(-24 // n_rot))
+        rot = [i % n_rot for i in range(n)]
+        rec["rotated_layers"], rec["rotated_mb"] = n_rot, n_rot * layer_bytes / 1e6
+        rec["ms"], rec["host_us"], rec["queued"] = queued_ms(
+            [lambda i=i: call(valid, i) for i in rot])
+        rec["warm_ms"] = cuda_ms(lambda: call(valid))
         rec["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
             q, k_all[layer], v_all[layer], keep), iters=5, warmup=1)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        kl, vl, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
-        mask = valid[:, None, None, :]
-        rec["library_ms"] = (cuda_ms(lambda: sdpa(q4, kl, vl, attn_mask=mask))
-                             if nq == nkv else None)
+        q4, mask = q[:, :, None, :], keep[:, None, None, :] > 0
+        gqa = dict(enable_gqa=True) if nq != nkv else {}
+        rec["library_ms"], rec["library_host_us"], lib_queued = queued_ms(
+            [lambda i=i: sdpa(q4, k_all[i], v_all[i], attn_mask=mask, **gqa)
+             for i in rot])
+        rec["queued"] &= lib_queued
         # K/V bytes of the kept slots only: the others are never needed
-        kept = int(keep.sum())
+        kept = rec["kept_slots"]
         flops = 4.0 * hd * kept * nq
-        nbytes = 2 * (q.numel() * 2 + 2 * kept * nkv * hd) + 4 * keep.numel()
+        nbytes = (2 * (q.numel() * 2 + 2 * kept * nkv * hd) + valid.numel()
+                  + (4 * b if window is not None else 0))
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
         rec["flops"], rec["bytes"] = flops, nbytes
+    del k_all, v_all
     return rec
 
 
@@ -718,9 +827,26 @@ def phase_kernels():
                                    spans, gen, timed=True))
     recs.append(check_flash_decode("gqa_32_4", 8, 640, 32, 4, 128, spans,
                                    gen, timed=False))
+    recs.append(check_flash_decode("gqa_32_8", 8, 640, 32, 8, 128, spans,
+                                   gen, timed=True))
     recs.append(check_flash_decode("hd64_ragged_s", 4, 200, 8, 8, 64,
                                    [(10, 150), (0, 200), (0, 0), (199, 200)],
                                    gen, timed=False))
+    # the tile walk at its edges: one stream, a sliding window, a stream
+    # whose one kept slot is in the last tile, streams whose kept slots
+    # leave whole tiles out in between
+    recs.append(check_flash_decode("b1", 1, 640, 32, 32, 128, [(212, 576)],
+                                   gen, timed=False))
+    recs.append(check_flash_decode("window_96", 8, 640, 32, 8, 128, spans,
+                                   gen, timed=False, window=96))
+    recs.append(check_flash_decode(
+        "last_tile_only", 4, 640, 32, 8, 128,
+        [(639, 640), (0, 640), (300, 400), (0, 0)], gen, timed=False))
+    recs.append(check_flash_decode(
+        "interior_holes", 4, 700, 16, 4, 64,
+        [[(10, 60), (300, 310), (600, 700)], [(0, 64), (192, 256)],
+         [(5, 6), (699, 700)], [(130, 131), (131, 140), (450, 460)]],
+        gen, timed=False))
     # K5: a middle layer of a stacked cache, same per-layer shape as K4
     recs.append(check_flash_decode("stacked_mid_layer", 8, 640, 32, 32, 128,
                                    spans, gen, timed=True, stacked_layers=4,

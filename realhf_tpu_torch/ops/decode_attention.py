@@ -12,6 +12,13 @@ CUDA tensors launch the kernel or raise; CPU tensors run
 ``decode_attention_plain``, the same function in plain PyTorch. Slot s
 of stream b is kept iff valid[b, s] and, with a sliding window,
 slot[b] - s < window. A stream with no kept slot gets 0.
+
+The kernel walks each (stream, KV head) in one CTA of ``WARPS`` warps.
+``decode_split_plan`` states in PyTorch which 64-slot tiles it walks
+(those that hold a kept slot), ``warp_slots`` the slots of them each
+warp takes, and ``decode_attention_split_plain`` computes the kernel's
+function that way: a partial softmax per warp and the flash merge of
+the parts.
 """
 
 import ctypes
@@ -22,6 +29,11 @@ import torch
 from realhf_tpu_torch.ops import _build
 
 NEG_INF = -2.0 ** 30
+#: cache slots per tile of the kernel's walk
+TILE = 64
+#: warps of the kernel's CTA; warp w takes slots [16 w, 16 w + 16) of
+#: every walked tile
+WARPS = 4
 
 #: launches of the per-layer entry and of the stacked-cache entry
 #: (reset them to 0 to count the launches of one run)
@@ -74,45 +86,144 @@ def decode_attention_plain(q, k_cache, v_cache, keep, *,
     return out
 
 
+def decode_split_plan(keep):
+    """The tiles the kernel walks: for every stream, the indices of the
+    tiles that hold a kept slot (``keep > 0``), in order (tile t holds
+    slots [64 t, 64 t + 64)). An empty stream walks nothing."""
+    keep = torch.as_tensor(keep) > 0
+    b, s = keep.shape
+    n_tiles = -(-s // TILE)
+    padded = torch.zeros((b, n_tiles * TILE), dtype=torch.bool)
+    padded[:, :s] = keep.cpu()
+    marked = padded.view(b, n_tiles, TILE).any(-1)
+    return [row.nonzero().flatten().tolist() for row in marked]
+
+
+def warp_slots(tiles, warp: int, s: int) -> torch.Tensor:
+    """The cache slots warp ``warp`` walks over ``tiles``: its 16 of
+    each, [64 t + 16 warp, 64 t + 16 warp + 16), cut at S."""
+    ws = TILE // WARPS
+    idx = [torch.arange(lo, max(lo, min(lo + ws, s)))
+           for lo in (t * TILE + warp * ws for t in tiles)]
+    return torch.cat(idx) if idx else torch.zeros(0, dtype=torch.long)
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, keep, *,
+                                 scale: Optional[float] = None,
+                                 return_stats: bool = False,
+                                 drop_warp: int = -1):
+    """``decode_attention_plain`` computed the kernel's way: each warp
+    takes a softmax over its ``warp_slots`` of the ``decode_split_plan``
+    tiles (masked slots NEG_INF), and the parts merge as m = max m_i,
+    l = sum l_i exp(m_i - m), out = sum acc_i exp(m_i - m) / l. An empty
+    stream gives 0, m = NEG_INF and l = S, as every masked slot of the
+    reference scores NEG_INF. ``drop_warp`` >= 0 leaves that warp's part
+    out of the merge, as the kernel's planted fault does."""
+    b, nq, hd = q.shape
+    nkv, s = k_cache.shape[1], k_cache.shape[2]
+    group = nq // nkv
+    scale = float(scale) if scale is not None else hd ** -0.5
+    qg = q.to(torch.float32).reshape(b, nkv, group, hd) * scale
+    out = torch.zeros((b, nkv, group, hd), dtype=torch.float32)
+    m = torch.full((b, nkv, group), NEG_INF, dtype=torch.float32)
+    l = torch.full((b, nkv, group), float(s), dtype=torch.float32)
+    for bi, tiles in enumerate(decode_split_plan(keep)):
+        if not tiles:
+            continue
+        parts = []
+        for w in range(WARPS):
+            idx = warp_slots(tiles, w, s)
+            if w == drop_warp or not len(idx):
+                continue
+            sc = torch.einsum("hgd,hkd->hgk", qg[bi],
+                              k_cache[bi][:, idx].to(torch.float32))
+            sc = torch.where(keep[bi, idx] > 0, sc, NEG_INF)
+            m_i = sc.amax(-1)
+            p = torch.exp(sc - m_i[..., None])
+            acc = torch.einsum("hgk,hkd->hgd",
+                               p.to(v_cache.dtype).to(torch.float32),
+                               v_cache[bi][:, idx].to(torch.float32))
+            parts.append((m_i, p.sum(-1), acc))
+        if not parts:
+            continue
+        m_b = torch.stack([pt[0] for pt in parts]).amax(0)
+        w = [torch.exp(pt[0] - m_b) for pt in parts]
+        l_b = sum(pt[1] * wi for pt, wi in zip(parts, w))
+        acc = sum(pt[2] * wi[..., None] for pt, wi in zip(parts, w))
+        safe_l = torch.where(l_b > 0, l_b, torch.ones_like(l_b))
+        out[bi] = torch.where((m_b > NEG_INF / 2)[..., None],
+                              acc / safe_l[..., None], 0.0)
+        m[bi], l[bi] = m_b, l_b
+    out = out.reshape(b, nq, hd).to(q.dtype)
+    if return_stats:
+        return out, m.reshape(b, nq), l.reshape(b, nq)
+    return out
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library("flash_decode").flash_decode_bf16
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, ll,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, p, i, i, i, i, i, ll, ll, ll,
+                       ctypes.c_float, i, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
-def _launch(q, k_layer, v_layer, keep, scale, return_stats):
+def _launch(q, k_layer, v_layer, valid, sliding_window, slot, scale,
+            return_stats, drop_warp=-1):
     """Launch on per-layer cache views [B, nkv, S, hd] (possibly views
-    into a stacked cache): pointer plus strides, no copy."""
+    into a stacked cache): pointer plus strides, no copy. The kernel
+    reads the [B, S] bool mask and applies the window from ``slot``
+    itself. ``drop_warp`` >= 0 leaves that warp's partial out of the
+    merge (a planted fault for checks; no entry sets it)."""
     b, nq, hd = q.shape
     nkv, s = k_layer.shape[1], k_layer.shape[2]
+    dev = q.device
     if k_layer.stride() != v_layer.stride() or k_layer.shape != v_layer.shape:
         raise ValueError("k and v caches must share shape and strides")
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    if not valid.is_contiguous():
+        valid = valid.contiguous()
+    window = 0
+    if sliding_window is not None:
+        window = int(sliding_window)
+        if slot is None:
+            raise ValueError("sliding_window decode needs slot indices")
+        if window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got {window}")
+        if slot.dtype != torch.int32 or not slot.is_contiguous():
+            slot = slot.to(torch.int32).contiguous()
+        if tuple(slot.shape) != (b,) or not slot.is_cuda or slot.device != dev:
+            raise ValueError(f"slot must be [{b}] on {dev}, got "
+                             f"{tuple(slot.shape)} on {slot.device}")
     for name, t in (("q", q), ("k_cache", k_layer), ("v_cache", v_layer),
-                    ("keep", keep)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_decode: {name} must be on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} must be 16-byte aligned")
+                    ("valid_mask", valid)):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"flash_decode: {name} must be on {dev}")
     for name, t in (("q", q), ("k_cache", k_layer), ("v_cache", v_layer)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_decode kernel takes bf16 {name}, "
                             f"got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} must be 16-byte aligned")
     sb, sh, ss, sd = k_layer.stride()
     if sd != 1 or ss % 8 or sh % 8 or sb % 8:
         raise ValueError("flash_decode: cache rows must be contiguous and "
                          f"strides multiples of 8 elements, got "
                          f"{k_layer.stride()}")
-    if not q.is_contiguous() or not keep.is_contiguous():
-        raise ValueError("flash_decode: q and keep must be contiguous")
-    if keep.dtype != torch.int32 or tuple(keep.shape) != (b, s):
-        raise ValueError(f"keep must be int32 [{b}, {s}], got "
-                         f"{keep.dtype} {tuple(keep.shape)}")
+    if not q.is_contiguous():
+        raise ValueError("flash_decode: q must be contiguous")
+    if tuple(valid.shape) != (b, s):
+        raise ValueError(f"valid_mask must be [{b}, {s}], got "
+                         f"{tuple(valid.shape)}")
     if k_layer.shape[0] != b or k_layer.shape[3] != hd or nq % nkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache "
                          f"{tuple(k_layer.shape)}")
@@ -123,14 +234,15 @@ def _launch(q, k_layer, v_layer, keep, scale, return_stats):
     out = torch.empty_like(q)
     m = l = None
     if return_stats:
-        m = torch.empty((b, nq), dtype=torch.float32, device=q.device)
-        l = torch.empty((b, nq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+        m = torch.empty((b, nq), dtype=torch.float32, device=dev)
+        l = torch.empty((b, nq), dtype=torch.float32, device=dev)
     code = _kernel()(q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-                     keep.data_ptr(), out.data_ptr(),
-                     None if m is None else m.data_ptr(),
+                     valid.data_ptr(),
+                     slot.data_ptr() if window else None, window,
+                     out.data_ptr(), None if m is None else m.data_ptr(),
                      None if l is None else l.data_ptr(),
-                     b, nq, nkv, s, hd, sb, sh, ss, scale, stream)
+                     b, nq, nkv, s, hd, sb, sh, ss, scale, drop_warp,
+                     _stream(dev))
     _build.check(code, "flash_decode")
     return (out, m, l) if return_stats else out
 
@@ -143,11 +255,12 @@ def flash_decode_attention(q, k_cache, v_cache, valid_mask, *,
     """q [B, nq, hd] against a per-layer cache [B, nkv, S, hd] with
     valid_mask [B, S] bool."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    keep = window_keep(valid_mask, sliding_window, slot)
     if not q.is_cuda:
+        keep = window_keep(valid_mask, sliding_window, slot)
         return decode_attention_plain(q, k_cache, v_cache, keep,
                                       scale=scale, return_stats=return_stats)
-    res = _launch(q, k_cache, v_cache, keep, scale, return_stats)
+    res = _launch(q, k_cache, v_cache, valid_mask, sliding_window, slot,
+                  scale, return_stats)
     global launches
     launches += 1
     return res
@@ -162,17 +275,17 @@ def flash_decode_attention_stacked(q, k_all, v_all, valid_mask,
     """Same math on layer ``layer_index`` of the stacked cache
     [nl, B, nkv, S, hd]; the kernel reads that layer in place."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    keep = window_keep(valid_mask, sliding_window, slot)
     layer_index = int(layer_index)
     if not 0 <= layer_index < k_all.shape[0]:
         raise IndexError(f"layer_index {layer_index} outside "
                          f"[0, {k_all.shape[0]})")
     if not q.is_cuda:
+        keep = window_keep(valid_mask, sliding_window, slot)
         return decode_attention_plain(q, k_all[layer_index],
                                       v_all[layer_index], keep, scale=scale,
                                       return_stats=return_stats)
-    res = _launch(q, k_all[layer_index], v_all[layer_index], keep, scale,
-                  return_stats)
+    res = _launch(q, k_all[layer_index], v_all[layer_index], valid_mask,
+                  sliding_window, slot, scale, return_stats)
     global stacked_launches
     stacked_launches += 1
     return res
