@@ -138,15 +138,51 @@ exits non-zero):
    goes through ref_inf and rew_inf of a c1 host from the same seed:
    reference log-probs and rewards within limits.
 
+16-21. The other algorithms at LLaMA-7B width, 4 layers a role, bf16,
+   gradient checkpointing on, random weights and data from the seed;
+   each checks its exact K1-K4 launch counts (L layers, N minibatches,
+   the decode steps taken), finite stats, and one check of its own with
+   a planted fault that must fail it, and reports step and per-MFC
+   seconds and the peak beside the card:
+   rw -- ``RWConfig``, 2 steps of 8 prompts x 2 (pos, neg) pairs
+   (answers of 50-200 words); per step K1 = 2L, K2 = K3 = L. Then one
+   ``paired_rw`` step card (bf16, kernels) vs CPU (fp32, plain) at
+   ``train_parity``'s size: loss and grad norm; every pair swapped
+   must miss the loss limit.
+   dpo -- ``DPOConfig`` on the same data, the actor's weights copied into
+   the ref: step 1's loss ln 2, its KL and scores 0; per step K1 = 3L,
+   K2 = K3 = L. The ref's pos and neg sums swapped must miss by 10x.
+   grpo -- ``GRPOConfig``, 4 prompts x group 4 = 16 decode streams, up
+   to 128 new tokens at top-p 1, top-k 0, 4 minibatches, ref = actor:
+   each id holds 4 sequences, first-minibatch importance weight within
+   PPO's limit, step 1's |grpo_kl| within its own; per step K1 = 3L +
+   2NL, K2 = K3 = NL, K4 = L x decode steps. Old log-probs shifted by
+   one token must miss by 10x.
+   reinforce -- ``ReinforceInterface`` on ``build_model``'s actor,
+   reward and ref, 2 rounds of 8 prompts: the greedy halves bit-equal
+   to a greedy ``PPOActorInterface.generate`` (the sampled halves not),
+   the loss mask exactly the sampled halves' tokens; per round K1 = 4L +
+   2NL, K2 = K3 = NL, K4 = L x (sampled + greedy decode steps).
+   agentic -- ``AgenticPPOConfig`` on ``tool_game`` (3 turns, 32 new
+   tokens a turn, top-p 1, top-k 0) with turn-level credit, 2 steps of
+   16 episodes: none dropped, turn rewards summing to each episode's,
+   first-minibatch importance weight within PPO's limit (shifted
+   log-probs must miss by 10x); per step K1 = L x generate calls + 2L +
+   4NL, K2 = K3 = 2NL, K4 = L x decode steps.
+   profile_exp -- ``ProfileConfig(model_size="7b")`` cut to 4 layers, 16
+   random prompts of 100-512 tokens, 128 new tokens, 1 step: the six
+   MFCs with PPO's launch formula, per-MFC seconds.
+
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
-sft, ppo, ctx and ppo_ctx paths, each counted from 0), the ``nvidia-smi``
-name/power line
+sft, ppo, ctx, ppo_ctx and algorithm paths, each counted from 0), the
+``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
 """
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -2831,10 +2867,762 @@ def _tree_map(fn, tree):
 
 
 # ----------------------------------------------------------------------
+# phases 16-21: the other algorithms (rw, dpo, grpo, reinforce, agentic,
+# profile) at LLaMA-7B width, 4 layers a role, bf16, gradient
+# checkpointing on
+# ----------------------------------------------------------------------
+ALGO_LAYERS = 4
+ALGO_MINIBATCHES = 4
+# each about 3x the largest sound reading of five seeds on the card
+# (``scripts/torch_algo_limits.py``; PERF.md, Findings): rw card-vs-CPU
+# loss 4.3e-3 and grad norm 2.8e-3 relative (the swapped-pairs fault
+# 0.047-0.84); dpo step 1 |loss - ln 2| 5.7e-6, |kl| 1.5e-4, |score|
+# 1.2e-5 (the swapped-ref fault 60-106); grpo step 1 |grpo_kl| 1.6e-4
+RW_PARITY_LIMITS = dict(loss_rel=1.3e-2, grad_norm_rel=8.5e-3)
+DPO_STEP1_LIMITS = dict(loss_ln2=2e-5, kl=5e-4, score=4e-5)
+GRPO_KL_LIMIT = 5e-4
+
+
+def algo_launches(fwd=0, bwd=0, decode=0):
+    """A full launch-count dict: K1 ``fwd``, K2 = K3 = ``bwd``, K4
+    ``decode``, nothing else."""
+    return dict(flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
+                flash_decode=decode, flash_decode_stacked=0, ring_round=0,
+                ring_push=0)
+
+
+def seven_b_roles(spec, n_layers=ALGO_LAYERS):
+    """Every role of ``spec`` at LLaMA-7B width and ``n_layers``, bf16,
+    random weights from the seed; the integer tokenizer. -> vocab."""
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.models.config import llama_config
+    for mspec in spec.models.values():
+        mspec.random_init_config = llama_config("7b", n_layers=n_layers)
+        mspec.bf16 = True
+    vocab = llama_config("7b")["vocab_size"]
+    spec.tokenizer = IntegerTokenizer(vocab_size=vocab - 2)
+    return vocab
+
+
+def write_pairs(path, n, seed, lo=50, hi=200):
+    """Prompts of 100-512 words, each with 2 (pos, neg) answer pairs of
+    ``lo``-``hi`` words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def words(a, b):
+        return " ".join(f"w{int(w)}" for w in rng.integers(
+            0, 5000, size=int(rng.integers(a, b + 1))))
+
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(json.dumps(dict(
+                id=i, prompt=words(100, 512),
+                pos_answers=[" " + words(lo, hi) for _ in range(2)],
+                neg_answers=[" " + words(lo, hi) for _ in range(2)])) + "\n")
+
+
+def watch_runner(runner) -> dict:
+    """Wrap, on this runner's objects, what the script reads and the
+    library does not keep: each MFC's host-clock seconds (up to a device
+    synchronisation) and its output, and every minibatch's stats of each
+    trained role's engine."""
+    import torch
+    from realhf_tpu_torch.api.config import ModelInterfaceType
+    host = runner.host
+    seen = dict(mfc_secs={name: [] for name in host.nodes},
+                outputs={name: [] for name in host.nodes},
+                minibatch_stats={})
+    execute = host.execute
+
+    def timed_execute(name, inp):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = execute(name, inp)
+        torch.cuda.synchronize()
+        seen["mfc_secs"][name].append(time.monotonic() - t0)
+        seen["outputs"][name].append(out)
+        return out
+
+    host.execute = timed_execute
+    for node in host.nodes.values():
+        if node.interface_type != ModelInterfaceType.TRAIN_STEP:
+            continue
+        engine = runner.models[node.role].engine
+        seen["minibatch_stats"][node.role] = got = []
+
+        def train_minibatches(*args, _orig=engine.train_minibatches,
+                              _got=got, **kw):
+            _got.append(_orig(*args, **kw))
+            return _got[-1]
+
+        engine.train_minibatches = train_minibatches
+    return seen
+
+
+def unwatch(runner):
+    vars(runner.host).pop("execute", None)
+    for model in runner.models.values():
+        vars(model.engine).pop("train_minibatches", None)
+
+
+class no_update:
+    """Train steps of ``model`` inside report their stats and change
+    nothing: every loss asks the engine to skip its update
+    (``__skip_update__``), and the versions are put back on exit.
+    ``minibatch_stats`` keeps each call's per-minibatch stats."""
+
+    def __init__(self, model):
+        self.model, self.minibatch_stats = model, []
+
+    def __enter__(self):
+        import torch
+        eng = self.model.engine
+        self.versions = (eng.version, dataclasses.replace(self.model.version))
+        orig = eng.train_minibatches
+
+        def train_minibatches(minibatches, loss_fn, *args, **kw):
+            def skip(params, mb):
+                loss, stats = loss_fn(params, mb)
+                return loss, dict(stats, __skip_update__=torch.ones_like(
+                    loss.detach()))
+
+            out = orig(minibatches, skip, *args, **kw)
+            self.minibatch_stats.append(out)
+            return out
+
+        eng.train_minibatches = train_minibatches
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.model.engine
+        del eng.train_minibatches
+        eng.version, self.model.version = self.versions
+        return False
+
+
+def clone_params(src, dst):
+    """``dst``'s engine takes a copy of ``src``'s weights (not the same
+    tensors: the source's optimizer updates its own in place)."""
+    dst.engine.set_params(_tree_map(lambda t: t.clone(), src.engine.params))
+
+
+def probe_inputs(runner, batch):
+    """Run every MFC but the train ones over ``batch``, in the graph's
+    order, merging each output into it: the train MFCs' input of one
+    step, outside any counted window."""
+    from realhf_tpu_torch.api import data as data_api
+    from realhf_tpu_torch.api.config import ModelInterfaceType
+    for level in runner.dfg.topological_levels():
+        for node in level:
+            if node.interface_type == ModelInterfaceType.TRAIN_STEP:
+                continue
+            out = runner.host.execute(node.name, batch.select(
+                [k for k in node.input_keys if k in batch.keys]))
+            assert isinstance(out, data_api.SequenceSample)
+            batch.update_(out)
+    return batch
+
+
+def shifted_logprobs(batch, node):
+    """``node``'s input with the generation log-probs moved one token
+    later (the fault of an off-by-one between decode and packed
+    forward)."""
+    inp = batch.select([k for k in node.input_keys if k in batch.keys])
+    lp = inp.data["packed_logprobs"].copy()
+    lp[1:] = lp[:-1]
+    inp.data = dict(inp.data, packed_logprobs=lp)
+    return inp
+
+
+def algo_record(runner, seen, smi, counts, want, peak, setup):
+    """What every algorithm phase reports: step and per-MFC seconds, the
+    peak, launch counts against the expected ones, and whether every stat
+    (the interface's and each minibatch's) is finite."""
+    finite = all(math.isfinite(v) for step in runner.step_stats
+                 for st in step.values() for v in st.values()) and all(
+        math.isfinite(v) for calls in seen["minibatch_stats"].values()
+        for call in calls for st in call for v in st.values())
+    return dict(
+        n_layers=ALGO_LAYERS, setup_secs=setup, card=smi,
+        step_secs=runner.step_secs, mfc_secs=seen["mfc_secs"],
+        mfc_runs={k: len(v) for k, v in seen["mfc_secs"].items()},
+        peak_mem_gb=peak, stats=runner.step_stats, stats_finite=finite,
+        launches=counts, launches_expected=want,
+        launches_ok=counts == want)
+
+
+def run_counted(runner):
+    """``runner.run()`` between a count reset and a read, with the
+    allocator's peak -> (counts, peak GB, generate calls' stats)."""
+    import torch
+    gen = [m.engine.generate_stats for m in runner.models.values()]
+    before = [len(g) for g in gen]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    calls = [st for g, n in zip(gen, before) for st in g[n:]]
+    return counts, peak, calls
+
+
+def build_runner(spec):
+    import torch
+    from realhf_tpu_torch.system.inline import InlineRunner
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    runner = InlineRunner(spec)  # device=None: the card
+    torch.cuda.synchronize()
+    return runner, time.monotonic() - t0
+
+
+def drop_runner(runner):
+    import torch
+    unwatch(runner)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rw_pairs_sample(rng, vocab, n_elems=4, lo=60, hi=160):
+    """Elements of 2 interleaved (pos, neg) pairs of random tokens, and
+    the same with every pair's pos and neg swapped."""
+    import numpy as np
+    from realhf_tpu_torch.api.data import SequenceSample
+    seqs = [[rng.integers(2, vocab, size=int(rng.integers(lo, hi + 1)))
+             .astype(np.int32) for _ in range(4)] for _ in range(n_elems)]
+
+    def sample(elems):
+        return SequenceSample(
+            keys=["packed_input_ids"],
+            trailing_shapes=dict(packed_input_ids=()),
+            dtypes=dict(packed_input_ids=np.int32),
+            ids=list(range(n_elems)),
+            seqlens=dict(packed_input_ids=[[len(s) for s in e]
+                                           for e in elems]),
+            data=dict(packed_input_ids=np.concatenate(
+                [s for e in elems for s in e])))
+
+    swapped = [[e[1], e[0], e[3], e[2]] for e in seqs]
+    return sample(seqs), sample(swapped)
+
+
+def rw_parity(seed=7):
+    """One ``paired_rw`` train step on the card (bf16, the kernels) and on
+    the CPU (fp32, the plain versions) from the same bf16 weights and
+    batch, at ``train_parity``'s size (2 layers, hidden 1024, 8 heads of
+    128, FFN 2816, vocab 32000): loss and grad norm within limits; the
+    card's step on the batch with every pair's pos and neg swapped must
+    miss the loss limit."""
+    import numpy as np
+    from realhf_tpu_torch.api.config import ModelName
+    from realhf_tpu_torch.api.model import Model
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces.rw import PairedRewardInterface
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig, llama_config
+    from realhf_tpu_torch.models.convert import params_numpy
+    base = dict(llama_config("7b", n_layers=2), hidden_dim=1024,
+                n_q_heads=8, n_kv_heads=8, intermediate_dim=2816,
+                gradient_checkpointing=True, is_critic=True)
+    cfgs = {dev: TransformerConfig(**base, param_dtype=dt, compute_dtype=dt)
+            for dev, dt in (("cuda", "bfloat16"), ("cpu", "float32"))}
+    weights = params_numpy(T.init_params(cfgs["cuda"],
+                                         seeding.generator(seed), "cpu"))
+    sample, swapped = rw_pairs_sample(np.random.default_rng(seed + 1),
+                                      base["vocab_size"])
+    opt = OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0)
+
+    def step(dev, s):
+        eng = Engine(cfgs[dev], weights, dev, optimizer=opt)
+        return PairedRewardInterface().train_step(
+            Model(ModelName("reward", 0), eng, None), s)
+
+    out = {dev: step(dev, sample) for dev in ("cuda", "cpu")}
+    fault = step("cuda", swapped)
+    lim = RW_PARITY_LIMITS
+
+    def rel(a, k):
+        return abs(a[k] - out["cpu"][k]) / abs(out["cpu"][k])
+
+    rec = dict(layers=2, hidden=base["hidden_dim"], seed=seed,
+               tokens=int(sample.total_len("packed_input_ids")), stats=out,
+               loss_rel_err=rel(out["cuda"], "loss"),
+               grad_norm_rel_err=rel(out["cuda"], "grad_norm"), limits=lim,
+               planted_fault="every pair's pos and neg swapped",
+               planted_fault_stats=fault,
+               planted_fault_loss_rel_err=rel(fault, "loss"))
+    rec["ok"] = (rec["loss_rel_err"] <= lim["loss_rel"]
+                 and rec["grad_norm_rel_err"] <= lim["grad_norm_rel"]
+                 and rec["planted_fault_loss_rel_err"] > lim["loss_rel"])
+    return rec
+
+
+def phase_rw(smi):
+    """The ``rw`` experiment through ``RWConfig.build()`` and
+    ``InlineRunner``: 2 steps of 8 prompts x 2 (pos, neg) pairs, one
+    microbatch; per step K1 = 2L (forward and checkpoint recompute),
+    K2 = K3 = L. Then ``rw_parity``."""
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.rw_exp import RWConfig
+    steps, L = 2, ALGO_LAYERS
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "pairs.jsonl")
+        write_pairs(data, 80, seed=3)
+        cfg = RWConfig(experiment_name="chip-smoke", trial_name="rw",
+                       benchmark_steps=steps)
+        apply_overrides(cfg, {"dataset.path": data,
+                              "dataset.train_bs_n_seqs": "8",
+                              "dataset.max_seqlen": "1024",
+                              "model.optimizer.lr": "1e-5"})
+        spec = cfg.build()
+        seven_b_roles(spec)
+        runner, setup = build_runner(spec)
+        seen = watch_runner(runner)
+        counts, peak, _ = run_counted(runner)
+    want = algo_launches(fwd=2 * L * steps, bwd=L * steps)
+    rec = algo_record(runner, seen, smi, counts, want, peak, setup)
+    rec["last_batch_tokens"] = runner.last_batch.total_len("packed_input_ids")
+    rec["versions"] = dict(model=runner.models["default"].version.global_step,
+                           engine=runner.models["default"].engine.version)
+    drop_runner(runner)
+    rec["parity"] = rw_parity()
+    rec["ok"] = bool(rec["launches_ok"] and rec["stats_finite"]
+                     and rec["mfc_runs"] == dict(trainDefault=steps)
+                     and rec["versions"] == dict(model=steps, engine=steps)
+                     and rec["parity"]["ok"])
+    return rec
+
+
+def phase_dpo(smi, seed=1):
+    """The ``dpo`` experiment through ``DPOConfig.build()`` and
+    ``InlineRunner`` on phase rw's data, actor and ref: the script first
+    copies the actor's weights into the ref (the library does not), so
+    step 1's loss must be ln 2 and its KL and scores 0. Per step K1 = L
+    (ref_inf) + 2L, K2 = K3 = L. Planted fault, before the counted run
+    and without an update: the reference sums of each pair's pos and neg
+    swapped must miss the loss limit by over 10x."""
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.dpo_exp import DPOConfig
+    steps, L = 2, ALGO_LAYERS
+    lim = DPO_STEP1_LIMITS
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "pairs.jsonl")
+        write_pairs(data, 80, seed=3)
+        cfg = DPOConfig(experiment_name="chip-smoke", trial_name="dpo",
+                        benchmark_steps=steps, seed=seed)
+        apply_overrides(cfg, {"dataset.path": data,
+                              "dataset.train_bs_n_seqs": "8",
+                              "dataset.max_seqlen": "1024",
+                              "actor.optimizer.lr": "1e-5"})
+        spec = cfg.build()
+        seven_b_roles(spec)
+        runner, setup = build_runner(spec)
+        actor = runner.models["actor"]
+        clone_params(actor, runner.models["ref"])
+        batch = probe_inputs(runner, next(iter(runner.dataloader)))
+        node = runner.host.nodes["actor_train"]
+        fault_in = batch.select(list(node.input_keys))
+        pairs = fault_in.data["seqlogp"].reshape(-1, 2)
+        fault_in.data = dict(fault_in.data, seqlogp=pairs[:, ::-1].ravel())
+        with no_update(actor):
+            fault = runner.interfaces["actor_train"].train_step(
+                actor, fault_in)
+        seen = watch_runner(runner)
+        counts, peak, _ = run_counted(runner)
+    want = algo_launches(fwd=3 * L * steps, bwd=L * steps)
+    rec = algo_record(runner, seen, smi, counts, want, peak, setup)
+    st = runner.step_stats[0]["actor_train"]
+    step1 = dict(loss_ln2=abs(st["loss"] - math.log(2)), kl=abs(st["kl"]),
+                 score=max(abs(st["pos_score"]), abs(st["neg_score"])))
+    rec.update(step1=step1, limits=lim,
+               planted_fault="reference sums of pos and neg swapped",
+               planted_fault_loss_ln2=abs(fault["loss"] - math.log(2)),
+               versions=dict(model=actor.version.global_step,
+                             engine=actor.engine.version))
+    rec["step1_ok"] = all(step1[k] <= lim[k] for k in lim)
+    rec["ok"] = bool(rec["launches_ok"] and rec["stats_finite"]
+                     and rec["step1_ok"]
+                     and rec["planted_fault_loss_ln2"] > 10 * lim["loss_ln2"]
+                     and rec["mfc_runs"] == dict(ref_inf=steps,
+                                                 actor_train=steps)
+                     and rec["versions"] == dict(model=steps, engine=steps))
+    drop_runner(runner)
+    return rec
+
+
+def phase_grpo(smi, seed=1):
+    """The ``grpo`` experiment through ``GRPOConfig.build()`` and
+    ``InlineRunner``, actor, ref and reward: 2 steps of 4 prompts
+    (100-512 words) x group 4 = 16 decode streams, up to 128 new tokens
+    (min 32) sampled at top-p 1, top-k 0, temperature 1 (no logits mask to
+    replay), 4 minibatches. The script copies the actor's weights into
+    the ref. Per step K1 = 3L + 2NL, K2 = K3 = NL, K4 = L x decode steps.
+    Each step's first minibatch runs on the weights that generated: its
+    importance weight within PPO's limit of 1, and on step 1 |grpo_kl|
+    (ref = actor) within its limit. Planted fault, before the counted run
+    and without an update: old log-probs shifted by one token."""
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.grpo_exp import GRPOConfig
+    steps, L, N, g = 2, ALGO_LAYERS, ALGO_MINIBATCHES, 4
+    lim = PPO_FIRST_MINIBATCH_LIMITS["importance_weight"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 40, seed=4)
+        cfg = GRPOConfig(experiment_name="chip-smoke", trial_name="grpo",
+                         benchmark_steps=steps, seed=seed)
+        apply_overrides(cfg, {"dataset.path": data,
+                              "dataset.train_bs_n_seqs": "4",
+                              "dataset.max_seqlen": "512",
+                              "grpo.group_size": str(g),
+                              "grpo.max_new_tokens": "128",
+                              "grpo.min_new_tokens": "32",
+                              "grpo.top_p": "1.0", "grpo.top_k": "0",
+                              "grpo.ppo_n_minibatches": str(N),
+                              "actor.optimizer.lr": "1e-5"})
+        spec = cfg.build()
+        seven_b_roles(spec)
+        runner, setup = build_runner(spec)
+        actor = runner.models["actor"]
+        clone_params(actor, runner.models["ref"])
+        batch = probe_inputs(runner, next(iter(runner.dataloader)))
+        with no_update(actor) as probe:
+            runner.interfaces["actor_train"].train_step(
+                actor, shifted_logprobs(batch,
+                                        runner.host.nodes["actor_train"]))
+        seen = watch_runner(runner)
+        counts, peak, gen = run_counted(runner)
+    want = algo_launches(fwd=(3 * L + 2 * N * L) * steps,
+                         bwd=N * L * steps,
+                         decode=L * sum(st["decode_steps"] for st in gen))
+    rec = algo_record(runner, seen, smi, counts, want, peak, setup)
+    firsts = [call[0] for call in seen["minibatch_stats"]["actor"]]
+    fault_iw = probe.minibatch_stats[0][0]["importance_weight"]
+    rollouts = seen["outputs"]["actor_gen"]
+    rec.update(
+        decode_steps=[st["decode_steps"] for st in gen],
+        generated_tokens=[st["generated_tokens"] for st in gen],
+        first_minibatch=dict(
+            importance_weight=[m["importance_weight"] for m in firsts],
+            grpo_kl=[m["grpo_kl"] for m in firsts],
+            limits=dict(importance_weight=lim, grpo_kl=GRPO_KL_LIMIT)),
+        nested_per_id=[sorted({len(x) for x in r.seqlens["packed_input_ids"]})
+                       for r in rollouts],
+        planted_fault="old log-probs shifted by one token",
+        planted_fault_importance_weight=fault_iw)
+    rec["first_minibatch_ok"] = len(firsts) == steps and all(
+        abs(m["importance_weight"] - 1) <= lim for m in firsts) and abs(
+        firsts[0]["grpo_kl"]) <= GRPO_KL_LIMIT
+    rec["ok"] = bool(rec["launches_ok"] and rec["stats_finite"]
+                     and rec["first_minibatch_ok"]
+                     and abs(fault_iw - 1) > 10 * lim
+                     and rec["nested_per_id"] == [[g]] * steps
+                     and rec["mfc_runs"] == dict.fromkeys(
+                         ("actor_gen", "rew_inf", "ref_inf", "actor_train"),
+                         steps))
+    drop_runner(runner)
+    return rec
+
+
+def phase_reinforce(smi):
+    """``ReinforceInterface`` driven directly, as a user of the interface
+    would, on models from ``build_model``: actor, reward and ref
+    (``kl_coef`` 0.05): 2 rounds of 8 prompts (100-512 words), each a
+    sampled decode (up to 128 new tokens, min 32, top-p 1, top-k 0) and
+    its greedy twin, the reward and ref inference, and a train step of 4
+    minibatches. Per round K1 = 2L (two prefills) + 2L (two inference
+    MFCs) + 2NL, K2 = K3 = NL, K4 = L x (sampled + greedy decode steps).
+    Checks: the greedy halves are bit-equal to a greedy
+    ``PPOActorInterface.generate`` of the same prompts on the same
+    weights (its launches are left out of the counts; the sampled halves
+    must not be), and the train step's loss mask holds exactly the
+    sampled halves' generated tokens (all halves' count must not)."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.api import data as data_api
+    from realhf_tpu_torch.api.config import DatasetAbstraction
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces.ppo import PPOActorInterface
+    from realhf_tpu_torch.interfaces.reinforce import ReinforceInterface
+    from realhf_tpu_torch.interfaces.rw import PairedRewardInterface
+    from realhf_tpu_torch.models.config import llama_config
+    from realhf_tpu_torch.system.model_host import build_model
+    rounds, L, N = 2, ALGO_LAYERS, ALGO_MINIBATCHES
+    size = llama_config("7b", n_layers=L)
+    tok = IntegerTokenizer(vocab_size=size["vocab_size"] - 2)
+    seeding.set_random_seed(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    opt = OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0)
+    models = {role: build_model(role, ModelSpec(
+        random_init_config=dict(size), is_critic=role == "reward",
+        optimizer=opt if role == "actor" else None), tok, init_seed=1)
+        for role in ("actor", "reward", "ref")}
+    torch.cuda.synchronize()
+    setup = time.monotonic() - t0
+    actor = models["actor"]
+    gconfig = dict(max_new_tokens=128, min_new_tokens=32, top_p=1.0,
+                   top_k=0, force_no_logits_mask=True)
+    itf = ReinforceInterface(n_minibatches=N, gconfig=gconfig, kl_coef=0.05)
+    twin = PPOActorInterface(gconfig=dict(gconfig, greedy=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(path, 8 * rounds, seed=5)
+        dataset = data_api.make_dataset(DatasetAbstraction(
+            "prompt", dict(max_length=512, dataset_path=path)), 1, 0, 1, tok)
+    loader = data_api.PackedDataLoader(dataset, batch_size=8, seed=1)
+    masks = []
+    eng = actor.engine
+    orig_train = eng.train_minibatches
+
+    def train_minibatches(minibatches, *args, **kw):
+        masks.append(sum(float(mb["loss_mask"].sum()) for mbs in minibatches
+                         for mb in mbs))
+        return orig_train(minibatches, *args, **kw)
+
+    eng.train_minibatches = train_minibatches
+    recs, want = [], algo_launches()
+    excluded = algo_launches()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for batch in loader:
+        torch.cuda.synchronize()
+        t_round = time.monotonic()
+        n_gen = len(eng.generate_stats)
+        sample = itf.generate(actor, batch)
+        gen = eng.generate_stats[n_gen:]
+        before = read_counts()
+        greedy = twin.generate(actor, batch)
+        excluded = {k: excluded[k] + v - before[k]
+                    for k, v in read_counts().items()}
+        torch.cuda.synchronize()
+        t_gen = time.monotonic() - t_round
+        parts, twins = sample.unpack(), greedy.unpack()
+        halves_equal, sampled_equal, all_gen, sampled_gen = [], [], 0, 0
+        for part, g in zip(parts, twins):
+            ls, lg = part.seqlens["packed_input_ids"][0]
+            ids = part.data["packed_input_ids"]
+            halves_equal.append(bool(np.array_equal(
+                ids[ls:], g.data["packed_input_ids"])))
+            sampled_equal.append(bool(ids[:ls].shape == ids[ls:].shape
+                                      and np.array_equal(ids[:ls], ids[ls:])))
+            pm = part.data["prompt_mask"]
+            sampled_gen += int((~pm[:ls]).sum())
+            all_gen += int((~pm).sum())
+        sample.update_(PairedRewardInterface().inference(
+            models["reward"], sample.select(["packed_input_ids"])))
+        sample.update_(itf.inference(models["ref"], sample.select(
+            ["packed_input_ids"])))
+        stats = itf.train_step(actor, sample)
+        torch.cuda.synchronize()
+        want = {k: want[k] + v for k, v in algo_launches(
+            fwd=4 * L + 2 * N * L, bwd=N * L,
+            decode=L * sum(st["decode_steps"] for st in gen)).items()}
+        recs.append(dict(
+            round_secs=time.monotonic() - t_round, generate_secs=t_gen,
+            decode_steps=[st["decode_steps"] for st in gen],
+            greedy_halves_bit_equal=all(halves_equal),
+            sampled_halves_bit_equal_to_greedy=all(sampled_equal),
+            loss_mask_tokens=masks[-1], sampled_generated_tokens=sampled_gen,
+            all_generated_tokens=all_gen, stats=stats, card=smi))
+    counts = {k: v - excluded[k] for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng.train_minibatches
+    rec = dict(n_layers=L, setup_secs=setup, card=smi, rounds=recs,
+               peak_mem_gb=peak, launches=counts, launches_expected=want,
+               launches_excluded_twin=excluded, launches_ok=counts == want,
+               versions=dict(model=actor.version.global_step,
+                             engine=actor.engine.version))
+    rec["ok"] = bool(
+        len(recs) == rounds and rec["launches_ok"]
+        and all(r["greedy_halves_bit_equal"]
+                and not r["sampled_halves_bit_equal_to_greedy"]
+                and r["loss_mask_tokens"] == r["sampled_generated_tokens"]
+                and r["all_generated_tokens"] != r["sampled_generated_tokens"]
+                and all(math.isfinite(v) for v in r["stats"].values())
+                for r in recs)
+        and rec["versions"] == dict(model=rounds, engine=rounds * N))
+    del models, actor, itf, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_agentic(smi):
+    """The ``agentic`` experiment through ``AgenticPPOConfig.build()`` and
+    ``InlineRunner`` on ``tool_game`` (3 turns an episode) with
+    turn-level credit, actor, critic and ref: 2 steps of 16 episodes
+    (prompts of 128 tokens), 32 new tokens a turn (top-p 1, top-k 0), 4
+    minibatches. Per step K1 = L x generate calls + 2L (ref_inf,
+    critic_inf) + 2 x 2NL, K2 = K3 = 2NL, K4 = L x the decode steps of
+    all calls. No episode dropped, each sequence's turn rewards sum to its
+    episode's, each step's first minibatch's importance weight (the
+    packed forward over the whole multi-turn context against the per-turn
+    decode log-probs) within PPO's limit; planted fault, before the
+    counted run and without an update: old log-probs shifted by one
+    token."""
+    import numpy as np
+    from realhf_tpu_torch.experiments.agentic_exp import AgenticPPOConfig
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    steps, L, N, turns = 2, ALGO_LAYERS, ALGO_MINIBATCHES, 3
+    lim = PPO_FIRST_MINIBATCH_LIMITS["importance_weight"]
+    cfg = AgenticPPOConfig(experiment_name="chip-smoke", trial_name="agentic",
+                           benchmark_steps=steps)
+    apply_overrides(cfg, {"dataset.train_bs_n_seqs": "16",
+                          "agentic.n_prompts": "48", "agentic.env": "tool_game",
+                          "agentic.dataset_type": "tool_game",
+                          "agentic.max_turns": str(turns),
+                          "ppo.max_new_tokens": "32",
+                          "ppo.min_new_tokens": "32", "ppo.top_p": "1.0",
+                          "ppo.top_k": "0",
+                          "ppo.ppo_n_minibatches": str(N),
+                          "actor.optimizer.lr": "1e-5",
+                          "critic.optimizer.lr": "1e-5"})
+    spec = cfg.build()
+    vocab = seven_b_roles(spec)
+    spec.dataset.args.update(vocab_size=vocab, prompt_len=128)
+    runner, setup = build_runner(spec)
+    actor = runner.models["actor"]
+    batch = probe_inputs(runner, next(iter(runner.dataloader)))
+    with no_update(actor) as probe:
+        runner.interfaces["actor_train"].train_step(
+            actor, shifted_logprobs(batch, runner.host.nodes["actor_train"]))
+    seen = watch_runner(runner)
+    counts, peak, gen = run_counted(runner)
+    calls = len(gen)
+    want = algo_launches(
+        fwd=L * calls + (2 * L + 2 * 2 * N * L) * steps,
+        bwd=2 * N * L * steps,
+        decode=L * sum(st["decode_steps"] for st in gen))
+    rec = algo_record(runner, seen, smi, counts, want, peak, setup)
+    firsts = [call[0] for call in seen["minibatch_stats"]["actor"]]
+    fault_iw = probe.minibatch_stats[0][0]["importance_weight"]
+    dense_ok, n_turns = True, []
+    for out in seen["outputs"]["actor_gen"]:
+        n_turns += out.metadata["n_turns"]
+        off = 0
+        for lens, r in zip(out.seqlens["dense_rewards"],
+                           out.data["rewards"]):
+            d = out.data["dense_rewards"][off:off + lens[0]]
+            dense_ok &= bool(np.isclose(d.sum(), r, rtol=1e-6, atol=1e-6))
+            off += lens[0]
+    rec.update(
+        generate_calls=calls, decode_steps=[st["decode_steps"] for st in gen],
+        episodes=len(n_turns), turns=n_turns.count(turns),
+        dense_rewards_sum_to_reward=dense_ok,
+        task_reward=[s["actor_train"]["task_reward"]
+                     for s in runner.step_stats],
+        first_minibatch=dict(
+            importance_weight=[m["importance_weight"] for m in firsts],
+            limit=lim),
+        planted_fault="old log-probs shifted by one token",
+        planted_fault_importance_weight=fault_iw)
+    rec["first_minibatch_ok"] = len(firsts) == steps and all(
+        abs(m["importance_weight"] - 1) <= lim for m in firsts)
+    rec["ok"] = bool(rec["launches_ok"] and rec["stats_finite"]
+                     and rec["first_minibatch_ok"] and dense_ok
+                     and abs(fault_iw - 1) > 10 * lim
+                     and n_turns == [turns] * (16 * steps)
+                     and calls == turns * steps
+                     and rec["mfc_runs"] == dict.fromkeys(
+                         ("actor_gen", "ref_inf", "critic_inf",
+                          "actor_train", "critic_train"), steps))
+    drop_runner(runner)
+    return rec
+
+
+def phase_profile_exp(smi):
+    """The ``profile`` experiment through ``ProfileConfig(model_size=
+    "7b").build()`` with every role's ``n_layers`` cut to 4: 16 random
+    prompts of 100-512 tokens, up to 128 new tokens (min 32), PPO's
+    sampling and 4 minibatches, 1 step: the six MFCs, PPO's launch
+    formula, finite stats, per-MFC seconds through ``watch_ppo_runner``."""
+    import torch
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.profile_exp import ProfileConfig
+    L, N = ALGO_LAYERS, ALGO_MINIBATCHES
+    cfg = ProfileConfig(experiment_name="chip-smoke", trial_name="profile",
+                        model_size="7b", benchmark_steps=1)
+    apply_overrides(cfg, {"n_prompts": "16", "prompt_len_min": "100",
+                          "prompt_len_max": "512",
+                          "dataset.train_bs_n_seqs": "16",
+                          "dataset.max_seqlen": "512",
+                          "ppo.max_new_tokens": "128",
+                          "ppo.min_new_tokens": "32",
+                          "ppo.ppo_n_minibatches": str(N)})
+    spec = cfg.build()
+    for mspec in spec.models.values():
+        mspec.random_init_config["n_layers"] = L
+    runner, setup = build_runner(spec)
+    seen = watch_ppo_runner(runner)
+    counts, peak, gen = run_counted(runner)
+    want = expected_ppo_launches(L, N, gen)
+    firsts = [call[0] for call in seen["minibatch_stats"]["actor_train"]]
+    finite = all(math.isfinite(v) for st in runner.step_stats[0].values()
+                 for v in st.values())
+    rec = dict(n_layers=L, setup_secs=setup, card=smi,
+               step_secs=runner.step_secs,
+               mfc_secs={k: v[0] for k, v in seen["mfc_secs"].items()
+                         if v},
+               mfc_runs={k: len(v) for k, v in seen["mfc_secs"].items()},
+               decode_steps=[st["decode_steps"] for st in gen],
+               peak_mem_gb=peak, stats=runner.step_stats,
+               stats_finite=finite,
+               importance_weight=[m["importance_weight"] for m in firsts],
+               launches=counts, launches_expected=want,
+               launches_ok=counts == want)
+    rec["ok"] = bool(rec["launches_ok"] and finite
+                     and rec["mfc_runs"] == dict.fromkeys(PPO_MFCS, 1))
+    vars(runner.host).pop("execute", None)
+    for model in runner.models.values():
+        for method in ("generate", "forward_values", "forward_logprobs",
+                       "train_minibatches"):
+            vars(model.engine).pop(method, None)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+ALGO_PHASES = (("rw", phase_rw), ("dpo", phase_dpo), ("grpo", phase_grpo),
+               ("reinforce", phase_reinforce), ("agentic", phase_agentic),
+               ("profile_exp", phase_profile_exp))
+
+
+def run_algo_phases(smi):
+    """Each algorithm phase in turn, its JSON line and a summary line
+    (step seconds, per-MFC seconds, peak, the card) -> their records."""
+    recs = {}
+    for name, phase in ALGO_PHASES:
+        rec = recs[name] = phase(smi)
+        emit(name, **rec)
+        summary = {k: rec[k] for k in ("step_secs", "mfc_secs", "rounds",
+                                       "peak_mem_gb") if k in rec}
+        if "rounds" in summary:
+            summary["rounds"] = [{k: r[k] for k in (
+                "round_secs", "generate_secs")} for r in rec["rounds"]]
+        print(f"{name}-7bw-l{ALGO_LAYERS}: {json.dumps(summary)} ({smi})",
+              flush=True)
+    return recs
+
+
+# ----------------------------------------------------------------------
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
-    paths run (gen, deep, sft, the two ppo steps, ctx and ppo_ctx), each
-    counted from 0 just before its path and read just after it."""
+    paths run (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw, dpo,
+    grpo, reinforce, agentic and profile_exp), each counted from 0 just
+    before its path and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -2987,10 +3775,11 @@ def main(argv=None):
     ring_recs.append(ring_ppo)
     RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
     ok &= ring_ppo["ok"]
+    algo_recs = run_algo_phases(smi)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
-           and ppo_ctx_rec["ok"])
+           and ppo_ctx_rec["ok"] and all(r["ok"] for r in algo_recs.values()))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3002,7 +3791,8 @@ def main(argv=None):
         return 1
     print(json.dumps(kernels_line(
         kernel_recs, bwd_recs, ring_recs,
-        [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec])))
+        [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec]
+        + list(algo_recs.values()))))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

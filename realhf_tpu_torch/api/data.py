@@ -175,6 +175,11 @@ class SequenceSample:
         """k token-balanced contiguous parts of this batch."""
         return self.split_with_spec(self.get_split_spec(k, key, min_size))
 
+    def unpack(self) -> List["SequenceSample"]:
+        """One sample per batch element, in order."""
+        return self.split_with_spec(
+            SequenceSplitSpec([(i, i + 1) for i in range(self.bs)]))
+
     def select(self, keys: List[str]) -> "SequenceSample":
         """A view holding only the given keys."""
         keys = set(keys)

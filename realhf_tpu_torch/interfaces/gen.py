@@ -19,16 +19,17 @@ from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
 logger = logging.getLogger("GenerationInterface")
 
 
-def sampling_generator(calls: int, device):
-    """The sampling stream of the ``calls``-th generate call: a
-    generator on ``device`` seeded from (experiment seed, call count),
-    so each call draws fresh, reproducible randomness."""
+def sampling_generator(calls: int, device, stream: str = "generate"):
+    """The sampling stream of the ``calls``-th generate call of a
+    ``stream``: a generator on ``device`` seeded from (experiment seed,
+    stream, call count), so each call draws fresh, reproducible
+    randomness and streams of different callers never coincide."""
     try:
         seed = seeding.get_seed()
     except RuntimeError:
         seed = 0
     return seeding.generator(
-        seeding.derive_seed_from(seed, "generate", calls), device)
+        seeding.derive_seed_from(seed, stream, calls), device)
 
 
 @dataclasses.dataclass

@@ -60,6 +60,18 @@ def test_port_imports_without_jax_or_jax_package():
     assert int(res.stdout.strip().splitlines()[-1]) >= 20
 
 
+def test_every_port_directory_is_a_package():
+    """``walk_packages`` reaches a module only through packages: every
+    directory of the port holding Python files has an ``__init__.py``, so
+    the subprocess check above imports all of them."""
+    dirs = {p.parent for p in PORT.rglob("*.py")}
+    missing = sorted(str(d.relative_to(REPO)) for d in dirs
+                     if not (d / "__init__.py").exists())
+    assert not missing, missing
+    assert {"agentic", "serving", "obs", "system"} <= {d.name for d in dirs}
+    assert (PORT / "system" / "rollout.py").exists()
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_statement(path):
