@@ -173,8 +173,39 @@ exits non-zero):
    random prompts of 100-512 tokens, 128 new tokens, 1 step: the six
    MFCs with PPO's launch formula, per-MFC seconds.
 
+22. ckpt_gen -- checkpoint IO at the gen cell's full width and depth
+   (32 layers, bf16, ~13.5 GB): the model saved with the streamed save
+   (``models/hf/registry.py``) under ``_ckpt_scratch/`` beside this
+   script (the free disk checked first), then loaded into a new gen
+   runner (``model.path``; ``build_model`` streams one layer at a time
+   onto the card): every leaf ``torch.equal`` to the saved model's and
+   to the registry's eager load of the same files
+   (``hf.load_hf_checkpoint``, host numpy), a greedy batch of 8 prompts
+   x 32 new tokens equal to the original model's tokens, exact K1/K4
+   counts. Planted fault: a loader that skips q_proj's transpose (square
+   at this width) must fail both checks. Reports bytes written, save
+   and load seconds (GB/s), the host peak growth of the runner's load and
+   of the eager read (VmHWM reset through ``/proc/self/clear_refs``,
+   else sampled VmRSS) and the load's device peak growth.
+23. ckpt_resume -- the sft cell at 7B width, 4 layers, lr 1e-5, gradient
+   checkpointing, 3 steps of 16 records in one epoch: run A takes 3
+   steps; run B takes 2 with ``save_freq_steps=1`` and
+   ``recover_mode="auto"`` (weights ~2.1 GB, optimizer state ~12.8 GB
+   per save); run C, a new ``InlineRunner(recover_mode="resume")``, takes
+   step 3: its batch ids, loss, grad norm and updated weights must equal
+   A's step 3 (bit for bit), with exact K1/K2/K3 counts. Planted fault:
+   C with the optimizer state left fresh must move a weight by at least
+   ten times the limit (1% of the step's largest update). Reports the
+   weights' and the optimizer state's save seconds, the resume's setup
+   seconds and host peak growth.
+
+The phases before 22 run with the saves of their trained roles switched
+off (``without_saves``: ``enable_save=False`` on every train MFC's
+interface), as they ran before the port could save.
+
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
-sft, ppo, ctx, ppo_ctx and algorithm paths, each counted from 0), the
+sft, ppo, ctx, ppo_ctx, algorithm and checkpoint paths, each counted
+from 0), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -1504,7 +1535,7 @@ def phase_sft(smi):
         write_prompt_answers(data, 16, seed=3)
         spec = build_sft_spec(data, SFT_LAYERS)
         t0 = time.monotonic()
-        runner = InlineRunner(spec)  # device=None: the card
+        runner = InlineRunner(without_saves(spec))  # the card
         torch.cuda.synchronize()
         setup = time.monotonic() - t0
     eng = runner.models["default"].engine
@@ -1637,7 +1668,8 @@ def phase_sft_lr(smi):
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "sft.jsonl")
         write_prompt_answers(data, 16, seed=3)
-        runner = InlineRunner(build_sft_spec(data, SFT_LAYERS, lr="1e-4"))
+        runner = InlineRunner(without_saves(
+            build_sft_spec(data, SFT_LAYERS, lr="1e-4")))
     model = runner.models["default"]
     init = _tree_map(lambda t: t.float(), model.engine.params)  # new fp32
     runner.run()
@@ -2068,7 +2100,7 @@ def phase_ppo(smi):
         write_prompts(data, 160, seed=1)
         spec, vocab = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=2)
         t0 = time.monotonic()
-        runner = InlineRunner(spec)  # device=None: the card
+        runner = InlineRunner(without_saves(spec))  # device=None: the card
         torch.cuda.synchronize()
         setup = time.monotonic() - t0
         resident = torch.cuda.memory_allocated() - leftover
@@ -2128,7 +2160,7 @@ def phase_ppo(smi):
         # one step with ref and reward offloaded after their MFCs
         spec, _ = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=1,
                                  auto_offload=True)
-        runner = InlineRunner(spec)
+        runner = InlineRunner(without_saves(spec))
         off_seen = watch_ppo_runner(runner)
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -2752,7 +2784,8 @@ def phase_ppo_ctx(smi):
         write_prompts(data, 160, seed=1)
         spec, _ = build_ppo_spec(data, PPO_LAYERS, benchmark_steps=1,
                                  ctx=CTX_MEMBERS)
-        runner = InlineRunner(spec, role_devices=dict(ref=devs, reward=devs))
+        runner = InlineRunner(without_saves(spec),
+                              role_devices=dict(ref=devs, reward=devs))
         seen = watch_ppo_runner(runner)
         host = runner.host
         timed_execute = host.execute
@@ -3074,7 +3107,7 @@ def build_runner(spec):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    runner = InlineRunner(spec)  # device=None: the card
+    runner = InlineRunner(without_saves(spec))  # device=None: the card
     torch.cuda.synchronize()
     return runner, time.monotonic() - t0
 
@@ -3618,11 +3651,469 @@ def run_algo_phases(smi):
 
 
 # ----------------------------------------------------------------------
+# phases 22-23: checkpoint IO and resume
+# ----------------------------------------------------------------------
+CKPT_NEW_TOKENS = 32
+CKPT_RESUME_LAYERS = 4
+#: a sound resume is bit-equal (reads 0); the planted fault (fresh
+#: moments) must move some parameter by at least ten times this share
+#: of the step's largest update
+CKPT_RESUME_LIMIT = 0.01
+
+
+def without_saves(spec):
+    """The runner saves its trained roles at the end of every ``run``.
+    The phases before the checkpoint phases time their steps without
+    those saves (~150 GB of writes at their sizes), as they did before
+    the port could save: every train MFC's interface gets
+    ``enable_save=False``. Returns the spec."""
+    from realhf_tpu_torch.api.config import ModelInterfaceType
+    for node in spec.mfcs:
+        if node.interface_type == ModelInterfaceType.TRAIN_STEP:
+            node.interface_impl.args["enable_save"] = False
+    return spec
+
+
+def ckpt_scratch(need_bytes: int) -> str:
+    """A fresh directory under ``_ckpt_scratch/`` beside this script
+    (gitignored), after checking that ``need_bytes`` fit on its disk."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_ckpt_scratch")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < need_bytes:
+        raise RuntimeError(
+            f"checkpoint phases need {need_bytes / 1e9:.1f} GB free under "
+            f"{root}; the disk has {free / 1e9:.1f} GB")
+    return tempfile.mkdtemp(dir=root)
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _proc_status_kb(key) -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    raise KeyError(key)
+
+
+class HostPeak:
+    """Growth of this process's resident memory over a block, in GB: the
+    kernel's high-water mark (``VmHWM``) after resetting it through
+    ``/proc/self/clear_refs``, or, where that is refused, the largest
+    ``VmRSS`` a sampling thread saw."""
+
+    def __enter__(self):
+        import threading
+        self.base = _proc_status_kb("VmRSS")
+        try:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+            self.method = "VmHWM"
+        except OSError:
+            self.method = "sampled VmRSS"
+        self._peak, self._stop = self.base, threading.Event()
+        if self.method != "VmHWM":
+            def sample():
+                while not self._stop.wait(0.005):
+                    self._peak = max(self._peak, _proc_status_kb("VmRSS"))
+            self._thread = threading.Thread(target=sample, daemon=True)
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.method == "VmHWM":
+            self._peak = _proc_status_kb("VmHWM")
+        else:
+            self._stop.set()
+            self._thread.join()
+        self.growth_gb = (self._peak - self.base) / 2 ** 20
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted path, leaf) in sorted-key order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += named_leaves(tree[k], f"{prefix}{k}.")
+        else:
+            out.append((prefix + k, tree[k]))
+    return out
+
+
+def leaves_equal(a, b) -> dict:
+    """Per-leaf ``torch.equal`` of two trees -> {"all": bool, "differ":
+    [paths]}. A numpy leaf of ``a`` is compared on its counterpart's
+    device."""
+    import torch
+    from realhf_tpu_torch.base.safetensors_io import numpy_to_tensor
+    la, lb = named_leaves(a), named_leaves(b)
+    differ = [n for (n, x), (m, y) in zip(la, lb)
+              if n != m or not torch.equal(
+                  x if torch.is_tensor(x)
+                  else numpy_to_tensor(x).to(y.device), y)]
+    if len(la) != len(lb):
+        differ.append("leaf count")
+    return {"all": not differ, "differ": differ}
+
+
+def skip_q_transpose():
+    """Planted fault: the llama converter left q_proj in HF's (out, in)
+    layout (square at 7B width, so the load goes through). Returns the
+    function that restores it."""
+    import numpy as np
+    from realhf_tpu_torch.models import hf
+    fam = hf.HF_FAMILIES["llama"]
+    orig = fam.params_from_hf
+
+    def faulty(state, cfg):
+        params = orig(state, cfg)
+        wq = params["blocks"]["attn"]["wq"]
+        params["blocks"]["attn"]["wq"] = np.ascontiguousarray(
+            wq.transpose(0, 2, 1))
+        return params
+
+    fam.params_from_hf = faulty
+
+    def restore():
+        fam.params_from_hf = orig
+    return restore
+
+
+def gen_tokens(runner):
+    import numpy as np
+    return np.array(runner.last_batch.data["packed_input_ids"])
+
+
+def phase_ckpt_gen(smi):
+    """The gen cell's 32-layer 7B model saved with the streamed save and
+    loaded into a new gen runner (``model.path``, the streamed load):
+    every leaf bit-equal to the saved model's and to the registry's eager
+    load of the same files, a greedy batch's tokens equal to the original
+    model's with exact K1/K4 counts; a loader that skips q_proj's
+    transpose must fail both the leaves and the tokens."""
+    import numpy as np
+    import shutil
+    import torch
+    from realhf_tpu_torch.models import hf
+    from realhf_tpu_torch.system.inline import InlineRunner
+    n_layers = 32
+    rec = dict(n_layers=n_layers, new_tokens=CKPT_NEW_TOKENS, card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=1)
+        spec, vocab = build_gen_spec(data, n_layers, CKPT_NEW_TOKENS, 1)
+        runner = InlineRunner(spec)  # device=None: the card
+        eng = runner.models["default"].engine
+        runner.run()
+        want_tokens = gen_tokens(runner)
+        model_bytes = tree_bytes(eng.params)
+        ckpt = ckpt_scratch(int(model_bytes * 1.05) + 2 ** 30)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            hf.save_hf_checkpoint_streamed(ckpt, "llama", eng.cfg,
+                                           eng.params)
+            save_s = time.monotonic() - t0
+            written = dir_bytes(ckpt)
+            rec.update(bytes_written=written, save_secs=save_s,
+                       save_gb_per_s=written / save_s / 1e9)
+
+            def load(compare_eager=False):
+                lspec, _ = build_gen_spec(data, n_layers, CKPT_NEW_TOKENS, 1)
+                apply_path(lspec, ckpt)
+                gc.collect()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                with HostPeak() as host:
+                    t0 = time.monotonic()
+                    lrunner = InlineRunner(lspec)
+                    torch.cuda.synchronize()
+                    secs = time.monotonic() - t0
+                leng = lrunner.models["default"].engine
+                out = dict(secs=secs, gb_per_s=written / secs / 1e9,
+                           host_peak_growth_gb=host.growth_gb,
+                           host_peak_method=host.method,
+                           device_peak_growth_gb=(
+                               torch.cuda.max_memory_allocated() - base)
+                           / 2 ** 30,
+                           leaves=leaves_equal(leng.params, eng.params))
+                if compare_eager:
+                    # the registry's eager load: every file read whole
+                    # into host numpy, then converted
+                    with HostPeak() as host:
+                        t0 = time.monotonic()
+                        _, eager = hf.load_hf_checkpoint(ckpt)
+                        eager_s = time.monotonic() - t0
+                    out["registry_eager"] = dict(
+                        secs=eager_s, gb_per_s=written / eager_s / 1e9,
+                        host_peak_growth_gb=host.growth_gb,
+                        host_peak_method=host.method,
+                        leaves=leaves_equal(eager, leng.params))
+                    del eager
+                    gc.collect()
+                reset_counts()
+                lrunner.run()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                n_decode = sum(st["decode_steps"]
+                               for st in leng.generate_stats)
+                want = dict(flash_fwd=n_layers, flash_bwd_dq=0,
+                            flash_bwd_dkv=0, flash_decode=n_layers * n_decode,
+                            flash_decode_stacked=0, ring_round=0,
+                            ring_push=0)
+                out.update(tokens_equal=bool(np.array_equal(
+                    gen_tokens(lrunner), want_tokens)),
+                    decode_steps=n_decode, launches=counts,
+                    launches_expected=want, launches_ok=counts == want)
+                del lrunner, leng
+                gc.collect()
+                torch.cuda.empty_cache()
+                return out
+
+            rec["streamed"] = load(compare_eager=True)
+            restore = skip_q_transpose()
+            try:
+                fault = load()
+            finally:
+                restore()
+            rec["fault_skip_q_transpose"] = dict(
+                leaves_equal=fault["leaves"]["all"],
+                differ=fault["leaves"]["differ"],
+                tokens_equal=fault["tokens_equal"])
+        finally:
+            shutil.rmtree(ckpt)
+        del runner, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the launches of the sound load's generate call
+    got = rec["streamed"]
+    rec["launches"] = got["launches"]
+    rec["load_ok"] = (got["leaves"]["all"] and got["tokens_equal"]
+                      and got["launches_ok"]
+                      and got["registry_eager"]["leaves"]["all"])
+    fault = rec["fault_skip_q_transpose"]
+    rec["fault_caught"] = not fault["leaves_equal"] and not fault[
+        "tokens_equal"]
+    rec["ok"] = rec["load_ok"] and rec["fault_caught"]
+    return rec
+
+
+def apply_path(spec, path):
+    """Point a built spec's default model at a checkpoint, as the
+    ``model.path`` override does."""
+    mspec = spec.models["default"]
+    mspec.path, mspec.random_init_config = path, None
+
+
+def build_resume_spec(data_path, trial, benchmark_steps, save_freq_steps=None):
+    from realhf_tpu_torch.base.testing import IntegerTokenizer
+    from realhf_tpu_torch.experiments.common import apply_overrides
+    from realhf_tpu_torch.experiments.sft_exp import SFTConfig
+    from realhf_tpu_torch.models.config import llama_config
+    cfg = SFTConfig(experiment_name="chip-smoke", trial_name=trial,
+                    total_train_epochs=1, benchmark_steps=benchmark_steps,
+                    save_freq_steps=save_freq_steps)
+    apply_overrides(cfg, {"dataset.path": data_path,
+                          "dataset.train_bs_n_seqs": "16",
+                          "dataset.max_seqlen": "1024", "n_mbs": "2",
+                          "model.optimizer.lr": "1e-5"})
+    spec = cfg.build()
+    mspec = spec.models["default"]
+    mspec.random_init_config = llama_config("7b",
+                                            n_layers=CKPT_RESUME_LAYERS)
+    spec.tokenizer = IntegerTokenizer(
+        vocab_size=mspec.random_init_config["vocab_size"] - 2)
+    return spec
+
+
+def watch_steps(runner):
+    """Record each step's batch ids on the runner's own ``run_step``."""
+    seen, step = [], runner.run_step
+
+    def watched(batch):
+        out = step(batch)
+        seen.append(list(batch.ids))
+        return out
+
+    runner.run_step = watched
+    return seen
+
+
+def param_snapshot(eng):
+    return [(n, t.clone()) for n, t in named_leaves(eng.params)]
+
+
+def update_diff(got, want, before) -> float:
+    """The largest |got - want| over the largest |want - before|, over
+    every parameter leaf (the step's update as the yardstick)."""
+    num = max(float((g.float() - w.float()).abs().max())
+              for (_, g), (_, w) in zip(got, want))
+    den = max(float((w.float() - b.float()).abs().max())
+              for (_, w), (_, b) in zip(want, before))
+    return num / den
+
+
+def phase_ckpt_resume(smi):
+    """The sft cell at 7B width, 4 layers, lr 1e-5, gradient checkpointing,
+    3 steps of 16 records: run A takes 3 steps; run B takes 2 with
+    ``save_freq_steps=1`` and ``recover_mode="auto"``; run C, a new runner
+    with ``recover_mode="resume"``, takes step 3 from B's last save. C's
+    batch, loss, grad norm and updated weights must equal A's step 3, with
+    exact K1/K2/K3 counts. Planted fault D: C with its optimizer state
+    left fresh must move the weights away from A's by >= 10x the limit."""
+    import shutil
+    import torch
+    from realhf_tpu_torch.base import constants
+    from realhf_tpu_torch.engine import opt_checkpoint
+    from realhf_tpu_torch.system import model_host
+    from realhf_tpu_torch.system.inline import InlineRunner
+    L, mbs = CKPT_RESUME_LAYERS, 2
+    rec = dict(n_layers=L, card=smi)
+    tmp = tempfile.mkdtemp()
+    data = os.path.join(tmp, "sft.jsonl")
+    write_prompt_answers(data, 48, seed=5)
+
+    def runner_of(trial, steps, save_freq=None, mode="disabled",
+                  saves=True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = build_resume_spec(data, trial, steps, save_freq)
+        if not saves:
+            without_saves(spec)
+        with HostPeak() as host:
+            t0 = time.monotonic()
+            r = InlineRunner(spec, recover_mode=mode)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+        return r, dict(setup_secs=secs, host_peak_growth_gb=host.growth_gb,
+                       host_peak_method=host.method)
+
+    # A: the uninterrupted reference (its final save is not the subject)
+    a, _ = runner_of("ckpt-a", 3, saves=False)
+    a_ids = watch_steps(a)
+    a.run()
+    a_stats = [st["trainDefault"] for st in a.step_stats]
+    a_after = param_snapshot(a.models["default"].engine)
+    eng = a.models["default"].engine
+    need = (tree_bytes(eng.params)
+            + sum(4 * math.prod(s) for s, _ in eng.opt_state_spec()))
+    del a, eng
+    root = ckpt_scratch(int(need * 1.1) + 2 ** 30)
+    orig_root, constants.ROOT_DIR = constants.ROOT_DIR, root
+    orig_save_opt = opt_checkpoint.save_opt_state_iter
+    try:
+        # B: two steps, saving each, with the recover dump
+        b, rec["b_setup"] = runner_of("ckpt-b", 2, save_freq=1, mode="auto")
+        itf = b.interfaces["trainDefault"]
+        saves = dict(weights=[], optimizer=[])
+
+        def timed(kind, fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                saves[kind].append(time.monotonic() - t0)
+                return out
+            return call
+
+        itf.save = timed("weights", itf.save)
+        opt_checkpoint.save_opt_state_iter = timed("optimizer",
+                                                   orig_save_opt)
+        b.run()
+        opt_checkpoint.save_opt_state_iter = orig_save_opt
+        b_stats = [st["trainDefault"] for st in b.step_stats]
+        del b, itf
+        ckpt = os.path.join(constants.run_save_path("chip-smoke", "ckpt-b"),
+                            "default")
+        opt_bytes = os.path.getsize(os.path.join(ckpt,
+                                                 opt_checkpoint.FILENAME))
+        rec.update(saves_secs=saves, bytes_saved=dir_bytes(ckpt),
+                   optimizer_bytes=opt_bytes,
+                   b_losses=[s["loss"] for s in b_stats])
+
+        def resume(fresh_moments=False):
+            restore = model_host.opt_checkpoint.restore_engine_opt_state
+            if fresh_moments:
+                model_host.opt_checkpoint.restore_engine_opt_state = (
+                    lambda *args, **kw: False)
+            try:
+                c, setup = runner_of("ckpt-b", 3, mode="resume")
+            finally:
+                model_host.opt_checkpoint.restore_engine_opt_state = restore
+            if fresh_moments:  # its final save and dump would replace B's
+                c._maybe_save = lambda *args, **kw: None
+            ceng = c.models["default"].engine
+            before = param_snapshot(ceng)
+            ids = watch_steps(c)
+            reset_counts()
+            t0 = time.monotonic()
+            c.run()
+            torch.cuda.synchronize()
+            run_s = time.monotonic() - t0
+            counts = read_counts()
+            st = c.step_stats[0]["trainDefault"] if c.step_stats else {}
+            want = a_stats[2]
+            after = param_snapshot(ceng)
+            out = dict(setup, run_secs=run_s, step_secs=c.step_secs,
+                       batch_ids_equal=ids[:1] == a_ids[2:3],
+                       loss=st.get("loss"), grad_norm=st.get("grad_norm"),
+                       loss_equal=st.get("loss") == want["loss"],
+                       grad_norm_equal=st.get("grad_norm")
+                       == want["grad_norm"],
+                       global_step=c.global_step, launches=counts,
+                       weights_equal=all(
+                           torch.equal(x, y)
+                           for (_, x), (_, y) in zip(after, a_after)),
+                       update_diff=update_diff(after, a_after, before))
+            del c, ceng, before, after
+            return out
+
+        # the fault first: the sound run's final save rewrites B's save
+        rec["fault_fresh_moments"] = resume(fresh_moments=True)
+        rec["c"] = resume()
+    finally:
+        opt_checkpoint.save_opt_state_iter = orig_save_opt
+        constants.ROOT_DIR = orig_root
+        shutil.rmtree(root)
+        shutil.rmtree(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    c = rec["c"]
+    n = L * mbs  # one step: layers x microbatches
+    want = dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                flash_decode=0, flash_decode_stacked=0, ring_round=0,
+                ring_push=0)
+    rec["launches"] = c["launches"]
+    rec["launches_expected"] = want
+    rec["launches_ok"] = c["launches"] == want
+    rec["a_losses"] = [s["loss"] for s in a_stats]
+    rec["limit"] = CKPT_RESUME_LIMIT
+    rec["resume_ok"] = (c["batch_ids_equal"] and c["loss_equal"]
+                        and c["grad_norm_equal"] and c["weights_equal"]
+                        and c["update_diff"] <= CKPT_RESUME_LIMIT
+                        and c["global_step"] == 3)
+    d = rec["fault_fresh_moments"]
+    rec["fault_caught"] = d["update_diff"] >= 10 * CKPT_RESUME_LIMIT
+    rec["ok"] = rec["resume_ok"] and rec["launches_ok"] and rec[
+        "fault_caught"]
+    return rec
+
+
+# ----------------------------------------------------------------------
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
     paths run (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw, dpo,
-    grpo, reinforce, agentic and profile_exp), each counted from 0 just
-    before its path and read just after it."""
+    grpo, reinforce, agentic, profile_exp, ckpt_gen's load and
+    ckpt_resume's resumed step), each counted from 0 just before its path
+    and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -3776,10 +4267,34 @@ def main(argv=None):
     RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
     ok &= ring_ppo["ok"]
     algo_recs = run_algo_phases(smi)
+    ckpt_gen_rec = phase_ckpt_gen(smi)
+    emit("ckpt_gen", **ckpt_gen_rec)
+    load_rec = ckpt_gen_rec["streamed"]
+    print("ckpt-gen-7b: " + json.dumps({
+        k: ckpt_gen_rec[k] for k in ("bytes_written", "save_secs",
+                                     "save_gb_per_s")} | {
+        "streamed": {k: load_rec[k] for k in (
+            "secs", "gb_per_s", "host_peak_growth_gb",
+            "device_peak_growth_gb")},
+        "registry_eager": {k: load_rec["registry_eager"][k] for k in (
+            "secs", "gb_per_s", "host_peak_growth_gb")}})
+        + f" ({smi})", flush=True)
+    ckpt_resume_rec = phase_ckpt_resume(smi)
+    emit("ckpt_resume", **ckpt_resume_rec)
+    c = ckpt_resume_rec["c"]
+    print(f"ckpt-resume-7bw-l{CKPT_RESUME_LAYERS}: " + json.dumps(dict(
+        saves_secs=ckpt_resume_rec["saves_secs"],
+        bytes_saved=ckpt_resume_rec["bytes_saved"],
+        resume_setup_secs=c["setup_secs"],
+        resume_host_peak_growth_gb=c["host_peak_growth_gb"],
+        update_diff=c["update_diff"],
+        fault_update_diff=ckpt_resume_rec["fault_fresh_moments"][
+            "update_diff"])) + f" ({smi})", flush=True)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
-           and ppo_ctx_rec["ok"] and all(r["ok"] for r in algo_recs.values()))
+           and ppo_ctx_rec["ok"] and all(r["ok"] for r in algo_recs.values())
+           and ckpt_gen_rec["ok"] and ckpt_resume_rec["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3792,7 +4307,7 @@ def main(argv=None):
     print(json.dumps(kernels_line(
         kernel_recs, bwd_recs, ring_recs,
         [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec]
-        + list(algo_recs.values()))))
+        + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -282,6 +282,22 @@ class SequenceSample:
                 f"meta_only={self.data is None})")
 
 
+def drop_ids(batch: "SequenceSample", skip_ids) -> Optional["SequenceSample"]:
+    """Remove the batch elements whose id is in ``skip_ids`` (a resumed
+    run's data already consumed in the interrupted epoch). None when
+    nothing survives."""
+    skip = set(skip_ids)
+    if not skip:
+        return batch
+    keep = [i for i, x in enumerate(batch.ids) if x not in skip]
+    if not keep:
+        return None
+    if len(keep) == batch.bs:
+        return batch
+    parts = batch.unpack()
+    return SequenceSample.gather([parts[i] for i in keep])
+
+
 # ----------------------------------------------------------------------
 # Dataset registry and loading utilities.
 # ----------------------------------------------------------------------
@@ -319,9 +335,11 @@ def make_dataset(cfg, seed: int, dp_rank: int, world_size: int,
 
 def load_hf_tokenizer(path: str, fast: bool = True, padding_side: str = "left"):
     raise NotImplementedError(
-        "Loading a Hugging Face tokenizer is deferred to the checkpoint-IO "
-        "slice of the port; pass a tokenizer object (ExperimentSpec."
-        "tokenizer) instead.")
+        "Loading a Hugging Face tokenizer needs the `transformers` package, "
+        "which the port must not need (a CUDA host may lack it), and "
+        "the repository holds no tokenizer file to test a reader of its "
+        "own against; it waits in ROADMAP.md, queue 1, item 1. Pass a "
+        "tokenizer object (ExperimentSpec.tokenizer) instead.")
 
 
 def require_record_fields(records: List[Dict], required: Tuple[str, ...],

@@ -16,23 +16,30 @@ __all__ = ["ExperimentSpec", "ModelSpec", "ParallelismConfig",
 @dataclasses.dataclass
 class ModelSpec:
     """One model role."""
-    path: Optional[str] = None  # checkpoint dir; None = random init
+    #: the HF family of the checkpoint at ``path`` and of saves
+    hf_family: str = "llama"
+    path: Optional[str] = None  # HF checkpoint dir; None = random init
     # used when path is None (tests, benchmarks, smoke runs)
     random_init_config: Optional[dict] = None
     is_critic: bool = False
+    #: a critic from an actor's checkpoint: the LM head dropped, a fresh
+    #: value head drawn as the JAX package draws it
+    init_critic_from_actor: bool = False
     #: the optimizer of a trained role; None = inference only
     optimizer: Optional[OptimizerConfig] = None
     parallel: ParallelismConfig = dataclasses.field(
         default_factory=ParallelismConfig)
     gradient_checkpointing: bool = True
     bf16: bool = True
+    #: restore the optimizer state saved beside ``path``; the resume path
+    #: sets it, a new run from a checkpoint starts with a fresh one
+    restore_optimizer_state: bool = False
 
 
 @dataclasses.dataclass
 class SaveEvalControl:
     """When the runner saves and evaluates trained roles (None = never)
-    and when it stops early. Saving raises until the checkpoint-IO
-    slice of the port."""
+    and when it stops early. The runner also saves once at the end."""
     save_freq_epochs: Optional[int] = None
     save_freq_steps: Optional[int] = None
     save_freq_secs: Optional[float] = None

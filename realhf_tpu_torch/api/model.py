@@ -28,6 +28,8 @@ class Model:
     name: ModelName
     engine: Any  # realhf_tpu_torch.engine.engine.Engine
     tokenizer: Any
+    #: the HF family its checkpoints are saved as (``models/hf``)
+    hf_family: str = "llama"
     version: ModelVersion = dataclasses.field(default_factory=ModelVersion)
 
     @property
@@ -45,10 +47,12 @@ class ModelInterface(abc.ABC):
     def evaluate(self, model: Model, eval_dataloader) -> Dict:
         return {}
 
-    def save(self, model: Model, save_dir: str):
-        raise NotImplementedError(
-            "saving a model is deferred to the checkpoint-IO slice of the "
-            "port.")
+    def save(self, model: Model, save_dir: str, host_params=None):
+        """Write the model's HF-layout checkpoint to ``save_dir``;
+        ``host_params``, when given, is a host numpy copy of the weights
+        (``Engine.params_numpy()``), else the save streams one layer at a
+        time from the device. The base interface saves nothing."""
+        pass
 
     def inference(self, model: Model, input_: SequenceSample,
                   n_mbs: Optional[int] = None) -> SequenceSample:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
+from realhf_tpu_torch.base.safetensors_io import tensor_to_numpy
 from realhf_tpu_torch.engine import generation as gen_mod
 from realhf_tpu_torch.engine import offload, optim, packing
 from realhf_tpu_torch.models import transformer as T
@@ -131,6 +132,30 @@ class Engine:
     def params_numpy(self):
         """Host numpy copy with the JAX package's paths and shapes."""
         return params_numpy(self.params)
+
+    # ------------------------------------------------------------------
+    # Optimizer state across the numpy boundary
+    # ------------------------------------------------------------------
+    def opt_state_spec(self):
+        """(shape, numpy dtype) of each optimizer-state leaf, in the JAX
+        package's leaf order (``AdamW.state_leaves``)."""
+        return self.optimizer.state_spec()
+
+    def iter_opt_state_numpy(self):
+        """Yield the optimizer-state leaves as host numpy arrays, one at a
+        time, in the JAX package's order, dtypes and 0-d step counts. An
+        offloaded state is read from its pinned host copy."""
+        for x in self.optimizer.state_leaves():
+            yield (np.asarray(x, np.int32) if isinstance(x, int)
+                   else tensor_to_numpy(x))
+
+    def opt_state_numpy(self) -> list:
+        return list(self.iter_opt_state_numpy())
+
+    def load_opt_state(self, host_leaves: list):
+        """Install host leaves in ``iter_opt_state_numpy``'s order (the
+        restore path, ``engine/opt_checkpoint.py``)."""
+        self.optimizer.load_state_leaves(host_leaves)
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)

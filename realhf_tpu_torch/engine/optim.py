@@ -24,10 +24,12 @@ memory between train calls (``AdamW.offload`` / ``ensure_on_device``).
 
 import dataclasses
 import math
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from realhf_tpu_torch.base.safetensors_io import numpy_to_tensor
 from realhf_tpu_torch.engine import offload
 
 
@@ -123,6 +125,38 @@ class AdamW:
         self.master = [None if w is None else next(it) for w in self.master]
         self.m = [next(it) for _ in self.m]
         self.v = [next(it) for _ in self.v]
+
+    def state_leaves(self) -> List[Union[int, torch.Tensor]]:
+        """The state in the JAX package's leaf order (``jax.tree.leaves``
+        of ``make_optimizer``'s state): the fp32 master copies (non-fp32
+        params only), adam's step count, the first moments, the second
+        moments, the schedule's step count. The counts are ints; the
+        tensors are wherever the state is (pinned host memory while
+        offloaded)."""
+        return ([w for w in self.master if w is not None] + [self.count]
+                + self.m + self.v + [self.count])
+
+    def state_spec(self) -> List[Tuple[tuple, np.dtype]]:
+        """(shape, numpy dtype) of each of ``state_leaves``."""
+        return [((), np.dtype(np.int32)) if isinstance(x, int)
+                else (tuple(x.shape), np.dtype(np.float32))
+                for x in self.state_leaves()]
+
+    def load_state_leaves(self, leaves: Sequence[np.ndarray]):
+        """Install host leaves in ``state_leaves`` order (shapes already
+        checked) into the state's tensors, in place."""
+        n_master = sum(w is not None for w in self.master)
+        k = len(self.m)
+        counts = {int(leaves[n_master]), int(leaves[n_master + 1 + 2 * k])}
+        if len(counts) != 1:
+            raise ValueError(
+                f"adam and schedule step counts differ: {sorted(counts)}")
+        tensors = [w for w in self.master if w is not None] + self.m + self.v
+        values = (list(leaves[:n_master])
+                  + list(leaves[n_master + 1:n_master + 1 + 2 * k]))
+        for dst, src in zip(tensors, values):
+            dst.copy_(numpy_to_tensor(src, copy=False))
+        self.count = counts.pop()
 
     def offload(self):
         """Move master weights and moments to pinned host memory and

@@ -20,12 +20,17 @@ from realhf_tpu_torch.models.config import llama_config
 @dataclasses.dataclass
 class ModelConfigCLI:
     """CLI view of one model."""
+    #: the HF family of ``path`` and of this model's saves
+    hf_family: str = "llama"
+    #: an HF-layout checkpoint directory to load
     path: Optional[str] = None
     #: named LLaMA size ("tiny", "125m", "1b", "7b") of random weights,
     #: used when ``path`` is None
     random_init_size: Optional[str] = None
     #: a scalar value head in place of the LM head (critic, reward)
     is_critic: bool = False
+    #: a critic from an actor's checkpoint (a fresh value head)
+    init_critic_from_actor: bool = False
     bf16: bool = True
     gradient_checkpointing: bool = True
     optimizer: OptimizerConfig = dataclasses.field(
@@ -36,10 +41,12 @@ class ModelConfigCLI:
     def to_spec(self, train: bool = True) -> ModelSpec:
         """The spec of this model; ``train`` gives it its optimizer."""
         return ModelSpec(
+            hf_family=self.hf_family,
             path=self.path,
             random_init_config=(llama_config(self.random_init_size)
                                 if self.random_init_size else None),
             is_critic=self.is_critic,
+            init_critic_from_actor=self.init_critic_from_actor,
             optimizer=self.optimizer if train else None,
             parallel=self.parallel,
             gradient_checkpointing=self.gradient_checkpointing,
@@ -68,6 +75,9 @@ class CommonExperimentConfig:
     eval_freq_epochs: Optional[int] = None
     eval_freq_steps: Optional[int] = None
     benchmark_steps: Optional[int] = None
+    #: disabled | resume | auto: any mode but "disabled" dumps the
+    #: recover info with each save; "resume" continues from it
+    recover_mode: str = "disabled"
     #: "cuda" (None) or "cpu"
     device: Optional[str] = None
 

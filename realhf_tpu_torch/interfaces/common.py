@@ -1,5 +1,5 @@
 """Shared interface plumbing: a SequenceSample minibatch packed into
-``[S, L]`` stream arrays for the engine."""
+``[S, L]`` stream arrays for the engine, and the interfaces' save."""
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence
@@ -10,6 +10,10 @@ from realhf_tpu_torch.api.data import SequenceSample
 from realhf_tpu_torch.base.datapack import flat2d
 from realhf_tpu_torch.engine import packing
 from realhf_tpu_torch.models import transformer as T
+from realhf_tpu_torch.models.hf import (
+    save_hf_checkpoint,
+    save_hf_checkpoint_streamed,
+)
 
 
 def seqlens_of(input_: SequenceSample,
@@ -130,3 +134,17 @@ def pad_stream_batches(batches: List[StreamBatch]) -> List[StreamBatch]:
         out.append(StreamBatch(info=b.info, arrays=arrays,
                                n_tokens=b.n_tokens))
     return out
+
+
+def save_checkpoint(model, save_dir: str, host_params=None):
+    """The body every interface's ``save`` shares: an HF-layout
+    checkpoint of the model's family, streamed one layer at a time from
+    the device tensors, or written whole from ``host_params`` (a host
+    numpy copy of the weights) when given."""
+    if host_params is not None:
+        save_hf_checkpoint(save_dir, model.hf_family, model.config,
+                           host_params, tokenizer=model.tokenizer)
+    else:
+        save_hf_checkpoint_streamed(save_dir, model.hf_family, model.config,
+                                    model.engine.params,
+                                    tokenizer=model.tokenizer)

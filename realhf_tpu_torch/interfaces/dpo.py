@@ -67,7 +67,7 @@ def _make_loss_fn(cfg, n_seqs: int, beta: float):
 @dataclasses.dataclass
 class DPOInterface(model_api.ModelInterface):
     beta: float = 0.1
-    #: accepted for the experiments' sake; saving waits for checkpoint IO
+    #: False: ``save`` writes nothing
     enable_save: bool = True
 
     def _prompt_lens_per_seq(self, input_: SequenceSample) -> List[int]:
@@ -151,6 +151,11 @@ class DPOInterface(model_api.ModelInterface):
             loss_weights=weights)
         model.inc_version()
         return stats
+
+    def save(self, model: model_api.Model, save_dir: str, host_params=None):
+        if not self.enable_save:
+            return
+        common.save_checkpoint(model, save_dir, host_params)
 
 
 model_api.register_interface("dpo", DPOInterface)

@@ -152,7 +152,7 @@ class PPOActorInterface(model_api.ModelInterface):
     value_norm_type: str = "exp"
     value_norm_beta: float = 0.99995
     value_norm_eps: float = 1e-5
-    #: accepted for the experiments' sake; saving waits for checkpoint IO
+    #: False: ``save`` writes nothing
     enable_save: bool = True
     #: drop sequences whose generation weight version
     #: (``metadata["weight_version"]``) lags the trainer's current
@@ -440,6 +440,11 @@ class PPOActorInterface(model_api.ModelInterface):
         agg.update(global_stats)
         return agg
 
+    def save(self, model: model_api.Model, save_dir: str, host_params=None):
+        if not self.enable_save:
+            return
+        common.save_checkpoint(model, save_dir, host_params)
+
 
 @dataclasses.dataclass
 class PPOCriticInterface(model_api.ModelInterface):
@@ -456,7 +461,7 @@ class PPOCriticInterface(model_api.ModelInterface):
     value_norm_type: str = "exp"
     value_norm_beta: float = 0.99995
     value_norm_eps: float = 1e-5
-    #: accepted for the experiments' sake; saving waits for checkpoint IO
+    #: False: ``save`` writes nothing
     enable_save: bool = True
     #: must equal the actor's: the critic's regression target comes from
     #: the same reward placement
@@ -560,6 +565,11 @@ class PPOCriticInterface(model_api.ModelInterface):
         agg = _mean_stats(all_stats)
         agg["returns"] = float(returns.mean())
         return agg
+
+    def save(self, model: model_api.Model, save_dir: str, host_params=None):
+        if not self.enable_save:
+            return
+        common.save_checkpoint(model, save_dir, host_params)
 
 
 model_api.register_interface("ppo_actor", PPOActorInterface)

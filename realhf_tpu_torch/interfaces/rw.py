@@ -49,7 +49,7 @@ def _make_loss_fn(cfg):
 
 @dataclasses.dataclass
 class PairedRewardInterface(model_api.ModelInterface):
-    #: accepted for the experiments' sake; saving waits for checkpoint IO
+    #: False: ``save`` writes nothing
     enable_save: bool = True
     output_scaling: float = 1.0
     output_bias: float = 0.0
@@ -113,6 +113,11 @@ class PairedRewardInterface(model_api.ModelInterface):
             "paired_rw", n_mbs, weight_key="pair_valid")
         model.inc_version()
         return stats
+
+    def save(self, model: model_api.Model, save_dir: str, host_params=None):
+        if not self.enable_save:
+            return
+        common.save_checkpoint(model, save_dir, host_params)
 
 
 model_api.register_interface("paired_rw", PairedRewardInterface)

@@ -41,8 +41,9 @@ def _make_loss_fn(cfg):
 
 @dataclasses.dataclass
 class SFTInterface(model_api.ModelInterface):
-    """Takes no arguments: an unknown one raises ``TypeError`` when the
-    interface is made."""
+    """One argument, ``enable_save`` (the JAX package's takes none); an
+    unknown one raises ``TypeError`` when the interface is made."""
+    enable_save: bool = True
 
     def train_step(self, model: model_api.Model, input_: SequenceSample,
                    n_mbs: Optional[int] = None) -> Dict:
@@ -85,6 +86,11 @@ class SFTInterface(model_api.ModelInterface):
             return {}
         loss = float(np.sum(losses) / max(1, np.sum(tokens)))
         return {"loss": loss, "ppl": float(np.exp(loss))}
+
+    def save(self, model: model_api.Model, save_dir: str, host_params=None):
+        if not self.enable_save:
+            return
+        common.save_checkpoint(model, save_dir, host_params)
 
 
 model_api.register_interface("sft", SFTInterface)

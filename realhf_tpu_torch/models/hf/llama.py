@@ -1,0 +1,199 @@
+"""LLaMA-family HF conversion (llama, and the llama-likes qwen2 and
+mistral which differ only in bias/window flags).
+
+Parity with reference ``realhf/api/from_hf/llama.py:19-271`` /
+``qwen2.py`` / ``mistral.py``.
+"""
+
+from typing import Any, Dict
+
+import numpy as np
+
+from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.models.hf.registry import (
+    HFFamily,
+    StateDict,
+    contiguous,
+    register_hf_family,
+    stack_layers,
+    unstack_layers,
+)
+
+
+def _config_from_hf_llama(d: Dict[str, Any], is_critic: bool,
+                          attention_bias_default: bool = False
+                          ) -> TransformerConfig:
+    nq = d["num_attention_heads"]
+    hidden = d["hidden_size"]
+    return TransformerConfig(
+        n_layers=d["num_hidden_layers"],
+        n_kv_heads=d.get("num_key_value_heads", nq),
+        n_q_heads=nq,
+        hidden_dim=hidden,
+        head_dim=d.get("head_dim") or hidden // nq,
+        intermediate_dim=d["intermediate_size"],
+        vocab_size=d["vocab_size"],
+        n_positions=d.get("max_position_embeddings"),
+        layer_norm_epsilon=d.get("rms_norm_eps", 1e-6),
+        activation_function="silu",
+        use_attention_bias=d.get("attention_bias", attention_bias_default),
+        use_attn_proj_bias=False,
+        use_mlp_bias=False,
+        layer_norm_type="rms",
+        mlp_type="llama",
+        apply_rotary=True,
+        rotary_base=d.get("rope_theta", 10000.0),
+        scale_attn_by_inverse_layer_idx=False,
+        tied_embedding=d.get("tie_word_embeddings", False),
+        sliding_window=d.get("sliding_window"),
+        is_critic=is_critic,
+    )
+
+
+def _config_to_hf_llama(cfg: TransformerConfig,
+                        model_type: str = "llama") -> Dict[str, Any]:
+    d = {
+        "model_type": model_type,
+        "architectures": [{"llama": "LlamaForCausalLM",
+                           "qwen2": "Qwen2ForCausalLM",
+                           "mistral": "MistralForCausalLM"}[model_type]],
+        "hidden_size": cfg.hidden_dim,
+        "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_q_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.n_positions or 4096,
+        "rms_norm_eps": cfg.layer_norm_epsilon,
+        "rope_theta": cfg.rotary_base,
+        "tie_word_embeddings": cfg.tied_embedding,
+        "hidden_act": "silu",
+        "torch_dtype": "float32",
+    }
+    if model_type == "llama":
+        d["attention_bias"] = cfg.use_attention_bias
+    if cfg.sliding_window is not None:
+        d["sliding_window"] = cfg.sliding_window
+    return d
+
+
+_PRE = "model.layers.{}."
+
+
+def llama_backbone_from_hf(state: StateDict,
+                           cfg: TransformerConfig) -> Dict[str, Any]:
+    """Embedding + attention + norms + head shared by every
+    llama-attention family (llama/qwen2/mistral/gemma/mixtral);
+    ``blocks.mlp`` is left for the family converter to fill."""
+    nl = cfg.n_layers
+    params: Dict[str, Any] = {
+        "embed": {"wte": state["model.embed_tokens.weight"]},
+        "blocks": {
+            "ln1": {"scale": stack_layers(
+                state, _PRE + "input_layernorm.weight", nl)},
+            "attn": {
+                "wq": stack_layers(state, _PRE + "self_attn.q_proj.weight",
+                                   nl, transpose=True),
+                "wk": stack_layers(state, _PRE + "self_attn.k_proj.weight",
+                                   nl, transpose=True),
+                "wv": stack_layers(state, _PRE + "self_attn.v_proj.weight",
+                                   nl, transpose=True),
+                "wo": stack_layers(state, _PRE + "self_attn.o_proj.weight",
+                                   nl, transpose=True),
+            },
+            "ln2": {"scale": stack_layers(
+                state, _PRE + "post_attention_layernorm.weight", nl)},
+            "mlp": {},
+        },
+        "ln_f": {"scale": state["model.norm.weight"]},
+    }
+    if cfg.use_attention_bias:
+        a = params["blocks"]["attn"]
+        a["bq"] = stack_layers(state, _PRE + "self_attn.q_proj.bias", nl)
+        a["bk"] = stack_layers(state, _PRE + "self_attn.k_proj.bias", nl)
+        a["bv"] = stack_layers(state, _PRE + "self_attn.v_proj.bias", nl)
+    if not cfg.is_critic and not cfg.tied_embedding:
+        params["head"] = {"w": contiguous(state["lm_head.weight"].T)}
+    return params
+
+
+def llama_backbone_to_hf(params: Dict[str, Any], cfg: TransformerConfig,
+                         out: StateDict):
+    out["model.embed_tokens.weight"] = np.ascontiguousarray(
+        params["embed"]["wte"])
+    b = params["blocks"]
+    unstack_layers(b["ln1"]["scale"], _PRE + "input_layernorm.weight", out)
+    unstack_layers(b["attn"]["wq"], _PRE + "self_attn.q_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["attn"]["wk"], _PRE + "self_attn.k_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["attn"]["wv"], _PRE + "self_attn.v_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["attn"]["wo"], _PRE + "self_attn.o_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["ln2"]["scale"],
+                   _PRE + "post_attention_layernorm.weight", out)
+    if cfg.use_attention_bias:
+        unstack_layers(b["attn"]["bq"], _PRE + "self_attn.q_proj.bias", out)
+        unstack_layers(b["attn"]["bk"], _PRE + "self_attn.k_proj.bias", out)
+        unstack_layers(b["attn"]["bv"], _PRE + "self_attn.v_proj.bias", out)
+    out["model.norm.weight"] = np.ascontiguousarray(params["ln_f"]["scale"])
+    if not cfg.is_critic and not cfg.tied_embedding:
+        out["lm_head.weight"] = contiguous(params["head"]["w"].T)
+
+
+def _params_from_hf_llama(state: StateDict,
+                          cfg: TransformerConfig) -> Dict[str, Any]:
+    params = llama_backbone_from_hf(state, cfg)
+    nl = cfg.n_layers
+    params["blocks"]["mlp"] = {
+        "wg": stack_layers(state, _PRE + "mlp.gate_proj.weight", nl,
+                           transpose=True),
+        "wu": stack_layers(state, _PRE + "mlp.up_proj.weight", nl,
+                           transpose=True),
+        "wd": stack_layers(state, _PRE + "mlp.down_proj.weight", nl,
+                           transpose=True),
+    }
+    return params
+
+
+def _params_to_hf_llama(params: Dict[str, Any],
+                        cfg: TransformerConfig) -> StateDict:
+    out: StateDict = {}
+    llama_backbone_to_hf(params, cfg, out)
+    b = params["blocks"]
+    unstack_layers(b["mlp"]["wg"], _PRE + "mlp.gate_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["mlp"]["wu"], _PRE + "mlp.up_proj.weight", out,
+                   transpose=True)
+    unstack_layers(b["mlp"]["wd"], _PRE + "mlp.down_proj.weight", out,
+                   transpose=True)
+    return out
+
+
+register_hf_family(HFFamily(
+    name="llama", hf_model_type="llama",
+    config_from_hf=_config_from_hf_llama,
+    config_to_hf=lambda cfg: _config_to_hf_llama(cfg, "llama"),
+    params_from_hf=_params_from_hf_llama,
+    params_to_hf=_params_to_hf_llama,
+))
+
+register_hf_family(HFFamily(
+    name="qwen2", hf_model_type="qwen2",
+    # qwen2 always uses qkv bias; its HF config has no attention_bias key.
+    config_from_hf=lambda d, crit: _config_from_hf_llama(
+        d, crit, attention_bias_default=True),
+    config_to_hf=lambda cfg: _config_to_hf_llama(cfg, "qwen2"),
+    params_from_hf=_params_from_hf_llama,
+    params_to_hf=_params_to_hf_llama,
+))
+
+register_hf_family(HFFamily(
+    name="mistral", hf_model_type="mistral",
+    config_from_hf=lambda d, crit: _config_from_hf_llama(d, crit),
+    config_to_hf=lambda cfg: _config_to_hf_llama(cfg, "mistral"),
+    params_from_hf=_params_from_hf_llama,
+    params_to_hf=_params_to_hf_llama,
+))

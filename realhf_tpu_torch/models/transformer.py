@@ -51,8 +51,8 @@ def check_supported(cfg: TransformerConfig):
     """Raise for model features this slice of the port leaves out."""
     if cfg.mlp_type == "moe":
         raise NotImplementedError(
-            "Mixture-of-experts models are deferred to the algorithms "
-            "slice of the port (ops/moe.py).")
+            "Mixture-of-experts models (ops/moe.py) are not ported yet: "
+            "ROADMAP.md, queue 1, item 3 (model features beyond LLaMA).")
 
 
 # ----------------------------------------------------------------------

@@ -8,11 +8,16 @@ Models run on the CUDA card unless ``device`` says otherwise;
 ``role_devices`` places a context-parallel role's members
 (``ModelHost``).
 
-Saving waits for the checkpoint-IO slice of the port: a configured save
-frequency raises, and the final save that the JAX package's runner
-always makes is not made.
+Saving and resuming follow the JAX package's runner: every trained role
+is saved (weights and optimizer state, under ``run_save_path()/role``)
+at the save frequency and once more at the end of ``run``. With a
+``recover_mode`` other than "disabled" each save also dumps the recover
+info; "resume" continues from it: each role loads from its last save
+with its optimizer state, the step counters come back, and the data ids
+already consumed in the interrupted epoch are skipped.
 """
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -20,7 +25,13 @@ from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api.config import ModelInterfaceType
 from realhf_tpu_torch.api.dfg import DFG
 from realhf_tpu_torch.api.experiment import ExperimentSpec
-from realhf_tpu_torch.base import logging, seeding, timeutil
+from realhf_tpu_torch.base import (
+    constants,
+    logging,
+    recover,
+    seeding,
+    timeutil,
+)
 from realhf_tpu_torch.base.device import DeviceLike
 from realhf_tpu_torch.system.model_host import ModelHost
 
@@ -31,15 +42,28 @@ class InlineRunner:
 
     def __init__(self, spec: ExperimentSpec, device: DeviceLike = None,
                  role_devices: Optional[Dict[str, Sequence[DeviceLike]]]
-                 = None):
+                 = None, recover_mode: str = "disabled"):
         self.spec = spec
-        ctl = spec.ctl
-        if (ctl.save_freq_epochs, ctl.save_freq_steps,
-                ctl.save_freq_secs) != (None, None, None):
-            raise NotImplementedError(
-                "saving checkpoints is deferred to the checkpoint-IO slice "
-                "of the port; unset save_freq_epochs/steps/secs.")
+        constants.set_experiment_trial_names(spec.experiment_name,
+                                             spec.trial_name)
         seeding.set_random_seed(spec.seed)
+
+        self.recover_mode = recover_mode
+        self._recover_info = None
+        if recover_mode == "resume":
+            self._recover_info = recover.load_safe()
+        if self._recover_info is not None:
+            logger.info("Resuming from recover info (schema v%d): %s",
+                        self._recover_info.version,
+                        self._recover_info.recover_start)
+            for role, mspec in spec.models.items():
+                ckpt = os.path.join(constants.run_save_path(), role)
+                if os.path.exists(os.path.join(ckpt, "config.json")):
+                    mspec.path = ckpt
+                    mspec.random_init_config = None
+                    mspec.restore_optimizer_state = True
+                    logger.info("Recovered %s from %s", role, ckpt)
+
         import realhf_tpu_torch.datasets  # noqa: F401 - register datasets
         import realhf_tpu_torch.interfaces  # noqa: F401 - register interfaces
 
@@ -66,9 +90,23 @@ class InlineRunner:
                               self.tokenizer, device=device,
                               total_steps=total_steps,
                               role_devices=role_devices)
+        ctl = spec.ctl
+        self.save_ctl = timeutil.EpochStepTimeFreqCtl(
+            freq_epoch=ctl.save_freq_epochs, freq_step=ctl.save_freq_steps,
+            freq_sec=ctl.save_freq_secs)
         self.eval_ctl = timeutil.EpochStepTimeFreqCtl(
             freq_epoch=ctl.eval_freq_epochs, freq_step=ctl.eval_freq_steps)
         self.global_step = 0
+        self._start_epoch = 0
+        self._start_epoch_step = 0
+        self._ids_to_skip = set()
+        if self._recover_info is not None:
+            info = self._recover_info
+            self.global_step = info.last_step_info.global_step
+            self._start_epoch = info.recover_start.epoch
+            self._ids_to_skip = set(info.hash_vals_to_ignore)
+            dl = info.dataloader_state or {}
+            self._start_epoch_step = int(dl.get("epoch_step", 0))
         #: the last step's batch with every MFC's outputs merged in
         self.last_batch: Optional[data_api.SequenceSample] = None
         #: seconds and MFC stats of each step run so far
@@ -105,6 +143,29 @@ class InlineRunner:
         self.last_batch = batch
         return stats
 
+    def _maybe_save(self, epochs: int = 0, steps: int = 0, force=False):
+        if not force and not self.save_ctl.check(epochs=epochs, steps=steps):
+            return
+        for node in self.dfg.nodes:
+            if node.interface_type == ModelInterfaceType.TRAIN_STEP:
+                self.host.save_role(node.role, node.name)
+        # recover info is valid only beside the checkpoint it describes,
+        # so it is dumped here and never on unsaved steps
+        if self.recover_mode != "disabled":
+            recover.dump(recover.RecoverInfo(
+                recover_start=recover.StepInfo(
+                    epoch=self._cur_epoch,
+                    epoch_step=self._cur_epoch_step + 1,
+                    global_step=self.global_step),
+                last_step_info=recover.StepInfo(
+                    epoch=self._cur_epoch,
+                    epoch_step=self._cur_epoch_step,
+                    global_step=self.global_step),
+                hash_vals_to_ignore=list(self._consumed_ids),
+                dataloader_state=dict(
+                    epoch=self._cur_epoch,
+                    epoch_step=self._cur_epoch_step)))
+
     def _maybe_eval(self, epochs: int = 0, steps: int = 0):
         if self.eval_dataloader is None:
             return
@@ -120,12 +181,24 @@ class InlineRunner:
                 logger.info("Eval %s: %s", node.role, ev)
 
     def run(self) -> Dict[str, Dict]:
-        """Run the configured epochs (or benchmark steps); returns the
-        last step's stats."""
+        """Run the configured epochs (or benchmark steps), then save every
+        trained role once more; returns the last step's stats."""
         spec = self.spec
         last_stats = {}
-        for epoch in range(spec.total_train_epochs):
+        done = False
+        self._consumed_ids = list(self._ids_to_skip)
+        self._cur_epoch = self._start_epoch
+        self._cur_epoch_step = self._start_epoch_step
+        for epoch in range(self._start_epoch, spec.total_train_epochs):
+            self._cur_epoch = epoch
             for step, batch in enumerate(self.dataloader):
+                self._cur_epoch_step = step
+                if self._ids_to_skip:
+                    # the first epoch after a resume: drop the data the
+                    # interrupted run consumed
+                    batch = data_api.drop_ids(batch, self._ids_to_skip)
+                    if batch is None:
+                        continue
                 t0 = time.monotonic()
                 last_stats = self.run_step(batch)
                 dt = time.monotonic() - t0
@@ -139,9 +212,18 @@ class InlineRunner:
                 logger.info("epoch %d step %d (global %d): %.2fs, #tokens %d",
                             epoch, step, self.global_step, dt,
                             batch.total_len(token_key))
+                self._consumed_ids.extend(batch.ids)
+                self._maybe_save(steps=1)
                 self._maybe_eval(steps=1)
                 if (spec.ctl.benchmark_steps is not None
                         and self.global_step >= spec.ctl.benchmark_steps):
-                    return last_stats
+                    done = True
+                    break
+            if done:
+                break
+            self._ids_to_skip = set()
+            self._consumed_ids = []
+            self._maybe_save(epochs=1)
             self._maybe_eval(epochs=1)
+        self._maybe_save(force=True)
         return last_stats

@@ -1,18 +1,21 @@
 """Model hosting for the inline runner: one engine per model role on
 one device (with an optimizer for the roles that train), or, for a role
 that no MFC trains or generates with, on the members of a
-context-parallel layout; the algorithm interfaces of the MFCs, and MFC
-execution."""
+context-parallel layout; the algorithm interfaces of the MFCs, MFC
+execution, and each role's checkpoint (weights and optimizer state)."""
 
+import os
 from typing import Dict, List, Optional, Sequence
 
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api import model as model_api
 from realhf_tpu_torch.api.config import ModelInterfaceType, ModelName
 from realhf_tpu_torch.api.dfg import MFCDef, OffloadHook
-from realhf_tpu_torch.base import logging, seeding
+from realhf_tpu_torch.base import constants, logging, seeding
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
+from realhf_tpu_torch.engine import opt_checkpoint
 from realhf_tpu_torch.engine.engine import Engine
+from realhf_tpu_torch.models import hf
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
 
@@ -24,22 +27,20 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
                 total_steps: Optional[int] = None,
                 devices: Optional[Sequence[DeviceLike]] = None,
                 inference_only: bool = False) -> model_api.Model:
-    """Instantiate one model role on ``device`` (None = the CUDA card)
-    with random weights drawn from (experiment seed, role), and its
+    """Instantiate one model role on ``device`` (None = the CUDA card):
+    its weights from the HF-layout checkpoint at ``spec.path`` (streamed
+    one layer at a time onto the device, the host holding one layer plus
+    the embeddings), else drawn from (experiment seed, role); and its
     optimizer when the spec has one (``total_steps`` sizes the learning
-    rate schedule).
+    rate schedule), with the state saved beside the checkpoint when
+    ``spec.restore_optimizer_state``.
 
     A context-parallel layout (``spec.parallel``: c > 1, d = t = p = 1)
     builds for an ``inference_only`` role (no MFC trains or generates
     with it) over ``devices`` (default ``cuda:0 .. c-1``, or c times the
-    CPU when ``device`` is the CPU); the weights are drawn on the first
+    CPU when ``device`` is the CPU); the weights are placed on the first
     member's device. Every other layout of more than one device
     raises."""
-    if spec.path:
-        raise NotImplementedError(
-            f"Model role {role!r}: loading checkpoints ({spec.path}) is "
-            "deferred to the checkpoint-IO slice of the port; use "
-            "random_init_config.")
     par = spec.parallel
     if par.world_size > 1 and (par.context_parallel_size != par.world_size
                                or not inference_only):
@@ -48,24 +49,40 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
             "is deferred to the parallelism slice of the port (ROADMAP.md, "
             "queue 5); this slice runs context parallelism alone, on roles "
             "that no MFC trains or generates with.")
-    if spec.random_init_config is None:
+    dev = resolve_device(devices[0] if devices else device)
+    is_critic = spec.is_critic or spec.init_critic_from_actor
+    if spec.path:
+        cfg, params = hf.load_hf_checkpoint_streamed(
+            spec.path, dev, spec.hf_family, is_critic=is_critic,
+            param_dtype="bfloat16" if spec.bf16 else None)
+    elif spec.random_init_config is None:
         raise ValueError(
             f"Model role {role!r} has neither a checkpoint path nor a "
-            "random_init_config.")
-    cfg = TransformerConfig(**spec.random_init_config,
-                            is_critic=spec.is_critic)
+            f"random_init_config; pass `{role}.path=<hf-checkpoint>` (CLI) "
+            "or set random_init_config on its ModelSpec.")
+    else:
+        cfg = TransformerConfig(**spec.random_init_config,
+                                is_critic=spec.is_critic)
+        params = None
     cfg.gradient_checkpointing = spec.gradient_checkpointing
     cfg.compute_dtype = "bfloat16" if spec.bf16 else "float32"
     if spec.bf16:
         cfg.param_dtype = "bfloat16"
-    dev = resolve_device(devices[0] if devices else device)
-    gen = seeding.generator(
-        seeding.derive_seed_from(init_seed, "model_init", role), dev)
-    params = T.init_params(cfg, gen, dev)
+    T.check_supported(cfg)
+    if params is None:
+        gen = seeding.generator(
+            seeding.derive_seed_from(init_seed, "model_init", role), dev)
+        params = T.init_params(cfg, gen, dev)
     engine = Engine(cfg, params, device, optimizer=spec.optimizer,
                     total_train_steps=total_steps, parallel=par,
                     devices=devices)
-    return model_api.Model(ModelName(role, 0), engine, tokenizer)
+    if (spec.path and spec.restore_optimizer_state
+            and engine.optimizer is not None):
+        # the resume path only: a new run from a checkpoint starts with
+        # fresh moments even where the directory holds a saved state
+        opt_checkpoint.restore_engine_opt_state(engine, spec.path)
+    return model_api.Model(ModelName(role, 0), engine, tokenizer,
+                           hf_family=spec.hf_family)
 
 
 class ModelHost:
@@ -143,3 +160,23 @@ class ModelHost:
         """Run one topological level's ``(node_name, inp)`` MFCs in
         order (one device: nothing to overlap yet)."""
         return [self.execute(n, i) for n, i in named_inputs]
+
+    def save_role(self, role: str, train_node_name: str,
+                  path: Optional[str] = None) -> Optional[str]:
+        """Checkpoint a role into ``path`` (default
+        ``run_save_path()/role``): the interface's save (the weights,
+        streamed one layer at a time), then the optimizer state, one
+        leaf on the host at a time. Returns the path, or None when the
+        interface's ``enable_save`` is off."""
+        model = self.models[role]
+        itf = self.interfaces[train_node_name]
+        if not getattr(itf, "enable_save", True):
+            return None
+        if path is None:
+            path = os.path.join(constants.run_save_path(), role)
+        itf.save(model, path)
+        if model.engine.optimizer is not None:
+            opt_checkpoint.save_opt_state_iter(
+                path, model.engine.iter_opt_state_numpy())
+        logger.info("Saved %s to %s", role, path)
+        return path

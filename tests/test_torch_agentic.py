@@ -67,6 +67,14 @@ JAX = (jenv.make_env, JRunner, JBackend, JGen, JResult, jto_sample,
        jmetrics)
 
 
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _assert_same_step(got, want):
     np.testing.assert_array_equal(got.observation, want.observation)
     assert got.observation.dtype == want.observation.dtype

@@ -44,6 +44,14 @@ JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 PORT_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _batch(l=64, seed=0):
     """Two streams: three documents in one, two and padding in the
     other, so documents straddle the members' shards."""

@@ -115,9 +115,9 @@ def test_deferred_features_raise(tmp_path):
     from realhf_tpu_torch.apps.quickstart import main
     path = str(tmp_path / "prompts.jsonl")
     _prompts(path)
-    with pytest.raises(NotImplementedError):  # checkpoint IO
-        main(["gen", "model.path=/nonexistent", f"dataset.path={path}",
-              "device=cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # HF tokenizer
+        main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
+              "tokenizer_path=/nonexistent", "device=cpu"])
     with pytest.raises(NotImplementedError):  # more than one device
         main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
               "model.parallel.tensor_parallel_size=2", "device=cpu"])

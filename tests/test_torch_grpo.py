@@ -57,6 +57,14 @@ SAMPLED = dict(max_new_tokens=6, min_new_tokens=2, greedy=False,
 GREEDY = dict(max_new_tokens=6, min_new_tokens=2, greedy=True)
 
 
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _grouped_rollout(seed, n_elems=3, per_elem=4, dense=False):
     """A rollout batch as the GRPO (or REINFORCE) graph leaves it:
     ``per_elem`` sequences nested in each element, behaviour and

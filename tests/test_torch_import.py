@@ -86,3 +86,29 @@ def test_no_jax_import_statement(path):
         for mod in mods:
             assert mod.split(".")[0] not in BLOCKED, (
                 f"{path.name}:{node.lineno} imports {mod}")
+
+
+#: the checkpoint-IO slice's modules: each must be among the files the
+#: checks above import and scan
+CHECKPOINT_MODULES = (
+    "base/safetensors_io.py", "base/constants.py", "base/recover.py",
+    "models/hf/__init__.py", "models/hf/registry.py", "models/hf/llama.py",
+    "models/hf/gemma.py", "models/hf/gpt2.py", "models/hf/mixtral.py",
+    "engine/opt_checkpoint.py")
+
+
+@pytest.mark.parametrize("rel", CHECKPOINT_MODULES)
+def test_checkpoint_modules_are_covered(rel):
+    path = PORT / rel
+    assert path in _port_files()
+    assert (path.parent / "__init__.py").exists()
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A later phase's helper must not replace an earlier one's (the
+    script is one module)."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert len(names) == len(set(names)), sorted(
+        n for n in set(names) if names.count(n) > 1)

@@ -313,7 +313,7 @@ def test_critic_train_matches_jax(case):
     assert model.engine.version == 2 and got["value_loss"] > 0
 
 
-def test_reward_train_step_matches_jax():
+def test_reward_train_step_matches_jax(tmp_path):
     """Paired reward modeling on interleaved (pos, neg) sequences, two
     microbatches of unequal pair counts."""
     jmodel, model = _pair("reward", True, 2, train=True)
@@ -334,5 +334,8 @@ def test_reward_train_step_matches_jax():
         np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-6,
                                    err_msg=k)
     assert model.version.global_step == 1
-    with pytest.raises(NotImplementedError, match="checkpoint-IO"):
-        PairedRewardInterface().save(model, "/nonexistent")
+    # the trained reward model saves as a critic: HF layout + value head
+    PairedRewardInterface(enable_save=False).save(model, str(tmp_path / "no"))
+    assert not (tmp_path / "no").exists()
+    PairedRewardInterface().save(model, str(tmp_path / "rw"))
+    assert (tmp_path / "rw" / "value_head.safetensors").exists()

@@ -49,6 +49,14 @@ for _role in ("actor", "critic"):
                       f"{_role}.optimizer.warmup_steps_proportion": "0"})
 
 
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _prompts(path, n=16):
     rng = np.random.default_rng(2)
     with open(path, "w") as f:
@@ -220,5 +228,18 @@ def test_quickstart_cli_runs_ppo_on_cpu_and_raises_without_a_card(tmp_path):
             main(args)
     with pytest.raises(NotImplementedError, match="parallelism"):
         main(args + ["device=cpu", "actor_gen_alloc=d2t1"])
-    with pytest.raises(NotImplementedError, match="checkpoint-IO"):
-        main(args + ["device=cpu", "save_freq_steps=1"])
+    # saving: the actor's HF checkpoint, the critic's with its value head,
+    # each with its optimizer state
+    import os
+
+    from realhf_tpu_torch.base import constants
+    main(args + ["device=cpu", "save_freq_steps=1", "trial_name=saved"])
+    root = constants.run_save_path("exp", "saved")
+    assert sorted(os.listdir(root)) == ["actor", "critic"]
+    for role in ("actor", "critic"):
+        assert {"config.json", "optimizer_state.npz"} <= set(
+            os.listdir(os.path.join(root, role)))
+    assert os.path.exists(os.path.join(root, "critic",
+                                       "value_head.safetensors"))
+    assert not os.path.exists(os.path.join(root, "actor",
+                                           "value_head.safetensors"))

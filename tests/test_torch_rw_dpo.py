@@ -58,6 +58,14 @@ STAT_RTOL, STAT_ATOL = 1e-3, 1e-5
 # ----------------------------------------------------------------------
 # shared experiment helpers
 # ----------------------------------------------------------------------
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _words(rng, lo=2, hi=9):
     return " ".join(f"w{int(w)}" for w in
                     rng.integers(0, 50, size=int(rng.integers(lo, hi))))

@@ -36,6 +36,14 @@ OVERRIDES = {"dataset.train_bs_n_seqs": "8", "dataset.max_seqlen": "32",
              "model.optimizer.warmup_steps_proportion": "0"}
 
 
+@pytest.fixture(autouse=True)
+def _port_root(tmp_path, monkeypatch):
+    """The port's runner saves its trained roles at the end of ``run``:
+    under a fresh root per test."""
+    from realhf_tpu_torch.base import constants
+    monkeypatch.setattr(constants, "ROOT_DIR", str(tmp_path / "port_root"))
+
+
 def _data(path):
     rng = np.random.default_rng(4)
     with open(path, "w") as f:
@@ -104,5 +112,12 @@ def test_quickstart_cli_runs_sft_on_cpu(tmp_path):
             "dataset.train_bs_n_seqs=8", "n_mbs=2", "device=cpu"]
     stats = main(args)
     assert np.isfinite(stats["trainDefault"]["loss"])
-    with pytest.raises(NotImplementedError, match="checkpoint-IO"):
-        main(args + ["save_freq_epochs=1"])
+    # saving: every epoch and once more at the end, weights and
+    # optimizer state under the run's save path
+    import os
+
+    from realhf_tpu_torch.base import constants
+    main(args + ["save_freq_epochs=1", "trial_name=saved"])
+    saved = os.path.join(constants.run_save_path("exp", "saved"), "default")
+    assert {"config.json", "model.safetensors.index.json",
+            "optimizer_state.npz"} <= set(os.listdir(saved))
