@@ -23,8 +23,10 @@ exits non-zero):
    walks (``visited_key_tiles``; K3 ``visited_q_tiles``) beside the pairs
    the mask allows. Two launches of K2 and K3 must give the same bits.
    K4/K5 cases (gen and GQA shapes, B 1, a sliding window, a stream
-   kept only in its last tile, interior holes, a stacked-cache layer)
-   run twice (the same bits); each prints the slots of the tiles walked
+   kept only in its last tile, interior holes, a stacked-cache layer, the
+   inflight slots' masks over a gathered window of S 384) run twice (the
+   same bits); K1 also at batch 1 over the serving prefill buckets 64,
+   256 and 512; each prints the slots of the tiles walked
    beside the slots kept. Timed K4/K5 cases rotate over >= 200 MB of
    layer caches and queue the launches ahead of the device
    (``queued_ms``), for the kernel and the library call alike.
@@ -199,13 +201,43 @@ exits non-zero):
    weights' and the optimizer state's save seconds, the resume's setup
    seconds and host peak growth.
 
+24. serve_gen -- the ``gen`` experiment with ``use_inflight_batching``
+   and 4 slots (``engine/inflight.py``) through ``GenerationConfig.build()``
+   and ``InlineRunner`` at 32-layer LLaMA-7B: 8 prompts of 100-512 words,
+   128 greedy tokens. Each sequence's log-probs against one teacher-forced
+   forward (K1) of prompt + tokens, each token that forward's argmax up to
+   a tie margin, exact counts (K1 = 32 x fills, K4 = 32 x decode steps);
+   token agreement with the batch path on the same batch is reported.
+25. serve -- ``serving/scheduler.py`` ``ContinuousScheduler`` over the
+   generator, composed from ``ServeConfig(...).build().serving`` as a
+   rollout server composes them, at 32-layer LLaMA-7B: 24 requests
+   (100-512 tokens from a phrase book, 8 behind one 256-token prefix, 128
+   greedy tokens) in 3 waves over 8 slots, chunk 8, in four
+   configurations: (a) dense bf16 with a weight push (version 1, the
+   weights plus noise) mid-run under max_staleness 1, (b) paged bf16
+   (block 16) with the pooled prefix cache, (c) paged int8, (d) dense with
+   ``spec_decode_k=4`` (and 8 of its requests again with an oracle
+   drafter proposing (d)'s own streams: drafts must be accepted, as the
+   random model's prompt-lookup drafts never are). Each: one terminal
+   event per request with its
+   token stream in order, exact K1/K4 counts, the teacher-forced check
+   (int8 at its own limit); (a): requests admitted after the push report
+   version 1 and their tokens equal a generator built on the version-1
+   weights; (b): prefill tokens saved. Reports tokens/s, time to first
+   token and latency p50/p99, decode ms per chunk, peak memory, pool
+   bytes, the spec acceptance rate and token agreement with (a). Then the
+   KV check: a small paged run's exported rows against one forward's K/V
+   (row_rel_err), with two planted faults that must exceed its limit (a
+   fill whose positions are one off; a ``pool_scatter`` that clamps masked
+   lanes onto live rows), and ``fill_slot`` ms per prompt bucket.
+
 The phases before 22 run with the saves of their trained roles switched
 off (``without_saves``: ``enable_save=False`` on every train MFC's
 interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
-sft, ppo, ctx, ppo_ctx, algorithm and checkpoint paths, each counted
-from 0), the
+sft, ppo, ctx, ppo_ctx, algorithm, checkpoint and serve paths, each
+counted from 0), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -213,6 +245,7 @@ result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -918,8 +951,29 @@ def phase_kernels():
     recs.append(check_flash_decode("stacked_mid_layer", 8, 640, 32, 32, 128,
                                    spans, gen, timed=True, stacked_layers=4,
                                    layer=2))
+    recs += serve_kernel_cases(gen)
     del gen
     torch.cuda.empty_cache()
+    return recs
+
+
+def serve_kernel_cases(gen):
+    """K1 and K4 at the serving engine's shapes: K1 at batch 1 over the
+    prefill buckets (one left-padded prompt), and K4 over a gathered
+    window of S 384 with the masks inflight slots give it (a compacted
+    paged window, left padding inside a bucket, a donor / suffix-bucket
+    gap, an idle slot past its window (all valid), a short fill, rows
+    left valid by a previous occupant, a lone last row, scattered
+    single rows)."""
+    recs = []
+    for lp, n in ((64, 37), (256, 200), (512, 433)):
+        recs.append(check_flash_fwd(
+            f"serve_prefill_b1_{lp}", 1, lp, 32, 32, 128,
+            left_padded_seg([n], lp, "cuda"), True, gen, timed=True))
+    spans = [(0, 300), (56, 296), [(0, 100), (134, 174)], (0, 384),
+             (0, 20), (10, 383), (383, 384), [(0, 1), (200, 201), (383, 384)]]
+    recs.append(check_flash_decode("serve_inflight_window_s384", 8, 384, 32,
+                                   32, 128, spans, gen, timed=True))
     return recs
 
 
@@ -4108,12 +4162,657 @@ def phase_ckpt_resume(smi):
 
 
 # ----------------------------------------------------------------------
+# phase serve: the serving engine (inflight generator + scheduler)
+# ----------------------------------------------------------------------
+SERVE_LAYERS = 32
+SERVE_NEW_TOKENS = 128
+SERVE_SLOTS = 8
+SERVE_CHUNK = 8
+SERVE_PROMPT_LEN = 512
+SERVE_REQUESTS = 24
+SERVE_SHARED_PREFIX = 256
+#: the serve phase's limits, each about 3x the largest reading of
+#: ``scripts/torch_serve_phases.py --seeds 1 2 3 4 5`` (PERF.md,
+#: Findings): the largest |log-prob| gap between a decoded token
+#: and one teacher-forced forward (K1) of the same sequence (0.301); the
+#: largest gap between the forward's top logit and the decoded token's,
+#: a near tie a bf16 decode may take either way (0.367, int8 0.485); the
+#: log-prob gap of the int8 pool (0.455); the K/V rows a finished
+#: sequence left in the pool against the forward's, row_rel_err over
+#: every layer (0.316: the hidden states' bf16 drift, growing as the
+#: square root of depth from 0.041-0.052 at layer 1). Layer 0's rows,
+#: computed from the same tokens on both sides, read 0.0 (bit-equal) on
+#: every seed; their limit is one bf16 unit (2^-8) of an element four
+#: times its row's RMS. The planted faults read 3.3-7.5 on every one of
+#: them, 3.7-6.3 at layer 0.
+SERVE_LIMITS = dict(tf_logprob_abs=0.9, tie_margin=1.1,
+                    int8_tf_logprob_abs=1.4, kv_row_rel=0.95,
+                    kv_layer0_row_rel=2 ** -6)
+
+
+def serve_model(seed=1):
+    """The 32-layer LLaMA-7B (bf16, random weights from ``seed``) as the
+    rollout server builds it (``system/model_host.build_model``)."""
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.models.config import llama_config
+    from realhf_tpu_torch.system.model_host import build_model
+    mspec = ModelSpec(random_init_config=llama_config(
+        "7b", n_layers=SERVE_LAYERS), bf16=True)
+    return build_model("default", mspec, tokenizer=None, init_seed=seed,
+                       total_steps=1)
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def teacher_forced(cfg, params, prompt, tokens, with_kv=False):
+    """One packed forward (K1) of prompt + tokens: each token's log-prob
+    and the gap from the top logit to its logit at the position that
+    emitted it; with ``with_kv`` also the forward's K/V rows [nl, nkv,
+    len, hd] of every position."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    seq = np.concatenate([prompt, tokens]).astype(np.int64)
+    ids = seq if with_kv else seq[:-1]
+    dev = params["embed"]["wte"].device
+    ids_t = torch.as_tensor(ids, device=dev)[None]
+    seg = torch.ones_like(ids_t, dtype=torch.int32)
+    pos = torch.arange(len(ids), device=dev, dtype=torch.int32)[None]
+    with torch.no_grad():
+        hidden, kv = T.forward(cfg, params, ids_t, seg, pos,
+                               return_kv=with_kv)
+        n = len(prompt)
+        logits = T.lm_logits(cfg, params, hidden[0, n - 1:n - 1 + len(tokens)])
+        tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+        logp = torch.log_softmax(logits, -1).gather(-1, tok[:, None])[:, 0]
+        gap = logits.amax(-1) - logits.gather(-1, tok[:, None])[:, 0]
+        out = [logp.cpu().numpy(), gap.cpu().numpy()]
+        if with_kv:
+            out.append(tuple(x[:, 0].transpose(1, 2) for x in kv))
+    return out
+
+
+def tf_readings(cfg, params, items):
+    """Teacher-forced readings over (prompt, tokens, logprobs) items."""
+    import numpy as np
+    errs, gaps = [], []
+    for prompt, tokens, logprobs in items:
+        lp, gap, *_ = teacher_forced(cfg, params, prompt, tokens)
+        errs.append(float(np.abs(lp - logprobs).max()))
+        gaps.append(float(gap.max()))
+    return dict(tf_logprob_max_abs=max(errs), tf_logprob_mean_abs=float(
+        np.mean(errs)), argmax_gap_max=max(gaps), sequences=len(items))
+
+
+def tf_ok(r, limit_key="tf_logprob_abs"):
+    return (r["tf_logprob_max_abs"] <= SERVE_LIMITS[limit_key]
+            and r["argmax_gap_max"] <= SERVE_LIMITS["tie_margin"])
+
+
+def serve_prompts(rng, n, vocab, shared=None, shared_every=3):
+    """``n`` prompts of 100-512 tokens that repeat 6-token phrases of a
+    small phrase book (n-grams recur, as in extractive traffic); every
+    ``shared_every``-th starts with ``shared``."""
+    import numpy as np
+    book = rng.integers(2, vocab - 2, size=(24, 6))
+    out = []
+    for i in range(n):
+        length = int(rng.integers(100, SERVE_PROMPT_LEN + 1))
+        phrases = book[rng.integers(0, len(book), size=length // 6 + 1)]
+        p = phrases.reshape(-1)[:length]
+        if shared is not None and i % shared_every == 0:
+            p = np.concatenate([shared, p])[:max(length, len(shared) + 8)]
+        out.append(p.astype(np.int32))
+    return out
+
+
+def agreement(a, b) -> float:
+    """Share of token positions where two runs' sequences agree, up to
+    each pair's first difference (greedy streams part at a near tie
+    and then differ for good)."""
+    import numpy as np
+    same = total = 0
+    for x, y in zip(a, b):
+        n = min(len(x), len(y))
+        eq = np.asarray(x[:n]) == np.asarray(y[:n])
+        same += int(np.argmin(eq)) if not eq.all() else n
+        total += n
+    return same / max(total, 1)
+
+
+def phase_serve_gen(smi):
+    """The ``gen`` experiment with ``use_inflight_batching`` and 4 slots
+    through ``GenerationConfig.build()`` and ``InlineRunner`` at 32-layer
+    LLaMA-7B: 8 prompts of 100-512 words, 128 greedy tokens. Gates: the
+    returned log-probs against one teacher-forced forward of each
+    sequence, each token the forward's argmax up to the tie margin,
+    K1 = 32 x fills and K4 = 32 x decode steps. Reading: token agreement
+    with the batch path on the same batch."""
+    import copy
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.system.inline import InlineRunner
+    rec = dict(card=smi, slots=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=1)
+        spec, vocab = build_gen_spec(data, SERVE_LAYERS, SERVE_NEW_TOKENS, 1)
+        spec.mfcs[0].interface_impl.args.update(use_inflight_batching=True,
+                                               inflight_slots=4)
+        runner = InlineRunner(spec)  # device=None: the card
+        eng = runner.models["default"].engine
+        seen = []
+        real = inflight.InflightBatchingGenerator.generate_all
+
+        def watched(self, prompts, generator=None):
+            out = real(self, prompts, generator)
+            seen.append((self, [np.asarray(p) for p in prompts], out))
+            return out
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        with patched(inflight.InflightBatchingGenerator, "generate_all",
+                     watched):
+            runner.run()
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    counts = read_counts()
+    gen, prompts, fins = seen[0]
+    batch = runner.last_batch
+    n_tok = sum(len(f.tokens) for f in fins)
+    rec.update(secs=secs, generated_tokens=n_tok, tokens_per_s=n_tok / secs,
+               launches=counts, decode_steps=gen.counts["decode_steps"],
+               fills=gen.counts["full_prefills"],
+               outputs_in_range=check_gen_output(runner, vocab))
+    rec["launches_ok"] = (
+        counts["flash_fwd"] == SERVE_LAYERS * gen.counts["full_prefills"]
+        and counts["flash_decode"] == SERVE_LAYERS
+        * gen.counts["decode_steps"]
+        and gen.counts["full_prefills"] == 8
+        and all(counts[k] == 0 for k in counts
+                if k not in ("flash_fwd", "flash_decode")))
+    rec.update(tf_readings(eng.cfg, eng.params, [
+        (p, f.tokens, f.logprobs) for p, f in zip(prompts, fins)]))
+    # the batch path on the same batch, for the token agreement reading
+    itf = runner.interfaces["gen"]
+    itf.use_inflight_batching = False
+    again = copy.deepcopy(batch)
+    runner.run_step(again)
+    ids = again.data["packed_input_ids"]
+    lens = [l[0] for l in again.seqlens["packed_input_ids"]]
+    offs = np.cumsum([0] + lens)
+    batch_tokens = [ids[offs[i] + len(p):offs[i + 1]]
+                    for i, p in enumerate(prompts)]
+    rec["token_agreement_with_batch_path"] = agreement(
+        [f.tokens for f in fins], batch_tokens)
+    rec["ok"] = (rec["launches_ok"] and rec["outputs_in_range"]
+                 and tf_ok(rec) and len(fins) == 8
+                 and all(len(f.tokens) == SERVE_NEW_TOKENS for f in fins))
+    del runner, eng, seen, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def perturbed(params, seed):
+    """A second weight version: every leaf plus N(0, 0.01) noise in its
+    own dtype, drawn on its device from ``seed``."""
+    import torch
+    gen = torch.Generator(device=params["embed"]["wte"].device)
+    gen.manual_seed(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return t + 0.01 * torch.randn(t.shape, generator=gen,
+                                      device=t.device).to(t.dtype)
+
+    return walk(params)
+
+
+def serve_run(model, serving, prompts, waves, push=None):
+    """``ContinuousScheduler`` over an ``InflightBatchingGenerator``
+    composed from ``serving`` (a ``ServingSpec``) by the package's
+    ``serving/server.build_server``, as a rollout server composes them.
+    ``waves``: (step, request indices) submissions; ``push``: (step,
+    params, version) for ``WeightSync.push``. Returns the record, the
+    per-request results and the generator."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.obs import tracing
+    from realhf_tpu_torch.serving import protocol
+    from realhf_tpu_torch.serving.request_queue import GenRequest
+    from realhf_tpu_torch.serving.server import build_server
+    engine = build_server(serving, model.config, model.engine.params)
+    gen, queue, ws = engine.generator, engine.queue, engine.weight_sync
+    sched, kv_pool = engine.scheduler, engine.kv_pool
+    waves = {step: list(idx) for step, idx in waves}
+    submitted, first_tok, done, streams, events = {}, {}, {}, {}, {}
+    tracing.configure(enabled=True)
+    tracing.drain()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.monotonic()
+    step = 0
+    while step < 10_000:
+        if step in waves:
+            for i in waves[step]:
+                rid = f"r{i}"
+                submitted[rid] = time.monotonic()
+                assert queue.submit(GenRequest(rid, prompts[i])).accepted
+        if push is not None and step == push[0]:
+            ws.push(push[1], push[2])
+        for ev in sched.step(None):
+            events.setdefault(ev.rid, []).append(ev)
+            now = time.monotonic()
+            if ev.kind == protocol.TOKENS:
+                first_tok.setdefault(ev.rid, now)
+                streams.setdefault(ev.rid, []).append(ev.data)
+            elif ev.kind in protocol.TERMINAL_KINDS:
+                done[ev.rid] = now
+        step += 1
+        if sched.idle() and step > max(waves):
+            break
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = read_counts()
+    spans = tracing.drain()
+    tracing.configure(enabled=False)
+    results, streams_ok, terminal_ok = {}, True, True
+    for rid, evs in events.items():
+        kinds = [e.kind for e in evs]
+        terminal_ok &= (sum(k in protocol.TERMINAL_KINDS for k in kinds) == 1
+                        and kinds[-1] == protocol.DONE)
+        res = evs[-1].data.get("result")
+        if res is None:
+            continue
+        results[rid] = res
+        # the stream: contiguous deltas in order, the tokens of the result
+        off, toks = 0, []
+        for d in streams.get(rid, []):
+            streams_ok &= d["offset"] == off
+            off += len(d["tokens"])
+            toks.extend(np.asarray(d["tokens"]).tolist())
+        streams_ok &= toks == np.asarray(res.tokens).tolist()[:len(toks)]
+    n_tok = sum(len(r.tokens) for r in results.values())
+    ttft = [first_tok[r] - submitted[r] for r in results]
+    lat = [done[r] - submitted[r] for r in results]
+    chunk_ms = [s.secs * 1e3 for s in spans if s.name == "serve:decode_chunk"]
+    rec = dict(
+        secs=secs, requests=len(submitted), finished=len(results),
+        generated_tokens=n_tok, tokens_per_s=n_tok / secs,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p99_s=float(np.percentile(ttft, 99)),
+        latency_p50_s=float(np.percentile(lat, 50)),
+        latency_p99_s=float(np.percentile(lat, 99)),
+        decode_chunk_ms_mean=float(np.mean(chunk_ms)),
+        decode_chunk_ms_p50=float(np.percentile(chunk_ms, 50)),
+        decode_chunks=len(chunk_ms), steps=step,
+        one_terminal_each=terminal_ok and len(events) == len(submitted),
+        streams_in_order=streams_ok, launches=counts,
+        counts=dict(gen.counts), fill_stats=dict(gen.fill_stats),
+        spec_stats=dict(gen.spec_stats), scheduler_stats=dict(sched.stats),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if kv_pool is not None:
+        rec["pool"] = dict(kv_pool.stats())
+    nl = model.config.n_layers
+    rec["launches_ok"] = (
+        counts["flash_fwd"] == nl * gen.counts["full_prefills"]
+        and counts["flash_decode"] == nl * gen.counts["decode_steps"]
+        and all(counts[k] == 0 for k in counts
+                if k not in ("flash_fwd", "flash_decode")))
+    if gen.counts["decode_steps"] == 0 and gen.spec_stats["rounds"] == 0:
+        rec["launches_ok"] = False
+    return rec, results, gen
+
+
+def phase_serve(smi):
+    """The scheduler over the port's generator at 32-layer LLaMA-7B:
+    24 requests (prompts of 100-512 tokens from a phrase book, 8 of them
+    behind one 256-token prefix, 128 greedy tokens, no EOS) in 3 waves
+    over 8 slots, chunk 8, in four configurations composed from
+    ``ServeConfig(...).build().serving``: (a) dense bf16 with a weight
+    push (version 1) mid-run under max_staleness 1, (b) paged bf16
+    (block 16) with the pooled prefix cache, (c) paged int8, (d) dense
+    with ``spec_decode_k=4``. Then the KV check of a small paged run and
+    its two planted faults, and prefill times per bucket."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.experiments.serve_exp import ServeConfig
+    rec = dict(card=smi)
+    t_phase = time.monotonic()
+    model = serve_model()
+    cfg, params = model.config, model.engine.params
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(11)
+    shared = rng.integers(2, vocab - 2, size=SERVE_SHARED_PREFIX)
+    prompts = serve_prompts(rng, SERVE_REQUESTS, vocab, shared)
+    waves = [(0, range(0, 8)), (4, range(8, 16)), (24, range(16, 24))]
+    base = dict(n_slots=SERVE_SLOTS, chunk_size=SERVE_CHUNK,
+                max_prompt_len=SERVE_PROMPT_LEN, max_staleness=1,
+                greedy=True, max_new_tokens=SERVE_NEW_TOKENS,
+                prefix_cache_bytes=0)
+    configs = dict(
+        a_dense_bf16=dict(kv_cache_dtype="bf16"),
+        b_paged_bf16=dict(paged_kv=True, kv_cache_dtype="bf16",
+                          kv_block_len=16, kv_pool_blocks=480,
+                          prefix_cache_bytes=4 << 30),
+        c_paged_int8=dict(paged_kv=True, kv_cache_dtype="int8",
+                          kv_block_len=16),
+        d_dense_spec4=dict(kv_cache_dtype="bf16", spec_decode_k=4))
+    runs, outs = {}, {}
+    push_step = 20
+    for name, over in configs.items():
+        serving = ServeConfig(**dict(base, **over)).build().serving
+        push = None
+        if name.startswith("a_"):
+            push = (push_step, perturbed(params, seed=2), 1)
+        r, results, gen = serve_run(model, serving, prompts, waves, push)
+        push = None
+        if name.startswith("a_"):
+            # after the push the generator holds WeightSync's copy of v1;
+            # wave 1 ran under v0, wave 3 (submitted after the push)
+            # under v1, wave 2 straddles the push
+            late = [f"r{i}" for i in waves[2][1]]
+            early = [f"r{i}" for i in waves[0][1]]
+            r["versions"] = {x: [results[x].weight_version,
+                                 results[x].weight_version_final]
+                             for x in sorted(results, key=lambda x:
+                                             int(x[1:]))}
+            r["versions_ok"] = (
+                all(results[x].weight_version == 1 for x in late)
+                and all(results[x].weight_version_final == 0
+                        for x in early))
+            v1_params = gen.params
+            direct = inflight.InflightBatchingGenerator(
+                cfg, v1_params, gen.g, n_slots=SERVE_SLOTS,
+                max_prompt_len=SERVE_PROMPT_LEN, eos_token_id=None,
+                pad_token_id=0, chunk_size=SERVE_CHUNK,
+                kv_cache_dtype="bf16")
+            want = direct.generate_all([prompts[int(x[1:])] for x in late])
+            r["v1_tokens_equal_direct"] = all(
+                np.array_equal(results[x].tokens, w.tokens)
+                for x, w in zip(late, want))
+            r["tf_v1"] = tf_readings(cfg, v1_params, [
+                (prompts[int(x[1:])], results[x].tokens, results[x].logprobs)
+                for x in late])
+            r["tf_v0"] = tf_readings(cfg, params, [
+                (prompts[int(x[1:])], results[x].tokens, results[x].logprobs)
+                for x in early])
+            r["ok_checks"] = (r["versions_ok"] and r["v1_tokens_equal_direct"]
+                              and tf_ok(r["tf_v1"]) and tf_ok(r["tf_v0"]))
+            del direct, v1_params
+        else:
+            key = ("int8_tf_logprob_abs" if "int8" in name
+                   else "tf_logprob_abs")
+            r["tf"] = tf_readings(cfg, params, [
+                (prompts[int(x[1:])], res.tokens, res.logprobs)
+                for x, res in results.items()])
+            r["ok_checks"] = tf_ok(r["tf"], key)
+            if name.startswith("b_"):
+                r["ok_checks"] &= r["fill_stats"]["prefill_tokens_saved"] > 0
+            if name.startswith("d_"):
+                sc = r["scheduler_stats"]
+                r["spec_accept_rate"] = (sc["spec_accepted"]
+                                         / max(sc["spec_proposed"], 1))
+                r["oracle"] = serve_oracle_spec(
+                    model, [prompts[i] for i in waves[0][1]],
+                    [results[f"r{i}"].tokens for i in waves[0][1]])
+                r["ok_checks"] &= r["oracle"]["ok"]
+        r["ok"] = (r["ok_checks"] and r["launches_ok"]
+                   and r["one_terminal_each"] and r["streams_in_order"]
+                   and r["finished"] == SERVE_REQUESTS)
+        runs[name] = r
+        outs[name] = {rid: res.tokens for rid, res in results.items()}
+        print(f"serve {name}: " + json.dumps({k: r[k] for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "latency_p50_s",
+            "latency_p99_s", "decode_chunk_ms_mean", "peak_mem_gb",
+            "launches", "ok")}) + f" ({smi})", flush=True)
+        del gen, results
+        gc.collect()
+        torch.cuda.empty_cache()
+    # readings: token agreement with (a) on the requests served under v0
+    v0 = [f"r{i}" for i in waves[0][1]]
+    for name in ("b_paged_bf16", "c_paged_int8", "d_dense_spec4"):
+        runs[name]["token_agreement_with_a_v0"] = agreement(
+            [outs["a_dense_bf16"][x] for x in v0],
+            [outs[name][x] for x in v0])
+    rec["configs"] = runs
+    rec["kv_check"] = serve_kv_check(model, prompts)
+    rec["prefill_ms_per_bucket"] = serve_prefill_times(model)
+    rec["secs"] = time.monotonic() - t_phase
+    rec["ok"] = (all(r["ok"] for r in runs.values())
+                 and rec["kv_check"]["ok"])
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kv_rows_err(cfg, params, prompt, fs):
+    """row_rel_err of the K and V rows a finished sequence left in the
+    cache (``fs.kv``, exported) against one forward's K/V, per layer:
+    over the prompt's rows (written by the fill's prefill, K1) and over
+    the decoded tokens' rows (written by decode steps, K4), each the
+    larger of K's and V's. {"prompt": [nl], "decode": [nl]}."""
+    import torch
+    _, _, (k, v) = teacher_forced(cfg, params, prompt, fs.tokens,
+                                  with_kv=True)
+    n_p = len(prompt)
+    out = dict(prompt=[0.0] * cfg.n_layers, decode=[0.0] * cfg.n_layers)
+    for got, ref in zip(fs.kv, (k, v)):
+        g = torch.as_tensor(got, device=ref.device)
+        n = g.shape[2]
+        for part, sl in (("prompt", slice(0, n_p)), ("decode", slice(n_p, n))):
+            gs, rs = g[:, :, sl], ref[:, :, sl]
+            rows = torch.ones(rs.shape[1:-1], dtype=torch.bool,
+                              device=ref.device)
+            for li in range(cfg.n_layers):
+                out[part][li] = max(out[part][li],
+                                    row_rel_err(gs[li], rs[li], rows))
+    return out
+
+
+def serve_kv_check(model, prompts, n=6, new_tokens=32):
+    """A paged bf16 run (4 slots, 6 requests, 32 greedy tokens) whose
+    finished sequences' pool rows are exported and held against one
+    forward's K/V of each sequence (row_rel_err per layer, over the
+    prompt's rows and the decoded rows), beside the teacher-forced
+    check. Layer 0, whose inputs are the same tokens on both sides, is
+    held to its own limit of bf16 rounding; the deeper layers carry the
+    drift of the hidden states. Planted faults that must fail both: a fill
+    whose positions are one off, and a ``pool_scatter`` that clamps
+    masked lanes onto live rows (the first row of the lane's sequence)
+    instead of the scratch block."""
+    import numpy as np
+    from realhf_tpu_torch.base.safetensors_io import numpy_to_tensor
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.engine import kv_pool as kvp
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    cfg, params = model.config, model.engine.params
+    g = GenerationHyperparameters(max_new_tokens=new_tokens, greedy=True,
+                                  force_no_logits_mask=True)
+    ps = [p[:int(l)] for p, l in zip(prompts[:n], (100, 131, 250, 317, 400,
+                                                   511))]
+
+    def run():
+        pool = kvp.KVPool(cfg, 4 * 40, 16, dtype="bf16")
+        gen = inflight.InflightBatchingGenerator(
+            cfg, params, g, n_slots=4, max_prompt_len=SERVE_PROMPT_LEN,
+            eos_token_id=None, pad_token_id=0, chunk_size=SERVE_CHUNK,
+            kv_pool=pool)
+        queue = list(enumerate(ps))[::-1]
+        fins = {}
+        while queue or gen.n_live:
+            for slot in gen.free_slots():
+                if queue:
+                    rid, p = queue.pop()
+                    gen.fill_slot(slot, rid, p)
+            gen.decode_chunk()
+            for fs in gen.harvest(export_kv=True):
+                fins[fs.request_id] = fs
+        for fs in fins.values():
+            fs.kv = tuple(np.asarray(numpy_to_tensor(x).float().numpy())
+                          for x in fs.kv)
+        per = [kv_rows_err(cfg, params, ps[i], fins[i])
+               for i in range(len(ps))]
+        by_layer = {part: [max(e[part][li] for e in per)
+                           for li in range(cfg.n_layers)]
+                    for part in ("prompt", "decode")}
+        tf = tf_readings(cfg, params, [(ps[i], fins[i].tokens,
+                                        fins[i].logprobs)
+                                       for i in range(len(ps))])
+        return dict(kv_row_rel_err=max(max(x) for x in by_layer.values()),
+                    kv_layer0_row_rel_err=max(x[0] for x in
+                                              by_layer.values()),
+                    kv_row_rel_by_layer=by_layer, **tf)
+
+    def kv_ok(r):
+        return (r["kv_row_rel_err"] <= SERVE_LIMITS["kv_row_rel"]
+                and r["kv_layer0_row_rel_err"]
+                <= SERVE_LIMITS["kv_layer0_row_rel"])
+
+    rec = dict(limit=SERVE_LIMITS["kv_row_rel"],
+               layer0_limit=SERVE_LIMITS["kv_layer0_row_rel"], sound=run())
+    real_window = inflight.InflightBatchingGenerator._prompt_window
+
+    def off_by_one(self, prompt, width, start):
+        return real_window(self, prompt, width, start + 1)
+
+    with patched(inflight.InflightBatchingGenerator, "_prompt_window",
+                 off_by_one):
+        rec["fault_positions_off_by_one"] = run()
+    real_scatter = kvp.pool_scatter
+
+    def clamping_scatter(meta, arrays, rows, k_new, v_new, mask):
+        # the sound scatter, then the masked lanes land on the first row
+        # of their own sequence (a clamp) instead of the scratch block
+        real_scatter(meta, arrays, rows, k_new, v_new, mask)
+        return real_scatter(meta, arrays, rows[:, :1].expand_as(rows),
+                            k_new, v_new, ~mask)
+
+    with patched(kvp, "pool_scatter", clamping_scatter):
+        rec["fault_scatter_clamps_onto_live_rows"] = run()
+    rec["ok"] = kv_ok(rec["sound"]) and tf_ok(rec["sound"])
+    for fault in ("fault_positions_off_by_one",
+                  "fault_scatter_clamps_onto_live_rows"):
+        rec[fault]["fails_kv_check"] = not kv_ok(rec[fault])
+        rec[fault]["fails_layer0_check"] = (
+            rec[fault]["kv_layer0_row_rel_err"] > rec["layer0_limit"])
+        rec[fault]["fails_tf_check"] = not tf_ok(rec[fault])
+        rec["ok"] &= (rec[fault]["fails_kv_check"]
+                      and rec[fault]["fails_tf_check"])
+    return rec
+
+
+class OracleDrafter:
+    """Drafts each request's continuation from a list of known token
+    streams (matched by prompt), so the verify rounds see drafts that
+    are right until the streams part. A verify round commits the greedy
+    token at position e (e tokens out) itself and holds draft i against
+    the token at e + 1 + i, so the drafts start one past the history."""
+
+    def __init__(self, k, prompts, streams):
+        import numpy as np
+        self.k = k
+        self.known = [(np.asarray(p), np.asarray(t))
+                      for p, t in zip(prompts, streams)]
+
+    def propose(self, history):
+        import numpy as np
+        h = np.asarray(history)
+        out = np.zeros((self.k,), np.int32)
+        for p, t in self.known:
+            if len(h) >= len(p) and np.array_equal(h[:len(p)], p):
+                cont = t[len(h) - len(p) + 1:][:self.k]
+                out[:len(cont)] = cont
+                break
+        return out
+
+
+def serve_oracle_spec(model, prompts, streams, k=4):
+    """Speculative decoding with drafts taken from an earlier run's
+    streams of the same prompts: the verify rounds must accept drafts
+    on the card and the tokens pass the teacher-forced check."""
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    g = GenerationHyperparameters(max_new_tokens=SERVE_NEW_TOKENS,
+                                  greedy=True, force_no_logits_mask=True)
+    gen = inflight.InflightBatchingGenerator(
+        model.config, model.engine.params, g, n_slots=SERVE_SLOTS,
+        max_prompt_len=SERVE_PROMPT_LEN, eos_token_id=None, pad_token_id=0,
+        chunk_size=SERVE_CHUNK, kv_cache_dtype="bf16", spec_decode_k=k,
+        drafter=OracleDrafter(k, prompts, streams))
+    t0 = time.monotonic()
+    fins = gen.generate_all(prompts)
+    secs = time.monotonic() - t0
+    prop = sum(f.spec_proposed for f in fins)
+    acc = sum(f.spec_accepted for f in fins)
+    rec = dict(secs=secs, rounds=gen.spec_stats["rounds"],
+               spec_proposed=prop, spec_accepted=acc,
+               accept_rate=acc / max(prop, 1),
+               token_agreement_with_drafts=agreement(
+                   streams, [f.tokens for f in fins]),
+               tokens_per_s=sum(len(f.tokens) for f in fins) / secs)
+    rec.update(tf_readings(model.config, model.engine.params, [
+        (p, f.tokens, f.logprobs) for p, f in zip(prompts, fins)]))
+    rec["ok"] = acc > 0 and tf_ok(rec)
+    return rec
+
+
+def serve_prefill_times(model):
+    """Device ms of one ``fill_slot`` (batch-1 prefill, K1) per prompt
+    bucket: the median of 3 after a warm-up, between synchronisations."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    g = GenerationHyperparameters(max_new_tokens=SERVE_NEW_TOKENS,
+                                  greedy=True, force_no_logits_mask=True)
+    gen = inflight.InflightBatchingGenerator(
+        model.config, model.engine.params, g, n_slots=1,
+        max_prompt_len=SERVE_PROMPT_LEN, eos_token_id=None, pad_token_id=0,
+        chunk_size=SERVE_CHUNK, kv_cache_dtype="bf16")
+    out = {}
+    lengths = (60, 120, 250, 500)
+    for n in lengths:  # every bucket once before any is timed
+        gen.fill_slot(0, 0, np.full(n, 2, np.int32))
+        gen.release_slot(0)
+    for n in lengths:
+        p = (np.arange(n) % (model.config.vocab_size - 2) + 2).astype(
+            np.int32)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.fill_slot(0, 0, p)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            gen.release_slot(0)
+        out[str(gen.last_fill["bucket"])] = float(np.median(times[1:]))
+    return out
+
+
+# ----------------------------------------------------------------------
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
     paths run (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw, dpo,
-    grpo, reinforce, agentic, profile_exp, ckpt_gen's load and
-    ckpt_resume's resumed step), each counted from 0 just before its path
-    and read just after it."""
+    grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
+    ckpt_resume's resumed step, serve_gen and the four serve
+    configurations), each counted from 0 just before its path and read
+    just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -4290,11 +4989,16 @@ def main(argv=None):
         update_diff=c["update_diff"],
         fault_update_diff=ckpt_resume_rec["fault_fresh_moments"][
             "update_diff"])) + f" ({smi})", flush=True)
+    serve_gen_rec = phase_serve_gen(smi)
+    emit("serve_gen", **serve_gen_rec)
+    serve_rec = phase_serve(smi)
+    emit("serve", **serve_rec)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
            and ppo_ctx_rec["ok"] and all(r["ok"] for r in algo_recs.values())
-           and ckpt_gen_rec["ok"] and ckpt_resume_rec["ok"])
+           and ckpt_gen_rec["ok"] and ckpt_resume_rec["ok"]
+           and serve_gen_rec["ok"] and serve_rec["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4307,7 +5011,9 @@ def main(argv=None):
     print(json.dumps(kernels_line(
         kernel_recs, bwd_recs, ring_recs,
         [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec]
-        + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec])))
+        + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec,
+                                       serve_gen_rec]
+        + list(serve_rec["configs"].values()))))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

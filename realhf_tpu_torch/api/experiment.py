@@ -10,7 +10,7 @@ from realhf_tpu_torch.engine.optim import OptimizerConfig
 from realhf_tpu_torch.parallel.mesh import ParallelismConfig
 
 __all__ = ["ExperimentSpec", "ModelSpec", "ParallelismConfig",
-           "SaveEvalControl"]
+           "SaveEvalControl", "ServingSpec"]
 
 
 @dataclasses.dataclass
@@ -49,6 +49,62 @@ class SaveEvalControl:
 
 
 @dataclasses.dataclass
+class ServingSpec:
+    """The serving engine of one rollout server: the continuous
+    scheduler (``serving/scheduler.py``) over an inflight generator
+    (``engine/inflight.py``), composed by ``serving/server.py``
+    ``build_server``. The process, fleet, router, gateway and
+    autoscaling settings come with the distributed-runtime slice of the
+    port, which launches servers."""
+    #: decode slots per server (concurrent sequences in the batch)
+    n_slots: int = 4
+    #: decode steps per host<->device sync
+    chunk_size: int = 8
+    max_prompt_len: int = 512
+    #: admission control: queue entries beyond this are rejected with
+    #: a retry_after hint (backpressure) instead of growing unbounded
+    max_queue_depth: int = 256
+    #: reject/evict sequences whose start weight version lags the
+    #: installed version by more than this; None disables the bound
+    max_staleness: Optional[int] = None
+    eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
+    #: GenerationHyperparameters kwargs (max_new_tokens, greedy, ...);
+    #: force_no_logits_mask is always set -- inflight serving never
+    #: produces the PPO logits mask
+    gconfig: dict = dataclasses.field(default_factory=dict)
+    #: send incremental token deltas after every decode chunk
+    stream_tokens: bool = True
+    # -- paged KV pool:
+    # replace the dense per-slot [cache_len] KV windows with one
+    # block-granular device pool (engine/kv_pool.py) shared with the
+    # radix prefix cache. Decode memory then tracks ACTUAL tokens, so
+    # concurrency is bounded by blocks, not worst-case windows, and
+    # admission backpressure rides pool free blocks.
+    paged_kv: bool = False
+    #: KV storage dtype: None = the model's compute dtype for a dense
+    #: cache, "fp32" for the pool; "fp32"/"bf16" set the storage dtype;
+    #: "int8" stores quantized rows + per-row scales (implies paged_kv --
+    #: dequant-on-read lives in the pool gather path).
+    kv_cache_dtype: Optional[str] = None
+    #: tokens per pool block (the allocation granule; internal
+    #: fragmentation is < 1 block per sequence)
+    kv_block_len: int = 16
+    #: total pool blocks; None sizes the pool at dense parity
+    #: (n_slots * ceil(cache_len / kv_block_len)) -- shrink it to
+    #: trade worst-case headroom for more decode slots per byte
+    kv_pool_blocks: Optional[int] = None
+    #: byte budget for the radix prefix/KV cache (host memory, or pool
+    #: blocks when paged): requests sharing a cached prefix skip its
+    #: prefill and only run the uncached suffix. 0 disables reuse.
+    prefix_cache_bytes: int = 64 * 1024 * 1024
+    #: prompt-lookup speculative decoding: draft k tokens per round
+    #: from the request's own history and verify them in one forward
+    #: (greedy-exact; ignored unless gconfig is greedy). 0 disables.
+    spec_decode_k: int = 0
+
+
+@dataclasses.dataclass
 class ExperimentSpec:
     experiment_name: str
     trial_name: str
@@ -65,3 +121,6 @@ class ExperimentSpec:
     #: host after their last MFC of a step, freeing device memory for
     #: the train MFCs, and reload before their next use
     auto_offload: bool = False
+    #: a rollout/serving deployment (``experiments/serve_exp.py``);
+    #: None for training trials
+    serving: Optional[ServingSpec] = None

@@ -64,6 +64,13 @@ def main(argv=None):
     apply_overrides(cfg, parse_overrides(args.overrides))
     logger.info("Running experiment %s: %s", args.experiment, cfg)
     spec = cfg.build()
+    if spec.serving is not None:
+        raise NotImplementedError(
+            "Launching the serving experiment as a service needs the "
+            "rollout server's transport between processes, which comes "
+            "with the distributed runtime (ROADMAP.md, queue 1, item 5); "
+            "drive serving/scheduler.py ContinuousScheduler in process "
+            "until then.")
     vocabs = [_vocab_size(m) for m in spec.models.values()
               if m.random_init_config or m.path]
     # an experiment names its model's checkpoint as the tokenizer path

@@ -37,16 +37,16 @@ class GenerationInterface(model_api.ModelInterface):
     output_file: Optional[str] = None
     gconfig: GenerationHyperparameters = dataclasses.field(
         default_factory=GenerationHyperparameters)
+    # continuous batching: slots refill from the prompt queue as
+    # sequences finish (engine/inflight.py); needs force_no_logits_mask
     use_inflight_batching: bool = False
+    inflight_slots: int = 0  # 0 = batch size
 
     def __post_init__(self):
         if isinstance(self.gconfig, dict):
             self.gconfig = GenerationHyperparameters(**self.gconfig)
-        if self.use_inflight_batching:
-            raise NotImplementedError(
-                "inflight (continuous) batching is deferred to the serving "
-                "slice of the port (engine/inflight.py).")
         self._calls = 0
+        self._inflight = None
 
     def generate(self, model: model_api.Model, input_: SequenceSample,
                  n_mbs: Optional[int] = None) -> SequenceSample:
@@ -60,14 +60,17 @@ class GenerationInterface(model_api.ModelInterface):
         self._calls += 1
         gen = sampling_generator(self._calls, model.engine.device)
 
-        ids, seg, pos = packing.left_padded_prompts(
-            prompts, pad_id=tok.pad_token_id)
-        out = model.engine.generate(
-            ids, seg, pos, gen, self.gconfig,
-            eos_token_id=tok.eos_token_id,
-            pad_token_id=tok.pad_token_id).to_host()
-        gen_tokens = np.asarray(out.tokens)
-        lengths = np.asarray(out.lengths)
+        if self.use_inflight_batching:
+            gen_tokens, lengths = self._generate_inflight(model, prompts, gen)
+        else:
+            ids, seg, pos = packing.left_padded_prompts(
+                prompts, pad_id=tok.pad_token_id)
+            out = model.engine.generate(
+                ids, seg, pos, gen, self.gconfig,
+                eos_token_id=tok.eos_token_id,
+                pad_token_id=tok.pad_token_id).to_host()
+            gen_tokens = np.asarray(out.tokens)
+            lengths = np.asarray(out.lengths)
 
         if self.output_file is not None:
             path = self.output_file
@@ -95,6 +98,41 @@ class GenerationInterface(model_api.ModelInterface):
             ids=input_.ids, seqlens=seqlens,
             data=dict(packed_input_ids=np.concatenate(in_ids)
                       .astype(np.int32)))
+
+    def _generate_inflight(self, model: model_api.Model, prompts, gen):
+        """All prompts through the continuous-batching generator ->
+        (tokens [B, max generated] padded, lengths [B])."""
+        from realhf_tpu_torch.engine.inflight import (
+            InflightBatchingGenerator,
+            _bucket,
+        )
+        tok = model.tokenizer
+        eng = model.engine
+        # bucket the cache so slowly growing prompt lengths reuse the
+        # generator instead of rebuilding it every batch
+        need = _bucket(max(64, max(len(p) for p in prompts)))
+        n_slots = self.inflight_slots or len(prompts)
+        if (self._inflight is None
+                or self._inflight.cache_len
+                - self.gconfig.max_new_tokens < need
+                or self._inflight.n_slots != n_slots):
+            # a later batch may carry longer prompts, or (with
+            # inflight_slots=0, "the batch size") another prompt count
+            self._inflight = InflightBatchingGenerator(
+                model.config, eng.params, self.gconfig, n_slots=n_slots,
+                max_prompt_len=need, eos_token_id=tok.eos_token_id,
+                pad_token_id=tok.pad_token_id, device=eng.device)
+        self._inflight.params = eng.params  # fresh weights
+        finished = self._inflight.generate_all(prompts, gen)
+        # hold no reference to the weights between calls
+        self._inflight.params = None
+        lengths = np.asarray([len(f.tokens) for f in finished])
+        maxg = max(1, int(lengths.max()))
+        gen_tokens = np.full((len(prompts), maxg), tok.pad_token_id,
+                             np.int32)
+        for i, f in enumerate(finished):
+            gen_tokens[i, :len(f.tokens)] = f.tokens
+        return gen_tokens, lengths
 
 
 model_api.register_interface("generation", GenerationInterface)

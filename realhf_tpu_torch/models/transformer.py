@@ -510,7 +510,8 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
     ``uniform_slot``: every stream writes the same slot (batch
     generation, where all streams share the padded prompt length), so
     the write is one ``index_copy_`` along the slot axis; otherwise each
-    stream writes its own slot."""
+    stream writes its own slot, and a stream whose slot lies past the
+    cache writes nothing (neither K/V nor ``valid``)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded decode is deferred to the parallelism slice of the "
@@ -527,7 +528,13 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
         s0 = slot[:1].long()
         valid.index_fill_(1, s0, True)
     else:
-        valid[rows, slot.long()] = True
+        # a stream whose write index has run past the cache (an idle or
+        # finished inflight slot that keeps stepping) writes nothing, as
+        # JAX drops out-of-range scatter updates: its write goes to the
+        # last slot with that slot's own values
+        inb = slot < valid.shape[1]
+        wpos = slot.clamp(max=valid.shape[1] - 1).long()
+        valid[rows, wpos] = valid[rows, wpos] | inb
     k_all, v_all = cache["k"], cache["v"]
     stacked = cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS
     base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
@@ -542,8 +549,11 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
             k_all[li].index_copy_(2, s0, k[:, :, None, :].to(k_all.dtype))
             v_all[li].index_copy_(2, s0, v[:, :, None, :].to(v_all.dtype))
         else:
-            k_all[li, rows, :, slot.long()] = k.to(k_all.dtype)
-            v_all[li, rows, :, slot.long()] = v.to(v_all.dtype)
+            keep = inb[:, None, None]
+            k_all[li, rows, :, wpos] = torch.where(
+                keep, k.to(k_all.dtype), k_all[li, rows, :, wpos])
+            v_all[li, rows, :, wpos] = torch.where(
+                keep, v.to(v_all.dtype), v_all[li, rows, :, wpos])
         scale = (base / (li + 1) if cfg.scale_attn_by_inverse_layer_idx
                  else base)
         if stacked:

@@ -1,9 +1,10 @@
-"""Process-wide counters.
+"""Process-wide counters and gauges.
 
-Monotone totals by name and label set, in one default registry, so an
-instrumentation site is one line (``metrics.inc(name, **labels)``).
-Only counters for now: gauges, summaries, histograms, exporters and the
-JSONL sink come with the observability slice of the port.
+Monotone totals and last-set values by name and label set, in one
+default registry, so an instrumentation site is one line
+(``metrics.inc(name, **labels)``, ``metrics.set_gauge(name, value,
+**labels)``). Summaries, histograms, exporters and the JSONL sink come
+with the observability slice of the port.
 """
 
 import threading
@@ -33,11 +34,21 @@ class Counter:
             return self._values.get(_label_key(labels), 0.0)
 
 
+class Gauge(Counter):
+    """A value that is set, not only added to (pool bytes, free
+    blocks)."""
+
+    def set(self, value: float, **labels):
+        with self._lock:
+            self._values[_label_key(labels)] = float(value)
+
+
 class MetricsRegistry:
-    """Get-or-create counter store for one process."""
+    """Get-or-create counter and gauge store for one process."""
 
     def __init__(self):
         self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
         self._lock = threading.Lock()
 
     def counter(self, name: str) -> Counter:
@@ -46,8 +57,17 @@ class MetricsRegistry:
                 self._counters[name] = Counter(name)
             return self._counters[name]
 
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            if name not in self._gauges:
+                self._gauges[name] = Gauge(name)
+            return self._gauges[name]
+
     def inc(self, name: str, amount: float = 1.0, **labels):
         self.counter(name).inc(amount, **labels)
+
+    def set_gauge(self, name: str, value: float, **labels):
+        self.gauge(name).set(value, **labels)
 
 
 _default = MetricsRegistry()
@@ -65,3 +85,7 @@ def reset_default():
 
 def inc(name: str, amount: float = 1.0, **labels):
     _default.inc(name, amount, **labels)
+
+
+def set_gauge(name: str, value: float, **labels):
+    _default.set_gauge(name, value, **labels)

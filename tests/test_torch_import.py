@@ -104,6 +104,35 @@ def test_checkpoint_modules_are_covered(rel):
     assert (path.parent / "__init__.py").exists()
 
 
+#: the serving slice's modules, likewise
+SERVING_MODULES = (
+    "obs/metrics.py", "obs/tracing.py", "obs/flight.py",
+    "engine/kv_pool.py", "engine/drafter.py", "engine/inflight.py",
+    "serving/protocol.py", "serving/request_queue.py",
+    "serving/weight_sync.py", "serving/prefix_cache.py",
+    "serving/scheduler.py", "serving/server.py", "base/testing.py",
+    "experiments/serve_exp.py",
+    "scripts/torch_serve_phases.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES)
+def test_serving_modules_are_covered(rel):
+    if rel.startswith("scripts/"):
+        # the card script for the serving phases: scanned like the port
+        path = REPO / rel
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import)
+                        else [node.module or ""])
+                assert all(m.split(".")[0] not in BLOCKED for m in mods)
+        return
+    path = PORT / rel
+    assert path in _port_files()
+    assert (path.parent / "__init__.py").exists()
+
+
 def test_chip_smoke_defines_each_top_level_name_once():
     """A later phase's helper must not replace an earlier one's (the
     script is one module)."""
