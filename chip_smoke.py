@@ -22,6 +22,14 @@ exits non-zero):
    tiles are all padding; each prints the (query, key) pairs the kernel
    walks (``visited_key_tiles``; K3 ``visited_q_tiles``) beside the pairs
    the mask allows. Two launches of K2 and K3 must give the same bits.
+   K1 and K2/K3 with a sliding window: the Mistral-7B prefill shape (B 1,
+   L 8192, one segment, GQA 32/8, window 4096; timed, SDPA with the same
+   boolean mask beside it), a packed stream with a ragged last tile at
+   window 300, and a window of 24 (less than a tile) at hd 64; each
+   prints the pairs walked beside the pairs allowed, two launches must
+   give the same bits, a window of L the windowless launch's bits, and at
+   window 24 the kernels with a window one key wider must exceed the
+   limits.
    K4/K5 cases (gen and GQA shapes, B 1, a sliding window, a stream
    kept only in its last tile, interior holes, a stacked-cache layer, the
    inflight slots' masks over a gathered window of S 384) run twice (the
@@ -231,13 +239,47 @@ exits non-zero):
    fill whose positions are one off; a ``pool_scatter`` that clamps masked
    lanes onto live rows), and ``fill_slot`` ms per prompt bucket.
 
+26. mixtral_gen -- the ``gen`` experiment at Mixtral-8x7B width
+   (``mistralai/Mixtral-8x7B-v0.1``'s published config, through the
+   port's ``models/hf/mixtral.py`` converter), 16 of its 32 layers (23.5
+   B parameters; all 32 need more than one card), bf16, random weights:
+   8 prompts of 100-512 words, 128 new tokens, one greedy and one sampled
+   step. Exact counts (K1 = 16 a prefill, K4 = 16 a decode step, GQA
+   32/8), tokens in range, the greedy step's log-probs against one packed
+   teacher-forced forward (the mean gap gated, the max reported), which
+   two planted faults (top-k gates not renormalised; the second expert's
+   output dropped) must exceed. Reports the share of (token, layer) routings whose top-2
+   differ between decode and the teacher-forced pass, the tokens each
+   expert of layers 0 and 15 took, the group-size host reads a decode
+   step, times and the peak.
+27. mixtral_sft -- the ``sft`` experiment at Mixtral-8x7B width, 1 layer
+   (2 run out of the card's memory in the optimizer step), bf16,
+   gradient checkpointing, 16 records in 2 microbatches, 3 steps:
+   falling loss, ``moe_aux_loss`` on every step with loss = nll + aux,
+   step 1's gradient finite and non-zero for the router and every
+   expert's wg/wu/wd, exact K1/K2/K3 counts; step seconds, tokens/s, peak.
+28. mixtral_parity -- 2 layers, hidden 1024, 8 q / 2 kv heads of 128,
+   FFN 2816, 8 experts top-2: card (bf16, kernels) against CPU (fp32,
+   plain) from the same bf16 weights: the forward's logits (tokens whose
+   CPU router margin between the second and third expert is under a
+   floor at some layer left out and counted), one SFT step's loss and
+   aux loss, and the cosine of every (layer, expert) slice of every
+   gradient leaf; the router's gradient zeroed must fail.
+29. mistral -- the ``gen`` experiment at Mistral-7B-v0.1, full width and
+   depth (32 layers, window 4096): 8 prompts, two of 5200-5600 words, 64
+   greedy tokens. K1 = 32 a prefill and K4 = 32 a decode step, every
+   launch with the window; the log-probs against a packed teacher-forced
+   windowed forward (the same pass without the window must fail); the
+   long prompts' last-position logits against the same weights in fp32
+   through ``packed_attention_plain`` over the window.
+
 The phases before 22 run with the saves of their trained roles switched
 off (``without_saves``: ``enable_save=False`` on every train MFC's
 interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
-sft, ppo, ctx, ppo_ctx, algorithm, checkpoint and serve paths, each
-counted from 0), the
+sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
+mixtral_sft and mistral paths, each counted from 0), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -421,20 +463,20 @@ def tile_pairs(vis, lq, lk) -> int:
     return int((vis * rows[:, None] * keys[None, :]).sum())
 
 
-def walked_pairs(seg, causal) -> int:
+def walked_pairs(seg, causal, window=None) -> int:
     """(query, key) pairs K1 computes: those of the (q tile, key tile)
     pairs ``visited_key_tiles`` keeps."""
     from realhf_tpu_torch.ops import flash_attention as fa
     L = seg.shape[1]
-    return tile_pairs(fa.visited_key_tiles(seg, causal), L, L)
+    return tile_pairs(fa.visited_key_tiles(seg, causal, window=window), L, L)
 
 
-def dkv_walked_pairs(seg, causal) -> int:
+def dkv_walked_pairs(seg, causal, window=None) -> int:
     """(query, key) pairs K3 computes: those of the (key tile, q tile)
     pairs ``visited_q_tiles`` keeps (K1's and K2's pairs, transposed)."""
     from realhf_tpu_torch.ops import flash_attention as fa
     L = seg.shape[1]
-    return tile_pairs(fa.visited_q_tiles(seg, causal), L, L)
+    return tile_pairs(fa.visited_q_tiles(seg, causal, window=window), L, L)
 
 
 def ring_walked_pairs(seg, n, n_dirs, causal, window=None) -> int:
@@ -469,26 +511,31 @@ def shifted_boundaries(seg):
 
 
 def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
-                    plant_fault=False):
+                    plant_fault=False, window=None):
     """K1 against its plain version. With ``plant_fault``, the kernel's
     output is also held against the plain version on segment boundaries
-    shifted by one token, which must exceed the row-error limit."""
+    shifted by one token, which must exceed the row-error limit. With a
+    ``window``, two launches must give the same bits, a window of L must
+    give the windowless launch's bits, and (at a window of 32 or less)
+    the kernel with a window one key wider must exceed the limit against
+    the plain version."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     dev = seg.device
     q = torch.randn((b, L, nq, hd), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, L, nkv, hd), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, L, nkv, hd), generator=gen, device=dev).bfloat16()
-    o, lse = fa.flash_attention(q, k, v, seg, causal=causal)
+    o, lse = fa.flash_attention(q, k, v, seg, causal=causal, window=window)
     torch.cuda.synchronize()
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, seg, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, seg, causal=causal,
+                                              window=window)
     valid_rows = (lse_ref > NEG_INF / 2)
     o_rows = valid_rows.transpose(1, 2)             # [B, L, nq]
     err_lse = max_err(torch.where(valid_rows, lse, 0.0),
                       torch.where(valid_rows, lse_ref, 0.0))
     lse_sentinel_ok = bool((lse[~valid_rows] == NEG_INF).all())
     rec = dict(kernel="flash_fwd", case=name, shape=[b, L, nq, nkv, hd],
-               causal=causal, max_abs_err=max_err(o, o_ref),
+               causal=causal, window=window, max_abs_err=max_err(o, o_ref),
                row_rel_err=row_rel_err(o, o_ref, o_rows),
                row_rel_limit=LIMITS["flash_fwd_row_rel"],
                lse_max_abs_err=err_lse, lse_limit=LIMITS["flash_fwd_lse"],
@@ -498,8 +545,26 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
     rec["ok"] = (rec["row_rel_err"] <= LIMITS["flash_fwd_row_rel"]
                  and err_lse <= LIMITS["flash_fwd_lse"] and rec["finite"]
                  and rec["masked_rows_zero"] and lse_sentinel_ok)
-    rec["walked_pairs"] = walked_pairs(seg, causal)
-    rec["allowed_pairs"] = allowed_pairs(seg, causal)
+    rec["walked_pairs"] = walked_pairs(seg, causal, window)
+    rec["allowed_pairs"] = allowed_pairs(seg, causal, window)
+    if window is not None:
+        again = fa.flash_attention(q, k, v, seg, causal=causal, window=window)
+        rec["deterministic"] = (torch.equal(o, again[0])
+                                and torch.equal(lse, again[1]))
+        full = fa.flash_attention(q, k, v, seg, causal=causal)
+        at_l = fa.flash_attention(q, k, v, seg, causal=causal, window=L)
+        rec["window_L_bit_equal_to_none"] = (torch.equal(full[0], at_l[0])
+                                             and torch.equal(full[1], at_l[1]))
+        rec["ok"] &= rec["deterministic"] and rec["window_L_bit_equal_to_none"]
+        del again, full, at_l
+        if window <= 32:
+            wide, _ = fa.flash_attention(q, k, v, seg, causal=causal,
+                                         window=window + 1)
+            rec["planted_window_fault"] = "kernel window one key wider"
+            rec["planted_window_fault_row_rel_err"] = row_rel_err(
+                wide, o_ref, o_rows)
+            rec["ok"] &= (rec["planted_window_fault_row_rel_err"]
+                          > LIMITS["flash_fwd_row_rel"])
     if plant_fault:
         o_bad, lse_bad = fa.flash_attention_plain(
             q, k, v, shifted_boundaries(seg), causal=causal)
@@ -511,15 +576,16 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
     if timed:
         scale = hd ** -0.5
         rec["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, seg,
-                                                       causal=causal))
+                                                       causal=causal,
+                                                       window=window))
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, seg, causal=causal), iters=5, warmup=1)
+            q, k, v, seg, causal=causal, window=window), iters=5, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = fa.segment_mask(seg, seg, causal)[:, None]
+        mask = fa.segment_mask(seg, seg, causal, window)[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        rec["library_ms"] = (cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                                  scale=scale))
-                             if nq == nkv else None)
+        gqa = dict(enable_gqa=True) if nq != nkv else {}
+        rec["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                 scale=scale, **gqa))
         flops = 4.0 * hd * rec["allowed_pairs"] * nq
         # q/k/v rows of pad tokens (seg 0) are never needed; o and lse
         # are written in full
@@ -532,7 +598,7 @@ def check_flash_fwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
 
 
 def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
-                    plant_fault=False):
+                    plant_fault=False, window=None):
     """K2 (dq) and K3 (dk, dv) from K1's o and lse, against the plain
     backward on the same bf16 values widened to fp32; a second launch of
     each must give the same bits. With ``plant_fault``, the backward is
@@ -540,26 +606,28 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
     and the kernels' dq and dk are held against the plain backward on
     segment boundaries shifted by one token, which must exceed the dq and
     dk limits (a skip rule too tight at the edges of a segment would pass
-    it)."""
+    it). With a ``window``, a window of L must give the windowless
+    launches' bits, and (at a window of 32 or less) the kernels with a
+    window one key wider must exceed the dq and dk limits."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     dev = seg.device
     q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
                for shape in ((b, L, nq, hd), (b, L, nkv, hd), (b, L, nkv, hd)))
     do = torch.randn((b, L, nq, hd), generator=gen, device=dev).bfloat16()
-    o, lse = fa.flash_attention(q, k, v, seg, causal=causal)
+    win = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, seg, **win)
     delta = fa.attention_delta(o, do)
-    dq = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, causal=causal)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal=causal)
+    dq = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, **win)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, **win)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), seg,
-                                       o.float(), lse, do.float(),
-                                       causal=causal)
+                                       o.float(), lse, do.float(), **win)
     tok = seg != 0                                   # [B, L]
     q_rows = tok[:, :, None].expand(b, L, nq)
     kv_rows = tok[:, :, None].expand(b, L, nkv)
     rec = dict(kernel="flash_bwd", case=name, shape=[b, L, nq, nkv, hd],
-               causal=causal, tokens=int(tok.sum()))
+               causal=causal, window=window, tokens=int(tok.sum()))
     for key, got, want, rows in (("dq", dq, ref[0], q_rows),
                                  ("dk", dk, ref[1], kv_rows),
                                  ("dv", dv, ref[2], kv_rows)):
@@ -568,8 +636,8 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
         rec[f"{key}_row_rel_limit"] = LIMITS[f"flash_bwd_{key}_row_rel"]
         rec[f"{key}_pad_rows_zero"] = bool((got.float()[~rows] == 0).all())
         rec[f"{key}_finite"] = bool(torch.isfinite(got.float()).all())
-    dq2 = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, causal=causal)
-    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal=causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, **win)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta, **win)
     rec["deterministic"] = all(torch.equal(x, y) for x, y in
                                ((dq, dq2), (dk, dk2), (dv, dv2)))
     del dq2, dk2, dv2
@@ -577,9 +645,36 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
         rec[f"{key}_row_rel_err"] <= rec[f"{key}_row_rel_limit"]
         and rec[f"{key}_pad_rows_zero"] and rec[f"{key}_finite"]
         for key in ("dq", "dk", "dv"))
-    rec["walked_pairs"] = walked_pairs(seg, causal)
-    rec["dkv_walked_pairs"] = dkv_walked_pairs(seg, causal)
-    rec["allowed_pairs"] = allowed_pairs(seg, causal)
+    rec["walked_pairs"] = walked_pairs(seg, causal, window)
+    rec["dkv_walked_pairs"] = dkv_walked_pairs(seg, causal, window)
+    rec["allowed_pairs"] = allowed_pairs(seg, causal, window)
+    if window is not None:
+        # the windowless launches against those at a window of L, on the
+        # windowless forward's o and lse
+        o_n, lse_n = fa.flash_attention(q, k, v, seg, causal=causal)
+        d_n = fa.attention_delta(o_n, do)
+        outs = []
+        for w in (None, L):
+            kw = dict(causal=causal, window=w)
+            outs.append((fa.flash_bwd_dq(q, k, v, seg, do, lse_n, d_n, **kw),
+                         *fa.flash_bwd_dkv(q, k, v, seg, do, lse_n, d_n,
+                                           **kw)))
+        rec["window_L_bit_equal_to_none"] = all(
+            torch.equal(x, y) for x, y in zip(*outs))
+        rec["ok"] &= rec["window_L_bit_equal_to_none"]
+        del o_n, lse_n, d_n, outs
+        if window <= 32:
+            kw = dict(causal=causal, window=window + 1)
+            rec["planted_window_fault"] = "kernels' window one key wider"
+            for key, got, want, heads in (
+                    ("dq", fa.flash_bwd_dq(q, k, v, seg, do, lse, delta,
+                                           **kw), ref[0], nq),
+                    ("dk", fa.flash_bwd_dkv(q, k, v, seg, do, lse, delta,
+                                            **kw)[0], ref[1], nkv)):
+                err = row_rel_err(got, want,
+                                  tok[:, :, None].expand(b, L, heads), 0.01)
+                rec[f"planted_window_fault_{key}_row_rel_err"] = err
+                rec["ok"] &= err > LIMITS[f"flash_bwd_{key}_row_rel"]
     if plant_fault:
         _, dk_bad, _ = fa.flash_attention_bwd(q, k, v, seg,
                                               torch.zeros_like(o), lse, do,
@@ -604,20 +699,19 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
             rec["ok"] &= err > LIMITS[f"flash_bwd_{key}_row_rel"]
         del bad
     if timed:
-        kw = dict(causal=causal)
         rec["dq_ms"] = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, seg, do, lse,
-                                                       delta, **kw))
+                                                       delta, **win))
         rec["dkv_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, seg, do,
-                                                         lse, delta, **kw))
+                                                         lse, delta, **win))
         # the plain version computes dq, dk and dv together
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, seg, o, lse, do, **kw), iters=3, warmup=1)
-        rec["library_ms"] = (sdpa_backward_ms(q, k, v, seg, do, causal)
-                             if nq == nkv else None)
+            q, k, v, seg, o, lse, do, **win), iters=3, warmup=1)
+        rec["library_ms"] = sdpa_backward_ms(q, k, v, seg, do, causal,
+                                             window)
         # only the (query, key) pairs the mask allows, and only the rows
         # of tokens with seg != 0; lse, delta and seg read once, outputs
         # written once in full
-        pairs = allowed_pairs(seg, causal) * nq
+        pairs = allowed_pairs(seg, causal, window) * nq
         tokens = rec["tokens"]
         stats = 4 * (2 * lse.numel() + seg.numel())
         rec["dq_flops"] = 6.0 * hd * pairs
@@ -635,7 +729,7 @@ def check_flash_bwd(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
     return rec
 
 
-def sdpa_backward_ms(q, k, v, seg, do, causal) -> float:
+def sdpa_backward_ms(q, k, v, seg, do, causal, window=None) -> float:
     """The yardstick: the backward of ``scaled_dot_product_attention``
     with the same boolean mask (dq, dk and dv together). Timed only;
     the port never calls it."""
@@ -643,9 +737,10 @@ def sdpa_backward_ms(q, k, v, seg, do, causal) -> float:
     from realhf_tpu_torch.ops.flash_attention import segment_mask
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    mask = segment_mask(seg, seg, causal)[:, None]
+    mask = segment_mask(seg, seg, causal, window)[:, None]
+    gqa = dict(enable_gqa=True) if q.shape[2] != k.shape[2] else {}
     out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask)
+        qt, kt, vt, attn_mask=mask, **gqa)
     g = do.transpose(1, 2).contiguous()
     return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
                                                retain_graph=True))
@@ -707,6 +802,45 @@ def phase_kernels_bwd():
     del gen
     torch.cuda.empty_cache()
     return recs
+
+
+def phase_kernels_window():
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    out = window_kernel_cases(gen, np.random.default_rng(13))
+    del gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_kernel_cases(gen, rng):
+    """K1 and K2/K3 with a sliding window, against their plain versions:
+    the Mistral-7B prefill shape (B 1, L 8192, one segment, GQA 32/8, hd
+    128, window 4096; timed), a packed stream with a ragged last tile at
+    a window that is no tile multiple (300), and a window shorter than a
+    tile at hd 64 (24, with the planted fault of a window one key
+    wider). Each prints the pairs walked beside the pairs allowed."""
+    import torch
+    cases = [
+        ("mistral_w4096", 1, 8192, 32, 8, 128,
+         torch.ones((1, 8192), dtype=torch.int32, device="cuda"), True,
+         4096),
+        ("packed_ragged_w300", 2, 1500, 16, 4, 128,
+         packed_seg(rng, 2, 1500, 3, set(), "cuda"), False, 300),
+        ("narrow_w24_hd64", 2, 700, 8, 2, 64,
+         packed_seg(rng, 2, 700, 2, set(), "cuda"), False, 24),
+    ]
+    fwd, bwd = [], []
+    for name, b, L, nq, nkv, hd, seg, timed, w in cases:
+        fwd.append(check_flash_fwd(name, b, L, nq, nkv, hd, seg, True, gen,
+                                   timed=timed, window=w))
+        torch.cuda.empty_cache()
+        bwd.append(check_flash_bwd(name, b, L, nq, nkv, hd, seg, True, gen,
+                                   timed=timed, window=w))
+        torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def queued_ms(calls, reps=3, tries=4):
@@ -1320,21 +1454,26 @@ def read_counts():
                 ring_round=rf.round_launches, ring_push=rf.push_launches)
 
 
-def build_gen_spec(data_path, n_layers, max_new_tokens, benchmark_steps):
+def build_gen_spec(data_path, n_layers, max_new_tokens, benchmark_steps,
+                   model_config=None, max_seqlen=512, seed=1):
+    """The gen experiment over ``data_path`` with 8 prompts a batch, at
+    LLaMA-7B with ``n_layers`` or at ``model_config`` (a
+    ``random_init_config``)."""
     from realhf_tpu_torch.base.testing import IntegerTokenizer
     from realhf_tpu_torch.experiments.common import apply_overrides
     from realhf_tpu_torch.experiments.gen_exp import GenerationConfig
     from realhf_tpu_torch.models.config import llama_config
     cfg = GenerationConfig(experiment_name="chip-smoke", trial_name="t0",
-                           benchmark_steps=benchmark_steps)
+                           benchmark_steps=benchmark_steps, seed=seed)
     apply_overrides(cfg, {"dataset.path": data_path,
                           "dataset.train_bs_n_seqs": "8",
-                          "dataset.max_seqlen": "512",
+                          "dataset.max_seqlen": str(max_seqlen),
                           "max_new_tokens": str(max_new_tokens),
                           "greedy": "true"})
     spec = cfg.build()
     mspec = spec.models["default"]
-    mspec.random_init_config = llama_config("7b", n_layers=n_layers)
+    mspec.random_init_config = (model_config
+                                or llama_config("7b", n_layers=n_layers))
     mspec.bf16 = True
     vocab = mspec.random_init_config["vocab_size"]
     spec.tokenizer = IntegerTokenizer(vocab_size=vocab - 2)
@@ -1519,7 +1658,7 @@ def write_prompt_answers(path, n, seed, lo=100, hi=400):
                 "answer": " " + words(int(rng.integers(lo, hi + 1)))}) + "\n")
 
 
-def build_sft_spec(data_path, n_layers, lr="1e-5"):
+def build_sft_spec(data_path, n_layers, lr="1e-5", model_config=None):
     from realhf_tpu_torch.base.testing import IntegerTokenizer
     from realhf_tpu_torch.experiments.common import apply_overrides
     from realhf_tpu_torch.experiments.sft_exp import SFTConfig
@@ -1534,7 +1673,8 @@ def build_sft_spec(data_path, n_layers, lr="1e-5"):
                           "eval_freq_epochs": "3"})
     spec = cfg.build()
     mspec = spec.models["default"]
-    mspec.random_init_config = llama_config("7b", n_layers=n_layers)
+    mspec.random_init_config = (model_config
+                                or llama_config("7b", n_layers=n_layers))
     vocab = mspec.random_init_config["vocab_size"]
     spec.tokenizer = IntegerTokenizer(vocab_size=vocab - 2)
     return spec
@@ -4806,13 +4946,671 @@ def serve_prefill_times(model):
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phases 26-29: mixture of experts at Mixtral-8x7B width, and the sliding
+# window at Mistral-7B
+# ----------------------------------------------------------------------
+#: the published configurations (each repository's ``config.json`` on the
+#: Hugging Face hub, typed in: nothing is downloaded)
+MIXTRAL_8X7B = dict(  # mistralai/Mixtral-8x7B-v0.1
+    model_type="mixtral", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    num_local_experts=8, num_experts_per_tok=2, router_aux_loss_coef=0.02,
+    vocab_size=32000, rope_theta=1e6, rms_norm_eps=1e-5,
+    sliding_window=None, max_position_embeddings=32768,
+    tie_word_embeddings=False)
+MISTRAL_7B = dict(  # mistralai/Mistral-7B-v0.1
+    model_type="mistral", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    vocab_size=32000, rope_theta=10000.0, rms_norm_eps=1e-5,
+    sliding_window=4096, max_position_embeddings=32768,
+    tie_word_embeddings=False)
+#: depth cuts: all 32 Mixtral layers are 46.7 B parameters (93 GB in
+#: bf16), more than one card holds. The train cell holds bf16 weights,
+#: fp32 masters, both moments and the fp32 gradient sums: 2 layers (3.2 B
+#: parameters) ran out of the card's 80 GB in the optimizer step, so 1
+MIXTRAL_GEN_LAYERS = 16
+MIXTRAL_SFT_LAYERS = 1
+MIXTRAL_NEW_TOKENS = 128
+MISTRAL_NEW_TOKENS = 64
+MISTRAL_LONG_PROMPTS = (5600, 5200)  # words: past the 4096 window
+# about 3x the largest sound reading of seeds 1-5, each with its planted
+# faults above it (PERF.md, Findings; scripts/torch_moe_phases.py --seeds).
+# mixtral_gen gates the mean gap alone: 14-16% of the (token, layer)
+# routings of random weights flip between the decode and teacher-forced
+# passes under bf16 noise, and a flipped token's log-prob moves by up to
+# 6-7 in sound runs, as far as under the planted faults; the mean tells
+# them apart (0.52-0.61 sound, 3.39-4.25 faulty).
+MOE_LIMITS = dict(gen_tf_logprob_mean_abs=1.8,
+                  parity_logits_rel=0.03, parity_loss_rel=1.8e-3,
+                  parity_aux_rel=9e-3, parity_min_cos=0.93,
+                  parity_router_margin=0.76, parity_routing_moved=33,
+                  mistral_tf_logprob_abs=0.68,
+                  mistral_tf_logprob_mean_abs=0.13,
+                  mistral_fp32_logits_rel=0.13)
+
+
+def hf_random_init_config(family, hf, n_layers):
+    """``random_init_config`` of a published config through the port's
+    own converter (``models/hf``), cut to ``n_layers``."""
+    from realhf_tpu_torch.models.hf import registry
+    cfg = registry.config_from_hf(family, dict(hf, num_hidden_layers=n_layers))
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name != "is_critic"}
+
+
+def write_prompts_of(path, lengths, seed):
+    """One prompt of each of ``lengths`` words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i, n in enumerate(lengths):
+            words = rng.integers(0, 5000, size=int(n))
+            f.write(json.dumps({"id": i, "prompt": " ".join(
+                f"w{int(w)}" for w in words)}) + "\n")
+
+
+def _host(a):
+    import numpy as np
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+@contextlib.contextmanager
+def watching_generate(seen):
+    """Keeps (prompt ids, prompt seg, host output) of every
+    ``Engine.generate`` call: the gen interface returns no log-probs."""
+    from realhf_tpu_torch.engine.engine import Engine
+    real = Engine.generate
+
+    def watched(self, prompt_ids, prompt_seg, *args, **kw):
+        out = real(self, prompt_ids, prompt_seg, *args, **kw)
+        seen.append((_host(prompt_ids), _host(prompt_seg), out.to_host()))
+        return out
+
+    with patched(Engine, "generate", watched):
+        yield
+
+
+@contextlib.contextmanager
+def recording_routes(calls):
+    """Appends (top-k indices, router logits) of every MoE layer call to
+    ``calls``, on the device (no host read added)."""
+    from realhf_tpu_torch.ops import moe
+    real = moe.router_probs
+
+    def rec(cfg_moe, logits):
+        probs, idx = real(cfg_moe, logits)
+        calls.append((idx.detach().clone(), logits.detach().clone()))
+        return probs, idx
+
+    with patched(moe, "router_probs", rec):
+        yield
+
+
+@contextlib.contextmanager
+def replaying_routes(routes):
+    """Makes each MoE layer call take the top-k experts of the next of
+    ``routes`` (recorded (indices, logits) pairs, in call order), with
+    its gates from its own logits as the default routing computes them
+    for those experts."""
+    import torch
+    from realhf_tpu_torch.ops import moe
+    recorded = iter(routes)
+
+    def replay(cfg_moe, logits):
+        idx = next(recorded)[0].to(logits.device)
+        probs = torch.softmax(logits.float(), -1).gather(-1, idx)
+        return probs / probs.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    with patched(moe, "router_probs", replay):
+        yield
+
+
+@contextlib.contextmanager
+def moe_fault(kind):
+    """A planted routing fault: ``"unnormalised"`` top-k gates (the
+    softmax's probabilities as they are), or ``"second_dropped"`` (the
+    second expert's gate set to 0)."""
+    import torch
+    from realhf_tpu_torch.ops import moe
+    real = moe.router_probs
+
+    def faulty(cfg_moe, logits):
+        probs, idx = real(cfg_moe, logits)
+        if kind == "unnormalised":
+            full = torch.softmax(logits.float(), -1)
+            return torch.gather(full, -1, idx), idx
+        return torch.cat([probs[:, :1], torch.zeros_like(probs[:, 1:])],
+                         -1), idx
+
+    with patched(moe, "router_probs", faulty):
+        yield
+
+
+def sequences_of(seen, upto=None):
+    """(prompt, generated tokens, their log-probs) per stream of each
+    watched generate call."""
+    out = []
+    for ids, seg, gout in seen[:upto]:
+        for b in range(ids.shape[0]):
+            p = ids[b][seg[b] != 0]
+            n = int(gout.lengths[b])
+            out.append((p, gout.tokens[b, :n], gout.logprobs[b, :n]))
+    return out
+
+
+def packed_teacher_forced(cfg, params, items):
+    """One packed forward (K1) of every (prompt, tokens, ...) item but
+    its last token, each a segment of one stream: each token's log-prob
+    at the position that emitted it, per item, and the stream offset of
+    each item."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    seqs = [np.concatenate([p, t])[:-1] for p, t, *_ in items]
+    offs = np.cumsum([0] + [len(x) for x in seqs])
+    dev = params["embed"]["wte"].device
+    ids = torch.as_tensor(np.concatenate(seqs).astype(np.int64),
+                          device=dev)[None]
+    seg = torch.as_tensor(np.concatenate(
+        [np.full(len(x), i + 1, np.int32) for i, x in enumerate(seqs)]),
+        device=dev)[None]
+    with torch.no_grad():
+        hidden, _ = T.forward(cfg, params, ids, seg)
+        out = []
+        for (p, t, *_), off in zip(items, offs):
+            rows = hidden[0, off + len(p) - 1:off + len(p) - 1 + len(t)]
+            lg = T.lm_logits(cfg, params, rows)
+            tok = torch.as_tensor(np.asarray(t, np.int64), device=dev)
+            out.append(torch.log_softmax(lg, -1).gather(
+                -1, tok[:, None])[:, 0].cpu().numpy())
+    return out, offs
+
+
+def tf_gaps(lps, items, pick=None):
+    """Max and mean |teacher-forced - generated log-prob| over the items
+    (all, or those ``pick`` names)."""
+    import numpy as np
+    d = [np.abs(lp - it[2]) for i, (lp, it) in enumerate(zip(lps, items))
+         if pick is None or i in pick]
+    d = np.concatenate(d)
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                tokens=int(d.size))
+
+
+def phase_mixtral_gen(smi, seed=1):
+    """The gen experiment at Mixtral-8x7B width, 16 of its 32 layers
+    (bf16, random weights from ``seed``): 8 prompts of 100-512 words, 128
+    new tokens, one greedy step and one sampled step. Gates: exact K1/K4
+    counts, tokens in range, the greedy step's log-probs against one
+    packed teacher-forced forward (the mean gap), which the planted
+    faults (top-k gates left unnormalised; the second expert's output
+    dropped) must exceed. Readings: the share of (token, layer) routings
+    whose top-2 differ between decode and the teacher-forced pass, the
+    tokens each expert of layers 0 and 15 took there, the group-size host
+    reads a decode step, times and the peak."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.ops import moe
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    from realhf_tpu_torch.system.inline import InlineRunner
+    nl = MIXTRAL_GEN_LAYERS
+    mcfg = hf_random_init_config("mixtral", MIXTRAL_8X7B, nl)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=seed)
+        spec, vocab = build_gen_spec(data, nl, MIXTRAL_NEW_TOKENS, 1,
+                                     model_config=mcfg, seed=seed)
+        t0 = time.monotonic()
+        runner = InlineRunner(spec)  # the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    seen, routes = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    moe.host_reads = 0
+    with watching_generate(seen), recording_routes(routes):
+        runner.run()
+    greedy_reads = moe.host_reads
+    outputs_ok = check_gen_output(runner, vocab)
+    runner.interfaces["gen"].gconfig = GenerationHyperparameters(
+        max_new_tokens=MIXTRAL_NEW_TOKENS, greedy=False, top_k=50,
+        top_p=0.9, force_no_logits_mask=True)
+    with watching_generate(seen):
+        runner.run()
+    outputs_ok &= check_gen_output(runner, vocab)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = eng.generate_stats
+    n_decode = sum(st["decode_steps"] for st in stats)
+    want = dict(flash_fwd=nl * len(stats), flash_bwd_dq=0, flash_bwd_dkv=0,
+                flash_decode=nl * n_decode, flash_decode_stacked=0,
+                ring_round=0, ring_push=0)
+    items = sequences_of(seen, 1)
+    tf_routes = []
+    with recording_routes(tf_routes):
+        lps, offs = packed_teacher_forced(eng.cfg, eng.params, items)
+    rec = dict(n_layers=nl, setup_secs=setup, card=smi, seed=seed,
+               steps=[dict(step=lab, **step_summary(st, smi)) for lab, st
+                      in zip(("greedy", "sampled_topk50_topp0.9"), stats)],
+               launches=counts, launches_expected=want,
+               launches_ok=counts == want, outputs_in_range=outputs_ok,
+               peak_mem_gb=peak, limits=MOE_LIMITS)
+    rec["tf"] = tf_gaps(lps, items)
+    # decode step s of stream b fed token s at stream position p_b + s,
+    # which the teacher-forced pass holds at offs[b] + p_b + s
+    dec = routes[nl:nl * (1 + stats[0]["decode_steps"])]
+    diff = total = 0
+    for s in range(len(dec) // nl):
+        for layer in range(nl):
+            idx = dec[s * nl + layer][0].sort(-1).values.cpu().numpy()
+            tf_idx = tf_routes[layer][0].sort(-1).values.cpu().numpy()
+            for b, (p, t, _) in enumerate(items):
+                if s < len(t) - 1:
+                    total += 1
+                    diff += not np.array_equal(
+                        idx[b], tf_idx[offs[b] + len(p) + s])
+    rec["routing_differs_share"] = diff / max(total, 1)
+    rec["routed_token_layers"] = total
+    rec["expert_tokens"] = {
+        f"layer{layer}": np.bincount(
+            tf_routes[layer][0].reshape(-1).cpu().numpy(),
+            minlength=8).tolist() for layer in (0, nl - 1)}
+    rec["host_reads_per_decode_step"] = (
+        (greedy_reads - nl) / max(stats[0]["decode_steps"], 1))
+    rec["host_reads_per_prefill"] = nl
+    faults = {}
+    for kind in ("unnormalised", "second_dropped"):
+        with moe_fault(kind):
+            bad, _ = packed_teacher_forced(eng.cfg, eng.params, items)
+        faults[kind] = tf_gaps(bad, items)
+    rec["planted_faults"] = faults
+    lim = MOE_LIMITS
+    rec["tf_ok"] = rec["tf"]["mean_abs"] <= lim["gen_tf_logprob_mean_abs"]
+    rec["faults_fail"] = all(f["mean_abs"] > lim["gen_tf_logprob_mean_abs"]
+                             for f in faults.values())
+    rec["ok"] = (rec["launches_ok"] and outputs_ok and rec["tf_ok"]
+                 and rec["faults_fail"] and len(stats) == 2)
+    del runner, eng, routes, tf_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def expert_slices(name, g, n_layers, n_experts):
+    """A leaf's gradient as rows to judge one by one: one per (layer,
+    expert) for the expert weights, one per layer for the other block
+    leaves, the whole leaf otherwise."""
+    if name in ("blocks.mlp.wg", "blocks.mlp.wu", "blocks.mlp.wd"):
+        return g.reshape(n_layers * n_experts, -1)
+    return grad_slices(name, g, n_layers)
+
+
+def phase_mixtral_sft(smi):
+    """The sft experiment at Mixtral-8x7B width, 2 layers, bf16, gradient
+    checkpointing: 16 prompt-answer records in 2 microbatches, 3 steps,
+    lr 1e-5, then eval. Gates: loss finite and falling; ``moe_aux_loss``
+    on every step, finite and positive, and loss = nll + aux; step 1
+    gives every layer's router and every expert's wg/wu/wd a finite
+    non-zero gradient; exact K1/K2/K3 counts."""
+    import torch
+    from realhf_tpu_torch.interfaces import common
+    from realhf_tpu_torch.system.inline import InlineRunner
+    nl = MIXTRAL_SFT_LAYERS
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        spec = build_sft_spec(data, nl, model_config=hf_random_init_config(
+            "mixtral", MIXTRAL_8X7B, nl))
+        t0 = time.monotonic()
+        runner = InlineRunner(without_saves(spec))  # the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    names = leaf_names(eng.params)
+    seen = capture_first_grads(eng.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng.optimizer.step
+    steps = [st["trainDefault"] for st in runner.step_stats]
+    losses = [st["loss"] for st in steps]
+    aux = [st.get("moe_aux_loss", float("nan")) for st in steps]
+    loss_ok = (len(losses) == 3 and all(math.isfinite(x) for x in losses)
+               and all(b < a for a, b in zip(losses, losses[1:])))
+    aux_ok = all(math.isfinite(a) and a > 0 for a in aux)
+    sum_err = max(abs(st["loss"] - st["nll"] - st["moe_aux_loss"])
+                  / abs(st["loss"]) for st in steps) if aux_ok else 1.0
+    ne = eng.cfg.moe.num_experts
+    grads = {}
+    for name, g in zip(names, seen[0] if seen else []):
+        rows = expert_slices(name, g, nl, ne).abs().amax(-1)
+        grads[name] = dict(finite=bool(torch.isfinite(g).all()),
+                           slices=int(rows.numel()),
+                           min_slice_absmax=float(rows.min()))
+    grads_ok = (len(grads) == len(names)
+                and all(v["finite"] and v["min_slice_absmax"] > 0
+                        for v in grads.values())
+                and grads["blocks.mlp.wg"]["slices"] == nl * ne
+                and "blocks.mlp.router" in grads)
+    n_eval = len([ev for _, _, ev in runner.eval_stats])
+    n_bwd = nl * 2 * 3
+    want = dict(flash_fwd=2 * n_bwd + nl * len(runner.eval_dataloader)
+                * n_eval, flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
+                flash_decode=0, flash_decode_stacked=0, ring_round=0,
+                ring_push=0)
+    tokens = runner.last_batch.total_len("packed_input_ids")
+    mb_tokens = [mb.total_len("packed_input_ids") for mb in
+                 common.split_minibatches(runner.last_batch, 2)]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    rec = dict(n_layers=nl, setup_secs=setup, card=smi,
+               param_dtypes=sorted({str(t.dtype) for t in
+                                    _tree_leaves(eng.params)}),
+               n_params=sum(t.numel() for t in _tree_leaves(eng.params)),
+               tokens_per_step=tokens, microbatch_tokens=mb_tokens,
+               losses=losses, moe_aux_losses=aux,
+               nlls=[st["nll"] for st in steps],
+               loss_minus_nll_aux_rel=sum_err,
+               grad_norms=[st["grad_norm"] for st in steps],
+               step_secs=list(runner.step_secs),
+               train_tokens_per_s=[tokens / t for t in runner.step_secs],
+               peak_mem_gb=peak, free_at_peak_gb=total_gb - peak,
+               launches=counts, launches_expected=want,
+               launches_ok=counts == want, loss_strictly_falling=loss_ok,
+               aux_ok=aux_ok, step1_grads_ok=grads_ok, step1_grads=grads)
+    rec["ok"] = (loss_ok and aux_ok and sum_err <= 1e-6 and grads_ok
+                 and rec["launches_ok"])
+    del runner, eng, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mixtral_parity(seed=5):
+    """Card (bf16, the kernels) against CPU (fp32, the plain versions)
+    from the same bf16 weights at ``train_parity``'s shape with 8 experts
+    top-2 (2 layers, hidden 1024, 8 q / 2 kv heads of 128, FFN 2816).
+    The forward's routing: the (token, layer) pairs whose top-2 differ
+    between the two sides are counted, and each must be a near tie (the
+    CPU's margin between the second and third expert under a floor). The
+    forward's logits with the card routed as the CPU routed
+    (``replaying_routes``: a token whose experts flip takes other expert
+    weights, and the later tokens of its sequence attend to it), every
+    token gated; the logits of the card's own routing are reported. One
+    SFT step's loss, aux loss, and the cosine of every (layer, expert)
+    slice of every gradient leaf, every token counted; the router
+    gradient zeroed must fail the cosine gate."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces import sft
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig
+    from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
+    nl, ne = 2, 8
+    base = dict(hf_random_init_config("mixtral", MIXTRAL_8X7B, nl),
+                hidden_dim=1024, n_q_heads=8, n_kv_heads=2, head_dim=128,
+                intermediate_dim=2816, gradient_checkpointing=True)
+    # the card's side (bf16, the kernels) and the CPU's (fp32, plain)
+    devs = dict(card="cuda", cpu="cpu")
+    cfgs = {side: TransformerConfig(**dict(base, param_dtype=dt,
+                                           compute_dtype=dt))
+            for side, dt in (("card", "bfloat16"), ("cpu", "float32"))}
+    weights = params_numpy(T.init_params(cfgs["card"],
+                                         seeding.generator(seed), "cpu"))
+    rng = np.random.default_rng(seed + 1)
+    mbs, loss_w = sft_microbatches(rng, base["vocab_size"])
+    # the forward of the first microbatch's stream: the CPU's, the
+    # card's, and the card's again with the CPU's experts
+    ids, seg = (torch.as_tensor(mbs[0][k]) for k in ("input_ids", "seg_ids"))
+    logits, routes = {}, {}
+    for run, side in (("cpu", "cpu"), ("card", "card"),
+                      ("card_replayed", "card")):
+        dev, cfg = devs[side], cfgs[side]
+        p = params_from_numpy(weights, dev, torch.float32
+                              if side == "cpu" else None)
+        calls = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.no_grad())
+            if run == "card_replayed":
+                stack.enter_context(replaying_routes(routes["cpu"]))
+            stack.enter_context(recording_routes(calls))
+            h, _ = T.forward(cfg, p, ids.to(dev), seg.to(dev))
+            logits[run] = T.lm_logits(cfg, p, h).float().cpu()
+        routes[run] = [(i.cpu(), lg.cpu()) for i, lg in calls]
+        del p, h
+    valid = (seg != 0).reshape(-1)
+    # (token, layer) routings whose top-2 set differs, card against CPU,
+    # and the CPU's margin between the second and third expert there
+    moved = torch.stack([(a[0].sort(-1).values != b[0].sort(-1).values)
+                         .any(-1) for a, b in zip(routes["card"],
+                                                  routes["cpu"])]) & valid
+    top3 = torch.stack([lg.topk(3, -1).values for _, lg in routes["cpu"]])
+    margin = top3[..., 1] - top3[..., 2]                   # [layers, T]
+    router_err = max(float((a[1] - b[1]).abs().amax(-1)[
+        valid & ~moved.any(0)].max()) for a, b in zip(routes["card"],
+                                                      routes["cpu"]))
+    lg_c, lg_g, lg_r = (logits[r].reshape(-1, logits[r].shape[-1])
+                        for r in ("cpu", "card", "card_replayed"))
+    scale = float(lg_c[valid].abs().max())
+    logits_err = float((lg_r - lg_c).abs()[valid].max())
+    logits_err_free = float((lg_g - lg_c).abs()[valid].max())
+    # one SFT step
+    opt = OptimizerConfig(lr=1e-4, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0)
+    out, grads = {}, {}
+    for side, cfg in cfgs.items():
+        eng = Engine(cfg, weights, devs[side], optimizer=opt)
+        seen = capture_first_grads(eng.optimizer)
+        out[side] = eng.train_batch(mbs, sft._make_loss_fn(cfg), loss_w)
+        grads[side] = seen[0]
+        names = leaf_names(eng.params)
+        del eng, seen
+    torch.cuda.empty_cache()
+
+    def cosines(got):
+        cos = {}
+        for name, a, b in zip(names, got, grads["cpu"]):
+            a = expert_slices(name, a.double().cpu(), nl, ne)
+            b = expert_slices(name, b.double(), nl, ne)
+            den = (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-30)
+            cos[name] = ((a * b).sum(-1) / den).tolist()
+        return cos
+
+    cos = cosines(grads["card"])
+    faulty = [g.clone() if n != "blocks.mlp.router" else torch.zeros_like(g)
+              for n, g in zip(names, grads["card"])]
+    fault_min = min(min(v) for v in cosines(faulty).values())
+
+    def rel(k):
+        return abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+
+    lim = MOE_LIMITS
+    min_cos = min(min(v) for v in cos.values())
+    rec = dict(layers=nl, experts=ne, hidden=base["hidden_dim"], seed=seed,
+               tokens=int(valid.sum()), routing_moved=int(moved.sum()),
+               moved_max_cpu_margin=float(margin[moved].max())
+               if moved.any() else 0.0,
+               router_logits_max_abs_err_unmoved=router_err,
+               logits_max_abs_err=logits_err, logits_max_abs=scale,
+               logits_rel_err=logits_err / scale,
+               logits_rel_err_own_routing=logits_err_free / scale,
+               step=out, loss_rel_err=rel("loss"),
+               aux_rel_err=rel("moe_aux_loss"),
+               grad_norm_rel_err=rel("grad_norm"), min_cos=min_cos,
+               cos={k: min(v) for k, v in cos.items()}, limits=lim,
+               planted_fault="router gradient zeroed",
+               planted_fault_min_cos=fault_min)
+    rec["ok"] = (rec["logits_rel_err"] <= lim["parity_logits_rel"]
+                 and rec["routing_moved"] <= lim["parity_routing_moved"]
+                 and rec["moved_max_cpu_margin"]
+                 <= lim["parity_router_margin"]
+                 and rec["loss_rel_err"] <= lim["parity_loss_rel"]
+                 and rec["aux_rel_err"] <= lim["parity_aux_rel"]
+                 and min_cos >= lim["parity_min_cos"]
+                 and fault_min < lim["parity_min_cos"])
+    return rec
+
+
+@contextlib.contextmanager
+def watching_windows(seen):
+    """Records the window of every K1 and K4 launch (the port's kernel
+    wrappers, called through ``ops/attention.py``)."""
+    from realhf_tpu_torch.ops import decode_attention as da
+    from realhf_tpu_torch.ops import flash_attention as fa
+    real_fwd, real_dec = fa.flash_attention, da.flash_decode_attention
+
+    def fwd(*a, window=None, **kw):
+        if a[0].is_cuda:
+            seen.add(("flash_fwd", window))
+        return real_fwd(*a, window=window, **kw)
+
+    def dec(*a, sliding_window=None, **kw):
+        seen.add(("flash_decode", sliding_window))
+        return real_dec(*a, sliding_window=sliding_window, **kw)
+
+    with patched(fa, "flash_attention", fwd), \
+            patched(da, "flash_decode_attention", dec):
+        yield
+
+
+def phase_mistral(smi, seed=1):
+    """The gen experiment at Mistral-7B-v0.1, full width and depth (32
+    layers, bf16, random weights from ``seed``; window 4096): 8 prompts,
+    two of 5200-5600 words, 64 greedy tokens. Gates: K1 = 32 a prefill
+    and K4 = 32 a decode step, every launch with the window; the
+    generated log-probs against a packed teacher-forced windowed forward
+    (all streams: max; the long prompts' tokens: mean), which the same
+    pass without the window must exceed; the long prompts' last-position
+    logits against the same weights in fp32 through
+    ``packed_attention_plain`` over the same window."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.ops.attention import packed_attention_plain
+    from realhf_tpu_torch.system.inline import InlineRunner
+    nl = 32
+    mcfg = hf_random_init_config("mistral", MISTRAL_7B, nl)
+    rng = np.random.default_rng(seed)
+    lengths = [*MISTRAL_LONG_PROMPTS,
+               *(int(x) for x in rng.integers(100, 513, size=6))]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts_of(data, lengths, seed)
+        spec, vocab = build_gen_spec(data, nl, MISTRAL_NEW_TOKENS, 1,
+                                     model_config=mcfg, max_seqlen=6144,
+                                     seed=seed)
+        t0 = time.monotonic()
+        runner = InlineRunner(spec)  # the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    seen, windows = [], set()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with watching_generate(seen), watching_windows(windows):
+        runner.run()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.generate_stats[0]
+    want = dict(flash_fwd=nl, flash_bwd_dq=0, flash_bwd_dkv=0,
+                flash_decode=nl * st["decode_steps"], flash_decode_stacked=0,
+                ring_round=0, ring_push=0)
+    items = sequences_of(seen)
+    long_ = {i for i, (p, *_) in enumerate(items)
+             if len(p) > eng.cfg.sliding_window}
+    cfg = eng.cfg
+    lps, _ = packed_teacher_forced(cfg, eng.params, items)
+    rec = dict(n_layers=nl, setup_secs=setup, card=smi, seed=seed,
+               window=cfg.sliding_window, prompt_lens=[len(p) for p, *_ in
+                                                       items],
+               step=step_summary(st, smi), launches=counts,
+               launches_expected=want, launches_ok=counts == want,
+               kernel_windows=sorted(f"{k}:{w}" for k, w in windows),
+               outputs_in_range=check_gen_output(runner, vocab),
+               peak_mem_gb=peak, limits=MOE_LIMITS)
+    w = cfg.sliding_window
+    rec["windows_ok"] = windows == {("flash_fwd", w), ("flash_decode", w)}
+    rec["tf"] = tf_gaps(lps, items)
+    rec["tf_long"] = tf_gaps(lps, items, long_)
+    nowin = dataclasses.replace(cfg, sliding_window=None)
+    bad, _ = packed_teacher_forced(nowin, eng.params, items)
+    rec["planted_fault"] = "teacher-forced pass without the window"
+    rec["planted_fault_tf"] = tf_gaps(bad, items)
+    rec["planted_fault_tf_long"] = tf_gaps(bad, items, long_)
+    # the long prompts' last-position logits: the card's bf16 path (K1)
+    # against the same weights in fp32 through the plain attention
+    p32 = _tree_map(lambda t: t.float(), eng.params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    errs, fault_errs = [], []
+    dev = eng.params["embed"]["wte"].device
+    for i in sorted(long_):
+        p = items[i][0]
+        ids = torch.as_tensor(p.astype(np.int64), device=dev)[None]
+        seg = torch.ones_like(ids, dtype=torch.int32)
+        with torch.no_grad():
+            got = T.lm_logits(cfg, eng.params, T.forward(
+                cfg, eng.params, ids, seg)[0][0, -1])
+            for c, sink in ((cfg32, errs), (dataclasses.replace(
+                    cfg32, sliding_window=None), fault_errs)):
+                want_lg = T.lm_logits(c, p32, T.forward(
+                    c, p32, ids, seg,
+                    attention_fn=packed_attention_plain)[0][0, -1])
+                sink.append(float((got - want_lg).abs().max()
+                                  / want_lg.abs().max()))
+                torch.cuda.empty_cache()
+    del p32
+    rec["fp32_logits_rel_err"] = max(errs)
+    rec["fp32_logits_rel_err_without_window"] = max(fault_errs)
+    lim = MOE_LIMITS
+    rec["tf_ok"] = (rec["tf"]["max_abs"] <= lim["mistral_tf_logprob_abs"]
+                    and rec["tf_long"]["mean_abs"]
+                    <= lim["mistral_tf_logprob_mean_abs"])
+    rec["fault_fails"] = (
+        rec["planted_fault_tf_long"]["mean_abs"]
+        > lim["mistral_tf_logprob_mean_abs"]
+        and rec["planted_fault_tf"]["max_abs"] > lim["mistral_tf_logprob_abs"]
+        and rec["fp32_logits_rel_err_without_window"]
+        > lim["mistral_fp32_logits_rel"])
+    rec["ok"] = (rec["launches_ok"] and rec["windows_ok"]
+                 and rec["outputs_in_range"] and rec["tf_ok"]
+                 and rec["fault_fails"]
+                 and rec["fp32_logits_rel_err"]
+                 <= lim["mistral_fp32_logits_rel"])
+    del runner, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_moe_phases(smi):
+    """phases 26-29, each freeing its models before the next"""
+    recs = {}
+    for name, fn in (("mixtral_gen", phase_mixtral_gen),
+                     ("mixtral_sft", phase_mixtral_sft),
+                     ("mixtral_parity", lambda _smi: phase_mixtral_parity()),
+                     ("mistral", phase_mistral)):
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        emit(name, **recs[name])
+    return recs
+
+
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
     """One row per kernel. ``launches`` sums the kernel's counts over the
     paths run (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw, dpo,
     grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
-    ckpt_resume's resumed step, serve_gen and the four serve
-    configurations), each counted from 0 just before its path and read
-    just after it."""
+    ckpt_resume's resumed step, serve_gen, the four serve
+    configurations, mixtral_gen, mixtral_sft and mistral), each counted
+    from 0 just before its path and read just after it."""
     def timed(kernel):
         return next(r for r in kernel_recs
                     if r["kernel"] == kernel and "ms" in r)
@@ -4904,6 +5702,9 @@ def main(argv=None):
 
     kernel_recs = phase_kernels()
     bwd_recs = phase_kernels_bwd()
+    win_fwd, win_bwd = phase_kernels_window()
+    kernel_recs += win_fwd
+    bwd_recs += win_bwd
     ring_recs = phase_kernels_ring()
     for r in kernel_recs + bwd_recs + ring_recs:
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
@@ -4993,6 +5794,8 @@ def main(argv=None):
     emit("serve_gen", **serve_gen_rec)
     serve_rec = phase_serve(smi)
     emit("serve", **serve_rec)
+    moe_recs = run_moe_phases(smi)
+    ok &= all(r["ok"] for r in moe_recs.values())
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -5013,7 +5816,8 @@ def main(argv=None):
         [main_rec, deep_rec, sft_rec, ppo_rec, ctx_rec, ppo_ctx_rec]
         + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec,
                                        serve_gen_rec]
-        + list(serve_rec["configs"].values()))))
+        + list(serve_rec["configs"].values())
+        + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -244,6 +244,27 @@ __device__ __forceinline__ float tile_row_sum(const float (&s)[BK / 2]) {
   return c[0] + c[1];
 }
 
+// Whether a tile of keys at global positions [kf, kl] may hold a key that
+// some of the query rows [qf, ql] see, by position alone: when causal, no
+// key after the last row; with a sliding window (window >= 0; < 0 is
+// none), the tile's last key less than `window` behind the first row.
+// K1 and K2 mark their key tiles and K6 its rounds' key tiles by it; K3
+// writes the same rule out from the key side.
+__device__ __forceinline__ bool tile_in_reach(int kf, int kl, int qf, int ql, int causal,
+                                              int window) {
+  return (!causal || kf <= ql) && (window < 0 || qf - kl < window);
+}
+
+// Whether a query row with segment id `sq` keeps a key with id `id` that
+// lies `dq` = row - key positions before it: the same non-zero id, when
+// causal dq >= 0, with a window dq < window. `diag` and `wide` say whether
+// the tile may break causality or the window at all, so the per-pair
+// comparisons run only on the tiles where they can fail.
+__device__ __forceinline__ bool keep_pair(int sq, int id, int dq, bool diag, bool wide,
+                                          int window) {
+  return sq != 0 && id == sq && (!diag || dq >= 0) && (!wide || dq < window);
+}
+
 // One bit per id residue mod 64: two tiles that share an id share its bit.
 __device__ __forceinline__ uint64_t id_bit(int id) { return 1ull << (id & 63); }
 

@@ -11,9 +11,11 @@
 //   dq = scale * sum_k ds k              (K2)
 //   dv = sum_q p do,  dk = scale * sum_q ds q, each summed over every
 //   q head of the KV head's GQA group    (K3)
-// with the forward's mask: same non-zero segment id and, when causal,
-// the key not later in the stream. A row whose lse is NEG_INF (it saw no
-// valid key) contributes 0, never NaN; rows of seg 0 get zero gradients.
+// with the forward's mask: same non-zero segment id, when causal the key
+// not later in the stream, and with a sliding window (window >= 0; < 0 is
+// none) the key less than `window` positions behind the query. A row whose
+// lse is NEG_INF (it saw no valid key) contributes 0, never NaN; rows of
+// seg 0 get zero gradients.
 //
 // Layouts (row-major, contiguous): q/do/dq [B, L, nq, hd], k/v/dk/dv
 // [B, L, nkv, hd], seg [B, L] int32 (0 = padding), lse/delta [B, nq, L]
@@ -37,8 +39,10 @@
 // K2 (dq): a CTA owns 128 query rows of one q head (Q and dO staged once)
 // and runs K1's `q_id_summary` and `mark_tiles` with K1's rule, so it
 // walks exactly K1's (q tile, key tile) pairs: ranges of non-zero ids
-// meet, residues mod 64 meet, and, causal, the key tile starts at or
-// before the warpgroup's last row (ops/flash_attention.py
+// meet, residues mod 64 meet, and the key tile is in the warpgroup's
+// reach (`tile_in_reach`: causal, the tile starts at or before the
+// warpgroup's last row; with a window, its last key is less than
+// `window` behind the first row) (ops/flash_attention.py
 // `visited_key_tiles`). K, V and their seg ids stream through the ring
 // (`load_kv_tile`, `walk_tiles`). Per marked tile a warpgroup computes
 // S = Q K^T and dP = dO V^T (SS, one commit), p and ds on the accumulator
@@ -49,10 +53,15 @@
 // K3 (dk, dv): the transposed walk. A CTA owns 128 key rows of one KV head
 // (K and V staged once), summarises each warpgroup's 64 key ids with the
 // same `q_id_summary`, and marks the 64-row q tiles a warpgroup needs:
-// the ranges and residues mod 64 meet and, causal, the q tile's last row
-// is at or after the warpgroup's first key. That is
+// the ranges and residues mod 64 meet and the warpgroup's keys are in the
+// q tile's reach (the rule of `tile_in_reach`, with the two tiles' roles
+// as in K1: causal, the q tile's last row is at or after the
+// warpgroup's first key; with a window, the q tile's first row is less
+// than `window` after the warpgroup's last key). That is
 // `visited_key_tiles(seg).transpose(-1, -2)` (`visited_q_tiles`), so K3
-// walks the same pairs as K1 and K2. Q, dO, their seg ids, lse and delta
+// walks the same pairs as K1 and K2. The per-pair causal and window tests
+// run only on the tiles where they can fail (`keep_pair`), and with no
+// window, or one of L or more, both kernels give the windowless bits. Q, dO, their seg ids, lse and delta
 // stream through the ring; the walk runs over (q head of the GQA group,
 // marked q tile) pairs in one sequence, so the group is summed inside the
 // CTA with no partials and no bubble between heads. Per marked q tile:
@@ -162,13 +171,15 @@ __device__ __forceinline__ void store_row(bf16* row, const float (&acc)[HD / 2],
 // ---------------------------------------------------------------------
 // K2: dq
 // ---------------------------------------------------------------------
-template <int HD>
+// WIN: whether the launch has a window (K1's convention: a windowless
+// launch compiles without the window's tests).
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ seg,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq, int L, int nq,
-                    int nkv, float scale, int causal) {
+                    int nkv, float scale, int causal, int window) {
   using LY = Layout<HD>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t sbase;
@@ -196,24 +207,35 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t stat_off = ((size_t)b * nq + h) * L;
 
   // --- K1's marks: the key tiles each warpgroup needs ---------------------
-  int q_lo[NWG], q_hi[NWG], q_last[NWG];
+  int q_lo[NWG], q_hi[NWG], q_first[NWG], q_last[NWG];
   uint64_t q_bits[NWG];
   q_id_summary(segb, q0, L, tid, red, q_lo, q_hi, q_bits);
 #pragma unroll
-  for (int g = 0; g < NWG; ++g) q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+  for (int g = 0; g < NWG; ++g) {
+    q_first[g] = q0 + g * WG_ROWS;
+    q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+  }
   const int n_all = (L + BK - 1) / BK;
   const int n_tiles = causal ? min(n_all, (min(q0 + BQ, L) - 1) / BK + 1) : n_all;
   const int nwords = (n_tiles + 31) >> 5;
   const bool seg_vec = (L & 3) == 0;
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int k0 = j * BK;
+    const int n = min(BK, L - k0);
+    bool reach[NWG], any = false;
+#pragma unroll
+    for (int g = 0; g < NWG; ++g) {
+      reach[g] = tile_in_reach(k0, k0 + n - 1, q_first[g], q_last[g], causal,
+                               WIN ? window : -1);
+      any |= reach[g];
+    }
+    if (!any) return;
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
-    key_tile_ids(segb, k0, min(BK, L - k0), seg_vec, lo, hi, bits);
+    key_tile_ids(segb, k0, n, seg_vec, lo, hi, bits);
 #pragma unroll
     for (int g = 0; g < NWG; ++g)
-      mark[g] = lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0 &&
-                (!causal || k0 <= q_last[g]);
+      mark[g] = reach[g] && lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0;
   });
 
   // --- this thread's two rows (the accumulator layout) --------------------
@@ -248,6 +270,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   walk_tiles(vis, nwords, wg, j0, load, [&](int j, int st) {
     const int k0 = j * BK;
     const bool diag = causal && k0 + BK - 1 > wq0;
+    const bool wide = WIN && wq0 + WG_ROWS - 1 - k0 >= window;
     const uint32_t sKt = sK + st * LY::TILE_BYTES, sVt = sV + st * LY::TILE_BYTES;
     const int* seg_tile = seg_s + st * BK;
 
@@ -274,8 +297,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * i + 2 * tq + e;
           const int id = e ? ids.y : ids.x;
-          const bool keep0 = sq0 != 0 && id == sq0 && (!diag || qi0 >= k0 + c);
-          const bool keep1 = sq1 != 0 && id == sq1 && (!diag || qi1 >= k0 + c);
+          const bool keep0 = keep_pair(sq0, id, qi0 - (k0 + c), diag, wide, window);
+          const bool keep1 = keep_pair(sq1, id, qi1 - (k0 + c), diag, wide, window);
           const float p0 = keep0 ? expf(s[4 * i + e] * scale - lse0) : 0.f;
           const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - lse1) : 0.f;
           x[4 * h2 + e] = keep0 ? p0 * (dp[4 * i + e] - dl0) : 0.f;
@@ -305,13 +328,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------
 // K3: dk, dv (the GQA group summed inside the CTA)
 // ---------------------------------------------------------------------
-template <int HD>
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ seg,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, int nq, int nkv, float scale, int causal) {
+                     bf16* __restrict__ dv, int L, int nq, int nkv, float scale, int causal,
+                     int window) {
   using LY = Layout<HD>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t sbase;
@@ -342,7 +366,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint64_t k_bits[NWG];
   q_id_summary(segb, k0, L, tid, red, k_lo, k_hi, k_bits);
 
-  // --- mark the q tiles each warpgroup needs (K1's rule, transposed) ------
+  // --- mark the q tiles each warpgroup needs (K1's rule, transposed:
+  // `tile_in_reach` with the q tile as the rows and the warpgroup's keys
+  // as the key tile, written out so a windowless launch keeps the
+  // pre-window kernel's code) ----------------------------------------------
   const int n_tiles = (L + BK - 1) / BK;
   const int nwords = (n_tiles + 31) >> 5;
   const bool seg_vec = (L & 3) == 0;
@@ -350,13 +377,15 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int t0 = j * BK;
     const int last = min(t0 + BK, L) - 1;
     if (causal && last < k0) return;  // every query before every key
+    if (WIN && t0 - (min(k0 + BQ, L) - 1) >= window) return;  // past the window
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
     key_tile_ids(segb, t0, min(BK, L - t0), seg_vec, lo, hi, bits);
 #pragma unroll
     for (int g = 0; g < NWG; ++g)
       mark[g] = lo <= k_hi[g] && hi >= k_lo[g] && (bits & k_bits[g]) != 0 &&
-                (!causal || last >= k0 + g * WG_ROWS);
+                (!causal || last >= k0 + g * WG_ROWS) &&
+                (!WIN || t0 - (min(k0 + g * WG_ROWS + WG_ROWS, L) - 1) < window);
   });
 
   // --- this thread's two key rows (the accumulator layout) ---------------
@@ -407,6 +436,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if ((vis[wg * nwords + (j >> 5)] >> (j & 31)) & 1u) {
       const int q0 = j * BK;
       const bool diag = causal && q0 < wk0 + WG_ROWS - 1;
+      const bool wide = WIN && q0 + BK - 1 - wk0 >= window;
       const uint32_t sQt = sQ + st * LY::TILE_BYTES, sDOt = sDO + st * LY::TILE_BYTES;
       const int* seg_tile = seg_s + st * BK;
       const float* lse_tile = lse_s + st * BK;
@@ -440,9 +470,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int id = e ? ids.y : ids.x;
             const float l = e ? ls.y : ls.x;
             const float dl = e ? dls.y : dls.x;
+            // `keep_pair` from the key side, written out as above
             const bool ok = id != 0 && l > NEG_INF / 2;
-            const bool keep0 = ok && id == sk0 && (!diag || qc >= kr0);
-            const bool keep1 = ok && id == sk1 && (!diag || qc >= kr1);
+            const bool keep0 =
+                ok && id == sk0 && (!diag || qc >= kr0) && (!wide || qc - kr0 < window);
+            const bool keep1 =
+                ok && id == sk1 && (!diag || qc >= kr1) && (!wide || qc - kr1 < window);
             const float p0 = keep0 ? expf(s[4 * i + e] * scale - l) : 0.f;
             const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - l) : 0.f;
             xp[4 * h2 + e] = p0;
@@ -495,37 +528,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int HD>
+template <int HD, bool WIN>
 int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int L, int nq, int nkv,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, int window, cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, WIN>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, nq, B);
-  flash_bwd_dq_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<HD, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), L, nq, nkv, scale, causal);
+      static_cast<bf16*>(dq), L, nq, nkv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool WIN>
 int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
                const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-               int B, int L, int nq, int nkv, float scale, int causal, cudaStream_t stream) {
+               int B, int L, int nq, int nkv, float scale, int causal, int window,
+               cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD, WIN>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, nkv, B);
-  flash_bwd_dkv_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<HD, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, nq, nkv, scale, causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, nq, nkv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -536,25 +570,29 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq, int B, int L, int nq, int nkv, int hd, float scale,
-                                 int causal, void* stream) {
+                                 int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool win = window >= 0;
   if (hd == 128)
-    return launch_dq<128>(q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, st);
+    return (win ? launch_dq<128, true> : launch_dq<128, false>)(
+        q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
   if (hd == 64)
-    return launch_dq<64>(q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, st);
+    return (win ? launch_dq<64, true> : launch_dq<64, false>)(
+        q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* seg,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int L, int nq, int nkv, int hd,
-                                  float scale, int causal, void* stream) {
+                                  float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool win = window >= 0;
   if (hd == 128)
-    return launch_dkv<128>(q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale,
-                           causal, st);
+    return (win ? launch_dkv<128, true> : launch_dkv<128, false>)(
+        q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
   if (hd == 64)
-    return launch_dkv<64>(q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale,
-                          causal, st);
+    return (win ? launch_dkv<64, true> : launch_dkv<64, false>)(
+        q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,9 @@
 // (launched by `_flash_fwd:130`, public entry `flash_attention`): tiled
 // online-softmax attention where a query attends to a key iff both carry
 // the same non-zero segment id and, when causal, the key is not later in
-// the stream. GQA: q head h reads KV head h / (nq / nkv). Outputs o (bf16)
+// the stream, and with a sliding window (window >= 0; < 0 is none) less
+// than `window` positions behind it. GQA: q head h reads KV head
+// h / (nq / nkv). Outputs o (bf16)
 // and the per-row log-sum-exp (fp32, kept for the backward pass). A row
 // that never sees a valid key gets o = 0 and lse = NEG_INF, never NaN.
 //
@@ -28,7 +30,10 @@
 //    seg ids of every key tile (64 keys) up to the causal diagonal and
 //    marks the tile for a warpgroup when the tile's range of non-zero ids
 //    meets the warpgroup's, their residue sets meet, and, causal, the tile
-//    starts at or before the warpgroup's last row. The marks go to two
+//    starts at or before the warpgroup's last row, and with a window its
+//    last key lies less than `window` behind the warpgroup's first row
+//    (`tile_in_reach`, the rule of K6's rounds; tiles out of reach are
+//    passed over before their ids are read). The marks go to two
 //    bitmasks in shared memory; the CTA loads a tile either warpgroup
 //    marked, and a warpgroup computes only on its own. The rule is sound
 //    for any ids (a pair the mask allows has equal non-zero ids, inside
@@ -37,7 +42,12 @@
 //    places them longest first) as long as a stream holds fewer than 64
 //    ids near each other. ops/flash_attention.py `visited_key_tiles` states
 //    it in PyTorch. A warpgroup with no non-zero id, or with no marked
-//    tile, writes o = 0 and lse = NEG_INF.
+//    tile, writes o = 0 and lse = NEG_INF. The per-pair causal and window
+//    tests run only on the tiles where they can fail (`keep_pair`): a
+//    window of 4096 over an 8192-token stream leaves each row ~4096 keys,
+//    and the marks cut the walk to the tiles that hold them. With no
+//    window, or one of L or more, the marks and the arithmetic are the
+//    windowless ones, bit for bit.
 // 2. Accumulators in registers. S = Q K^T and O += P V are
 //    `wgmma.mma_async` (m64n64k16 and m64n{hd}k16, bf16 in, fp32
 //    accumulate), one warpgroup per 64 query rows. Q and K are read from
@@ -83,12 +93,14 @@ namespace {
 
 using namespace attn;
 
-template <int HD>
+// WIN: whether the launch has a window. A windowless launch compiles
+// without the window's tests, so it runs the windowless kernel's code.
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
                  bf16* __restrict__ o, float* __restrict__ lse, int L, int nq,
-                 int nkv, float scale, int causal) {
+                 int nkv, float scale, int causal, int window) {
   using SM = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t sbase;
@@ -115,11 +127,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* segb = seg + (size_t)b * L;
 
   // --- 1. each warpgroup's range and residue set of non-zero q seg ids ---
-  int q_lo[NWG], q_hi[NWG], q_last[NWG];
+  int q_lo[NWG], q_hi[NWG], q_first[NWG], q_last[NWG];
   uint64_t q_bits[NWG];
   q_id_summary(segb, q0, L, tid, red, q_lo, q_hi, q_bits);
 #pragma unroll
-  for (int g = 0; g < NWG; ++g) q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+  for (int g = 0; g < NWG; ++g) {
+    q_first[g] = q0 + g * WG_ROWS;
+    q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+  }
 
   // --- 2. mark the key tiles each warpgroup needs ------------------------
   const int n_all = (L + BK - 1) / BK;
@@ -128,13 +143,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool seg_vec = (L & 3) == 0;  // rows of seg 16-byte aligned
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int k0 = j * BK;
+    const int n = min(BK, L - k0);
+    bool reach[NWG], any = false;
+#pragma unroll
+    for (int g = 0; g < NWG; ++g) {
+      reach[g] = tile_in_reach(k0, k0 + n - 1, q_first[g], q_last[g], causal,
+                               WIN ? window : -1);
+      any |= reach[g];
+    }
+    if (!any) return;
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
-    key_tile_ids(segb, k0, min(BK, L - k0), seg_vec, lo, hi, bits);
+    key_tile_ids(segb, k0, n, seg_vec, lo, hi, bits);
 #pragma unroll
     for (int g = 0; g < NWG; ++g)
-      mark[g] = lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0 &&
-                (!causal || k0 <= q_last[g]);
+      mark[g] = reach[g] && lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0;
   });
 
   // --- 3. the walk --------------------------------------------------------
@@ -163,11 +186,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   walk_tiles(vis, nwords, wg, j0, load, [&](int j, int st) {
     const int k0 = j * BK;
+    // whether some pair of the tile may break causality or the window
     const bool diag = causal && k0 + BK - 1 > wq0;
+    const bool wide = WIN && wq0 + WG_ROWS - 1 - k0 >= window;
     tile_step<HD>(acc, m0, m1, l0, l1, sQ, wg, sK + st * SM::KV_BYTES, sV + st * SM::KV_BYTES,
                   seg_s + st * BK, tq, scale, [&](int r, int c, int id) {
-                    const int sq = r ? sq1 : sq0;
-                    return sq != 0 && id == sq && (!diag || (r ? qi1 : qi0) >= k0 + c);
+                    return keep_pair(r ? sq1 : sq0, id, (r ? qi1 : qi0) - (k0 + c), diag, wide,
+                                     window);
                   });
   });
 
@@ -185,20 +210,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool WIN>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* o,
-           void* lse, int B, int L, int nq, int nkv, float scale, int causal,
+           void* lse, int B, int L, int nq, int nkv, float scale, int causal, int window,
            cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = smem_bytes<HD>((L + BK - 1) / BK);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<HD, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, nq, B);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<HD, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(seg),
-      static_cast<bf16*>(o), static_cast<float*>(lse), L, nq, nkv, scale, causal);
+      static_cast<bf16*>(o), static_cast<float*>(lse), L, nq, nkv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -207,9 +232,14 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* seg, void* o, void* lse, int B, int L,
                               int nq, int nkv, int hd, float scale, int causal,
-                              void* stream) {
+                              int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch<128>(q, k, v, seg, o, lse, B, L, nq, nkv, scale, causal, st);
-  if (hd == 64) return launch<64>(q, k, v, seg, o, lse, B, L, nq, nkv, scale, causal, st);
+  const bool win = window >= 0;
+  if (hd == 128)
+    return (win ? launch<128, true> : launch<128, false>)(q, k, v, seg, o, lse, B, L, nq, nkv,
+                                                         scale, causal, window, st);
+  if (hd == 64)
+    return (win ? launch<64, true> : launch<64, false>)(q, k, v, seg, o, lse, B, L, nq, nkv,
+                                                       scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -191,7 +191,7 @@ ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
     bool reach[NWG], any = false;
 #pragma unroll
     for (int g = 0; g < NWG; ++g) {
-      reach[g] = (!causal || kg <= q_last[g]) && (window < 0 || q_first[g] - (kg + n - 1) < window);
+      reach[g] = tile_in_reach(kg, kg + n - 1, q_first[g], q_last[g], causal, window);
       any |= reach[g];
     }
     if (!any) return;
@@ -254,7 +254,7 @@ ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
                   seg_s + st * BK, tq, scale, [&](int r, int c, int id) {
                     const int sq = r ? sq1 : sq0;
                     const int dq = (r ? qg1 : qg0) - (kg + c);  // global distance
-                    return sq != 0 && id == sq && (!diag || dq >= 0) && (!wide || dq < window);
+                    return keep_pair(sq, id, dq, diag, wide, window);
                   });
   });
 

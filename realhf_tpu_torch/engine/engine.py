@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from realhf_tpu_torch.base import logging
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.base.safetensors_io import tensor_to_numpy
 from realhf_tpu_torch.engine import generation as gen_mod
@@ -43,12 +44,15 @@ from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
 from realhf_tpu_torch.ops import functional as F
+from realhf_tpu_torch.ops.moe import ragged_dispatch_enabled
 from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
 from realhf_tpu_torch.parallel.mesh import (
     ParallelismConfig,
     default_devices,
     make_mesh,
 )
+
+logger = logging.getLogger("engine")
 
 _CTX_TRAIN = ("training on a context-parallel layout (the differentiable "
               "ring on CUDA) is a later slice of the port (ROADMAP.md, "
@@ -68,6 +72,16 @@ class Engine:
                  parallel: Optional[ParallelismConfig] = None,
                  devices: Optional[List[DeviceLike]] = None):
         T.check_supported(cfg)
+        if (cfg.mlp_type == "moe" and cfg.moe.capacity_factor is None
+                and cfg.moe.num_experts > 4
+                and not ragged_dispatch_enabled(cfg)):
+            logger.warning(
+                "MoE model running in dense dispatch (capacity_factor "
+                "unset, grouped GEMM disabled): every expert processes "
+                "every token -- %dx the FLOPs of top-%d routing. Set "
+                "MoEConfig.use_grouped_gemm=True or capacity_factor "
+                "(e.g. 1.25).", cfg.moe.num_experts // cfg.moe.top_k,
+                cfg.moe.top_k)
         self.cfg = cfg
         self.parallel = parallel or ParallelismConfig()
         n = self.parallel.world_size

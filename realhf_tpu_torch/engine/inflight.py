@@ -812,7 +812,7 @@ def _extend_rows(cfg, params, k_all, v_all, valid0, tokens, positions,
         scores = torch.where(qmask[:, :, None, None, :], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         attn = torch.einsum("bmhgs,bhsd->bmhgd", probs.to(v_l.dtype), v_l)
-        x = T._attn_out(cfg, lp, x, attn.to(x.dtype))
+        x, _ = T._attn_out(cfg, lp, x, attn.to(x.dtype))
     return T._norm(cfg, x, params["ln_f"]["scale"],
                    params["ln_f"].get("bias"))
 

@@ -73,12 +73,12 @@ def split_minibatches(input_: SequenceSample, n: int,
 
 
 def forward_with_aux(cfg, params, input_ids, seg_ids):
-    """Model forward returning (hidden, aux-loss dict). A dense model
-    has no auxiliary loss; a mixture-of-experts model (whose router
-    losses would go here) raises in the forward until its slice of the
-    port."""
-    h, _ = T.forward(cfg, params, input_ids, seg_ids)
-    return h, {}
+    """Model forward returning (hidden, aux-loss dict). For a
+    mixture-of-experts model the dict carries the router's
+    load-balancing / z losses summed over the layers, which a training
+    objective must add; a dense model returns an empty dict."""
+    h, _, aux = T.forward(cfg, params, input_ids, seg_ids, return_aux=True)
+    return h, aux
 
 
 def run_train_microbatched(engine, sample: SequenceSample, build_sb,

@@ -10,7 +10,6 @@ import torch
 from realhf_tpu_torch.api import model as model_api
 from realhf_tpu_torch.api.data import SequenceSample
 from realhf_tpu_torch.interfaces import common
-from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.ops import functional as F
 
 
@@ -28,13 +27,18 @@ def _answer_mask(seg: torch.Tensor, prompt_mask: torch.Tensor):
 def _make_loss_fn(cfg):
 
     def loss_fn(params, mb):
-        h, _ = T.forward(cfg, params, mb["input_ids"], mb["seg_ids"])
+        h, aux = common.forward_with_aux(cfg, params, mb["input_ids"],
+                                         mb["seg_ids"])
         lp = F.shifted_logprobs_from_hidden(cfg, params, h, mb["input_ids"],
                                             mb["seg_ids"])
         mask = _answer_mask(mb["seg_ids"], mb["prompt_mask"])
         denom = mask.sum().clamp_min(1)
         nll = -(lp * mask).sum() / denom
-        return nll, {"nll": nll.detach(), "n_tokens": denom.float()}
+        # a MoE model's router losses join the objective, as in every
+        # train interface
+        loss = nll + sum(aux.values())
+        return loss, {"nll": nll.detach(), "n_tokens": denom.float(),
+                      **aux}
 
     return loss_fn
 

@@ -35,6 +35,7 @@ from realhf_tpu_torch.ops.attention import (
     packed_attention,
     stacked_decode_attention,
 )
+from realhf_tpu_torch.ops.moe import moe_mlp_with_losses
 from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 
@@ -48,11 +49,16 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: TransformerConfig):
-    """Raise for model features this slice of the port leaves out."""
-    if cfg.mlp_type == "moe":
+    """Raise for model features the port leaves out so far."""
+    if cfg.mlp_type == "moe" and cfg.moe.expert_parallel:
         raise NotImplementedError(
-            "Mixture-of-experts models (ops/moe.py) are not ported yet: "
-            "ROADMAP.md, queue 1, item 3 (model features beyond LLaMA).")
+            "expert parallelism is deferred to the parallelism slice of "
+            "the port: ROADMAP.md, queue 1, item 4.")
+    if cfg.mlp_type == "moe" and cfg.moe.input_jitter_eps:
+        raise NotImplementedError(
+            "MoE router input jitter needs a generator threaded through "
+            "the forward, which the JAX package has not wired either: "
+            "ROADMAP.md, queue 1, item 3.")
 
 
 # ----------------------------------------------------------------------
@@ -101,10 +107,17 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         params["embed"]["wpe"] = norm(
             (cfg.n_positions + cfg.abs_position_embedding_offset, h))
     mlp = params["blocks"]["mlp"]
-    if cfg.gated_mlp:
-        mlp["wg"] = norm((nl, h, f))
-    mlp["wu"] = norm((nl, h, f))
-    mlp["wd"] = norm((nl, f, h), proj_std)
+    if cfg.mlp_type == "moe":
+        ne = cfg.moe.num_experts
+        mlp["router"] = norm((nl, h, ne))
+        mlp["wg"] = norm((nl, ne, h, f))
+        mlp["wu"] = norm((nl, ne, h, f))
+        mlp["wd"] = norm((nl, ne, f, h), proj_std)
+    else:
+        if cfg.gated_mlp:
+            mlp["wg"] = norm((nl, h, f))
+        mlp["wu"] = norm((nl, h, f))
+        mlp["wd"] = norm((nl, f, h), proj_std)
     a = params["blocks"]["attn"]
     if cfg.use_attention_bias:
         a["bq"], a["bk"], a["bv"] = (zeros((nl, nq * hd)),
@@ -182,15 +195,18 @@ def _activation(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(cfg.activation_function)
 
 
-def _mlp(cfg: TransformerConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    out, _ = _mlp_with_aux(cfg, lp, x)
-    return out
-
-
-def _mlp_with_aux(cfg: TransformerConfig, lp: Params, x: torch.Tensor):
+def _mlp_with_aux(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+                  seg_ids: Optional[torch.Tensor] = None):
     """MLP -> (output, aux-loss dict); the dict is non-empty only for
-    mixture-of-experts models, which this slice does not run."""
-    check_supported(cfg)
+    mixture-of-experts models (router load-balancing / z losses).
+    ``seg_ids`` keeps padding out of MoE routing, capacity and losses;
+    a decode step's ``x`` is [B, H] and routes every row."""
+    if cfg.mlp_type == "moe":
+        squeeze = x.ndim == 2
+        x3 = x[:, None, :] if squeeze else x
+        valid = None if seg_ids is None else seg_ids != 0
+        out, aux = moe_mlp_with_losses(cfg, lp["mlp"], x3, valid_mask=valid)
+        return (out[:, 0] if squeeze else out), aux
     return _dense_mlp(cfg, lp["mlp"], x, dtype_of(cfg.compute_dtype)), {}
 
 
@@ -245,29 +261,32 @@ def _attn_in(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
 
 
 def _attn_out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-              attn: torch.Tensor) -> torch.Tensor:
+              attn: torch.Tensor, seg_ids: Optional[torch.Tensor] = None):
     """The block after attention: output projection and residual, norm,
-    MLP and residual -> the block's output [B, L, H]."""
+    MLP and residual -> (the block's output [B, L, H], the MLP's aux
+    losses)."""
     attn = attn.reshape(*x.shape[:-1], cfg.n_q_heads * cfg.head_dim)
     proj = attn @ lp["attn"]["wo"].to(x.dtype)
     if "bo" in lp["attn"]:
         proj = proj + lp["attn"]["bo"].to(x.dtype)
     x = x + proj
     ln2 = _norm(cfg, x, lp["ln2"]["scale"], lp["ln2"].get("bias"))
-    return x + _mlp(cfg, lp, ln2)
+    out, aux = _mlp_with_aux(cfg, lp, ln2, seg_ids)
+    return x + out, aux
 
 
 def _block(cfg: TransformerConfig, lp: Params, layer_idx: int,
            x: torch.Tensor, seg_ids: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, attention_fn=None):
     """One block over packed streams [B, L, H] -> (residual output,
-    (k, v)); k/v feed the prefill KV cache."""
+    (k, v), aux losses); k/v feed the prefill KV cache."""
     q, k, v = _attn_in(cfg, lp, x, cos, sin)
     attn_impl = attention_fn or packed_attention
     attn = attn_impl(q, k, v, seg_ids, causal=True,
                      scale=_attn_scale(cfg, layer_idx),
                      sliding_window=cfg.sliding_window)
-    return _attn_out(cfg, lp, x, attn), (k, v)
+    x, aux = _attn_out(cfg, lp, x, attn, seg_ids)
+    return x, (k, v), aux
 
 
 def positions_from_segments(seg_ids: torch.Tensor) -> torch.Tensor:
@@ -311,11 +330,20 @@ def _rotary_tables(cfg, positions):
 def forward(cfg: TransformerConfig, params: Params,
             input_ids: torch.Tensor, seg_ids: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
-            return_kv: bool = False, attention_fn=None, pipeline=None):
+            return_kv: bool = False, return_aux: bool = False,
+            attention_fn=None, pipeline=None):
     """Packed forward -> (final hidden states [B, L, H] after the final
-    norm, kvs). ``kvs`` is ``(k, v)`` stacked ``[n_layers, B, L, nkv,
-    hd]`` when ``return_kv``, else None. Heads apply separately
-    (``lm_logits``, ``critic_values``)."""
+    norm, kvs), and with ``return_aux`` a third item: each MoE aux loss
+    summed over the layers (empty for a dense model). ``kvs`` is ``(k,
+    v)`` stacked ``[n_layers, B, L, nkv, hd]`` when ``return_kv``, else
+    None. Heads apply separately (``lm_logits``, ``critic_values``).
+
+    Under gradient checkpointing a block's recompute routes its tokens
+    as the first pass did: the same inputs through the same
+    deterministic operations (fp32 router, stable sort, and a combine
+    whose top-2 adds onto 0 commute), and ``torch.utils.checkpoint``
+    raises if a recomputed tensor's shape differs, as an expert's slice
+    would."""
     if pipeline is not None:
         raise NotImplementedError(
             "pipeline parallelism is deferred to the parallelism slice of "
@@ -327,19 +355,25 @@ def forward(cfg: TransformerConfig, params: Params,
     x = _embed(cfg, params, input_ids.long(), positions)
     cos, sin = _rotary_tables(cfg, positions)
     ks, vs = [], []
+    aux_sum: Dict[str, torch.Tensor] = {}
     remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
     for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
         if remat:
-            x, (k, v) = checkpoint(_block, cfg, lp, li, x, seg_ids, cos, sin,
-                                   attention_fn, use_reentrant=False)
+            x, (k, v), aux = checkpoint(_block, cfg, lp, li, x, seg_ids, cos,
+                                        sin, attention_fn,
+                                        use_reentrant=False)
         else:
-            x, (k, v) = _block(cfg, lp, li, x, seg_ids, cos, sin,
-                               attention_fn)
+            x, (k, v), aux = _block(cfg, lp, li, x, seg_ids, cos, sin,
+                                    attention_fn)
         if return_kv:
             ks.append(k)
             vs.append(v)
+        for name, val in aux.items():
+            aux_sum[name] = aux_sum[name] + val if name in aux_sum else val
     x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
     kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+    if return_aux:
+        return x, kvs, aux_sum
     return x, kvs
 
 
@@ -359,7 +393,10 @@ def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
     first half of the block (``_attn_in``) on every member, then the ring
     (``attention_fn``, default ``ring_attention_fused``) over all of
     them, then the second half (``_attn_out``). JAX gets this order from
-    SPMD; one process driving the members writes it out."""
+    SPMD; one process driving the members writes it out. A MoE layer
+    routes each member's tokens on its own (routing is per token, pads
+    masked by the member's segment ids); the aux losses are dropped, as
+    this path only infers."""
     check_supported(cfg)
     ring = attention_fn or ring_attention_fused
     views = {}
@@ -378,8 +415,8 @@ def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
         attn = ring(q, k, v, segs, causal=True,
                     scale=_attn_scale(cfg, li),
                     sliding_window=cfg.sliding_window)
-        xs = [_attn_out(cfg, lv[li], x, a)
-              for lv, x, a in zip(layers, xs, attn)]
+        xs = [_attn_out(cfg, lv[li], x, a, seg)[0]
+              for lv, x, a, seg in zip(layers, xs, attn, segs)]
     return [_norm(cfg, x, p["ln_f"]["scale"], p["ln_f"].get("bias"))
             for p, x in zip(member_params, xs)]
 
@@ -565,7 +602,7 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
                                     scale=scale,
                                     sliding_window=cfg.sliding_window,
                                     slot=slot)
-        x = _attn_out(cfg, lp, x, attn)
+        x, _ = _attn_out(cfg, lp, x, attn)
     x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
     new_cache = {"k": k_all, "v": v_all, "valid": valid,
                  "length": slot + 1}

@@ -59,19 +59,21 @@ def packed_attention(q, k, v, seg_ids, *, causal: bool = True,
                                       scale=scale,
                                       logits_soft_cap=logits_soft_cap,
                                       sliding_window=sliding_window)
-    if logits_soft_cap is not None or sliding_window is not None:
+    if logits_soft_cap is not None:
         raise NotImplementedError(
-            "soft-cap and sliding-window prefill attention on the GPU are "
-            "deferred to a later slice of the port (model features beyond "
-            "LLaMA).")
-    return FlashAttentionFn.apply(q, k, v, seg_ids, causal, scale)
+            "soft-cap prefill attention on the GPU is not ported: no model "
+            "configuration of either package passes it (ROADMAP.md, queue "
+            "1, item 3).")
+    return FlashAttentionFn.apply(q, k, v, seg_ids, causal, scale,
+                                  sliding_window)
 
 
 def _no_soft_cap_on_gpu(logits_soft_cap):
     if logits_soft_cap is not None:
         raise NotImplementedError(
-            "logits soft-cap in decode attention on the GPU is deferred to "
-            "a later slice of the port (model features beyond LLaMA).")
+            "logits soft-cap in decode attention on the GPU is not ported: "
+            "no model configuration of either package passes it "
+            "(ROADMAP.md, queue 1, item 3).")
 
 
 def decode_attention_xla_plain(q, k_cache, v_cache, valid_mask, *,

@@ -13,6 +13,11 @@ with no gradient, so on the card it refuses inputs that ask for one.
 
 Layouts: q/do/dq [B, L, nq, hd], k/v/dk/dv [B, L, nkv, hd], seg_ids
 [B, L] (0 = padding); o like q; lse and delta [B, nq, L] fp32.
+
+Every function takes ``window`` (None = none): a sliding window in which
+a query sees only the keys less than ``window`` positions behind it, as
+``segment_mask``'s ``sliding_window``. The kernels skip the key tiles out
+of reach, and give the windowless bits for a window of L or more.
 """
 
 import ctypes
@@ -112,14 +117,17 @@ def visited_key_tiles(seg_ids: torch.Tensor, causal: bool, bq: int = K1_BQ,
 
 
 def visited_q_tiles(seg_ids: torch.Tensor, causal: bool, bk: int = K1_BK,
-                    bq: int = K1_BQ) -> torch.Tensor:
+                    bq: int = K1_BQ, *,
+                    window: Optional[int] = None) -> torch.Tensor:
     """[B, ceil(L/bk), ceil(L/bq)] bool: the (key tile, q tile) pairs K3
     computes, stated from the key side as K3 marks them. A key tile (one
     warpgroup's ``bk`` keys) visits a q tile of ``bq`` rows when the
     ranges [min, max] of their non-zero ids meet, their residue sets mod
-    64 meet and, when causal, the q tile's last row is at or after the key
-    tile's first key. This is ``visited_key_tiles(seg_ids, causal, bq,
-    bk)`` transposed, so K1, K2 and K3 walk the same pairs."""
+    64 meet, when causal the q tile's last row is at or after the key
+    tile's first key, and with a ``window`` the q tile's first row is less
+    than ``window`` after the key tile's last key. This is
+    ``visited_key_tiles(seg_ids, causal, bq, bk, window=window)``
+    transposed, so K1, K2 and K3 walk the same pairs."""
     l = seg_ids.shape[1]
     n_k, n_q = -(-l // bk), -(-l // bq)
     k_lo, k_hi, k_res = _tile_ids(seg_ids, bk)
@@ -127,16 +135,21 @@ def visited_q_tiles(seg_ids: torch.Tensor, causal: bool, bk: int = K1_BK,
     vis = ((q_lo[:, None, :] <= k_hi[:, :, None])
            & (q_hi[:, None, :] >= k_lo[:, :, None])
            & (k_res @ q_res.transpose(1, 2) > 0))
+    dev = seg_ids.device
+    first_k = torch.arange(n_k, device=dev) * bk
+    last_k = (torch.arange(1, n_k + 1, device=dev) * bk).clamp(max=l) - 1
+    first_q = torch.arange(n_q, device=dev) * bq
+    last_q = (torch.arange(1, n_q + 1, device=dev) * bq).clamp(max=l) - 1
     if causal:
-        dev = seg_ids.device
-        first_k = torch.arange(n_k, device=dev) * bk
-        last_q = (torch.arange(1, n_q + 1, device=dev) * bq).clamp(max=l) - 1
         vis = vis & (last_q[None, :] >= first_k[:, None])[None]
+    if window is not None:
+        vis = vis & ((first_q[None, :] - last_k[:, None]) < window)[None]
     return vis
 
 
 def flash_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
-                          scale: Optional[float] = None
+                          scale: Optional[float] = None,
+                          window: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch (fp32 scores)."""
     b, l, nq, hd = q.shape
@@ -145,7 +158,7 @@ def flash_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
     scale = float(scale) if scale is not None else hd ** -0.5
     qg = q.to(torch.float32).reshape(b, l, nkv, group, hd) * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    mask = segment_mask(seg_ids, seg_ids, causal)[:, None, None]
+    mask = segment_mask(seg_ids, seg_ids, causal, window)[:, None, None]
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1)                                  # [B, nkv, g, L]
     p = torch.exp(s - m[..., None])
@@ -161,7 +174,7 @@ def flash_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
 
 
 def _bwd_plain(q, k, v, seg_ids, lse, do, delta, *, causal: bool,
-               scale: float):
+               scale: float, window: Optional[int] = None):
     """K2's and K3's arithmetic in plain PyTorch, given delta
     [B, nq, L] = rowsum(o * do) (fp32 throughout)."""
     b, l, nq, hd = q.shape
@@ -172,7 +185,7 @@ def _bwd_plain(q, k, v, seg_ids, lse, do, delta, *, causal: bool,
     dof = do.to(torch.float32).reshape(b, l, nkv, group, hd)
     lse_ = lse.reshape(b, nkv, group, l)[..., None]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
-    keep = segment_mask(seg_ids, seg_ids, causal)[:, None, None] \
+    keep = segment_mask(seg_ids, seg_ids, causal, window)[:, None, None] \
         & (lse_ > NEG_INF / 2)
     p = torch.where(keep, torch.exp(s - lse_), 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
@@ -194,19 +207,20 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd_plain(q, k, v, seg_ids, o, lse, do, *,
                               causal: bool = True,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None):
     """The backward kernels' function in plain PyTorch -> (dq, dk, dv):
     p recomputed from the saved lse, ds = p (do.v - delta) with delta =
     rowsum(o * do), dq summed over keys, dk/dv per q head summed over
     each GQA group; dq in q's dtype, dk/dv in k's."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     return _bwd_plain(q, k, v, seg_ids, lse, do, attention_delta(o, do),
-                      causal=causal, scale=scale)
+                      causal=causal, scale=scale, window=window)
 
 
 def _kernel(name: str):
     """The ctypes entry ``name`` of its library, typed: pointers, then
-    B, L, nq, nkv, hd, scale, causal, stream."""
+    B, L, nq, nkv, hd, scale, causal, window, stream."""
     fn = _fns.get(name)
     if fn is None:
         lib, n_ptrs = {"flash_fwd_bf16": ("flash_fwd", 6),
@@ -214,7 +228,7 @@ def _kernel(name: str):
                        "flash_bwd_dkv_bf16": ("flash_bwd", 9)}[name]
         fn = getattr(_build.library(lib), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = i
         _fns[name] = fn
     return fn
@@ -261,11 +275,22 @@ def _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta):
                              f"{t.dtype} {tuple(t.shape)}")
 
 
-def _launch(name: str, ptrs, q, k, causal: bool, scale: float):
+def _window_arg(window: Optional[int]) -> int:
+    """The kernels' window argument: -1 for none."""
+    if window is None:
+        return -1
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return int(window)
+
+
+def _launch(name: str, ptrs, q, k, causal: bool, scale: float,
+            window: Optional[int]):
     b, l, nq, hd = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _kernel(name)(*(t.data_ptr() for t in ptrs), b, l, nq,
-                         k.shape[2], hd, scale, int(causal), stream)
+                         k.shape[2], hd, scale, int(causal),
+                         _window_arg(window), stream)
     _build.check(code, name)
 
 
@@ -274,14 +299,15 @@ def _scale(q, scale: Optional[float]) -> float:
 
 
 def flash_attention(q, k, v, seg_ids, *, causal: bool = True,
-                    scale: Optional[float] = None
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed-segment attention -> (o, lse), with no gradient. CPU
     tensors take the plain version; CUDA tensors launch the kernel (bf16
     only) or raise. Differentiable callers use ``FlashAttentionFn``."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, seg_ids, causal=causal,
-                                     scale=scale)
+                                     scale=scale, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention's kernel output carries no gradient; use "
@@ -292,57 +318,61 @@ def flash_attention(q, k, v, seg_ids, *, causal: bool = True,
     o = torch.empty_like(q)
     lse = torch.empty((b, nq, l), dtype=torch.float32, device=q.device)
     _launch("flash_fwd_bf16", (q, k, v, seg_ids, o, lse), q, k, causal,
-            _scale(q, scale))
+            _scale(q, scale), window)
     global launches
     launches += 1
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, seg_ids, do, lse, delta, *, causal: bool = True,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None,
+                 window: Optional[int] = None) -> torch.Tensor:
     """dq of packed-segment attention from the saved lse and delta (K2
     on CUDA tensors, the plain arithmetic on CPU tensors)."""
     scale = _scale(q, scale)
     if not q.is_cuda:
         return _bwd_plain(q, k, v, seg_ids, lse, do, delta, causal=causal,
-                          scale=scale)[0]
+                          scale=scale, window=window)[0]
     _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq_bf16", (q, k, v, seg_ids, do, lse, delta, dq), q,
-            k, causal, scale)
+            k, causal, scale, window)
     global dq_launches
     dq_launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, seg_ids, do, lse, delta, *, causal: bool = True,
-                  scale: Optional[float] = None
+                  scale: Optional[float] = None,
+                  window: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of packed-segment attention, each GQA group summed (K3
     on CUDA tensors, the plain arithmetic on CPU tensors)."""
     scale = _scale(q, scale)
     if not q.is_cuda:
         return _bwd_plain(q, k, v, seg_ids, lse, do, delta, causal=causal,
-                          scale=scale)[1:]
+                          scale=scale, window=window)[1:]
     _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv_bf16", (q, k, v, seg_ids, do, lse, delta, dk, dv),
-            q, k, causal, scale)
+            q, k, causal, scale, window)
     global dkv_launches
     dkv_launches += 1
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, seg_ids, o, lse, do, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None):
     """(dq, dk, dv) from the forward's o and lse: delta beside the
     kernels, then ``flash_bwd_dq`` and ``flash_bwd_dkv`` (CPU tensors:
     one call of the plain backward for all three)."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, seg_ids, o, lse, do,
-                                         causal=causal, scale=scale)
+                                         causal=causal, scale=scale,
+                                         window=window)
     delta = attention_delta(o, do)
-    kw = dict(causal=causal, scale=scale)
+    kw = dict(causal=causal, scale=scale, window=window)
     dq = flash_bwd_dq(q, k, v, seg_ids, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv(q, k, v, seg_ids, do, lse, delta, **kw))
 
@@ -350,18 +380,19 @@ def flash_attention_bwd(q, k, v, seg_ids, o, lse, do, *, causal: bool = True,
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable packed-segment attention -> o: the forward kernel
     (K1) saving (q, k, v, seg, o, lse), the backward kernels (K2, K3)
-    from them. On CPU tensors the same wiring runs the plain versions.
-    The counterpart of the JAX package's ``custom_vjp`` around
-    ``_flash_attention``."""
+    from them, with the same window. On CPU tensors the same wiring runs
+    the plain versions. The counterpart of the JAX package's
+    ``custom_vjp`` around ``_flash_attention``."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_ids, causal: bool = True,
-                scale: Optional[float] = None):
+                scale: Optional[float] = None,
+                window: Optional[int] = None):
         scale = _scale(q, scale)
         o, lse = flash_attention(q, k, v, seg_ids, causal=causal,
-                                 scale=scale)
+                                 scale=scale, window=window)
         ctx.save_for_backward(q, k, v, seg_ids, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return o
 
     @staticmethod
@@ -369,5 +400,5 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, seg_ids, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, seg_ids, o, lse,
                                          do.contiguous(), causal=ctx.causal,
-                                         scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+                                         scale=ctx.scale, window=ctx.window)
+        return dq, dk, dv, None, None, None, None

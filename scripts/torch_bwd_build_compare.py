@@ -25,7 +25,7 @@ import json
 import os
 import sys
 
-from torch_k1_build_equal import build_other, ptxas_lines
+from torch_k1_build_equal import build_other, ptxas_lines, use_library
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,8 +52,7 @@ def main(argv=None):
     other, other_log = build_other(args.other, "flash_bwd")
 
     def use(lib):
-        _build._libs["flash_bwd"] = lib
-        fa._fns.clear()
+        use_library("flash_bwd", lib, args.other if lib is other else None)
 
     # the K2/K3 cases of phase kernels, their inputs made as
     # check_flash_bwd makes them

@@ -41,6 +41,32 @@ def build_other(src, name="flash_fwd"):
     return ctypes.CDLL(str(out)), log
 
 
+#: the C entry points of each attention library and their pointer counts
+ENTRIES = {"flash_fwd": {"flash_fwd_bf16": 6},
+           "flash_bwd": {"flash_bwd_dq_bf16": 8, "flash_bwd_dkv_bf16": 9}}
+
+
+def use_library(name, lib, src=None):
+    """Makes the wrappers launch ``lib`` as the library ``name``. A
+    ``src`` from before the kernels took a window (no ``int window`` in
+    its C entry points) is called with its own argument list, the window
+    left out, so its windowless launches can be held against this
+    checkout's."""
+    import ctypes
+    from realhf_tpu_torch.ops import _build
+    from realhf_tpu_torch.ops import flash_attention as fa
+    _build._libs[name] = lib
+    fa._fns.clear()
+    if src is None or "int window" in open(src).read():
+        return
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for entry, n_ptrs in ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = i
+        fa._fns[entry] = lambda *a, fn=fn: fn(*a[:-2], a[-1])
+
+
 def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -67,8 +93,7 @@ def main(argv=None):
     other, other_log = build_other(args.other)
 
     def use(lib):
-        _build._libs["flash_fwd"] = lib
-        fa._fns.clear()
+        use_library("flash_fwd", lib, args.other if lib is other else None)
 
     # the K1 cases of phase kernels, their inputs made as check_flash_fwd
     # makes them; the decode cases are not run

@@ -141,3 +141,13 @@ def test_chip_smoke_defines_each_top_level_name_once():
              if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
     assert len(names) == len(set(names)), sorted(
         n for n in set(names) if names.count(n) > 1)
+
+
+#: the model-features slice's modules (mixture of experts, and the card
+#: script of its phases), likewise
+MODEL_FEATURE_MODULES = ("ops/moe.py", "scripts/torch_moe_phases.py")
+
+
+@pytest.mark.parametrize("rel", MODEL_FEATURE_MODULES)
+def test_model_feature_modules_are_covered(rel):
+    test_serving_modules_are_covered(rel)
