@@ -272,6 +272,38 @@ exits non-zero):
    windowed forward (the same pass without the window must fail); the
    long prompts' last-position logits against the same weights in fp32
    through ``packed_attention_plain`` over the window.
+30. gemma_gen -- the ``gen`` experiment at ``google/gemma-7b``'s
+   published config (through the port's ``models/hf/gemma.py``), full
+   width and depth (28 layers, 16 heads of 256, tied 256000-word head),
+   bf16, random weights: gen-7b-b8's traffic, one greedy and one sampled
+   batch. K1 = 28 a prefill and K4 = 28 a decode step, all at hd 256;
+   the greedy log-probs against a packed teacher-forced forward, which
+   the same pass with gemma's (1 + w) norm scale dropped, or without the
+   sqrt(hidden) embedding scale, must exceed; tokens/s, decode ms a
+   token, peak.
+31. gemma_sft -- the ``sft`` experiment at ``google/gemma-2b``, full width
+   and depth (18 layers, 8 q heads on 1 KV head of 256), bf16, gradient
+   checkpointing, the sft cell's 16 records a step in 2 microbatches, 3
+   steps, eval: falling loss, every layer slice of every
+   leaf with a non-zero step-1 gradient, exact K1/K2/K3 counts; step
+   seconds, tokens/s, peak and the memory free at it.
+32. gemma_parity -- Gemma-2B's architecture at 2 layers, hidden 1024, 4 q
+   / 1 kv heads of 256, vocab 32000: card (bf16, kernels) against CPU
+   (fp32, plain) from the same bf16 weights: a packed forward's logits,
+   a prefill's and one decode step's logits, one SFT step's loss and
+   grad norm, and the cosine of every layer slice of every gradient
+   leaf; the wk gradient zeroed must fail.
+33. gpt2_gen -- the ``gen`` experiment at ``openai-community/gpt2-xl``
+   (48 layers, 25 heads of 64, absolute positions, LayerNorm with
+   biases, tied head), gen-7b-b8's traffic: K1 = 48 a prefill, K4 = 48 a
+   decode step; the teacher-forced gate, which the pass reading the
+   position table one row later must exceed.
+
+The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
+prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
+K4 at the Gemma-7B and Gemma-2B decodes and K5 on a stacked layer at
+the Gemma-7B decode (timed), non-causal and windowed cases
+(``phase_kernels_hd256``).
 
 The phases before 22 run with the saves of their trained roles switched
 off (``without_saves``: ``enable_save=False`` on every train MFC's
@@ -279,7 +311,8 @@ interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
-mixtral_sft and mistral paths, each counted from 0), the
+mixtral_sft, mistral and gpt2_gen paths, each counted from 0; rows
+``*_hd256`` over gemma_gen and gemma_sft), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -840,6 +873,64 @@ def window_kernel_cases(gen, rng):
         bwd.append(check_flash_bwd(name, b, L, nq, nkv, hd, seg, True, gen,
                                    timed=timed, window=w))
         torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_kernels_hd256():
+    """K1-K4 at hd 256 (Gemma), against their plain versions: K1 at the
+    Gemma-7B prefill (B 8, L 512, 16/16; timed) and at the Gemma-2B sft
+    stream (B 1, L 4096, 8/1, packed; timed, planted fault); K2/K3 at
+    the Gemma-2B sft stream (timed, planted faults) and at 16/16 over
+    packed rows; K1 and K2/K3 non-causal over a ragged last tile and with
+    a window of 300; K4 at the Gemma-7B decode (B 8, S 640, 16/16) and
+    the Gemma-2B decode (8/1), both timed by ``queued_ms``, with a window,
+    and K5 on a stacked layer at the Gemma-7B decode (timed). Returns (K1 and K4/K5 records, K2/K3
+    records), each record marked ``hd256``."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(256)
+    rng = np.random.default_rng(256)
+    fwd, bwd = [], []
+    lengths = [int(x) for x in rng.integers(100, 513, size=8)]
+    lengths[0] = 512
+    prefill = left_padded_seg(lengths, 512, "cuda")
+    sft = sft_stream_seg(rng, 8, 4096, "cuda")
+    packed = packed_seg(rng, 2, 1024, 4, {1}, "cuda")
+    ragged = packed_seg(rng, 2, 700, 3, set(), "cuda")
+    fwd.append(check_flash_fwd("gemma7b_prefill_hd256", 8, 512, 16, 16, 256,
+                               prefill, True, gen, timed=True))
+    fwd.append(check_flash_fwd("gemma2b_sft_hd256", 1, 4096, 8, 1, 256, sft,
+                               True, gen, timed=True, plant_fault=True))
+    fwd.append(check_flash_fwd("noncausal_ragged_hd256", 2, 700, 8, 2, 256,
+                               ragged, False, gen, timed=False))
+    fwd.append(check_flash_fwd("window_w300_hd256", 2, 700, 8, 2, 256,
+                               ragged, True, gen, timed=False, window=300))
+    torch.cuda.empty_cache()
+    bwd.append(check_flash_bwd("gemma2b_sft_hd256", 1, 4096, 8, 1, 256, sft,
+                               True, gen, timed=True, plant_fault=True))
+    bwd.append(check_flash_bwd("mha_16_16_packed_hd256", 2, 1024, 16, 16,
+                               256, packed, True, gen, timed=False,
+                               plant_fault=True))
+    bwd.append(check_flash_bwd("noncausal_ragged_hd256", 2, 700, 8, 2, 256,
+                               ragged, False, gen, timed=False))
+    bwd.append(check_flash_bwd("window_w300_hd256", 2, 700, 8, 2, 256,
+                               ragged, True, gen, timed=False, window=300))
+    spans = [(512 - n, 512 + 64) for n in lengths]
+    spans[5] = (0, 0)
+    fwd.append(check_flash_decode("gemma7b_decode_hd256", 8, 640, 16, 16,
+                                  256, spans, gen, timed=True))
+    fwd.append(check_flash_decode("gemma2b_decode_hd256", 8, 640, 8, 1, 256,
+                                  spans, gen, timed=True))
+    fwd.append(check_flash_decode("window_96_hd256", 8, 640, 8, 1, 256,
+                                  spans, gen, timed=False, window=96))
+    fwd.append(check_flash_decode("stacked_mid_layer_hd256", 8, 640, 16, 16,
+                                  256, spans, gen, timed=True,
+                                  stacked_layers=3, layer=1))
+    for r in fwd + bwd:
+        r["hd256"] = True
+    del gen
+    torch.cuda.empty_cache()
     return fwd, bwd
 
 
@@ -4312,8 +4403,8 @@ SERVE_PROMPT_LEN = 512
 SERVE_REQUESTS = 24
 SERVE_SHARED_PREFIX = 256
 #: the serve phase's limits, each about 3x the largest reading of
-#: ``scripts/torch_serve_phases.py --seeds 1 2 3 4 5`` (PERF.md,
-#: Findings): the largest |log-prob| gap between a decoded token
+#: ``scripts/torch_serve_phases.py --seeds 1 2 3 4 5`` (H100 80GB HBM3,
+#: 700 W): the largest |log-prob| gap between a decoded token
 #: and one teacher-forced forward (K1) of the same sequence (0.301); the
 #: largest gap between the forward's top logit and the decoded token's,
 #: a near tie a bf16 decode may take either way (0.367, int8 0.485); the
@@ -4975,12 +5066,27 @@ MIXTRAL_NEW_TOKENS = 128
 MISTRAL_NEW_TOKENS = 64
 MISTRAL_LONG_PROMPTS = (5600, 5200)  # words: past the 4096 window
 # about 3x the largest sound reading of seeds 1-5, each with its planted
-# faults above it (PERF.md, Findings; scripts/torch_moe_phases.py --seeds).
+# faults above it (scripts/torch_moe_phases.py --seeds 1 2 3 4 5 on an
+# H100 80GB HBM3 at 700 W; sound range, then the faults):
+#   gen_tf_logprob_mean_abs  mixtral_gen mean gap 0.519-0.607 (max
+#                            6.20-6.88); gates unnormalised 3.39-3.51,
+#                            second expert dropped 4.12-4.25
+#   parity_logits_rel        logits at the CPU's routing 0.0078-0.0094
+#                            (at the card's own routing 0.40-0.62)
+#   parity_loss_rel          7.5e-6-6.0e-4
+#   parity_aux_rel           8.7e-6-2.9e-3
+#   parity_min_cos           0.977-0.986; router gradient zeroed 0.0
+#   parity_router_margin     CPU margin at the moved routings <= 0.253
+#   parity_routing_moved     2-11 of 520 routings
+#   mistral_tf_logprob_abs   gap max 0.191-0.227; no window 4.42-5.51
+#   mistral_tf_logprob_mean_abs  long prompts' mean 0.037-0.042; no
+#                            window 1.68-2.19
+#   mistral_fp32_logits_rel  0.037-0.043; no window 0.73-0.93
 # mixtral_gen gates the mean gap alone: 14-16% of the (token, layer)
 # routings of random weights flip between the decode and teacher-forced
 # passes under bf16 noise, and a flipped token's log-prob moves by up to
 # 6-7 in sound runs, as far as under the planted faults; the mean tells
-# them apart (0.52-0.61 sound, 3.39-4.25 faulty).
+# them apart.
 MOE_LIMITS = dict(gen_tf_logprob_mean_abs=1.8,
                   parity_logits_rel=0.03, parity_loss_rel=1.8e-3,
                   parity_aux_rel=9e-3, parity_min_cos=0.93,
@@ -4994,7 +5100,8 @@ def hf_random_init_config(family, hf, n_layers):
     """``random_init_config`` of a published config through the port's
     own converter (``models/hf``), cut to ``n_layers``."""
     from realhf_tpu_torch.models.hf import registry
-    cfg = registry.config_from_hf(family, dict(hf, num_hidden_layers=n_layers))
+    depth = "n_layer" if "n_layer" in hf else "num_hidden_layers"
+    cfg = registry.config_from_hf(family, dict(hf, **{depth: n_layers}))
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name != "is_critic"}
 
@@ -5604,23 +5711,380 @@ def run_moe_phases(smi):
     return recs
 
 
-def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
-    """One row per kernel. ``launches`` sums the kernel's counts over the
-    paths run (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw, dpo,
-    grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
+# ----------------------------------------------------------------------
+# phases 30-33: head dim 256 at Gemma-7B (generating) and Gemma-2B
+# (training), and GPT-2 XL generating
+# ----------------------------------------------------------------------
+#: the published configurations (each repository's ``config.json`` on the
+#: Hugging Face hub, typed in: nothing is downloaded)
+GEMMA_7B = dict(  # google/gemma-7b
+    model_type="gemma", hidden_size=3072, intermediate_size=24576,
+    num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=16,
+    head_dim=256, vocab_size=256000, max_position_embeddings=8192,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu",
+    hidden_activation="gelu_pytorch_tanh", attention_bias=False,
+    tie_word_embeddings=True)
+GEMMA_2B = dict(  # google/gemma-2b
+    model_type="gemma", hidden_size=2048, intermediate_size=16384,
+    num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1,
+    head_dim=256, vocab_size=256000, max_position_embeddings=8192,
+    rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu",
+    hidden_activation="gelu_pytorch_tanh", attention_bias=False,
+    tie_word_embeddings=True)
+GPT2_XL = dict(  # openai-community/gpt2-xl
+    model_type="gpt2", n_layer=48, n_embd=1600, n_head=25, n_positions=1024,
+    n_ctx=1024, vocab_size=50257, activation_function="gelu_new",
+    layer_norm_epsilon=1e-5, tie_word_embeddings=True)
+GEMMA_NEW_TOKENS = 128
+# about 3x the largest sound reading of seeds 1-5 (for the cosine, 3x
+# the largest 1 - cos), each with its planted faults above it (PERF.md,
+# Findings; scripts/torch_gemma_phases.py --seeds): teacher-forced gaps
+# 0.080-0.220 (Gemma-7B) and 0.044-0.066 (GPT-2 XL), faults 0.96-26.5
+# and 1.45-2.28; parity logits 1.6e-3-2.4e-3, loss 7.2e-5-1.3e-4, grad
+# norm 7.9e-4-8.5e-4, min cos 0.999869-0.999878, wk zeroed 0.0
+GEMMA_LIMITS = dict(gemma_tf_logprob_abs=0.66, gpt2_tf_logprob_abs=0.2,
+                    parity_logits_rel=7.5e-3, parity_decode_logits_rel=6e-3,
+                    parity_loss_rel=4e-4, parity_grad_norm_rel=2.6e-3,
+                    parity_min_cos=0.9996)
+
+
+def tf_gen_phase(smi, family, hf, n_layers, faults, seed):
+    """The gen experiment at a published config's full width (``hf``
+    through the port's converter, ``n_layers`` deep, bf16, random
+    weights from ``seed``): gen-7b-b8's traffic (8 prompts of 100-512
+    words, 128 new tokens), one greedy and one sampled batch. Gates:
+    exact K1/K4 counts (K1 = layers a prefill, K4 = layers a decode
+    step), tokens in range, and the greedy batch's log-probs against one
+    packed teacher-forced K1 forward, which each of ``faults`` (name ->
+    a config that drops one feature of the architecture) must exceed.
+    Returns the record and the limit's key."""
+    import torch
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    from realhf_tpu_torch.system.inline import InlineRunner
+    mcfg = hf_random_init_config(family, hf, n_layers)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=seed)
+        spec, vocab = build_gen_spec(data, n_layers, GEMMA_NEW_TOKENS, 1,
+                                     model_config=mcfg, seed=seed)
+        t0 = time.monotonic()
+        runner = InlineRunner(spec)  # the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with watching_generate(seen):
+        runner.run()
+        outputs_ok = check_gen_output(runner, vocab)
+        runner.interfaces["gen"].gconfig = GenerationHyperparameters(
+            max_new_tokens=GEMMA_NEW_TOKENS, greedy=False, top_k=50,
+            top_p=0.9, force_no_logits_mask=True)
+        runner.run()
+        outputs_ok &= check_gen_output(runner, vocab)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = eng.generate_stats
+    n_decode = sum(st["decode_steps"] for st in stats)
+    want = dict(flash_fwd=n_layers * len(stats), flash_bwd_dq=0,
+                flash_bwd_dkv=0, flash_decode=n_layers * n_decode,
+                flash_decode_stacked=0, ring_round=0, ring_push=0)
+    cfg = eng.cfg
+    items = sequences_of(seen, 1)
+    lps, _ = packed_teacher_forced(cfg, eng.params, items)
+    rec = dict(n_layers=n_layers, setup_secs=setup, card=smi, seed=seed,
+               head_dim=cfg.head_dim, heads=[cfg.n_q_heads, cfg.n_kv_heads],
+               n_params=sum(t.numel() for t in _tree_leaves(eng.params)),
+               steps=[dict(step=lab, **step_summary(st, smi)) for lab, st
+                      in zip(("greedy", "sampled_topk50_topp0.9"), stats)],
+               launches=counts, launches_expected=want,
+               launches_ok=counts == want, outputs_in_range=outputs_ok,
+               peak_mem_gb=peak, tf=tf_gaps(lps, items), limits=GEMMA_LIMITS)
+    rec["planted_faults"] = {
+        name: tf_gaps(packed_teacher_forced(
+            dataclasses.replace(cfg, **change), eng.params, items)[0], items)
+        for name, change in faults.items()}
+    key = f"{family}_tf_logprob_abs"
+    rec["tf_ok"] = rec["tf"]["max_abs"] <= GEMMA_LIMITS[key]
+    rec["faults_fail"] = all(f["max_abs"] > GEMMA_LIMITS[key]
+                             for f in rec["planted_faults"].values())
+    rec["ok"] = (rec["launches_ok"] and outputs_ok and rec["tf_ok"]
+                 and rec["faults_fail"] and len(stats) == 2)
+    del runner, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gemma_gen(smi, seed=1):
+    """``google/gemma-7b`` at full width and depth (28 layers, 16 heads of
+    256, tied 256000-word head): K1 and K4 at hd 256. Planted faults: the
+    teacher-forced pass with the (1 + w) of gemma's RMSNorm dropped, and
+    with the embeddings not scaled by sqrt(hidden)."""
+    return tf_gen_phase(smi, "gemma", GEMMA_7B, 28, dict(
+        norm_without_one_plus_w=dict(layer_norm_type="rms"),
+        embed_not_normalized=dict(normalize_embed=False)), seed)
+
+
+def phase_gpt2_gen(smi, seed=1):
+    """``openai-community/gpt2-xl`` at full width and depth (48 layers, 25
+    heads of 64, LayerNorm with biases, absolute positions, tied head):
+    K1 and K4 at hd 64, the per-layer decode (48 is the deepest model
+    that does not take the stacked cache). Planted fault: the
+    teacher-forced pass reading the position table one row later."""
+    return tf_gen_phase(smi, "gpt2", GPT2_XL, 48, dict(
+        positions_shifted=dict(abs_position_embedding_offset=1)), seed)
+
+
+def phase_gemma_sft(smi):
+    """The sft experiment at ``google/gemma-2b``, full width and depth (18
+    layers, 8 q heads on 1 KV head of 256), bf16, gradient checkpointing:
+    16 prompt-answer records a step in the sft cell's 2 microbatches, 3
+    epochs, lr 1e-5, then eval. The 256000-word vocabulary makes a
+    microbatch's fp32 logits 1 GB a 1000 tokens a copy, but the step's
+    peak is the optimizer's: 60.4 GB at 2 microbatches and at 4, 18.8 GB
+    free (H100 80GB HBM3, 700 W). Gates: loss finite and falling, every layer slice
+    of every leaf with a finite non-zero step-1 gradient, exact K1/K2/K3
+    counts (K3 sums the group of 8 q heads). Step seconds, tokens/s,
+    peak and the memory left free at it."""
+    import torch
+    from realhf_tpu_torch.interfaces import common
+    from realhf_tpu_torch.system.inline import InlineRunner
+    nl = GEMMA_2B["num_hidden_layers"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        spec = build_sft_spec(data, nl, model_config=hf_random_init_config(
+            "gemma", GEMMA_2B, nl))
+        t0 = time.monotonic()
+        runner = InlineRunner(without_saves(spec))  # the card
+        torch.cuda.synchronize()
+        setup = time.monotonic() - t0
+    eng = runner.models["default"].engine
+    names = leaf_names(eng.params)
+    seen = capture_first_grads(eng.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng.optimizer.step
+    steps = [st["trainDefault"] for st in runner.step_stats]
+    losses = [st["loss"] for st in steps]
+    loss_ok = (len(losses) == 3 and all(math.isfinite(x) for x in losses)
+               and all(b < a for a, b in zip(losses, losses[1:])))
+    grads = {}
+    for name, g in zip(names, seen[0] if seen else []):
+        rows = grad_slices(name, g, nl).abs().amax(-1)
+        grads[name] = dict(finite=bool(torch.isfinite(g).all()),
+                           min_slice_absmax=float(rows.min()))
+    grads_ok = (len(grads) == len(names)
+                and all(v["finite"] and v["min_slice_absmax"] > 0
+                        for v in grads.values()))
+    evals = [ev for _, _, ev in runner.eval_stats]
+    n_mbs = 2
+    n_bwd = nl * n_mbs * 3
+    want = dict(flash_fwd=2 * n_bwd + nl * len(runner.eval_dataloader)
+                * len(evals), flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
+                flash_decode=0, flash_decode_stacked=0, ring_round=0,
+                ring_push=0)
+    tokens = runner.last_batch.total_len("packed_input_ids")
+    mb_tokens = [mb.total_len("packed_input_ids") for mb in
+                 common.split_minibatches(runner.last_batch, n_mbs)]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    rec = dict(n_layers=nl, n_mbs=n_mbs, setup_secs=setup, card=smi,
+               n_params=sum(t.numel() for t in _tree_leaves(eng.params)),
+               tokens_per_step=tokens, microbatch_tokens=mb_tokens,
+               losses=losses, grad_norms=[st["grad_norm"] for st in steps],
+               step_secs=list(runner.step_secs),
+               train_tokens_per_s=[tokens / t for t in runner.step_secs],
+               peak_mem_gb=peak, free_at_peak_gb=total_gb - peak,
+               evals=evals, launches=counts, launches_expected=want,
+               launches_ok=counts == want, loss_strictly_falling=loss_ok,
+               step1_grads_ok=grads_ok, step1_grads=grads)
+    rec["eval_ok"] = len(evals) == 1 and math.isfinite(evals[0]["loss"])
+    rec["ok"] = (loss_ok and grads_ok and rec["launches_ok"]
+                 and rec["eval_ok"])
+    del runner, eng, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gemma_parity(seed=1):
+    """Card (bf16, the kernels at hd 256) against CPU (fp32, the plain
+    versions) from the same bf16 weights, at Gemma-2B's architecture cut
+    to 2 layers, hidden 1024, 4 q / 1 kv heads of 256, FFN 4096, vocab
+    32000: the packed forward's logits (the first SFT microbatch's
+    stream), the logits of a prefill and of one decode step after it (two
+    left-padded prompts), one SFT step's loss and grad norm (two
+    microbatches, lr 1e-4), and the cosine of every layer slice of every
+    gradient leaf; the card's gradients with wk zeroed must fail the
+    cosine gate."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.engine import packing
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.interfaces import sft
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.config import TransformerConfig
+    from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
+    nl = 2
+    base = dict(hf_random_init_config("gemma", GEMMA_2B, nl),
+                hidden_dim=1024, n_q_heads=4, n_kv_heads=1, head_dim=256,
+                intermediate_dim=4096, vocab_size=32000,
+                gradient_checkpointing=True)
+    devs = dict(card="cuda", cpu="cpu")
+    cfgs = {side: TransformerConfig(**dict(base, param_dtype=dt,
+                                           compute_dtype=dt))
+            for side, dt in (("card", "bfloat16"), ("cpu", "float32"))}
+    weights = params_numpy(T.init_params(cfgs["card"],
+                                         seeding.generator(seed), "cpu"))
+    rng = np.random.default_rng(seed + 1)
+    mbs, loss_w = sft_microbatches(rng, base["vocab_size"])
+    prompts = [rng.integers(2, base["vocab_size"], size=n).astype(np.int32)
+               for n in (100, 37)]
+    pids, pseg, ppos = packing.left_padded_prompts(prompts, pad_id=0)
+    token = rng.integers(2, base["vocab_size"], size=2).astype(np.int32)
+    before = read_counts()
+    logits = {}
+    for side, cfg in cfgs.items():
+        dev = devs[side]
+        p = params_from_numpy(weights, dev, torch.float32
+                              if side == "cpu" else None)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        with torch.no_grad():
+            h, _ = T.forward(cfg, p, t(mbs[0]["input_ids"]),
+                             t(mbs[0]["seg_ids"]))
+            stream = T.lm_logits(cfg, p, h).float().cpu()
+            h, cache = T.prefill(cfg, p, t(pids), t(pseg), t(ppos),
+                                 total_len=pids.shape[1] + 1)
+            last = T.lm_logits(cfg, p, h[:, -1]).float().cpu()
+            lens = t(pseg).sum(-1).to(torch.int32)
+            h, _ = T.decode_step(cfg, p, cache, t(token), lens,
+                                 uniform_slot=True)
+            step = T.lm_logits(cfg, p, h).float().cpu()
+        logits[side] = (stream, last, step)
+        del p, h, cache
+    launched = {k: v - before[k] for k, v in read_counts().items()}
+    valid = torch.as_tensor(mbs[0]["seg_ids"] != 0)
+
+    def rel(got, want, rows=None):
+        d = (got - want).abs()
+        if rows is not None:
+            d, want = d[rows], want[rows]
+        return float(d.max() / want.abs().max())
+
+    stream_err = rel(logits["card"][0], logits["cpu"][0], valid)
+    prefill_err = rel(logits["card"][1], logits["cpu"][1])
+    decode_err = rel(logits["card"][2], logits["cpu"][2])
+    opt = OptimizerConfig(lr=1e-4, lr_scheduler_type="constant",
+                          warmup_steps_proportion=0.0)
+    out, grads = {}, {}
+    for side, cfg in cfgs.items():
+        eng = Engine(cfg, weights, devs[side], optimizer=opt)
+        seen = capture_first_grads(eng.optimizer)
+        out[side] = eng.train_batch(mbs, sft._make_loss_fn(cfg), loss_w)
+        grads[side] = seen[0]
+        names = leaf_names(eng.params)
+        del eng, seen
+    torch.cuda.empty_cache()
+    cos = grad_agreement(names, grads["card"], grads["cpu"], nl)
+    faulty = [torch.zeros_like(g) if n == "blocks.attn.wk" else g
+              for n, g in zip(names, grads["card"])]
+    fault_min = min(min(v) for v in grad_agreement(
+        names, faulty, grads["cpu"], nl).values())
+    lim = GEMMA_LIMITS
+    min_cos = min(min(v) for v in cos.values())
+
+    def step_rel(k):
+        return abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+
+    rec = dict(layers=nl, hidden=base["hidden_dim"], head_dim=256,
+               heads=[4, 1], seed=seed,
+               tokens=int(sum((m["seg_ids"] != 0).sum() for m in mbs)),
+               launches=launched, stream_logits_rel_err=stream_err,
+               prefill_logits_rel_err=prefill_err,
+               decode_logits_rel_err=decode_err, step=out,
+               loss_rel_err=step_rel("loss"),
+               grad_norm_rel_err=step_rel("grad_norm"), min_cos=min_cos,
+               cos={k: min(v) for k, v in cos.items()}, limits=lim,
+               planted_fault="wk gradient zeroed",
+               planted_fault_min_cos=fault_min)
+    rec["launches_ok"] = (launched["flash_fwd"] == 2 * nl
+                          and launched["flash_decode"] == nl)
+    rec["ok"] = (rec["launches_ok"]
+                 and max(stream_err, prefill_err) <= lim["parity_logits_rel"]
+                 and decode_err <= lim["parity_decode_logits_rel"]
+                 and rec["loss_rel_err"] <= lim["parity_loss_rel"]
+                 and rec["grad_norm_rel_err"] <= lim["parity_grad_norm_rel"]
+                 and min_cos >= lim["parity_min_cos"]
+                 and fault_min < lim["parity_min_cos"])
+    return rec
+
+
+def run_gemma_phases(smi):
+    """phases 30-33, each freeing its models before the next"""
+    recs = {}
+    for name, fn in (("gemma_gen", phase_gemma_gen),
+                     ("gemma_sft", phase_gemma_sft),
+                     ("gemma_parity", lambda _smi: phase_gemma_parity()),
+                     ("gpt2_gen", phase_gpt2_gen)):
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        emit(name, **recs[name])
+    return recs
+
+
+def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
+    """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
+    own instantiation, or its own kernel for K2/K3, timed on the hd 256
+    cases). ``launches`` sums the kernel's counts over the paths at hd
+    64 and 128 (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw,
+    dpo, grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
     ckpt_resume's resumed step, serve_gen, the four serve
-    configurations, mixtral_gen, mixtral_sft and mistral), each counted
-    from 0 just before its path and read just after it."""
-    def timed(kernel):
-        return next(r for r in kernel_recs
-                    if r["kernel"] == kernel and "ms" in r)
+    configurations, mixtral_gen, mixtral_sft, mistral and gpt2_gen),
+    each counted from 0 just before its path and read just after it; an
+    ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft)."""
+    def sums(ps):
+        return {k: sum(p["launches"][k] for p in ps)
+                for k in ps[0]["launches"]}
 
-    def errmax(kernel):
-        return max(r["max_abs_err"] for r in kernel_recs
-                   if r["kernel"] == kernel)
+    def fwd_row(name, src, replaces, wide, counts):
+        recs = [r for r in kernel_recs
+                if r["kernel"] == name and r.get("hd256", False) == wide]
+        t = next(r for r in recs if "ms" in r)
+        return dict(name=name + ("_hd256" if wide else ""), route="cuda",
+                    source=src, replaces=replaces, launches=counts[name],
+                    max_abs_err=max(r["max_abs_err"] for r in recs),
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
 
-    launches = {k: sum(p["launches"][k] for p in paths)
-                for k in paths[0]["launches"]}
+    def bwd_rows(wide, counts):
+        recs = [r for r in bwd_recs if r.get("hd256", False) == wide]
+        t = next(r for r in recs if "dq_ms" in r)
+        for name, key, outs, replaces in (
+                ("flash_bwd_dq", "dq", ("dq",),
+                 "realhf_tpu/ops/flash_attention.py:157"),
+                ("flash_bwd_dkv", "dkv", ("dk", "dv"),
+                 "realhf_tpu/ops/flash_attention.py:195")):
+            yield dict(
+                name=name + ("_hd256" if wide else ""), route="cuda",
+                source="realhf_tpu_torch/csrc/flash_bwd.cu",
+                replaces=replaces, launches=counts[name],
+                max_abs_err=max(r[f"{o}_max_abs_err"] for r in recs
+                                for o in outs),
+                ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
+                library_ms=t["library_ms"])
+
+    launches, wide_launches = sums(paths), sums(hd256_paths)
     rows = [
         ("flash_fwd", "realhf_tpu_torch/csrc/flash_fwd.cu",
          "realhf_tpu/ops/flash_attention.py:55"),
@@ -5629,28 +6093,10 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths):
         ("flash_decode_stacked", "realhf_tpu_torch/csrc/flash_decode.cu",
          "realhf_tpu/ops/decode_attention.py:135"),
     ]
-    out = []
-    for name, src, replaces in rows:
-        t = timed(name)
-        out.append(dict(name=name, route="cuda", source=src,
-                        replaces=replaces, launches=launches[name],
-                        max_abs_err=errmax(name), ms=t["ms"],
-                        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                        bound_by=t["bound_by"], library_ms=t["library_ms"]))
-    t = next(r for r in bwd_recs if "dq_ms" in r)
-    for name, key, outs, replaces in (
-            ("flash_bwd_dq", "dq", ("dq",),
-             "realhf_tpu/ops/flash_attention.py:157"),
-            ("flash_bwd_dkv", "dkv", ("dk", "dv"),
-             "realhf_tpu/ops/flash_attention.py:195")):
-        out.append(dict(
-            name=name, route="cuda", source="realhf_tpu_torch/csrc/flash_bwd.cu",
-            replaces=replaces, launches=launches[name],
-            max_abs_err=max(r[f"{o}_max_abs_err"] for r in bwd_recs
-                            for o in outs),
-            ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
-            bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
-            library_ms=t["library_ms"]))
+    out = [fwd_row(*row, False, launches) for row in rows]
+    out += list(bwd_rows(False, launches))
+    out += [fwd_row(*row, True, wide_launches) for row in rows]
+    out += list(bwd_rows(True, wide_launches))
     for name, count in (("ring_attention", "ring_round"),
                         ("ring_push", "ring_push")):
         recs = [r for r in ring_recs if r["kernel"] == name]
@@ -5705,6 +6151,9 @@ def main(argv=None):
     win_fwd, win_bwd = phase_kernels_window()
     kernel_recs += win_fwd
     bwd_recs += win_bwd
+    wide_fwd, wide_bwd = phase_kernels_hd256()
+    kernel_recs += wide_fwd
+    bwd_recs += wide_bwd
     ring_recs = phase_kernels_ring()
     for r in kernel_recs + bwd_recs + ring_recs:
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
@@ -5796,6 +6245,8 @@ def main(argv=None):
     emit("serve", **serve_rec)
     moe_recs = run_moe_phases(smi)
     ok &= all(r["ok"] for r in moe_recs.values())
+    gemma_recs = run_gemma_phases(smi)
+    ok &= all(r["ok"] for r in gemma_recs.values())
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -5817,7 +6268,9 @@ def main(argv=None):
         + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec,
                                        serve_gen_rec]
         + list(serve_rec["configs"].values())
-        + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")])))
+        + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")]
+        + [gemma_recs["gpt2_gen"]],
+        [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]])))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -184,10 +184,13 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (the accumulator
 // layout of a 64 x 16 block, packed to bf16 pairs), B from shared memory,
-// MN-major (transposed), 128-byte swizzle.
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
+// MN-major (transposed), 128-byte swizzle. D is d[OFF .. OFF + 63] (an
+// n256 accumulator takes two of these, at 0 and 64).
+template <int N, int OFF = 0>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[N],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db) {
+  static_assert(OFF + 64 <= N, "D out of the accumulator");
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -197,14 +200,14 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -223,6 +226,17 @@ template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
   wgmma_rs_m64n128k16(o, a, db);
+}
+
+// hd 256: two n128 products over the same A fragments, O's columns 0-127
+// (the tile's 64-column atoms 0-1) and 128-255 (atoms 2-3, two atoms of
+// BK x 128 bytes further). O's accumulator layout is that of one m64n256
+// product: columns 8 i + 2 tq + {0, 1} in o[4 i ..], i < 32.
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128k16<128, 0>(o, a, db);
+  wgmma_rs_m64n128k16<128, 64>(o, a, db + (uint64_t)((2 * BK * 128) >> 4));
 }
 
 // Sum of one row's 64 probabilities of a tile, held 16 to a thread by the
@@ -369,17 +383,17 @@ __device__ __forceinline__ void mark_tiles(int n_tiles, int nwords, int tid, uin
   __syncthreads();
 }
 
-// cp.async of the BQ query rows q0.. of one head into the swizzled Q tile
-// at sQ; rows at or past `limit` are zero-filled. Commits nothing: the
-// copies join the group of the first K/V tile.
-template <int HD>
+// cp.async of the ROWS (BQ unless said) query rows q0.. of one head into
+// the swizzled Q tile at sQ; rows at or past `limit` are zero-filled.
+// Commits nothing: the copies join the group of the first K/V tile.
+template <int HD, int ROWS = BQ>
 __device__ __forceinline__ void load_q_tile(uint32_t sQ, const bf16* qb, size_t q_row, int q0,
                                             int limit, int tid) {
   constexpr int CH = HD / 8;  // 16-byte chunks in a row
-  for (int i = tid; i < BQ * CH; i += NTHREADS) {
+  for (int i = tid; i < ROWS * CH; i += NTHREADS) {
     const int r = i / CH, c = i % CH, t = q0 + r;
     const bool in = t < limit;
-    cp_async16(sQ + swz(BQ, r, c), qb + (size_t)(in ? t : 0) * q_row + c * 8, in);
+    cp_async16(sQ + swz(ROWS, r, c), qb + (size_t)(in ? t : 0) * q_row + c * 8, in);
   }
 }
 

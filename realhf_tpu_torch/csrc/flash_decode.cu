@@ -59,6 +59,18 @@
 // memory 98,304 bytes (hd 128; 49,152 at hd 64) of rings plus 16 + 4
 // (S / 32 + S / 64) for the scan, 98,440 at S 640: two CTAs an SM at
 // hd 128.
+//
+// hd 256 (Gemma): the rings double to 192 KB (one CTA an SM) and a warp's
+// O to 128 fp32 registers a thread, which leaves no room for the query's
+// 64 registers of A fragments: the query group's 16 rows (8 KB, rows past
+// G zero) sit in shared memory behind the rings, in the same swizzle, and
+// each k-step reads its fragment with one `ldmatrix`. Everything else,
+// the arithmetic included, is the kernel's at hd 64 and 128. ptxas: 255
+// registers and 28 bytes spilled (32 bytes of stack); 204,936 bytes of
+// dynamic shared memory at S 640. The spill is kept because it costs
+// nothing: with the score loop unrolled by 4 or 8 ptxas spills nothing,
+// but the same bits came 5% (16/16 heads) and 12% (8/1) slower on an H100
+// (scripts/torch_decode_build_compare.py --hd256, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +95,10 @@ struct Layout {
   static constexpr int SUB = WS * HD * 2;              // one warp's K (or V) sub-tile
   static constexpr int WARP_RING = STAGES * 2 * SUB;   // K and V per stage
   static constexpr int RING = NWARPS * WARP_RING;
+  // hd 256 keeps the query rows in shared memory (Q_SMEM), not registers
+  static constexpr bool Q_SMEM = HD > 128;
+  static constexpr int Q_BYTES = Q_SMEM ? MAXG * HD * 2 : 0;
+  static constexpr int QS = RING;  // [MAXG][HD] bf16, swizzled, when Q_SMEM
   // After the walk each warp leaves its partial in its own ring: acc
   // [MAXG][HD] fp32, then m [MAXG], l [MAXG].
   static constexpr int WACC = 0;
@@ -96,7 +112,7 @@ struct Layout {
   static_assert(DEN + MAXG * 4 <= WARP_RING, "a warp's partial and the merge must fit its ring");
   // Read during the walk, so never inside a ring: the count of marked
   // tiles, the kept-slot bits, the marked tiles' list.
-  static constexpr int INFO = RING;
+  static constexpr int INFO = RING + Q_BYTES;
   static constexpr int KEEP = INFO + 16;
 };
 
@@ -174,17 +190,27 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const size_t q_base = ((size_t)b * nq + (size_t)kvh * G) * HD;
 
   // The query rows as mma A fragments (rows past G zero), requested
-  // before the scan so their latency hides under it.
+  // before the scan so their latency hides under it; at hd 256 into the
+  // swizzled shared tile instead (the scan's barrier publishes it).
   const int g0 = lane >> 2, g1 = g0 + 8, kq = 2 * (lane & 3);
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[L::Q_SMEM ? 1 : HD / 16][4];
+  if constexpr (L::Q_SMEM) {
+    for (int i = tid; i < MAXG * CH; i += NTHREADS) {
+      const int r = i / CH, c = i % CH;
+      const uint4 x = r < G ? *reinterpret_cast<const uint4*>(q + q_base + (size_t)r * HD + c * 8)
+                            : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(smem + L::QS + attn::swz(MAXG, r, c)) = x;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* r0 = q + q_base + (size_t)g0 * HD + kk * 16 + kq;
-    const bf16* r1 = q + q_base + (size_t)g1 * HD + kk * 16 + kq;
-    qa[kk][0] = g0 < G ? ld_pair(r0) : 0u;
-    qa[kk][1] = g1 < G ? ld_pair(r1) : 0u;
-    qa[kk][2] = g0 < G ? ld_pair(r0 + 8) : 0u;
-    qa[kk][3] = g1 < G ? ld_pair(r1 + 8) : 0u;
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const bf16* r0 = q + q_base + (size_t)g0 * HD + kk * 16 + kq;
+      const bf16* r1 = q + q_base + (size_t)g1 * HD + kk * 16 + kq;
+      qa[kk][0] = g0 < G ? ld_pair(r0) : 0u;
+      qa[kk][1] = g1 < G ? ld_pair(r1) : 0u;
+      qa[kk][2] = g0 < G ? ld_pair(r0 + 8) : 0u;
+      qa[kk][3] = g1 < G ? ld_pair(r1 + 8) : 0u;
+    }
   }
 
   // Kept slots as bits, 32 a word. Where the rows allow 16-byte loads
@@ -310,12 +336,27 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     {
       const int r = (lane & 7) + ((lane >> 4) << 3);
       const int cc = (lane >> 3) & 1;
+      if constexpr (L::Q_SMEM) {
+        // Q's A fragment from shared memory: matrices (rows 0-7 | 8-15) x
+        // (columns 0-7 | 8-15)
+        const uint32_t sq = sbase + L::QS;
+        const int qr = (lane & 7) + (((lane >> 3) & 1) << 3), qc = lane >> 4;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kf[4];
-        ldsm_x4(kf, sk + attn::swz(WS, r, 2 * kk + cc));
-        mma16816(sc[0], qa[kk], kf[0], kf[1]);
-        mma16816(sc[1], qa[kk], kf[2], kf[3]);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t kf[4], qf[4];
+          ldsm_x4(kf, sk + attn::swz(WS, r, 2 * kk + cc));
+          ldsm_x4(qf, sq + attn::swz(MAXG, qr, 2 * kk + qc));
+          mma16816(sc[0], qf, kf[0], kf[1]);
+          mma16816(sc[1], qf, kf[2], kf[3]);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t kf[4];
+          ldsm_x4(kf, sk + attn::swz(WS, r, 2 * kk + cc));
+          mma16816(sc[0], qa[kk], kf[0], kf[1]);
+          mma16816(sc[1], qa[kk], kf[2], kf[3]);
+        }
       }
     }
     // Mask: kept slots score q.k * scale, masked ones NEG_INF (as in the
@@ -483,5 +524,8 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, co
   if (hd == 64)
     return launch<64>(q, k, v, valid, slot, window, out, m, l, B, nq, nkv, S, sb, sh, ss, scale,
                       drop_warp, st);
+  if (hd == 256)
+    return launch<256>(q, k, v, valid, slot, window, out, m, l, B, nq, nkv, S, sb, sh, ss, scale,
+                       drop_warp, st);
   return (int)cudaErrorInvalidValue;
 }

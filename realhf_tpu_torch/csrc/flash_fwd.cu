@@ -81,7 +81,12 @@
 //    alignment slack = ~98 KB, so two CTAs would fit an SM by shared
 //    memory; the registers decide: ptxas gives ~180 a thread at hd 128
 //    and ~170 at hd 64, no spills, so one CTA (8 warps) runs per SM. hd 64
-//    halves Q, K and V.
+//    halves Q, K and V. hd 256 (Gemma) doubles them: Q 64 KB + 2 x (32 +
+//    32) KB = ~194 KB, one CTA an SM, and O takes 128 fp32 registers a
+//    thread. Its O += P V is two m64n128 products over the same P
+//    fragments (`wgmma_pv<256>`), so S (32) and P (16) stay beside O under
+//    the 255-register cap: ptxas gives 240 (245 with a window), 0 bytes
+//    spilled.
 // q tiles are launched last first, so the CTAs with the longest causal
 // walks start first. Points 1-3 are the tile machinery this kernel shares
 // with K6, in csrc/attn_tile.cuh; the marking rule and the epilogue are
@@ -241,5 +246,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (hd == 64)
     return (win ? launch<64, true> : launch<64, false>)(q, k, v, seg, o, lse, B, L, nq, nkv,
                                                        scale, causal, window, st);
+  if (hd == 256)
+    return (win ? launch<256, true> : launch<256, false>)(q, k, v, seg, o, lse, B, L, nq, nkv,
+                                                         scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,6 +29,8 @@ import torch
 from realhf_tpu_torch.ops import _build
 
 NEG_INF = -2.0 ** 30
+#: head dims the kernel (K4, K5) is built for
+KERNEL_HEAD_DIMS = (64, 128, 256)
 #: cache slots per tile of the kernel's walk
 TILE = 64
 #: warps of the kernel's CTA; warp w takes slots [16 w, 16 w + 16) of
@@ -227,10 +229,10 @@ def _launch(q, k_layer, v_layer, valid, sliding_window, slot, scale,
     if k_layer.shape[0] != b or k_layer.shape[3] != hd or nq % nkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache "
                          f"{tuple(k_layer.shape)}")
-    if hd not in (64, 128) or nq // nkv > 16:
-        raise ValueError("flash_decode kernel supports hd 64 or 128 and at "
-                         f"most 16 query heads per KV head, got hd {hd}, "
-                         f"group {nq // nkv}")
+    if hd not in KERNEL_HEAD_DIMS or nq // nkv > 16:
+        raise ValueError("flash_decode kernel supports hd 64, 128 or 256 "
+                         "and at most 16 query heads per KV head, got hd "
+                         f"{hd}, group {nq // nkv}")
     out = torch.empty_like(q)
     m = l = None
     if return_stats:

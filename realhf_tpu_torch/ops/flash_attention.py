@@ -28,6 +28,8 @@ import torch
 from realhf_tpu_torch.ops import _build
 
 NEG_INF = -2.0 ** 30
+#: head dims the kernels (K1, K2, K3) are built for
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 #: kernel launches made by ``flash_attention`` (K1), ``flash_bwd_dq``
 #: (K2) and ``flash_bwd_dkv`` (K3); reset them to 0 to count the
@@ -257,9 +259,9 @@ def _check_cuda_inputs(q, k, v, seg_ids, *more):
         raise ValueError(f"nq={nq} is not a multiple of nkv={k.shape[2]}")
     if tuple(seg_ids.shape) != (b, l):
         raise ValueError(f"seg_ids shape {tuple(seg_ids.shape)} != {(b, l)}")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_attention kernel supports hd 64 or 128, "
-                         f"got {hd}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel supports hd 64, 128 or "
+                         f"256, got {hd}")
 
 
 def _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta):

@@ -366,8 +366,10 @@ def _check_cuda_members(qs, ks, vs, segs):
             "run inference forwards under torch.no_grad / inference_mode.")
     hd = qs[0].shape[-1]
     if hd not in (64, 128):
-        raise ValueError(f"ring attention kernel supports hd 64 or 128, "
-                         f"got {hd}")
+        raise ValueError(
+            f"ring attention kernel supports hd 64 or 128, got {hd}: hd 256 "
+            "(Gemma) on the ring waits for the context-parallel training "
+            "slice, ROADMAP.md queue 1, item 4")
     for j, member in enumerate(zip(qs, ks, vs, segs)):
         for name, t in zip(("q", "k", "v", "seg"), member):
             if not t.is_contiguous():

@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """K4/K5 built from this checkout against K4/K5 built from another source
-file (an older revision's ``flash_decode.cu``, whose C entry takes an
-int32 keep mask: every slot read, one CTA per (KV head, stream)), on the
+file (another revision's ``flash_decode.cu`` with the same C entry: the
+bool valid mask, the window and the slots read by the kernel), on the
 card.
 
     python3 scripts/torch_decode_build_compare.py --other path/to/flash_decode.cu
-                                                  [--out readings.json]
+                                                  [--hd256] [--out readings.json]
 
 Builds this checkout's ``realhf_tpu_torch/csrc/flash_decode.cu`` (through
 ``ops/_build``) and the other source with the same flags, then runs each
 K4/K5 case of ``chip_smoke.phase_kernels`` (the same q, caches, valid mask
-and window) through both. The other build goes through the wrapper of its
-revision (``window_keep``'s int32 mask, then the launch), this one through
-``flash_decode_attention``. One JSON line per case: each build's largest
-row error against ``decode_attention_plain`` (``chip_smoke.row_rel_err``,
-the limit of phase ``kernels``) and its m and l errors, the ms of one call
+and window; with ``--hd256`` the K4/K5 cases of ``phase_kernels_hd256``
+instead) through both. The other build goes through this checkout's
+``_launch`` on the other library's entry, this one through
+``flash_decode_attention``; out, m and l must be bit-equal
+(``torch.equal``) between the builds. One JSON line per case: each
+build's largest row error against ``decode_attention_plain``
+(``chip_smoke.row_rel_err``, the limit of phase ``kernels``) and its m
+and l errors, the ms of one call
 of each (``chip_smoke.queued_ms``: launches queued ahead of the device,
 rotating over >= 200 MB of layer caches so each finds its cache cold;
 taken in the order other, this, this, other, the two readings of each
 averaged) and the host us of one wrapper call of each. Then the ptxas
 register, shared-memory and spill lines of both builds. Exits 1 when this
-build exceeds a limit. Needs one CUDA card and nvcc (about a minute on an
-H100).
+build exceeds a limit or a case differs.
+Needs one CUDA card and nvcc (about a minute on an H100).
 """
 
 import argparse
@@ -36,37 +39,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def other_entry(lib):
-    """The other build's wrapper: the int32 keep mask, then its C entry
-    (q, k, v, keep, out, m, l, B, nq, nkv, S, hd, sb, sh, ss, scale,
-    stream)."""
-    import torch
-    from realhf_tpu_torch.ops import _build
+    """The other build's wrapper: this checkout's ``_launch`` (its checks,
+    then the launch) on the other library's C entry."""
     from realhf_tpu_torch.ops import decode_attention as da
     fn = lib.flash_decode_bf16
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, ll,
-                   ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, i, p, p, p, i, i, i, i, i, ll, ll, ll,
+                   ctypes.c_float, i, p]
     fn.restype = i
 
-    def call(q, k_layer, v_layer, valid, window, slot, return_stats=False):
-        keep = da.window_keep(valid, window, slot)
-        b, nq, hd = q.shape
-        s = k_layer.shape[2]
-        sb, sh, ss, _ = k_layer.stride()
-        out = torch.empty_like(q)
-        m = l = None
-        if return_stats:
-            m = torch.empty((b, nq), dtype=torch.float32, device=q.device)
-            l = torch.empty((b, nq), dtype=torch.float32, device=q.device)
-        code = fn(q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-                  keep.data_ptr(), out.data_ptr(),
-                  None if m is None else m.data_ptr(),
-                  None if l is None else l.data_ptr(), b, nq,
-                  k_layer.shape[1], s, hd, sb, sh, ss, hd ** -0.5,
-                  torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(code, "flash_decode (other)")
-        return (out, m, l) if return_stats else out
-    return call
+    def launch(q, k_layer, v_layer, valid, window, slot, return_stats=False):
+        saved, da._fn = da._fn, fn
+        try:
+            return da._launch(q, k_layer, v_layer, valid, window, slot,
+                              q.shape[-1] ** -0.5, return_stats)
+        finally:
+            da._fn = saved
+    return launch
 
 
 def main(argv=None):
@@ -75,6 +64,8 @@ def main(argv=None):
                     help="the flash_decode.cu to hold this checkout's against")
     ap.add_argument("--out", default=None,
                     help="also write every case's record here")
+    ap.add_argument("--hd256", action="store_true",
+                    help="the hd 256 cases (phase_kernels_hd256)")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -112,7 +103,11 @@ def main(argv=None):
 
     chip_smoke.check_flash_decode = capture
     chip_smoke.check_flash_fwd = lambda *a, **kw: dict(ok=True)
-    chip_smoke.phase_kernels()
+    chip_smoke.check_flash_bwd = lambda *a, **kw: dict(ok=True)
+    if args.hd256:
+        chip_smoke.phase_kernels_hd256()
+    else:
+        chip_smoke.phase_kernels()
 
     records = []
     ok = True
@@ -131,14 +126,19 @@ def main(argv=None):
         rec = dict(case=name, shape=[*q.shape[:2], *k_all.shape[2:4],
                                      q.shape[2]], window=window,
                    kept_slots=int(keep.sum()), rotated_layers=n_rot)
+        outs = {}
         for tag, call in calls.items():
-            out, m, l = call(return_stats=True)
+            out, m, l = outs[tag] = call(return_stats=True)
             torch.cuda.synchronize()
             rec[f"row_rel_err_{tag}"] = chip_smoke.row_rel_err(out, ref[0],
                                                                rows)
             rec[f"m_max_abs_err_{tag}"] = chip_smoke.max_err(m, ref[1])
             rec[f"l_max_rel_err_{tag}"] = float(
                 ((l - ref[2]).abs() / ref[2].abs().clamp_min(1e-6)).max())
+        rec["bit_equal"] = all(torch.equal(a, b) for a, b in
+                               zip(outs["this"], outs["other"]))
+        ok &= rec["bit_equal"]
+        del outs
         ok &= (rec["row_rel_err_this"]
                <= chip_smoke.LIMITS["flash_decode_row_rel"]
                and rec["m_max_abs_err_this"]

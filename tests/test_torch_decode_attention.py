@@ -44,12 +44,13 @@ def _j(*arrs):
     return [jnp.asarray(a) for a in arrs]
 
 
-@pytest.mark.parametrize("nq,nkv", [(8, 2), (4, 4), (8, 1)],
-                         ids=["gqa4", "mha", "mqa"])
-def test_plain_matches_jax_kernel_with_stats(nq, nkv):
+@pytest.mark.parametrize("nq,nkv,hd", [(8, 2, 64), (4, 4, 64), (8, 1, 64),
+                                       (4, 1, 256)],
+                         ids=["gqa4", "mha", "mqa", "gqa4_hd256"])
+def test_plain_matches_jax_kernel_with_stats(nq, nkv, hd):
     rng = np.random.default_rng(0)
     spans = [(10, 90), (0, 96), (0, 0), (95, 96)]  # stream 2 is empty
-    q, k, v, valid = make_inputs(rng, nq=nq, nkv=nkv, spans=spans)
+    q, k, v, valid = make_inputs(rng, nq=nq, nkv=nkv, hd=hd, spans=spans)
     ref = jax_flash_decode(*_j(q, k, v, valid), block_k=32, interpret=True,
                            return_stats=True)
     got = da.flash_decode_attention(*_t(q, k, v, valid), return_stats=True)

@@ -255,7 +255,7 @@ def test_cuda_wrapper_checks_before_it_launches(monkeypatch):
     tq, tk, tv = (t.to(bf) for t in (tq, tk, tv))
     with pytest.raises(TypeError, match="bf16 q"):
         da.flash_decode_attention(tq.float(), tk, tv, tvalid)
-    with pytest.raises(ValueError, match="hd 64 or 128"):
+    with pytest.raises(ValueError, match="hd 64, 128 or 256"):
         da.flash_decode_attention(tq[..., :32].contiguous(),
                                   tk[..., :32].contiguous(),
                                   tv[..., :32].contiguous(), tvalid)

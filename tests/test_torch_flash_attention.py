@@ -48,11 +48,13 @@ def _t(*arrs):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("nq,nkv", [(4, 2), (4, 4)])
-def test_plain_matches_jax_kernel_interpret(causal, nq, nkv):
+@pytest.mark.parametrize("nq,nkv,hd", [
+    pytest.param(4, 2, 32, id="4-2"), pytest.param(4, 4, 32, id="4-4"),
+    pytest.param(4, 1, 256, id="4-1-hd256")])
+def test_plain_matches_jax_kernel_interpret(causal, nq, nkv, hd):
     rng = np.random.default_rng(0)
-    q, k, v, seg = make_inputs(rng, nq=nq, nkv=nkv, pad_rows=(1,))
-    scale = 32 ** -0.5
+    q, k, v, seg = make_inputs(rng, nq=nq, nkv=nkv, hd=hd, pad_rows=(1,))
+    scale = hd ** -0.5
     with pltpu.force_tpu_interpret_mode():
         o_j, lse_j = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), jnp.asarray(seg), scale,

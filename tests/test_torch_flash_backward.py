@@ -30,14 +30,16 @@ def _t(*arrs):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("nq,nkv", [(4, 2), (4, 4)])
-def test_bwd_plain_matches_jax_kernel_interpret(causal, nq, nkv):
+@pytest.mark.parametrize("nq,nkv,hd", [
+    pytest.param(4, 2, 32, id="4-2"), pytest.param(4, 4, 32, id="4-4"),
+    pytest.param(4, 1, 256, id="4-1-hd256")])
+def test_bwd_plain_matches_jax_kernel_interpret(causal, nq, nkv, hd):
     """dq, dk, dv from the same saved o and lse: multi-segment rows with
     padded tails and one all-padding row."""
     rng = np.random.default_rng(10)
-    q, k, v, seg = make_inputs(rng, nq=nq, nkv=nkv, pad_rows=(1,))
+    q, k, v, seg = make_inputs(rng, nq=nq, nkv=nkv, hd=hd, pad_rows=(1,))
     do = rng.standard_normal(q.shape).astype(np.float32)
-    scale = 32 ** -0.5
+    scale = hd ** -0.5
     with pltpu.force_tpu_interpret_mode():
         o, lse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v, seg)), scale,
                                 causal, 64, 64)

@@ -143,9 +143,12 @@ def test_chip_smoke_defines_each_top_level_name_once():
         n for n in set(names) if names.count(n) > 1)
 
 
-#: the model-features slice's modules (mixture of experts, and the card
-#: script of its phases), likewise
-MODEL_FEATURE_MODULES = ("ops/moe.py", "scripts/torch_moe_phases.py")
+#: the model-features slices' modules (mixture of experts, and the card
+#: scripts of their phases and of the head-dim-256 build comparisons),
+#: likewise
+MODEL_FEATURE_MODULES = ("ops/moe.py", "scripts/torch_moe_phases.py",
+                         "scripts/torch_gemma_phases.py",
+                         "scripts/torch_ring_build_compare.py")
 
 
 @pytest.mark.parametrize("rel", MODEL_FEATURE_MODULES)

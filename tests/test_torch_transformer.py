@@ -1,8 +1,10 @@
 """The port's transformer against the JAX package's on the same weights
 (carried with ``params_from_numpy``) and the same numpy inputs: forward
 hidden states, LM logits, prefill KV caches and decode steps, on a tiny
-llama-style config (GQA, rotary with linear or dynamic scaling) and a
-gpt2-style one (LayerNorm, biases, absolute positions, gelu).
+llama-style config (GQA, rotary with linear or dynamic scaling), a
+gpt2-style one (LayerNorm, biases, absolute positions, gelu) and a
+gemma-style one ((1 + w) RMSNorm, scaled embeddings, tied head, gelu
+tanh, head dim 2x hidden / nq, one KV head).
 
 Tolerances: fp32 on both sides; the JAX side runs XLA einsums and the
 port torch matmuls, whose sums differ in order. 1e-4 on values of
@@ -40,6 +42,14 @@ CONFIGS = {
     "gpt2": dict(
         n_kv_heads=4, n_q_heads=4, n_positions=64,
         activation_function="gelu_new", scale_attn_by_inverse_layer_idx=True),
+    # gemma: (1 + w) RMSNorm, embeddings times sqrt(hidden), tied head,
+    # gelu tanh, and a head dim (16) that is not hidden / nq (8)
+    "gemma": dict(
+        n_kv_heads=1, n_q_heads=4, head_dim=16, apply_rotary=True,
+        layer_norm_type="gemma", mlp_type="llama", use_attention_bias=False,
+        use_attn_proj_bias=False, use_mlp_bias=False,
+        activation_function="gelu_new", normalize_embed=True,
+        tied_embedding=True, layer_norm_epsilon=1e-6),
 }
 
 
