@@ -197,10 +197,10 @@ exits non-zero):
    and load seconds (GB/s), the host peak growth of the runner's load and
    of the eager read (VmHWM reset through ``/proc/self/clear_refs``,
    else sampled VmRSS) and the load's device peak growth.
-23. ckpt_resume -- the sft cell at 7B width, 4 layers, lr 1e-5, gradient
+23. ckpt_resume -- the sft cell at 7B width, 2 layers, lr 1e-5, gradient
    checkpointing, 3 steps of 16 records in one epoch: run A takes 3
    steps; run B takes 2 with ``save_freq_steps=1`` and
-   ``recover_mode="auto"`` (weights ~2.1 GB, optimizer state ~12.8 GB
+   ``recover_mode="auto"`` (weights ~1.3 GB, optimizer state ~8 GB
    per save); run C, a new ``InlineRunner(recover_mode="resume")``, takes
    step 3: its batch ids, loss, grad norm and updated weights must equal
    A's step 3 (bit for bit), with exact K1/K2/K3 counts. Planted fault:
@@ -298,6 +298,35 @@ exits non-zero):
    biases, tied head), gen-7b-b8's traffic: K1 = 48 a prefill, K4 = 48 a
    decode step; the teacher-forced gate, which the pass reading the
    position table one row later must exceed.
+34. tp_gen -- gen-7b-b8's traffic (LLaMA-7B, 32 layers) through the
+   ``gen`` experiment at d2t2 and at d1t4, members on
+   ``member_devices``: K1 = 32 x members a prefill, K4 = 32 x members a
+   decode step; the greedy tokens teacher-forced through the d1t1 model
+   of the same weights (``PAR_LIMITS``), which d2t2 with member 1's
+   row-parallel partial dropped must exceed; decode ms a token and
+   prefill ms.
+35. tp_sft -- the sft cell at 7B width, 4 layers, d2t2 with ZeRO-1, 3
+   steps, against the d1t1 runner of the same seed: losses, grad norms,
+   the fp32 master weights' update, exact K1-K3; gradients not summed
+   over the data group must miss the grad-norm limit.
+36. realloc -- the 32-layer LLaMA-7B moved d1t1 -> d1t2 -> d2t1 -> d2t2
+   -> d1t1 (``parallel/realloc.py``): every target's canonical leaves
+   digest-equal to the source's, the last bit-equal to a host copy of
+   the first, an EMA move (eta 0.3) bit-equal to a plain fp32 lerp; a
+   move with the vocabulary repad shifted one row must miss; seconds
+   and GB/s of each move.
+37. par_ppo -- ppo-7bw-l4's traffic with the actor on d1t2 generating on
+   a d2t1 replica (``actor_gen_alloc``), ref on a d1t2 replica
+   (``ref_inf_alloc``), the critic on d2t1 with ZeRO-1: the ppo phase's
+   first-minibatch limits on both steps, exact K1-K4 per member; a
+   runner whose replicas are not refreshed after a train step must miss
+   them; per-MFC and reshard seconds.
+   kernels (member shapes) -- K1-K4 against their plain versions, with
+   the limits and planted faults of phase 3, at the segment matrices the
+   members of phases 34-37 ran: K1 and K4 on each d2t2 data member's 4
+   streams at 16/16 heads and on the d1t4 members' 8 streams at 8/8, K1
+   and K2/K3 on each d2t2 member's sft stream and on the d1t2 actor's
+   minibatch stream at 16/16, K1 on the d1t2 ref replica's stream.
 
 The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
 prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
@@ -311,7 +340,8 @@ interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
-mixtral_sft, mistral and gpt2_gen paths, each counted from 0; rows
+mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft and par_ppo paths, each
+counted from 0; rows
 ``*_hd256`` over gemma_gen and gemma_sft), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2217,7 +2247,7 @@ PPO_FIRST_MINIBATCH_LIMITS = dict(importance_weight=3.5e-3,
 
 
 def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False,
-                   ctx=1):
+                   ctx=1, extra=None):
     from realhf_tpu_torch.base.testing import IntegerTokenizer
     from realhf_tpu_torch.experiments.common import apply_overrides
     from realhf_tpu_torch.experiments.ppo_exp import PPOConfig
@@ -2233,7 +2263,8 @@ def build_ppo_spec(data_path, n_layers, benchmark_steps, auto_offload=False,
                           "actor.optimizer.lr": "1e-5",
                           "critic.optimizer.lr": "1e-5",
                           "ref.parallel.context_parallel_size": str(ctx),
-                          "rew.parallel.context_parallel_size": str(ctx)})
+                          "rew.parallel.context_parallel_size": str(ctx),
+                          **(extra or {})})
     spec = cfg.build()
     spec.auto_offload = auto_offload
     for role in PPO_ROLES:
@@ -3939,7 +3970,13 @@ def run_algo_phases(smi):
 # phases 22-23: checkpoint IO and resume
 # ----------------------------------------------------------------------
 CKPT_NEW_TOKENS = 32
-CKPT_RESUME_LAYERS = 4
+# ckpt_gen saves and loads the gen cell's model at its full 32 layers
+# (13.5 GB), so its load rate and host peak are read at full size;
+# ckpt_resume's depth is cut from the sft cell's 4 to keep the script
+# inside its time: its checks are bit-equality, which depth does not
+# change
+CKPT_GEN_LAYERS = 32
+CKPT_RESUME_LAYERS = 2
 #: a sound resume is bit-equal (reads 0); the planted fault (fresh
 #: moments) must move some parameter by at least ten times this share
 #: of the step's largest update
@@ -4076,8 +4113,8 @@ def gen_tokens(runner):
 
 
 def phase_ckpt_gen(smi):
-    """The gen cell's 32-layer 7B model saved with the streamed save and
-    loaded into a new gen runner (``model.path``, the streamed load):
+    """The gen cell's 7B model at ``CKPT_GEN_LAYERS`` layers saved with
+    the streamed save and loaded into a new gen runner (``model.path``, the streamed load):
     every leaf bit-equal to the saved model's and to the registry's eager
     load of the same files, a greedy batch's tokens equal to the original
     model's with exact K1/K4 counts; a loader that skips q_proj's
@@ -4087,7 +4124,7 @@ def phase_ckpt_gen(smi):
     import torch
     from realhf_tpu_torch.models import hf
     from realhf_tpu_torch.system.inline import InlineRunner
-    n_layers = 32
+    n_layers = CKPT_GEN_LAYERS
     rec = dict(n_layers=n_layers, new_tokens=CKPT_NEW_TOKENS, card=smi)
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "prompts.jsonl")
@@ -4246,8 +4283,8 @@ def update_diff(got, want, before) -> float:
 
 
 def phase_ckpt_resume(smi):
-    """The sft cell at 7B width, 4 layers, lr 1e-5, gradient checkpointing,
-    3 steps of 16 records: run A takes 3 steps; run B takes 2 with
+    """The sft cell at 7B width, ``CKPT_RESUME_LAYERS`` layers, lr 1e-5,
+    gradient checkpointing, 3 steps of 16 records: run A takes 3 steps; run B takes 2 with
     ``save_freq_steps=1`` and ``recover_mode="auto"``; run C, a new runner
     with ``recover_mode="resume"``, takes step 3 from B's last save. C's
     batch, loss, grad norm and updated weights must equal A's step 3, with
@@ -6041,6 +6078,669 @@ def run_gemma_phases(smi):
     return recs
 
 
+# ----------------------------------------------------------------------
+# Data and tensor parallelism, ZeRO-1 and parameter reallocation
+# ----------------------------------------------------------------------
+PAR_GEN_LAYERS = 32
+PAR_NEW_TOKENS = 128
+PAR_FAULT_TOKENS = 16
+PAR_SFT_LAYERS = 4
+PAR_SFT_STEPS = 3
+PAR_GEN_LAYOUTS = ("d2t2", "d1t4")
+PAR_REALLOC_CHAIN = ("d1t1", "d1t2", "d2t1", "d2t2", "d1t1")
+PAR_EMA_ETA = 0.3
+#: about 3x the largest sound reading of ``scripts/torch_par_phases.py
+#: --seeds 1 2 3 4 5`` (H100 80GB HBM3, 700 W), each with its planted
+#: fault far above it: tp_gen's greedy tokens against the d1t1
+#: teacher-forced pass, max |log-prob gap| 0.205-0.234 at d2t2 and
+#: 0.222-0.279 at d1t4 (member 1's row-parallel partial dropped:
+#: 8.37-10.29); tp_sft against d1t1 over 3 steps, loss 2.2e-5-4.2e-5
+#: and grad norm 4.5e-5-1.5e-4 relative, the master weights' update
+#: 0.0109-0.0113 relative (gradients not summed over the data group:
+#: grad norm 0.46-0.51 off); the EMA move against a plain fp32 lerp 0.0
+#: (bit-equal, so its limit is 0)
+PAR_LIMITS = dict(tp_gen_tf_logprob_abs=0.85, tp_sft_loss_rel=1.25e-4,
+                  tp_sft_grad_norm_rel=4.5e-4, tp_sft_update_rel=0.034,
+                  realloc_ema_abs=0.0)
+#: the par_ppo cell's layouts: the actor on d1t2 generating on a d2t1
+#: replica, ref inferring on a d1t2 replica, the critic on d2t1 (ZeRO-1)
+PAR_PPO = {"actor.parallel.tensor_parallel_size": "2",
+           "critic.parallel.data_parallel_size": "2",
+           "actor_gen_alloc": "d2t1", "ref_inf_alloc": "d1t2"}
+
+
+def launches_of(layers, members, fwd=0, bwd=0, decode=0):
+    """Kernel counts of ``members`` members each running ``fwd`` K1
+    passes, ``bwd`` K2/K3 passes and ``decode`` K4 steps over ``layers``
+    layers."""
+    return dict(flash_fwd=layers * members * fwd,
+                flash_bwd_dq=layers * members * bwd,
+                flash_bwd_dkv=layers * members * bwd,
+                flash_decode=layers * members * decode,
+                flash_decode_stacked=0, ring_round=0, ring_push=0)
+
+
+def add_counts(*ds):
+    return {k: sum(d[k] for d in ds) for k in ds[0]}
+
+
+@contextlib.contextmanager
+def row_partial_dropped(member=1):
+    """The planted tensor-parallel fault: model member ``member``'s
+    row-parallel (``wo``/``wd``) partial output left out of the sum."""
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    real = T._row_parallel
+
+    def faulty(parts, devs):
+        return real([torch.zeros_like(p) if i == member else p
+                     for i, p in enumerate(parts)], devs)
+
+    with patched(T, "_row_parallel", faulty):
+        yield
+
+
+def phase_tp_gen(smi, seed=1):
+    """gen-7b-b8's traffic (LLaMA-7B, 32 layers, 8 prompts of 100-512
+    words, 128 new tokens; one greedy and one sampled batch) through the
+    gen experiment at d2t2 and at d1t4, the members on
+    ``member_devices``. Gates per layout: exact K1/K4 counts (each member
+    runs K1 once a layer a prefill and K4 once a layer a decode step),
+    tokens in range, and the greedy tokens' log-probs against one packed
+    teacher-forced K1 forward of the d1t1 model with the same weights.
+    Planted fault: d2t2's greedy tokens regenerated
+    (``PAR_FAULT_TOKENS``) with member 1's row-parallel partial dropped
+    must read a gap over the limit. ``rec["_segs"]`` keeps the greedy
+    batch's prompt segments for ``phase_kernels_par``."""
+    import torch
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.engine import packing
+    from realhf_tpu_torch.models.config import llama_config
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.inline import InlineRunner
+    from realhf_tpu_torch.system.model_host import build_model
+    lim = PAR_LIMITS["tp_gen_tf_logprob_abs"]
+    ref = build_model("default", ModelSpec(random_init_config=llama_config(
+        "7b", n_layers=PAR_GEN_LAYERS), bf16=True), None, init_seed=seed)
+    rcfg, rparams = ref.engine.cfg, ref.engine.params
+    rec = dict(n_layers=PAR_GEN_LAYERS, seed=seed, card=smi, layouts={},
+               limits=PAR_LIMITS)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=seed)
+        for layout in PAR_GEN_LAYOUTS:
+            spec, vocab = build_gen_spec(data, PAR_GEN_LAYERS,
+                                         PAR_NEW_TOKENS, 1, seed=seed)
+            par = parse_parallelism(layout)
+            spec.models["default"].parallel = par
+            t0 = time.monotonic()
+            runner = InlineRunner(spec, role_devices={
+                "default": member_devices(par.world_size)})
+            sync_all()
+            setup = time.monotonic() - t0
+            eng = runner.models["default"].engine
+            seen = []
+            reset_peaks(eng.members)
+            reset_counts()
+            with watching_generate(seen):
+                runner.run()
+                outputs_ok = check_gen_output(runner, vocab)
+                runner.interfaces["gen"].gconfig = GenerationHyperparameters(
+                    max_new_tokens=PAR_NEW_TOKENS, greedy=False, top_k=50,
+                    top_p=0.9, force_no_logits_mask=True)
+                runner.run()
+                outputs_ok &= check_gen_output(runner, vocab)
+            counts = read_counts()
+            stats = list(eng.generate_stats)
+            want = launches_of(PAR_GEN_LAYERS, par.world_size,
+                               fwd=len(stats),
+                               decode=sum(s["decode_steps"] for s in stats))
+            items = sequences_of(seen, 1)
+            r = dict(setup_secs=setup, members=[str(d) for d in eng.members],
+                     steps=[dict(step=lab, **step_summary(st, smi))
+                            for lab, st in zip(
+                                ("greedy", "sampled_topk50_topp0.9"), stats)],
+                     launches=counts, launches_expected=want,
+                     launches_ok=counts == want, outputs_in_range=outputs_ok,
+                     peak_mem_gb=read_peaks(eng.members),
+                     tf=tf_gaps(packed_teacher_forced(rcfg, rparams,
+                                                      items)[0], items))
+            r["tf_ok"] = r["tf"]["max_abs"] <= lim
+            if layout == PAR_GEN_LAYOUTS[0]:
+                rec["_segs"] = dict(prefill=seen[0][1])
+                prompts = [p for p, *_ in items]
+                ids, seg, pos = packing.left_padded_prompts(prompts, 0)
+                g = GenerationHyperparameters(
+                    max_new_tokens=PAR_FAULT_TOKENS, greedy=True)
+                with row_partial_dropped():
+                    fo = eng.generate(ids, seg, pos, None, g, None,
+                                      0).to_host()
+                fitems = [(p, fo.tokens[b, :int(fo.lengths[b])],
+                           fo.logprobs[b, :int(fo.lengths[b])])
+                          for b, p in enumerate(prompts)]
+                r["planted_fault"] = dict(row_partial_dropped=tf_gaps(
+                    packed_teacher_forced(rcfg, rparams, fitems)[0], fitems))
+                r["fault_fails"] = (r["planted_fault"]["row_partial_dropped"]
+                                    ["max_abs"] > lim)
+            r["ok"] = (r["launches_ok"] and outputs_ok and r["tf_ok"]
+                       and len(stats) == 2 and r.get("fault_fails", True))
+            rec["layouts"][layout] = r
+            del runner, eng, seen
+            gc.collect()
+            torch.cuda.empty_cache()
+    del ref, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = all(r["ok"] for r in rec["layouts"].values())
+    return rec
+
+
+def sft_runner(data, layout, seed):
+    """The sft cell (16 prompt-answer records, 2 microbatches, lr 1e-5,
+    3 epochs of one step) at 7B width and ``PAR_SFT_LAYERS`` layers on
+    ``layout``, its members on ``member_devices``."""
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.inline import InlineRunner
+    spec = build_sft_spec(data, PAR_SFT_LAYERS)
+    spec.seed = seed
+    par = parse_parallelism(layout)
+    spec.models["default"].parallel = par
+    t0 = time.monotonic()
+    runner = InlineRunner(without_saves(spec), role_devices={
+        "default": member_devices(par.world_size)})
+    sync_all()
+    return runner, time.monotonic() - t0
+
+
+def canonical_masters(eng):
+    """Every leaf's fp32 master copy, canonical (whole, unpadded), on
+    the engine's first device, in the engine's leaf order."""
+    if not eng.sharded:
+        return list(eng.optimizer.master)
+    return list(eng._canonical_state(eng.optimizer.master, eng.device))
+
+
+def sft_steps(runner):
+    return [st["trainDefault"] for st in runner.step_stats]
+
+
+def phase_tp_sft(smi, seed=1):
+    """The sft cell's traffic at 7B width and 4 layers, d2t2 with ZeRO-1
+    (the default), 3 steps, against the d1t1 runner of the same seed on
+    the card. Gates: each step's loss and grad norm (relative), the
+    update of the fp32 master weights over the 3 steps (|master(d2t2) -
+    master(d1t1)| / |master(d1t1) - start| over every leaf), exact K1-K3
+    counts. Planted fault: gradients not summed over the data group (a
+    fresh d2t2 runner, 2 steps) must miss the grad-norm limit.
+    ``rec["_segs"]`` keeps the d2t2 microbatches' streams (one row a
+    data member) for ``phase_kernels_par``."""
+    import torch
+    from realhf_tpu_torch.engine.engine import Engine, _leaves
+    lim = PAR_LIMITS
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        ref, _ = sft_runner(data, "d1t1", seed)
+        reng = ref.models["default"].engine
+        start = [p.detach().clone() for p in _leaves(reng.params)]
+        ref.run()
+        sync_all()
+        rsteps = sft_steps(ref)
+        rsecs = list(ref.step_secs)
+        rmaster = canonical_masters(reng)
+        upd = math.sqrt(sum(float((m - w.float()).pow(2).sum())
+                            for m, w in zip(rmaster, start)))
+        del start, ref, reng
+        gc.collect()
+        torch.cuda.empty_cache()
+        runner, setup = sft_runner(data, "d2t2", seed)
+        eng = runner.models["default"].engine
+        mb_segs = []
+        train_batch = eng.train_batch
+
+        def keep_streams(microbatches, *args, **kw):
+            mb_segs.extend(mb["seg_ids"] for mb in microbatches)
+            return train_batch(microbatches, *args, **kw)
+
+        eng.train_batch = keep_streams
+        reset_peaks(eng.members)
+        reset_counts()
+        runner.run()
+        sync_all()
+        counts = read_counts()
+        steps = sft_steps(runner)
+        diff = math.sqrt(sum(float((m - r).pow(2).sum()) for m, r in zip(
+            canonical_masters(eng), rmaster)))
+        n, n_mb = len(eng.members), 2
+        n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+        want = launches_of(PAR_SFT_LAYERS, n,
+                           fwd=2 * n_mb * PAR_SFT_STEPS + n_eval,
+                           bwd=n_mb * PAR_SFT_STEPS)
+        tokens = runner.last_batch.total_len("packed_input_ids")
+        rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi,
+                   setup_secs=setup, members=[str(d) for d in eng.members],
+                   losses=[s["loss"] for s in steps],
+                   ref_losses=[s["loss"] for s in rsteps],
+                   grad_norms=[s["grad_norm"] for s in steps],
+                   ref_grad_norms=[s["grad_norm"] for s in rsteps],
+                   step_secs=list(runner.step_secs), ref_step_secs=rsecs,
+                   train_tokens_per_s=[tokens / t for t in runner.step_secs],
+                   peak_mem_gb=read_peaks(eng.members), launches=counts,
+                   launches_expected=want, launches_ok=counts == want,
+                   update_norm=upd, limits=lim, _segs=dict(minibatch=mb_segs))
+        rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+            rec["losses"], rec["ref_losses"]))
+        rec["grad_norm_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+            rec["grad_norms"], rec["ref_grad_norms"]))
+        rec["update_rel"] = diff / upd
+        del runner, eng, rmaster
+        gc.collect()
+        torch.cuda.empty_cache()
+        frunner, _ = sft_runner(data, "d2t2", seed)
+        batch = next(iter(frunner.dataloader))
+        with patched(Engine, "_sum_grads", lambda self, acc: acc):
+            fgn = [frunner.run_step(batch)["trainDefault"]["grad_norm"]
+                   for _ in range(2)]
+        del frunner
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["planted_fault"] = dict(grads_not_summed_over_data=dict(
+        grad_norms=fgn, grad_norm_rel=max(abs(a - b) / abs(b) for a, b in zip(
+            fgn, rec["ref_grad_norms"]))))
+    rec["fault_fails"] = (rec["planted_fault"]["grads_not_summed_over_data"]
+                          ["grad_norm_rel"] > lim["tp_sft_grad_norm_rel"])
+    rec["ok"] = (rec["launches_ok"] and rec["fault_fails"]
+                 and rec["loss_rel"] <= lim["tp_sft_loss_rel"]
+                 and rec["grad_norm_rel"] <= lim["tp_sft_grad_norm_rel"]
+                 and rec["update_rel"] <= lim["tp_sft_update_rel"]
+                 and len(steps) == PAR_SFT_STEPS)
+    return rec
+
+
+def leaf_digest(t) -> int:
+    """A position-weighted sum of a leaf's 16-bit words (a row moved
+    changes it), in int64 on the leaf's device."""
+    import torch
+    x = t.contiguous().view(-1).view(torch.int16)
+    total, step = 0, 1 << 26
+    for s in range(0, x.numel(), step):
+        c = x[s:s + step].long()
+        w = torch.arange(s, s + c.numel(), device=x.device) % 65521 + 1
+        total += int((c * w).sum())
+    return total
+
+
+def canonical_leaves(eng):
+    """(path, canonical leaf on the engine's first device) one at a time;
+    a sharded engine's from its first data group, after checking every
+    data group holds the same shards."""
+    import torch
+    from realhf_tpu_torch.models import sharding
+    from realhf_tpu_torch.parallel.realloc import _get
+    cfg = eng.cfg
+    for path, spec in sharding.flat_specs(cfg):
+        if not eng.sharded:
+            yield path, _get(eng.params, path)
+            continue
+        groups = [[_get(tr, path).to(eng.device) for tr in
+                   eng.params.group(g)[0]] for g in range(eng.params.d)]
+        sd = sharding.split_dim(spec)
+        whole = [torch.cat(g, dim=sd) if sd is not None else g[0]
+                 for g in groups]
+        if not all(torch.equal(whole[0], w) for w in whole[1:]):
+            raise AssertionError(f"{path}: data groups differ")
+        yield path, sharding.repad_vocab_leaf(cfg, path, whole[0], 1)
+
+
+def digests(eng):
+    return {"/".join(p): leaf_digest(x) for p, x in canonical_leaves(eng)}
+
+
+@contextlib.contextmanager
+def vocab_repad_shifted():
+    """The planted reallocation fault: the vocabulary repad shifts the
+    embedding's rows by one."""
+    import torch
+    from realhf_tpu_torch.models import sharding
+    real = sharding.repad_vocab_leaf
+
+    def faulty(cfg, path, arr, tp):
+        out = real(cfg, path, arr, tp)
+        if tuple(path) == ("embed", "wte"):
+            out = torch.roll(out, 1, dims=0)
+        return out
+
+    with patched(sharding, "repad_vocab_leaf", faulty):
+        yield
+
+
+def par_engine(layout, seed):
+    """An inference engine of the 32-layer LLaMA-7B (bf16) on
+    ``layout``, its members on ``member_devices``, weights from
+    ``seed``."""
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.models.config import llama_config
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.model_host import build_model
+    par = parse_parallelism(layout)
+    return build_model("default", ModelSpec(
+        random_init_config=llama_config("7b", n_layers=PAR_GEN_LAYERS),
+        bf16=True, parallel=par), None, init_seed=seed,
+        devices=member_devices(par.world_size)).engine
+
+
+def phase_realloc(smi, seed=1):
+    """The 32-layer LLaMA-7B moved (``parallel/realloc.reallocate``)
+    around d1t1 -> d1t2 -> d2t1 -> d2t2 -> d1t1, each target built with
+    other weights and each source dropped after its move. Gates: every
+    target's canonical leaves read the first's position-weighted digest
+    (and every data group holds the same shards), and the last d1t1 is
+    bit-equal to the first, drawn again from its seed; an EMA move at eta
+    0.3 into a d1t2 engine is bit-equal to a plain fp32 lerp of the two.
+    Planted fault: a move with the vocabulary repad shifted by one row
+    must miss the digest. Reported: each move's seconds and GB/s
+    (canonical bytes)."""
+    import torch
+    from realhf_tpu_torch.parallel.realloc import reallocate
+    t0 = time.monotonic()
+    src = par_engine(PAR_REALLOC_CHAIN[0], seed)
+    cfg = src.cfg
+    want = digests(src)
+    nbytes = sum(x.numel() * x.element_size()
+                 for _, x in canonical_leaves(src))
+    moves = []
+    for i, layout in enumerate(PAR_REALLOC_CHAIN[1:]):
+        dst = par_engine(layout, seed + 100 + i)
+        sync_all()
+        secs = reallocate(cfg, src.params, dst)
+        moves.append(dict(src=PAR_REALLOC_CHAIN[i], dst=layout, secs=secs,
+                          gb_per_s=nbytes / secs / 1e9,
+                          digest_equal=digests(dst) == want))
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        src = dst
+    first = par_engine(PAR_REALLOC_CHAIN[0], seed)
+    last_equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        canonical_leaves(src), canonical_leaves(first)))
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    chain_secs = time.monotonic() - t0
+    # EMA into a d1t2 engine of other weights, against a plain fp32
+    # lerp of the source's and the target's old leaves
+    ema_dst = par_engine("d1t2", seed + 200)
+    old = {p: x.clone() for p, x in canonical_leaves(ema_dst)}
+    secs = reallocate(cfg, src.params, ema_dst, eta=PAR_EMA_ETA)
+    ema_err = 0.0
+    for (p, x), (_, s) in zip(canonical_leaves(ema_dst),
+                              canonical_leaves(src)):
+        plain = (PAR_EMA_ETA * s.float()
+                 + (1 - PAR_EMA_ETA) * old[p].float()).to(x.dtype)
+        ema_err = max(ema_err, float((x.float() - plain.float())
+                                     .abs().max()))
+    del old
+    # the planted fault: the same move with the repad shifted
+    with vocab_repad_shifted():
+        reallocate(cfg, src.params, ema_dst)
+    fault_digest_equal = digests(ema_dst) == want
+    del src, ema_dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(n_layers=PAR_GEN_LAYERS, seed=seed, card=smi,
+               model_bytes=nbytes, moves=moves, last_bit_equal=last_equal,
+               chain_secs=chain_secs,
+               ema=dict(eta=PAR_EMA_ETA, secs=secs, max_abs_err=ema_err),
+               planted_fault=dict(vocab_repad_shifted=dict(
+                   digest_equal=fault_digest_equal)),
+               limits=PAR_LIMITS)
+    rec["ok"] = (all(m["digest_equal"] for m in moves) and last_equal
+                 and ema_err <= PAR_LIMITS["realloc_ema_abs"]
+                 and not fault_digest_equal)
+    return rec
+
+
+def par_ppo_spec(data, benchmark_steps):
+    spec, vocab = build_ppo_spec(data, PPO_LAYERS, benchmark_steps,
+                                 extra=PAR_PPO)
+    return without_saves(spec), vocab
+
+
+def par_ppo_runner(spec):
+    """The par_ppo cell's runner: the actor's and critic's two members,
+    and the replicas' (``devices``), on ``member_devices``."""
+    from realhf_tpu_torch.system.inline import InlineRunner
+    return InlineRunner(spec, role_devices={"actor": member_devices(2),
+                                            "critic": member_devices(2)},
+                        devices=member_devices(4))
+
+
+def expected_par_ppo_launches(runner, n_layers, n_minibatches):
+    """Per step and member of the engine that runs the MFC: K1 once a
+    layer in actor_gen's prefill and K4 once a layer a decode step (the
+    d2t1 gen replica); K1 once a layer in rew_inf (d1t1), ref_inf (the
+    d1t2 ref replica) and critic_inf (d2t1); in each train MFC per
+    minibatch a forward and a checkpoint recompute (K1) and one backward
+    (K2, K3), on actor (d1t2) and critic (d2t1)."""
+    host = runner.host
+    m = {n: len((host.replicas.get(n) or host.models[host.nodes[n].role])
+                .engine.members) for n in host.nodes}
+    gen = host.replicas["actor_gen"].engine.generate_stats
+    steps = len(gen)
+    out = [launches_of(n_layers, m["actor_gen"], fwd=steps,
+                       decode=sum(s["decode_steps"] for s in gen))]
+    for name in ("rew_inf", "ref_inf", "critic_inf"):
+        out.append(launches_of(n_layers, m[name], fwd=steps))
+    for name in ("actor_train", "critic_train"):
+        out.append(launches_of(n_layers, m[name],
+                               fwd=2 * n_minibatches * steps,
+                               bwd=n_minibatches * steps))
+    return add_counts(*out)
+
+
+@contextlib.contextmanager
+def refresh_skipped_after_train():
+    """The planted reallocation fault: ``ensure_fresh`` syncs a replica
+    once and never again, so after the train step the gen replica keeps
+    the old weights."""
+    from realhf_tpu_torch.parallel.realloc import ReplicaManager
+    real = ReplicaManager.ensure_fresh
+
+    def once(self, role, primary, replica, eta=1.0):
+        if id(replica) in self._synced.get(role, {}):
+            return
+        return real(self, role, primary, replica, eta)
+
+    with patched(ReplicaManager, "ensure_fresh", once):
+        yield
+
+
+def first_minibatches(seen):
+    return [step[0] for step in seen["minibatch_stats"]["actor_train"]]
+
+
+def first_minibatch_ok(firsts):
+    lim = PPO_FIRST_MINIBATCH_LIMITS
+    return len(firsts) == 2 and all(
+        abs(m["importance_weight"] - 1) <= lim["importance_weight"]
+        and abs(m["ppo_approx_kl"]) <= lim["ppo_approx_kl"] for m in firsts)
+
+
+def phase_par_ppo(smi):
+    """ppo-7bw-l4's traffic (7B width, 4 layers a role, 16 prompts, up
+    to 128 sampled tokens, 4 minibatches, 2 steps) with the actor on
+    d1t2 generating on a d2t1 replica, ref inferring on a d1t2 replica,
+    the critic on d2t1 with ZeRO-1 and the reward on one device. Gates:
+    the ppo phase's first-minibatch limits on both steps (the second
+    after the gen replica's reallocation), exact K1-K4 counts per
+    member, rollouts in range. Planted fault: a second runner whose
+    replicas are refreshed once and never after a train step must miss
+    them on step 2. Reported: per-MFC seconds and the reshard seconds
+    of each step. ``rec["_segs"]`` keeps the streams the d1t2 members
+    ran (the ref replica's inference stream, the actor's minibatches)
+    for ``phase_kernels_par``."""
+    import numpy as np
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 160, seed=1)
+        spec, vocab = par_ppo_spec(data, 2)
+        t0 = time.monotonic()
+        runner = par_ppo_runner(spec)
+        sync_all()
+        setup = time.monotonic() - t0
+        seen = watch_ppo_runner(runner)
+        ref_segs = []
+        ref_eng = runner.replicas["ref_inf"].engine
+        ref_logprobs = ref_eng.forward_logprobs
+
+        def keep_ref_stream(ids, seg, *args, **kw):
+            ref_segs.append(np.asarray(seg))
+            return ref_logprobs(ids, seg, *args, **kw)
+
+        ref_eng.forward_logprobs = keep_ref_stream
+        reset_peaks(member_devices(4))
+        reset_counts()
+        runner.run()
+        sync_all()
+        counts = read_counts()
+        want = expected_par_ppo_launches(runner, PPO_LAYERS, PPO_MINIBATCHES)
+        firsts = first_minibatches(seen)
+        mfc = seen["mfc_secs"]
+        rec = dict(
+            n_layers=PPO_LAYERS, card=smi, setup_secs=setup,
+            layouts={r: str(runner.models[r].engine.parallel)
+                     for r in PPO_ROLES},
+            replicas={n: str(m.engine.parallel)
+                      for n, m in runner.replicas.items()},
+            step_secs=list(runner.step_secs),
+            mfc_secs={k: list(v) for k, v in mfc.items()},
+            reshard_secs=list(runner.replica_mgr.reshard_secs),
+            first_minibatch=dict(
+                importance_weight=[m["importance_weight"] for m in firsts],
+                ppo_approx_kl=[m["ppo_approx_kl"] for m in firsts],
+                limits=PPO_FIRST_MINIBATCH_LIMITS),
+            rollout=check_ppo_rollout(runner.last_batch, vocab),
+            peak_mem_gb=read_peaks(member_devices(4)),
+            launches=counts, launches_expected=want,
+            launches_ok=counts == want,
+            # the actor trains on d1t2 (one stream a minibatch); the
+            # critic's d2t1 minibatches have two
+            _segs=dict(inference=ref_segs, minibatch=[
+                a for a in seen["segs"]["minibatch"] if a.shape[0] == 1]))
+        rec["first_minibatch_ok"] = first_minibatch_ok(firsts)
+        del runner, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec, _ = par_ppo_spec(data, 2)
+        with refresh_skipped_after_train():
+            runner = par_ppo_runner(spec)
+            seen = watch_ppo_runner(runner)
+            runner.run()
+        ffirsts = first_minibatches(seen)
+        del runner, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["planted_fault"] = dict(refresh_skipped_after_train=dict(
+        importance_weight=[m["importance_weight"] for m in ffirsts],
+        ppo_approx_kl=[m["ppo_approx_kl"] for m in ffirsts]))
+    rec["fault_fails"] = not first_minibatch_ok(ffirsts)
+    rec["ok"] = bool(
+        rec["first_minibatch_ok"] and rec["fault_fails"]
+        and rec["launches_ok"] and len(rec["step_secs"]) == 2
+        and all(rec["rollout"][k] for k in (
+            "tokens_in_range", "tokens_inside_mask", "logprobs_ok")))
+    return rec
+
+
+PAR_PHASES = (("tp_gen", phase_tp_gen), ("tp_sft", phase_tp_sft),
+              ("realloc", phase_realloc), ("par_ppo", phase_par_ppo))
+
+
+def run_par_phases(smi):
+    """phases 34-37, each freeing its models before the next. Returns
+    the records and the segment matrices the members ran at (each
+    phase's ``_segs``, keyed by phase)."""
+    recs, segs = {}, {}
+    for name, fn in PAR_PHASES:
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        if "_segs" in recs[name]:
+            segs[name] = recs[name].pop("_segs")
+        emit(name, **recs[name])
+    return recs, segs
+
+
+def phase_kernels_par(segs):
+    """K1-K4 against their plain versions at the shapes the members of
+    the parallel phases launched them at, from the segment matrices
+    those phases kept (``run_par_phases``), with the limits and planted
+    faults of phase 3. tp_gen: K1 on each d2t2 data member's rows of the
+    8-prompt prefill at 16/16 heads (B 4) and on the d1t4 members' 8 rows
+    at 8/8 heads, K4 at the same streams and heads over the cache of
+    prompt length + ``PAR_NEW_TOKENS`` slots, half the new tokens
+    written. tp_sft: K1 and K2/K3 on each data member's stream of the
+    longest d2t2 microbatch at 16/16 heads. par_ppo: K1 on the d1t2 ref
+    replica's inference stream and K1, K2/K3 on the d1t2 actor's longest
+    minibatch stream, at 16/16 heads. hd 128 throughout; the first case
+    of each kind timed."""
+    import torch
+    from realhf_tpu_torch.models.transformer import data_rows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def on_card(seg):
+        return torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+
+    def longest(arrays):
+        return on_card(max(arrays, key=lambda a: (a != 0).sum()))
+
+    nq, hd = 32, 128
+    fwd, bwd = [], []
+    prefill = on_card(segs["tp_gen"]["prefill"])
+    b, lp = prefill.shape
+    for layout, d, t in (("d2t2", 2, 2), ("d1t4", 1, 4)):
+        for j, (r0, r1) in enumerate(data_rows(b, d)):
+            seg, first = prefill[r0:r1], j == 0
+            h = nq // t
+            fwd.append(check_flash_fwd(
+                f"tp_gen_{layout}_prefill_member{j * t}", r1 - r0, lp, h, h,
+                hd, seg, True, gen, timed=first, plant_fault=first))
+            spans = [(lp - int(n), lp + PAR_NEW_TOKENS // 2)
+                     for n in (seg != 0).sum(-1)]
+            fwd.append(check_flash_decode(
+                f"tp_gen_{layout}_decode_member{j * t}", r1 - r0,
+                lp + PAR_NEW_TOKENS, h, h, hd, spans, gen, timed=first))
+    mb = longest(segs["tp_sft"]["minibatch"])
+    for j, (r0, r1) in enumerate(data_rows(mb.shape[0], 2)):
+        seg, first = mb[r0:r1], j == 0
+        fwd.append(check_flash_fwd(
+            f"tp_sft_d2t2_stream_member{2 * j}", 1, seg.shape[1], 16, 16, hd,
+            seg, True, gen, timed=first, plant_fault=first))
+        bwd.append(check_flash_bwd(
+            f"tp_sft_d2t2_stream_member{2 * j}", 1, seg.shape[1], 16, 16, hd,
+            seg, True, gen, timed=first, plant_fault=first))
+    for name, seg in (("par_ppo_ref_d1t2_stream",
+                       longest(segs["par_ppo"]["inference"])),
+                      ("par_ppo_actor_d1t2_minibatch",
+                       longest(segs["par_ppo"]["minibatch"]))):
+        fwd.append(check_flash_fwd(name, 1, seg.shape[1], 16, 16, hd, seg,
+                                   True, gen, timed=False, plant_fault=True))
+    seg = longest(segs["par_ppo"]["minibatch"])
+    bwd.append(check_flash_bwd("par_ppo_actor_d1t2_minibatch", 1,
+                               seg.shape[1], 16, 16, hd, seg, True, gen,
+                               timed=False, plant_fault=True))
+    for rec in fwd + bwd:
+        rec["member_shape"] = True
+    del gen
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
     own instantiation, or its own kernel for K2/K3, timed on the hd 256
@@ -6048,9 +6748,9 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     64 and 128 (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw,
     dpo, grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
     ckpt_resume's resumed step, serve_gen, the four serve
-    configurations, mixtral_gen, mixtral_sft, mistral and gpt2_gen),
-    each counted from 0 just before its path and read just after it; an
-    ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft)."""
+    configurations, mixtral_gen, mixtral_sft, mistral, gpt2_gen, tp_gen,
+    tp_sft and par_ppo), each counted from 0 just before its path and
+    read just after it; an ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft)."""
     def sums(ps):
         return {k: sum(p["launches"][k] for p in ps)
                 for k in ps[0]["launches"]}
@@ -6219,7 +6919,7 @@ def main(argv=None):
     ckpt_gen_rec = phase_ckpt_gen(smi)
     emit("ckpt_gen", **ckpt_gen_rec)
     load_rec = ckpt_gen_rec["streamed"]
-    print("ckpt-gen-7b: " + json.dumps({
+    print(f"ckpt-gen-7b-l{CKPT_GEN_LAYERS}: " + json.dumps({
         k: ckpt_gen_rec[k] for k in ("bytes_written", "save_secs",
                                      "save_gb_per_s")} | {
         "streamed": {k: load_rec[k] for k in (
@@ -6247,6 +6947,16 @@ def main(argv=None):
     ok &= all(r["ok"] for r in moe_recs.values())
     gemma_recs = run_gemma_phases(smi)
     ok &= all(r["ok"] for r in gemma_recs.values())
+    par_recs, par_segs = run_par_phases(smi)
+    ok &= all(r["ok"] for r in par_recs.values())
+    par_fwd, par_bwd = phase_kernels_par(par_segs)
+    del par_segs
+    for r in par_fwd + par_bwd:
+        print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
+    kernel_recs += par_fwd
+    bwd_recs += par_bwd
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
+    ok &= all(r["ok"] for r in par_fwd + par_bwd)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -6269,7 +6979,8 @@ def main(argv=None):
                                        serve_gen_rec]
         + list(serve_rec["configs"].values())
         + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")]
-        + [gemma_recs["gpt2_gen"]],
+        + [gemma_recs["gpt2_gen"]]
+        + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")],
         [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]])))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,23 @@ class OffloadHook:
 
 
 @dataclasses.dataclass
+class ParamReallocHook:
+    """Pre- or post-hook: reshard weights between a role's replicas.
+
+    Exactly one of ``source``/``target`` is set; the other side is the
+    hooked MFC's own model. ``target = eta * source + (1 - eta) *
+    target`` (eta = 1 overwrites; eta < 1 makes an EMA reference). The
+    model host reads ``eta`` from a pre-hook for the refresh of a
+    replica before its MFC (``system/model_host.py``)."""
+    source: Optional[ModelName] = None
+    target: Optional[ModelName] = None
+    eta: float = 1.0
+
+
+RPCHook = Union[OffloadHook, ParamReallocHook]
+
+
+@dataclasses.dataclass
 class MFCDef:
     """One model function call node.
 
@@ -54,7 +71,8 @@ class MFCDef:
 
     # Filled by build_graph; not user-set.
     _G: Optional["Graph"] = None
-    _post_hooks: List[OffloadHook] = dataclasses.field(default_factory=list)
+    _pre_hooks: List[RPCHook] = dataclasses.field(default_factory=list)
+    _post_hooks: List[RPCHook] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
         if isinstance(self.model_name, str):
@@ -70,11 +88,16 @@ class MFCDef:
     def role(self) -> str:
         return self.model_name.role
 
-    def add_post_hook(self, h: OffloadHook):
-        if not isinstance(h, OffloadHook):
-            raise NotImplementedError(
-                f"{type(h).__name__}: parameter reallocation between "
-                "replicas is deferred to the parallelism slice of the port.")
+    def add_pre_hook(self, h: RPCHook):
+        if isinstance(h, OffloadHook):
+            raise ValueError("Offload can only be a post hook.")
+        if isinstance(h, ParamReallocHook):
+            assert (h.source is None) != (h.target is None)
+        self._pre_hooks.append(h)
+
+    def add_post_hook(self, h: RPCHook):
+        if isinstance(h, ParamReallocHook):
+            assert (h.source is None) != (h.target is None)
         self._post_hooks.append(h)
 
     @property

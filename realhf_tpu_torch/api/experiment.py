@@ -9,8 +9,8 @@ from realhf_tpu_torch.api.dfg import MFCDef
 from realhf_tpu_torch.engine.optim import OptimizerConfig
 from realhf_tpu_torch.parallel.mesh import ParallelismConfig
 
-__all__ = ["ExperimentSpec", "ModelSpec", "ParallelismConfig",
-           "SaveEvalControl", "ServingSpec"]
+__all__ = ["ExperimentSpec", "MFCAllocation", "ModelSpec",
+           "ParallelismConfig", "SaveEvalControl", "ServingSpec"]
 
 
 @dataclasses.dataclass
@@ -34,6 +34,30 @@ class ModelSpec:
     #: restore the optimizer state saved beside ``path``; the resume path
     #: sets it, a new run from a checkpoint starts with a fresh one
     restore_optimizer_state: bool = False
+
+
+@dataclasses.dataclass
+class MFCAllocation:
+    """Per-MFC placement: a layout of the MFC's own and, optionally, the
+    indices of its devices among the runner's.
+
+    An MFC whose layout differs from its role's runs on a replica of the
+    role's weights, kept fresh by parameter reallocation
+    (``system/model_host.py``). ``device_ids`` index the runner's
+    devices (``InlineRunner(..., devices=)``, default every card, or the
+    CPU); None places the replica as ``ModelHost`` says. ``workers``
+    (another process group) raises: cross-group reallocation comes with
+    the distributed runtime, ROADMAP.md, queue 1, item 5."""
+    parallel: ParallelismConfig
+    workers: Optional[List[int]] = None
+    device_ids: Optional[List[int]] = None
+
+    def __post_init__(self):
+        if self.workers is not None:
+            raise NotImplementedError(
+                "MFCAllocation.workers: an MFC on another worker group "
+                "(cross-group reallocation over the host data plane) comes "
+                "with the distributed runtime, ROADMAP.md, queue 1, item 5.")
 
 
 @dataclasses.dataclass
@@ -111,6 +135,10 @@ class ExperimentSpec:
     models: Dict[str, ModelSpec]
     mfcs: List[MFCDef]
     dataset: DatasetAbstraction
+    #: per-MFC placement (MFC name -> a ParallelismConfig or an
+    #: MFCAllocation): an MFC whose layout differs from its role's runs
+    #: on a weight replica kept fresh by parameter reallocation
+    allocations: Dict[str, object] = dataclasses.field(default_factory=dict)
     eval_dataset: Optional[DatasetAbstraction] = None
     tokenizer_path: Optional[str] = None
     tokenizer: Optional[object] = None  # direct object (tests, smoke runs)
@@ -124,3 +152,11 @@ class ExperimentSpec:
     #: a rollout/serving deployment (``experiments/serve_exp.py``);
     #: None for training trials
     serving: Optional[ServingSpec] = None
+
+    def alloc_of(self, node_name: str) -> Optional[MFCAllocation]:
+        """The MFC's allocation as an MFCAllocation (a bare
+        ParallelismConfig is wrapped), or None."""
+        v = self.allocations.get(node_name)
+        if v is None or isinstance(v, MFCAllocation):
+            return v
+        return MFCAllocation(parallel=v)

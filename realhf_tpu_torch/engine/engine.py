@@ -40,23 +40,28 @@ from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.base.safetensors_io import tensor_to_numpy
 from realhf_tpu_torch.engine import generation as gen_mod
 from realhf_tpu_torch.engine import offload, optim, packing
+from realhf_tpu_torch.models import sharding
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.models.convert import params_from_numpy, params_numpy
+from realhf_tpu_torch.models.sharding import MemberParams
 from realhf_tpu_torch.ops import functional as F
 from realhf_tpu_torch.ops.moe import ragged_dispatch_enabled
 from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+from realhf_tpu_torch.parallel import collectives as C
 from realhf_tpu_torch.parallel.mesh import (
     ParallelismConfig,
+    data_group,
     default_devices,
     make_mesh,
+    model_group,
 )
 
 logger = logging.getLogger("engine")
 
 _CTX_TRAIN = ("training on a context-parallel layout (the differentiable "
-              "ring on CUDA) is a later slice of the port (ROADMAP.md, "
-              "queue 5).")
+              "ring on CUDA) is a later part of ROADMAP.md, queue 1, "
+              "item 4.")
 
 #: loss_fn(params, microbatch tensors) -> (scalar loss, {name: scalar})
 LossFn = Callable[[Any, Dict[str, torch.Tensor]],
@@ -85,16 +90,23 @@ class Engine:
         self.cfg = cfg
         self.parallel = parallel or ParallelismConfig()
         n = self.parallel.world_size
+        self.mesh = None
         if n > 1:
-            #: the context-parallel members' devices, in ring order
-            self.members = list(make_mesh(
+            self.mesh = make_mesh(
                 self.parallel, devices if devices is not None
-                else default_devices(n, device)).devices)
+                else default_devices(n, device))
+            #: the members' devices: in ring order (ctx), or in (data,
+            #: model) order
+            self.members = list(self.mesh.devices)
         else:
             self.members = [resolve_device(
                 devices[0] if devices is not None else device)]
         self.device = self.members[0]
-        self._ctx = n > 1
+        self._ctx = self.parallel.context_parallel_size > 1
+        #: data and tensor parallelism over more than one member
+        self.sharded = n > 1 and not self._ctx
+        if self.sharded:
+            T.check_layout(cfg, self.parallel.tensor_parallel_size)
         self.params = None
         self._member_params = None
         #: the weights wait on the host (``offload``) until the next use
@@ -106,15 +118,23 @@ class Engine:
         #: stats of each generate call (decode steps, tokens, seconds)
         self.generate_stats = []
         self.optimizer: Optional[optim.AdamW] = None
+        self._zero1 = None
         if optimizer is not None and optimizer.type != "empty":
             if self._ctx:
                 raise NotImplementedError(_CTX_TRAIN)
-            if optimizer.zero1:
-                raise NotImplementedError(
-                    "ZeRO-1 optimizer-state sharding is deferred to the "
-                    "parallelism slice of the port.")
-            self.optimizer = optim.AdamW(optimizer, list(_leaves(self.params)),
-                                         total_train_steps)
+            if self.sharded:
+                self._zero1 = self._zero1_slices(optimizer.zero1)
+                self.optimizer = optim.AdamW(
+                    optimizer, self._member_leaves(), total_train_steps,
+                    slices=[sl for m in self._zero1 for sl in m])
+            else:
+                self.optimizer = optim.AdamW(
+                    optimizer, list(_leaves(self.params)), total_train_steps)
+
+    @property
+    def n_streams(self) -> int:
+        """Preferred [S, L] stream-batch rows: one per data member."""
+        return self.parallel.data_parallel_size
 
     def _cast_param_dtype(self, params):
         """Place leaves on this engine's device in cfg.param_dtype
@@ -127,9 +147,21 @@ class Engine:
             lambda a: a.to(device=self.device, dtype=pdt), params)
 
     def set_params(self, params):
-        """Install new weights (a tensor or numpy tree) on the device.
-        The optimizer state, fp32 master copies included, is kept, as in
-        the JAX package."""
+        """Install new weights (a tensor or numpy tree, canonical or
+        padded for any t, or another engine's ``MemberParams``) on the
+        device, or on every member. The optimizer state, fp32 master
+        copies included, is kept, as in the JAX package."""
+        if isinstance(params, MemberParams):
+            params = sharding.gather_params(self.cfg, params.group(0)[0])
+        if self.sharded:
+            t = self.parallel.tensor_parallel_size
+            self.params = MemberParams(
+                params_from_numpy(params, dtype=T.dtype_of(
+                    self.cfg.param_dtype), cfg=self.cfg,
+                    devices=self.members, t=t),
+                list(self.members), self.parallel.data_parallel_size, t)
+            self.offloaded = False
+            return
         self.params = self._cast_param_dtype(params)
         self._place_members()
         self.offloaded = False
@@ -144,32 +176,209 @@ class Engine:
         self._member_params = [on[d] for d in self.members]
 
     def params_numpy(self):
-        """Host numpy copy with the JAX package's paths and shapes."""
+        """Host numpy copy with the JAX package's paths and shapes (the
+        canonical, unpadded tree at any layout)."""
+        if self.sharded:
+            return params_numpy(self.gathered_params("cpu"))
         return params_numpy(self.params)
+
+    def gathered_params(self, device=None):
+        """The canonical tree of a sharded engine's weights, gathered
+        from the first data group's members onto ``device`` (default:
+        the first member's)."""
+        dev = torch.device(device) if device is not None else self.device
+        trees, _ = self.params.group(0)
+        return sharding.gather_params(
+            self.cfg, [_tree_map(lambda a: a.to(dev), tr) for tr in trees])
+
+    def _member_leaves(self) -> List[torch.Tensor]:
+        """Every member's leaves, member-major, each in ``_leaves``
+        order."""
+        return [p for tr in self.params.trees for p in _leaves(tr)]
+
+    # ------------------------------------------------------------------
+    # ZeRO-1 and the gradient sums of a sharded engine
+    # ------------------------------------------------------------------
+    def _leaf_specs(self):
+        return [spec for _, spec in sharding.flat_specs(self.cfg)]
+
+    def _zero1_slices(self, zero1: bool):
+        """Per member, per leaf: the slice of the shard whose optimizer
+        state the member holds (``zero1_moment_spec``'s data dim over
+        the logical shape), or None for the whole shard."""
+        d, t = (self.parallel.data_parallel_size,
+                self.parallel.tensor_parallel_size)
+        specs = self._leaf_specs()
+        out = []
+        for i, tree in enumerate(self.params.trees):
+            row = []
+            for spec, p in zip(specs, _leaves(tree)):
+                shape = list(p.shape)
+                sd = sharding.split_dim(spec)
+                if sd is not None:
+                    shape[sd] *= t
+                zspec = sharding.zero1_moment_spec(
+                    spec, shape, d if zero1 else 1)
+                if sharding.DATA not in zspec:
+                    row.append(None)
+                    continue
+                z = zspec.index(sharding.DATA)
+                n = p.shape[z] // d
+                row.append((z, (i // t) * n, n))
+            out.append(row)
+        return out
+
+    def _sum_grads(self, acc):
+        """Each leaf's gradient summed over the members that hold it: a
+        split leaf over its data group, a replicated leaf over every
+        member. ``acc[member][leaf]`` -> the same nesting; members on
+        one device share the summed tensor."""
+        specs = self._leaf_specs()
+        out = [list(row) for row in acc]
+        for k, spec in enumerate(specs):
+            if sharding.split_dim(spec) is None:
+                groups = [list(range(len(self.members)))]
+            else:
+                groups = [data_group(self.mesh, j)
+                          for j in range(self.parallel.tensor_parallel_size)]
+            for grp in groups:
+                summed = C.all_reduce([acc[m][k] for m in grp],
+                                      [self.members[m] for m in grp])
+                for m, g in zip(grp, summed):
+                    out[m][k] = g
+        return out
+
+    def _logical_norm(self, grads):
+        """The norm of the logical gradient: each split leaf's t shards
+        once, each replicated leaf once (from the first data group)."""
+        total = None
+        for k, spec in enumerate(self._leaf_specs()):
+            grp = (model_group(self.mesh, 0)
+                   if sharding.split_dim(spec) is not None else [0])
+            for m in grp:
+                sq = grads[m][k].float().pow(2).sum().to(self.device)
+                total = sq if total is None else total + sq
+        return torch.sqrt(total)
+
+    def _gather_zero1(self):
+        """After a ZeRO-1 step each data member holds its own updated
+        slice of every split-over-data leaf: all-gather the slices over
+        the data group into every member's shard."""
+        t = self.parallel.tensor_parallel_size
+        leaves = [list(_leaves(tr)) for tr in self.params.trees]
+        for k in range(len(leaves[0])):
+            for j in range(t):
+                grp = data_group(self.mesh, j)
+                sl = self._zero1[grp[0]][k]
+                if sl is None:
+                    continue
+                z = sl[0]
+                parts = [leaves[m][k].narrow(*self._zero1[m][k])
+                         for m in grp]
+                full = C.all_gather(parts, [self.members[m] for m in grp],
+                                    dim=z)
+                for m, f in zip(grp, full):
+                    leaves[m][k].copy_(f)
 
     # ------------------------------------------------------------------
     # Optimizer state across the numpy boundary
     # ------------------------------------------------------------------
     def opt_state_spec(self):
         """(shape, numpy dtype) of each optimizer-state leaf, in the JAX
-        package's leaf order (``AdamW.state_leaves``)."""
-        return self.optimizer.state_spec()
+        package's leaf order (``AdamW.state_leaves``); a sharded
+        engine's are the canonical leaves a one-device engine has."""
+        if not self.sharded:
+            return self.optimizer.state_spec()
+        t = self.parallel.tensor_parallel_size
+        canon = [sharding.canonical_shape(self.cfg, path, spec, p.shape, t)
+                 for (path, spec), p in zip(sharding.flat_specs(self.cfg),
+                                            _leaves(self.params.trees[0]))]
+        f32 = np.dtype(np.float32)
+        n_master = sum(w is not None for w in self.optimizer.master[
+            :len(canon)])
+        count = ((), np.dtype(np.int32))
+        return ([(tuple(s), f32) for s in canon[:n_master]] + [count]
+                + [(tuple(s), f32) for s in canon] * 2 + [count])
 
     def iter_opt_state_numpy(self):
         """Yield the optimizer-state leaves as host numpy arrays, one at a
         time, in the JAX package's order, dtypes and 0-d step counts. An
-        offloaded state is read from its pinned host copy."""
-        for x in self.optimizer.state_leaves():
-            yield (np.asarray(x, np.int32) if isinstance(x, int)
-                   else tensor_to_numpy(x))
+        offloaded state is read from its pinned host copy. A sharded
+        engine gathers each leaf over its members and cuts the
+        vocabulary padding off."""
+        if not self.sharded:
+            for x in self.optimizer.state_leaves():
+                yield (np.asarray(x, np.int32) if isinstance(x, int)
+                       else tensor_to_numpy(x))
+            return
+        opt = self.optimizer
+        count = np.asarray(opt.count, np.int32)
+        if any(w is not None for w in opt.master):
+            yield from map(tensor_to_numpy, self._canonical_state(opt.master))
+        yield count
+        yield from map(tensor_to_numpy, self._canonical_state(opt.m))
+        yield from map(tensor_to_numpy, self._canonical_state(opt.v))
+        yield count
+
+    def _canonical_state(self, per_unit, device="cpu"):
+        """Per (member, leaf) state tensors -> each leaf's canonical
+        tensor on ``device``: data slices concatenated along the ZeRO-1
+        dim, model shards along the split dim, the vocabulary
+        unpadded."""
+        k_leaves = len(self._zero1[0])
+        t = self.parallel.tensor_parallel_size
+        for k, (path, spec) in enumerate(sharding.flat_specs(self.cfg)):
+            shards = []
+            for j in range(t):
+                grp = data_group(self.mesh, j)
+                sl = self._zero1[grp[0]][k]
+                parts = [per_unit[m * k_leaves + k].to(device) for m in grp]
+                shards.append(torch.cat(parts, dim=sl[0]) if sl is not None
+                              else parts[0])
+            sd = sharding.split_dim(spec)
+            full = torch.cat(shards, dim=sd) if sd is not None else shards[0]
+            yield sharding.repad_vocab_leaf(self.cfg, path, full, 1)
 
     def opt_state_numpy(self) -> list:
         return list(self.iter_opt_state_numpy())
 
     def load_opt_state(self, host_leaves: list):
         """Install host leaves in ``iter_opt_state_numpy``'s order (the
-        restore path, ``engine/opt_checkpoint.py``)."""
-        self.optimizer.load_state_leaves(host_leaves)
+        restore path, ``engine/opt_checkpoint.py``); a sharded engine
+        pads, splits and slices each canonical leaf onto its members."""
+        if not self.sharded:
+            self.optimizer.load_state_leaves(host_leaves)
+            return
+        opt = self.optimizer
+        k = len(self._zero1[0])
+        n_master = (k if any(w is not None for w in opt.master) else 0)
+        leaves = list(host_leaves)
+        counts = {int(leaves[n_master]), int(leaves[-1])}
+        if len(counts) != 1:
+            raise ValueError(
+                f"adam and schedule step counts differ: {sorted(counts)}")
+        groups = ([opt.master] if n_master else []) + [opt.m, opt.v]
+        values = (leaves[:n_master] + leaves[n_master + 1:-1])
+        opt.ensure_on_device()
+        for g, per_unit in enumerate(groups):
+            for kk, arr in enumerate(values[g * k:(g + 1) * k]):
+                self._scatter_state(per_unit, kk, arr)
+        opt.count = counts.pop()
+
+    def _scatter_state(self, per_unit, k, arr):
+        path, spec = sharding.flat_specs(self.cfg)[k]
+        t = self.parallel.tensor_parallel_size
+        full = sharding.repad_vocab_leaf(
+            self.cfg, path, torch.from_numpy(np.asarray(arr, np.float32)),
+            t)
+        sd = sharding.split_dim(spec)
+        for m in range(len(self.members)):
+            shard = (full.chunk(t, dim=sd)[m % t] if sd is not None
+                     else full)
+            sl = self._zero1[m][k]
+            if sl is not None:
+                shard = shard.narrow(*sl)
+            per_unit[m * len(self._zero1[0]) + k].copy_(shard)
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -224,38 +433,53 @@ class Engine:
         w = np.asarray(loss_weights if loss_weights is not None
                        else [1.0] * n, np.float32)
         w = (w / w.sum()).tolist()
-        leaves = list(_leaves(self.params))
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        trees = self.params.trees if self.sharded else [self.params]
+        leaves = [list(_leaves(tr)) for tr in trees]
+        acc = [[torch.zeros_like(p, dtype=torch.float32) for p in row]
+               for row in leaves]
+        flat = [p for row in leaves for p in row]
         losses, stats = [], []
         try:
-            for p in leaves:
+            for p in flat:
                 p.requires_grad_(True)
             for mb, wi in zip(microbatches, w):
                 batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                          for k, v in mb.items()}
                 loss, st = loss_fn(self.params, batch)
                 loss.backward()
-                for a, p in zip(acc, leaves):
-                    if p.grad is not None:
-                        a.add_(p.grad, alpha=wi)
-                        p.grad = None
+                for arow, prow in zip(acc, leaves):
+                    for a, p in zip(arow, prow):
+                        if p.grad is not None:
+                            a.add_(p.grad, alpha=wi)
+                            p.grad = None
                 losses.append(loss.detach().float())
                 stats.append({k: v.detach().float() for k, v in st.items()})
         finally:
-            for p in leaves:
+            for p in flat:
                 p.requires_grad_(False)
                 p.grad = None
-        gnorm = optim.global_norm(acc)
+        if self.sharded:
+            grads = self._sum_grads(acc)
+            gnorm = self._logical_norm(grads)
+        else:
+            grads = acc
+            gnorm = optim.global_norm(acc[0])
         mean = {k: sum(s[k] * wi for s, wi in zip(stats, w))
                 for k in stats[0]}
         mean["loss"] = sum(x * wi for x, wi in zip(losses, w))
         mean["grad_norm"] = gnorm
-        out = dict(zip(mean, torch.stack(list(mean.values())).tolist()))
+        out = dict(zip(mean, torch.stack(
+            [v.to(self.device) for v in mean.values()]).tolist()))
         skip = out.pop("__skip_update__", None)
         if skip is not None:
             out["early_stop_skipped"] = float(skip > 0)
         if skip is None or skip <= 0:
-            self.optimizer.step(leaves, acc)
+            if self.sharded:
+                self.optimizer.step(flat, [g for row in grads for g in row],
+                                    gnorm=gnorm)
+                self._gather_zero1()
+            else:
+                self.optimizer.step(flat, grads[0])
         self.version += 1
         return out
 
@@ -269,20 +493,30 @@ class Engine:
         if self.offloaded:
             return
         if self.device.type == "cuda":
-            self._host_params = offload.to_pinned_host(
-                list(_leaves(self.params)), self._host_params)
-            _set_leaves(self.params, self._host_params)
+            trees = self.params.trees if self.sharded else [self.params]
+            leaves = [p for tr in trees for p in _leaves(tr)]
+            self._host_params = offload.to_pinned_host(leaves,
+                                                       self._host_params)
+            self._devices = [p.device for p in leaves]
+            it = iter(self._host_params)
+            for tr in trees:
+                _set_leaves(tr, [next(it) for _ in _leaves(tr)])
             self._member_params = None  # other devices' copies go too
         self.offloaded = True
 
     def ensure_on_device(self):
-        """Bring offloaded weights back to this engine's device."""
+        """Bring offloaded weights back to this engine's device (every
+        member's to its own)."""
         if not self.offloaded:
             return
         if self.device.type == "cuda":
-            _set_leaves(self.params, offload.to_device(self._host_params,
-                                                       self.device))
-            self._place_members()
+            moved = iter(offload.to_devices(self._host_params,
+                                            self._devices))
+            trees = self.params.trees if self.sharded else [self.params]
+            for tr in trees:
+                _set_leaves(tr, [next(moved) for _ in _leaves(tr)])
+            if not self.sharded:
+                self._place_members()
         self.offloaded = False
 
     # ------------------------------------------------------------------
@@ -295,6 +529,9 @@ class Engine:
             return self._gather(self._ctx_hidden(ids, seg), n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
                          self._tensor(seg_ids))
+        if self.sharded:  # each data group's first model member's copy
+            return T._gather_rows([None if x is None else x[0]
+                                   for x in h.hs], self.device)
         return h
 
     @torch.inference_mode()
@@ -336,8 +573,8 @@ class Engine:
         if self._ctx:
             raise NotImplementedError(
                 "generation on a context-parallel layout (the JAX "
-                "package's decode view, engine.py:653) is a later slice of "
-                "the port.")
+                "package's decode view, engine.py:653) is a later part of "
+                "ROADMAP.md, queue 1, item 4.")
         out = gen_mod.generate(
             self.cfg, self.params, self._tensor(prompt_ids),
             self._tensor(prompt_seg), self._tensor(prompt_pos), generator,

@@ -6,6 +6,14 @@ EOS+pad handling, per-step logprobs of the sampled tokens, and the
 logits mask PPO replays. When EOS can end every stream early, the loop
 checks after each step whether any stream is unfinished and stops when
 none is.
+
+Over the members of a ``dNtM`` layout (``models/sharding.MemberParams``)
+the loop is the same: prefill and every decode step run on each member
+with its own cache (``models/transformer.py``), the logits of the whole
+batch are gathered on the first member's device, and sampling draws
+from the one generator in the order of the one-device loop, so greedy
+and sampled tokens are those of a one-device engine with the same
+weights, up to the order of the members' sums.
 """
 
 import dataclasses
@@ -16,6 +24,7 @@ import torch
 
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.models.sharding import MemberParams
 from realhf_tpu_torch.ops.sampling import (
     NEG_INF,
     GenerationHyperparameters,
@@ -47,9 +56,12 @@ class GenerationOutput:
         return GenerationOutput(**conv)
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(params, device: torch.device):
+    devices = (set(params.devices) if isinstance(params, MemberParams)
+               else {device})
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 @torch.inference_mode()
@@ -72,8 +84,10 @@ def generate(cfg: TransformerConfig, params, prompt_ids: torch.Tensor,
     t0 = time.monotonic()
     hidden, cache = T.prefill(cfg, params, prompt_ids, prompt_seg,
                               prompt_pos, total_len=lp + t_max)
-    last_hidden = hidden[:, -1]  # left padding: last column = last token
-    _sync(device)
+    # left padding: last column = last token
+    last_hidden = (hidden.map(lambda h: h[:, -1])
+                   if isinstance(params, MemberParams) else hidden[:, -1])
+    _sync(params, device)
     t_prefill = time.monotonic() - t0
 
     vocab = torch.arange(cfg.vocab_size, device=device)[None, :]
@@ -123,7 +137,7 @@ def generate(cfg: TransformerConfig, params, prompt_ids: torch.Tensor,
         steps += 1
         if early_exit and not bool(unfinished.any()):
             break
-    _sync(device)
+    _sync(params, device)
     t_decode = time.monotonic() - t0
     return GenerationOutput(
         tokens=tokens_buf, logprobs=logp_buf, logits_mask=mask_buf,

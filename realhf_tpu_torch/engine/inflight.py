@@ -44,6 +44,7 @@ from realhf_tpu_torch.base.safetensors_io import (
 from realhf_tpu_torch.engine import kv_pool as _kvp
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.models.sharding import MemberParams
 from realhf_tpu_torch.obs import tracing
 from realhf_tpu_torch.ops.sampling import (
     NEG_INF,
@@ -119,6 +120,11 @@ class InflightBatchingGenerator:
                 "mask; set force_no_logits_mask=True or use the batch "
                 "generate path.")
         T.check_supported(cfg)
+        if isinstance(params, MemberParams):
+            raise NotImplementedError(
+                f"the serving engine over a d{params.d}t{params.t} layout: "
+                "inflight batching and the continuous scheduler run on one "
+                "device until a later part of ROADMAP.md, queue 1, item 4.")
         self.cfg = cfg
         self.params = params
         self.g = gconfig

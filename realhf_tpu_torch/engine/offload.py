@@ -21,12 +21,24 @@ def to_pinned_host(tensors: List[torch.Tensor],
                    for t in tensors]
     for b, t in zip(buffers, tensors):
         b.copy_(t, non_blocking=True)
-    torch.cuda.current_stream().synchronize()
+    _synchronize({t.device for t in tensors})
     return buffers
 
 
 def to_device(buffers: List[torch.Tensor], device) -> List[torch.Tensor]:
     """New tensors on ``device`` holding the host ``buffers``' values."""
-    out = [b.to(device, non_blocking=True) for b in buffers]
-    torch.cuda.current_stream().synchronize()
+    return to_devices(buffers, [device] * len(buffers))
+
+
+def to_devices(buffers: List[torch.Tensor], devices) -> List[torch.Tensor]:
+    """New tensors, buffer i's values on ``devices[i]`` (the members of
+    a layout may sit on several cards)."""
+    out = [b.to(d, non_blocking=True) for b, d in zip(buffers, devices)]
+    _synchronize({torch.device(d) for d in devices})
     return out
+
+
+def _synchronize(devices):
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.current_stream(d).synchronize()

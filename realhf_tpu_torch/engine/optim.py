@@ -17,7 +17,13 @@ that update written out over a list of tensors, not
   ``[H]`` scale is not.
 
 Params, master copies and moments are updated in place (the JAX package
-returns new arrays that XLA aliases in place). With
+returns new arrays that XLA aliases in place). Over the members of a
+data-parallel layout with ZeRO-1 (``OptimizerConfig.zero1``, the
+default, as in the JAX package), a tensor's state covers one slice of
+it (``slices``: the dim of ``models/sharding.zero1_moment_spec`` and the
+member's range along it); the engine all-gathers the updated slices
+over the data group. The clipping norm is then the engine's, taken over
+the logical gradient. With
 ``OptimizerConfig.offload`` the engine keeps the state in pinned host
 memory between train calls (``AdamW.offload`` / ``ensure_on_device``).
 """
@@ -50,9 +56,10 @@ class OptimizerConfig:
     #: keep the optimizer state (master weights and moments) in pinned
     #: host memory between train calls, on the device only during them
     offload: bool = False
-    #: shard the optimizer state over data-parallel ranks (ZeRO-1):
-    #: raises until the parallelism slice of the port
-    zero1: bool = False
+    #: shard the master weights and moments over the data-parallel
+    #: members (ZeRO-1), each holding 1/d of every leaf's state; at
+    #: d = 1 the same math as without
+    zero1: bool = True
 
 
 def lr_schedule(cfg: OptimizerConfig, total_steps: int
@@ -87,6 +94,14 @@ def lr_schedule(cfg: OptimizerConfig, total_steps: int
     return schedule
 
 
+#: (dim, start, length)
+Slice = Tuple[int, int, int]
+
+
+def _narrow(t: torch.Tensor, sl: Optional[Slice]) -> torch.Tensor:
+    return t if sl is None else t.narrow(*sl)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, fp32 (optax's
     ``global_norm``)."""
@@ -100,17 +115,22 @@ class AdamW:
     ``round(new_master)`` after each step."""
 
     def __init__(self, cfg: OptimizerConfig, params: List[torch.Tensor],
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None,
+                 slices: Optional[List[Optional[Slice]]] = None):
         if cfg.type != "adam":
             raise NotImplementedError(f"Optimizer type {cfg.type}")
         self.cfg = cfg
         self.schedule = lr_schedule(cfg, total_steps or 10 ** 9)
         #: optimizer steps taken (optax's ``count``)
         self.count = 0
+        #: (dim, start, length) of the slice of each param whose state
+        #: lives here (ZeRO-1), or None for the whole param
+        self.slices = slices or [None] * len(params)
+        owned = [_narrow(p, sl) for p, sl in zip(params, self.slices)]
         self.master = [p.detach().float().clone()
-                       if p.dtype != torch.float32 else None for p in params]
-        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+                       if p.dtype != torch.float32 else None for p in owned]
+        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in owned]
+        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in owned]
         self.decay = [p.ndim >= 2 for p in params]
         self.device = params[0].device
         #: the state waits on the host (``offload``) until the next step
@@ -164,34 +184,47 @@ class AdamW:
         if self.offloaded:
             return
         if self.device.type == "cuda":
-            self._host = offload.to_pinned_host(self._state(), self._host)
+            state = self._state()
+            self._devices = [t.device for t in state]
+            self._host = offload.to_pinned_host(state, self._host)
             self._set_state(self._host)
         self.offloaded = True
 
     def ensure_on_device(self):
-        """Bring offloaded state back before a step."""
+        """Bring offloaded state back before a step, each tensor to the
+        device it came from."""
         if not self.offloaded:
             return
         if self.device.type == "cuda":
-            self._set_state(offload.to_device(self._host, self.device))
+            self._set_state(offload.to_devices(self._host, self._devices))
         self.offloaded = False
 
     @torch.no_grad()
-    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
-        """One update from the fp32 ``grads`` (clipped here, in place);
-        offloaded state comes back to the device first."""
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             gnorm: Optional[torch.Tensor] = None):
+        """One update from the fp32 ``grads`` (clipped here, in place,
+        each distinct tensor once: members on one device may share a
+        summed gradient); offloaded state comes back to the device
+        first. ``gnorm`` is the clipping norm when the caller takes it
+        (over a layout's logical gradient), else that of ``grads``."""
         cfg = self.cfg
         self.ensure_on_device()
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             if gnorm >= cfg.gradient_clipping:
+                seen = set()
                 for g in grads:
-                    g.div_(gnorm).mul_(cfg.gradient_clipping)
+                    if id(g) not in seen:
+                        seen.add(id(g))
+                        g.div_(gnorm.to(g.device)).mul_(
+                            cfg.gradient_clipping)
         lr = self.schedule(self.count)
         self.count += 1
         b1, b2 = cfg.beta1, cfg.beta2
         c1, c2 = 1 - b1 ** self.count, 1 - b2 ** self.count
         for i, (p, g) in enumerate(zip(params, grads)):
+            p, g = _narrow(p, self.slices[i]), _narrow(g, self.slices[i])
             w = self.master[i] if self.master[i] is not None else p
             m, v = self.m[i], self.v[i]
             m.mul_(b1).add_((1 - b1) * g)

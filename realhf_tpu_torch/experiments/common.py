@@ -15,6 +15,7 @@ from realhf_tpu_torch.api.experiment import (
 )
 from realhf_tpu_torch.engine.optim import OptimizerConfig
 from realhf_tpu_torch.models.config import llama_config
+from realhf_tpu_torch.parallel.mesh import parse_parallelism
 
 
 @dataclasses.dataclass
@@ -80,6 +81,9 @@ class CommonExperimentConfig:
     recover_mode: str = "disabled"
     #: "cuda" (None) or "cpu"
     device: Optional[str] = None
+    #: manual (the per-MFC ``*_alloc`` fields and the roles' own
+    #: layouts); "heuristic" raises until the next parallelism slice
+    allocation_mode: str = "manual"
 
     def ctl(self) -> SaveEvalControl:
         return SaveEvalControl(
@@ -92,6 +96,18 @@ class CommonExperimentConfig:
 
     def build(self):
         raise NotImplementedError()
+
+    def mfc_allocations(self, fields: Dict[str, str]):
+        """{MFC name: parsed layout} of the set ``*_alloc`` fields
+        (``fields`` maps an MFC to its field's name)."""
+        if self.allocation_mode != "manual":
+            raise NotImplementedError(
+                f"allocation_mode={self.allocation_mode!r}: the size-based "
+                "heuristic (the JAX package's experiments/heuristic.py) is "
+                "a later part of ROADMAP.md, queue 1, item 4; set the "
+                "*_alloc fields by hand.")
+        return {mfc: parse_parallelism(getattr(self, name))
+                for mfc, name in fields.items() if getattr(self, name)}
 
 
 ALL_EXPERIMENT_CLASSES: Dict[str, Callable[[], CommonExperimentConfig]] = {}

@@ -21,7 +21,6 @@ from realhf_tpu_torch.experiments.common import (
     ModelConfigCLI,
     register_experiment,
 )
-from realhf_tpu_torch.experiments.ppo_exp import check_no_allocs
 
 
 @dataclasses.dataclass
@@ -59,14 +58,15 @@ class GRPOConfig(CommonExperimentConfig):
     actor_train_n_mbs: int = 1
     rew_inf_n_mbs: int = 1
     ref_inf_n_mbs: int = 1
-    # per-MFC layouts raise in ``build`` until the parallelism slice
+    # per-MFC layouts of their own, as in PPOConfig
     actor_gen_alloc: Optional[str] = None
     rew_inf_alloc: Optional[str] = None
     ref_inf_alloc: Optional[str] = None
 
     def build(self) -> ExperimentSpec:
-        check_no_allocs(self, ("actor_gen_alloc", "rew_inf_alloc",
-                               "ref_inf_alloc"))
+        allocations = self.mfc_allocations(dict(
+            actor_gen="actor_gen_alloc", rew_inf="rew_inf_alloc",
+            ref_inf="ref_inf_alloc"))
         g = self.grpo
         gconfig = dict(
             max_new_tokens=g.max_new_tokens,
@@ -117,6 +117,7 @@ class GRPOConfig(CommonExperimentConfig):
             "prompt", args=dict(max_length=self.dataset.max_seqlen,
                                 dataset_path=self.dataset.path))
         return ExperimentSpec(
+            allocations=allocations,
             experiment_name=self.experiment_name,
             trial_name=self.trial_name,
             models={

@@ -139,12 +139,15 @@ def pad_stream_batches(batches: List[StreamBatch]) -> List[StreamBatch]:
 def save_checkpoint(model, save_dir: str, host_params=None):
     """The body every interface's ``save`` shares: an HF-layout
     checkpoint of the model's family, streamed one layer at a time from
-    the device tensors, or written whole from ``host_params`` (a host
-    numpy copy of the weights) when given."""
+    the device tensors (a data- and tensor-parallel engine's canonical
+    tree, gathered on the host), or written whole from ``host_params``
+    (a host numpy copy of the weights) when given."""
     if host_params is not None:
         save_hf_checkpoint(save_dir, model.hf_family, model.config,
                            host_params, tokenizer=model.tokenizer)
     else:
-        save_hf_checkpoint_streamed(save_dir, model.hf_family, model.config,
-                                    model.engine.params,
-                                    tokenizer=model.tokenizer)
+        eng = model.engine
+        save_hf_checkpoint_streamed(
+            save_dir, model.hf_family, model.config,
+            eng.gathered_params("cpu") if eng.sharded else eng.params,
+            tokenizer=model.tokenizer)

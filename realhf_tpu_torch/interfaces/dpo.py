@@ -82,6 +82,7 @@ class DPOInterface(model_api.ModelInterface):
         seqlens = common.flat_seqlens(input_)
         sb = common.build_stream_batch(
             seqlens,
+            n_streams=model.engine.n_streams,
             token_keys=dict(input_ids=input_.data["packed_input_ids"]))
         lp = model.engine.forward_logprobs(
             sb.arrays["input_ids"], sb.arrays["seg_ids"]).cpu().numpy()
@@ -115,6 +116,7 @@ class DPOInterface(model_api.ModelInterface):
             seqlens = common.flat_seqlens(mb)
             sb = common.build_stream_batch(
                 seqlens,
+                n_streams=model.engine.n_streams,
                 token_keys=dict(input_ids=mb.data["packed_input_ids"]))
             sb.arrays["answer_mask"] = _answer_masks(
                 sb, seqlens, self._prompt_lens_per_seq(mb))

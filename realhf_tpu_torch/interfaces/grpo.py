@@ -214,6 +214,7 @@ class GRPOInterface(PPOActorInterface):
         def build_sb(minibatch):
             return common.build_stream_batch(
                 common.flat_seqlens(minibatch),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(
                     input_ids=minibatch.data["packed_input_ids"]),
                 shifted_keys=dict(

@@ -246,6 +246,7 @@ class PPOActorInterface(model_api.ModelInterface):
             seqlens = common.flat_seqlens(chunk)
             sb = common.build_stream_batch(
                 seqlens,
+                n_streams=model.engine.n_streams,
                 token_keys=dict(input_ids=chunk.data["packed_input_ids"]))
             lmask = None
             if has_mask:
@@ -418,6 +419,7 @@ class PPOActorInterface(model_api.ModelInterface):
                 shifted["staleness"] = minibatch.data["staleness"]
             sb = common.build_stream_batch(
                 common.flat_seqlens(minibatch),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(
                     input_ids=minibatch.data["packed_input_ids"]),
                 shifted_keys=shifted)
@@ -482,6 +484,7 @@ class PPOCriticInterface(model_api.ModelInterface):
         for chunk in common.split_minibatches(input_, n_mbs or 1):
             sb = common.build_stream_batch(
                 common.flat_seqlens(chunk),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(input_ids=chunk.data["packed_input_ids"]))
             values = model.engine.forward_values(
                 sb.arrays["input_ids"], sb.arrays["seg_ids"]).cpu().numpy()
@@ -548,6 +551,7 @@ class PPOCriticInterface(model_api.ModelInterface):
         def build_sb(minibatch):
             return common.build_stream_batch(
                 common.flat_seqlens(minibatch),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(
                     input_ids=minibatch.data["packed_input_ids"]),
                 shifted_keys=dict(

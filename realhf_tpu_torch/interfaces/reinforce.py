@@ -160,6 +160,7 @@ class ReinforceInterface(PPOActorInterface):
                 shifted["ref_logp"] = minibatch.data["ref_logp"]
             return common.build_stream_batch(
                 common.flat_seqlens(minibatch),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(
                     input_ids=minibatch.data["packed_input_ids"]),
                 shifted_keys=shifted)

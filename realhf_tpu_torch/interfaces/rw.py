@@ -59,6 +59,7 @@ class PairedRewardInterface(model_api.ModelInterface):
         seqlens = common.flat_seqlens(input_)
         sb = common.build_stream_batch(
             seqlens,
+            n_streams=model.engine.n_streams,
             token_keys=dict(input_ids=input_.data["packed_input_ids"]))
         values = model.engine.forward_values(
             sb.arrays["input_ids"], sb.arrays["seg_ids"]).cpu().numpy()
@@ -90,6 +91,7 @@ class PairedRewardInterface(model_api.ModelInterface):
             seqlens = common.flat_seqlens(mb)
             sb = common.build_stream_batch(
                 seqlens,
+                n_streams=model.engine.n_streams,
                 token_keys=dict(input_ids=mb.data["packed_input_ids"]))
             # (row, col) of each sequence's final token
             ends = [(sb.info.stream[i], sb.info.offset[i] + ln - 1)

@@ -56,6 +56,7 @@ class SFTInterface(model_api.ModelInterface):
         for mb in common.split_minibatches(input_, n_mbs or 1):
             batches.append(common.build_stream_batch(
                 common.flat_seqlens(mb),
+                n_streams=engine.n_streams,
                 token_keys=dict(input_ids=mb.data["packed_input_ids"],
                                 prompt_mask=mb.data["prompt_mask"])))
         batches = common.pad_stream_batches(batches)
@@ -77,6 +78,7 @@ class SFTInterface(model_api.ModelInterface):
         for batch in eval_dataloader:
             sb = common.build_stream_batch(
                 common.flat_seqlens(batch),
+                n_streams=model.engine.n_streams,
                 token_keys=dict(input_ids=batch.data["packed_input_ids"],
                                 prompt_mask=batch.data["prompt_mask"]))
             lp = model.engine.forward_logprobs(

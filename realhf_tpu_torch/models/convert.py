@@ -7,9 +7,14 @@ the same paths and shapes, ``params_numpy`` turns them back. Both
 directions are bit-exact; bfloat16 leaves travel as numpy arrays of
 ``base/safetensors_io.BF16`` (``ml_dtypes.bfloat16`` where that package
 is installed, else a structured dtype over the same 16 bits).
+
+A data- and tensor-parallel engine takes the same trees, canonical or
+padded for any t: ``params_from_numpy(..., cfg=, devices=, t=)`` gives
+one tree per member (``models/sharding.shard_params``), each member's
+leaves its own copy on its own device.
 """
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -17,6 +22,7 @@ from realhf_tpu_torch.base.safetensors_io import (
     numpy_to_tensor,
     tensor_to_numpy,
 )
+from realhf_tpu_torch.models import sharding
 
 Tree = Dict[str, Any]
 
@@ -30,11 +36,33 @@ def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Tree, device="cpu",
-                      dtype: Optional[torch.dtype] = None) -> Tree:
+                      dtype: Optional[torch.dtype] = None, *, cfg=None,
+                      devices: Optional[Sequence] = None,
+                      t: int = 1):
     """numpy tree -> tensor tree on ``device`` (cast to ``dtype`` if
-    given, else keeping each leaf's dtype)."""
+    given, else keeping each leaf's dtype). With ``devices`` (the members
+    of a dNtM layout, in (data, model) order), ``t`` and the model's
+    ``cfg``: a canonical or tp-padded tree (numpy or tensors) -> a list
+    of trees, member i's holding model shard ``i % t`` on ``devices[i]``,
+    every member its own copy."""
+    if devices is not None:
+        shards = sharding.shard_params(cfg, tree, t)
+        return [_map(lambda a, d=d: _member_leaf(a, d, dtype), shards[i % t])
+                for i, d in enumerate(devices)]
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
                 else _to_tensor(v, device, dtype))
+            for k, v in tree.items()}
+
+
+def _member_leaf(a, device, dtype) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = numpy_to_tensor(a, copy=False)
+    return a.to(device=device, dtype=dtype or a.dtype,
+                copy=True).contiguous()
+
+
+def _map(fn, tree: Tree) -> Tree:
+    return {k: (_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
 
 

@@ -1,0 +1,303 @@
+"""Tensor-parallel split rules for the transformer's weights.
+
+The counterpart of the JAX package's ``models/sharding.py``. There,
+every leaf gets a ``PartitionSpec`` and GSPMD places the shards; here a
+layout of ``t`` model members holds ``t`` explicit trees, member ``j``'s
+leaf being the ``j``-th contiguous chunk of the logical leaf along the
+dim its spec names ``"model"`` (``param_specs``, the same tuples as
+``param_pspecs``):
+
+- ``wte`` by vocabulary rows (the vocab-parallel embedding);
+- ``wq/wk/wv/wg/wu`` and their biases by output columns;
+- ``wo/wd`` by input rows (their partial outputs are summed);
+- the LM head by vocabulary columns;
+- norms, ``wpe``, ``bo``/``bd`` and the critic's value head replicated.
+
+A vocabulary that ``t`` does not divide is zero-padded to the next
+multiple (``pad_vocab``), the padding in the last member's shard;
+``gather_params`` undoes the split and the padding, giving the
+canonical tree ``Engine.params_numpy`` returns at one device.
+
+``MemberParams`` is what a sharded engine hands its loss functions in
+place of a tree: ``models/transformer.py`` and ``ops/functional.py``
+run their data- and tensor-parallel paths when they are given one.
+"""
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from realhf_tpu_torch.models.config import TransformerConfig
+
+MODEL = "model"
+DATA = "data"
+
+Spec = Tuple[Optional[str], ...]
+
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Per-leaf split tuples congruent with ``init_params`` output:
+    ``"model"`` marks the dim split over the model members (the JAX
+    package's ``param_pspecs(cfg)`` as tuples; no pipeline axis)."""
+    col = (None, None, MODEL)
+    row = (None, MODEL, None)
+    col_b = (None, MODEL)
+    rep2 = (None, None)
+    specs: Dict[str, Any] = {
+        "embed": {"wte": (MODEL, None)},
+        "blocks": {
+            "ln1": {"scale": rep2},
+            "attn": {"wq": col, "wk": col, "wv": col, "wo": row},
+            "ln2": {"scale": rep2},
+            "mlp": {},
+        },
+        "ln_f": {"scale": (None,)},
+    }
+    if cfg.uses_absolute_position:
+        specs["embed"]["wpe"] = (None, None)
+    mlp = specs["blocks"]["mlp"]
+    if cfg.mlp_type == "moe":
+        ep = DATA if cfg.moe is not None and cfg.moe.expert_parallel else None
+        mlp["router"] = (None, None, None)
+        mlp["wg"] = (None, ep, None, MODEL)
+        mlp["wu"] = (None, ep, None, MODEL)
+        mlp["wd"] = (None, ep, MODEL, None)
+    elif cfg.gated_mlp:
+        mlp["wg"], mlp["wu"], mlp["wd"] = col, col, row
+    else:
+        mlp["wu"], mlp["wd"] = col, row
+    if cfg.use_attention_bias:
+        a = specs["blocks"]["attn"]
+        a["bq"], a["bk"], a["bv"] = col_b, col_b, col_b
+    if cfg.use_attn_proj_bias:
+        specs["blocks"]["attn"]["bo"] = rep2
+    if cfg.use_mlp_bias and cfg.mlp_type is None:
+        mlp["bu"] = col_b
+        mlp["bd"] = rep2
+    if cfg.layer_norm_type is None:
+        specs["blocks"]["ln1"]["bias"] = rep2
+        specs["blocks"]["ln2"]["bias"] = rep2
+        specs["ln_f"]["bias"] = (None,)
+    if cfg.is_critic:
+        specs["head"] = {"w": (None, None)}
+    elif not cfg.tied_embedding:
+        specs["head"] = {"w": (None, MODEL)}
+    return specs
+
+
+def split_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec splits over the model members, or None."""
+    return spec.index(MODEL) if MODEL in spec else None
+
+
+def flat_specs(cfg: TransformerConfig) -> List[Tuple[Tuple[str, ...], Spec]]:
+    """(path, spec) of every leaf in sorted-key order (the order of
+    ``engine._leaves`` and ``parallel/param_stream.flatten_params``)."""
+    out = []
+
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], prefix + (k,))
+            else:
+                out.append((prefix + (k,), tree[k]))
+
+    walk(param_specs(cfg), ())
+    return out
+
+
+# ----------------------------------------------------------------------
+# Vocabulary padding
+# ----------------------------------------------------------------------
+def padded_vocab_size(cfg: TransformerConfig, tp: int) -> int:
+    """The vocabulary rounded up to a multiple of ``tp``."""
+    return ((cfg.vocab_size + tp - 1) // tp) * tp
+
+
+def _pad_axis(a, axis: int, n: int):
+    if n == 0:
+        return a
+    if isinstance(a, torch.Tensor):
+        shape = list(a.shape)
+        shape[axis] = n
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+    width = [(0, 0)] * a.ndim
+    width[axis] = (0, n)
+    return np.pad(a, width)
+
+
+def _carries_vocab_head(cfg: TransformerConfig) -> bool:
+    return not cfg.is_critic and not cfg.tied_embedding
+
+
+def pad_vocab(cfg: TransformerConfig, params: Dict[str, Any],
+              tp: int) -> Dict[str, Any]:
+    """Zero-pad the vocabulary dim of ``wte`` (and of an untied LM
+    head) to ``padded_vocab_size(cfg, tp)``; numpy or tensor leaves."""
+    vp, v = padded_vocab_size(cfg, tp), cfg.vocab_size
+    if vp == v or params["embed"]["wte"].shape[0] == vp:
+        return params
+    params = {**params, "embed": {**params["embed"]}}
+    params["embed"]["wte"] = _pad_axis(params["embed"]["wte"], 0, vp - v)
+    if _carries_vocab_head(cfg):
+        params = {**params, "head": {
+            "w": _pad_axis(params["head"]["w"], 1, vp - v)}}
+    return params
+
+
+def unpad_vocab(cfg: TransformerConfig, params: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """Inverse of ``pad_vocab`` (the canonical, saved layout)."""
+    v = cfg.vocab_size
+    if params["embed"]["wte"].shape[0] == v:
+        return params
+    params = {**params, "embed": {**params["embed"]}}
+    params["embed"]["wte"] = params["embed"]["wte"][:v]
+    if _carries_vocab_head(cfg):
+        params = {**params, "head": {"w": params["head"]["w"][:, :v]}}
+    return params
+
+
+def normalize_vocab_padding(cfg: TransformerConfig, params: Dict[str, Any],
+                            tp: int) -> Dict[str, Any]:
+    """Params padded for any tp (or none) -> padded for ``tp``."""
+    return pad_vocab(cfg, unpad_vocab(cfg, params), tp)
+
+
+def repad_vocab_leaf(cfg: TransformerConfig, path, arr, target_tp: int):
+    """Per-leaf ``unpad_vocab`` + ``pad_vocab`` for streamed installs:
+    ``path`` is the leaf's key tuple, e.g. ("embed", "wte")."""
+    vp, v = padded_vocab_size(cfg, target_tp), cfg.vocab_size
+    if tuple(path) == ("embed", "wte"):
+        return _pad_axis(arr[:v], 0, vp - v)
+    if tuple(path) == ("head", "w") and _carries_vocab_head(cfg):
+        return _pad_axis(arr[:, :v], 1, vp - v)
+    return arr
+
+
+def canonical_shape(cfg: TransformerConfig, path, spec: Spec, shard_shape,
+                    t: int) -> Tuple[int, ...]:
+    """The logical, unpadded shape of a leaf from one member's shard."""
+    shape = list(shard_shape)
+    sd = split_dim(spec)
+    if sd is not None:
+        shape[sd] *= t
+    if tuple(path) == ("embed", "wte"):
+        shape[0] = cfg.vocab_size
+    elif tuple(path) == ("head", "w") and _carries_vocab_head(cfg):
+        shape[1] = cfg.vocab_size
+    return tuple(shape)
+
+
+def zero1_moment_spec(spec: Spec, shape, dp: int) -> Spec:
+    """``spec`` with the data axis on its largest free dim that ``dp``
+    divides (the first such dim on a tie): the ZeRO-1 split of that
+    leaf's optimizer state. Unchanged when ``dp <= 1``, when the data
+    axis is already used, or when no free dim divides."""
+    if dp <= 1:
+        return tuple(spec)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        if e is not None:
+            used.update(e if isinstance(e, tuple) else (e,))
+    if DATA in used:
+        return tuple(spec)
+    best_i, best = None, 0
+    for i, (e, d) in enumerate(zip(entries, shape)):
+        if e is None and d % dp == 0 and d > best:
+            best, best_i = d, i
+    if best_i is None:
+        return tuple(spec)
+    entries[best_i] = DATA
+    return tuple(entries)
+
+
+# ----------------------------------------------------------------------
+# Trees per member
+# ----------------------------------------------------------------------
+def _map_specs(fn, params, specs):
+    return {k: (_map_specs(fn, params[k], specs[k])
+                if isinstance(params[k], dict) else fn(params[k], specs[k]))
+            for k in params}
+
+
+def _chunk(a, dim: int, t: int, j: int):
+    n = a.shape[dim] // t
+    if isinstance(a, torch.Tensor):
+        return a.narrow(dim, j * n, n)
+    return np.take(a, np.arange(j * n, (j + 1) * n), axis=dim)
+
+
+def shard_params(cfg: TransformerConfig, params: Dict[str, Any],
+                 t: int) -> List[Dict[str, Any]]:
+    """A canonical (or any tp-padded) tree -> ``t`` trees, member
+    ``j``'s holding the ``j``-th chunk of each split leaf and the whole
+    of each replicated one. Tensor chunks are views (the caller copies
+    them where it places them); numpy chunks are copies."""
+    params = normalize_vocab_padding(cfg, params, t)
+    specs = param_specs(cfg)
+
+    def leaf(j):
+        def fn(a, spec):
+            d = split_dim(spec)
+            if d is None or t == 1:
+                return a
+            if a.shape[d] % t:
+                raise ValueError(
+                    f"a leaf of shape {tuple(a.shape)} does not split "
+                    f"over {t} model members along dim {d}")
+            return _chunk(a, d, t, j)
+        return fn
+
+    return [_map_specs(leaf(j), params, specs) for j in range(t)]
+
+
+def gather_params(cfg: TransformerConfig,
+                  trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """``t`` member trees (one model group) -> the canonical tree:
+    split leaves concatenated in model order on the first tree's
+    device, replicated ones taken from the first, vocabulary padding
+    cut off."""
+    specs = param_specs(cfg)
+
+    def gather(path_trees, spec):
+        d = split_dim(spec)
+        first = path_trees[0]
+        if d is None or len(path_trees) == 1:
+            return first
+        if isinstance(first, torch.Tensor):
+            return torch.cat([a.to(first.device) for a in path_trees], dim=d)
+        return np.concatenate(path_trees, axis=d)
+
+    def walk(ts, sp):
+        return {k: (walk([x[k] for x in ts], sp[k])
+                    if isinstance(ts[0][k], dict) else
+                    gather([x[k] for x in ts], sp[k]))
+                for k in ts[0]}
+
+    return unpad_vocab(cfg, walk(list(trees), specs))
+
+
+@dataclasses.dataclass
+class MemberParams:
+    """The weights of a data- and tensor-parallel layout: one tree per
+    member, flat in (data, model) order, each on its member's device.
+    ``d * t == len(trees)``."""
+    trees: List[Dict[str, Any]]
+    devices: List[torch.device]
+    d: int
+    t: int
+
+    def group(self, g: int) -> Tuple[List[Dict[str, Any]],
+                                     List[torch.device]]:
+        """Data group ``g``'s model members: their trees and devices."""
+        sl = slice(g * self.t, (g + 1) * self.t)
+        return self.trees[sl], self.devices[sl]
+
+    def vocab_starts(self, cfg: TransformerConfig) -> List[int]:
+        """The first (padded) vocabulary row each model member holds."""
+        per = padded_vocab_size(cfg, self.t) // self.t
+        return [j * per for j in range(self.t)]

@@ -21,8 +21,22 @@ each block's two halves. Under autograd with
 ``cfg.gradient_checkpointing`` each block is recomputed in the backward
 from its input (``torch.utils.checkpoint``), as the JAX package's
 ``jax.checkpoint(..., policy=nothing_saveable)`` does.
+
+Data and tensor parallelism: given a ``models/sharding.MemberParams``
+(one tree per member of a ``dNtM`` layout) in place of a tree,
+``forward``, ``prefill``, ``decode_step``, ``lm_logits`` and
+``critic_values`` split the streams into ``d`` contiguous row groups,
+one per data group, and run each group over its ``t`` model members:
+the vocab-parallel embedding (each member looks up its own rows, zeroes
+the rest, then an all-reduce), column-parallel q/k/v/gate/up with
+rotary and attention (K1, K4) on the member's own heads, row-parallel
+``wo``/``wd`` whose partial outputs are summed over the model group
+(``_row_parallel``), and the LM head by vocabulary shard. Hidden states
+come back as a ``MemberHidden``; a decode cache is one ``KVCache`` per
+member over its ``nkv / t`` heads.
 """
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -30,14 +44,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.models.sharding import MemberParams
 from realhf_tpu_torch.ops.attention import (
     decode_attention,
+    member_heads,
     packed_attention,
     stacked_decode_attention,
 )
 from realhf_tpu_torch.ops.moe import moe_mlp_with_losses
 from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
+from realhf_tpu_torch.parallel import collectives as C
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -59,6 +76,25 @@ def check_supported(cfg: TransformerConfig):
             "MoE router input jitter needs a generator threaded through "
             "the forward, which the JAX package has not wired either: "
             "ROADMAP.md, queue 1, item 3.")
+
+
+def check_layout(cfg: TransformerConfig, t: int):
+    """Raise for what a layout of ``t`` model members cannot run yet:
+    MoE at t > 1 (item 4, beside expert parallelism), KV heads that
+    ``t`` does not divide (item 4: KV heads replicated across model
+    members and K4's "seq" route), widths ``t`` does not divide."""
+    check_supported(cfg)
+    if t == 1:
+        return
+    if cfg.mlp_type == "moe":
+        raise NotImplementedError(
+            f"a mixture-of-experts model at t={t}: expert weights split "
+            "over model members come with expert parallelism, ROADMAP.md, "
+            "queue 1, item 4.")
+    member_heads(cfg.n_q_heads, cfg.n_kv_heads, t)
+    if cfg.intermediate_dim % t:
+        raise ValueError(f"t={t} does not divide the MLP width "
+                         f"{cfg.intermediate_dim}.")
 
 
 # ----------------------------------------------------------------------
@@ -210,7 +246,9 @@ def _mlp_with_aux(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     return _dense_mlp(cfg, lp["mlp"], x, dtype_of(cfg.compute_dtype)), {}
 
 
-def _dense_mlp(cfg, m, x, cdt):
+def _dense_mlp(cfg, m, x, cdt, out_bias=True):
+    """The dense MLP; ``out_bias=False`` leaves ``bd`` to the caller (a
+    model member's output is a partial sum)."""
     if cfg.gated_mlp:
         gate = x @ m["wg"].to(cdt)
         up = x @ m["wu"].to(cdt)
@@ -219,7 +257,7 @@ def _dense_mlp(cfg, m, x, cdt):
     if "bu" in m:
         up = up + m["bu"].to(cdt)
     out = _activation(cfg, up) @ m["wd"].to(cdt)
-    if "bd" in m:
+    if "bd" in m and out_bias:
         out = out + m["bd"].to(cdt)
     return out
 
@@ -235,9 +273,11 @@ def _qkv(cfg: TransformerConfig, lp: Params, x: torch.Tensor):
         q = q + a["bq"].to(cdt)
         k = k + a["bk"].to(cdt)
         v = v + a["bv"].to(cdt)
-    q = q.reshape(*lead, cfg.n_q_heads, cfg.head_dim)
-    k = k.reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    # the head counts follow the weights: a model member's column
+    # shards hold nq / t and nkv / t heads
+    q = q.reshape(*lead, -1, cfg.head_dim)
+    k = k.reshape(*lead, -1, cfg.head_dim)
+    v = v.reshape(*lead, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -346,8 +386,12 @@ def forward(cfg: TransformerConfig, params: Params,
     would."""
     if pipeline is not None:
         raise NotImplementedError(
-            "pipeline parallelism is deferred to the parallelism slice of "
-            "the port.")
+            "pipeline parallelism is the next part of ROADMAP.md, queue 1, "
+            "item 4.")
+    if isinstance(params, MemberParams):
+        return forward_members(cfg, params, input_ids, seg_ids, positions,
+                               return_kv=return_kv, return_aux=return_aux,
+                               attention_fn=attention_fn)
     check_supported(cfg)
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
@@ -421,6 +465,202 @@ def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
             for p, x in zip(member_params, xs)]
 
 
+# ----------------------------------------------------------------------
+# Data and tensor parallelism over the members of one process
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class MemberHidden:
+    """Hidden states of a ``MemberParams`` forward: ``rows[g]`` is the
+    (start, stop) of data group g's streams in the whole batch and
+    ``hs[g][j]`` model member j's copy of them (replicated values, on
+    its device); a group with no rows has ``hs[g] = None``."""
+    hs: List[Optional[List[torch.Tensor]]]
+    rows: List[Tuple[int, int]]
+
+    def map(self, fn) -> "MemberHidden":
+        return MemberHidden([None if h is None else [fn(x) for x in h]
+                             for h in self.hs], self.rows)
+
+
+def data_rows(n: int, d: int) -> List[Tuple[int, int]]:
+    """Contiguous row ranges of ``n`` streams over ``d`` data groups,
+    the first ``n % d`` one row longer (an uneven split is allowed)."""
+    out, r = [], 0
+    for g in range(d):
+        k = n // d + (1 if g < n % d else 0)
+        out.append((r, r + k))
+        r += k
+    return out
+
+
+def _row_parallel(parts: List[torch.Tensor],
+                  devs: List[torch.device]) -> List[torch.Tensor]:
+    """The row-parallel ``wo``/``wd`` partial outputs summed over the
+    model group: every member gets the sum."""
+    return C.all_reduce(parts, devs)
+
+
+def _embed_members(cfg, trees, devs, ids_m, pos_m, starts):
+    """The vocab-parallel embedding: each member looks up its own rows
+    of ``wte`` and zeroes the others, an all-reduce sums them, then the
+    replicated position table and scale apply per member."""
+    cdt = dtype_of(cfg.compute_dtype)
+    parts = []
+    for tr, ids, s0 in zip(trees, ids_m, starts):
+        wte = tr["embed"]["wte"]
+        loc = ids.long() - s0
+        inside = (loc >= 0) & (loc < wte.shape[0])
+        e = wte[loc.clamp(0, wte.shape[0] - 1)].to(cdt)
+        parts.append(torch.where(inside[..., None], e, torch.zeros_like(e)))
+    out = []
+    for tr, x, pos in zip(trees, C.all_reduce(parts, devs), pos_m):
+        if cfg.uses_absolute_position:
+            x = x + tr["embed"]["wpe"][
+                pos.long() + cfg.abs_position_embedding_offset].to(cdt)
+        if cfg.normalize_embed:
+            x = x * torch.tensor(cfg.hidden_dim ** 0.5, dtype=cdt)
+        out.append(x)
+    return out
+
+
+def _add_reduced(xs, parts, biases, devs):
+    """Each member's residual plus the row-parallel partials summed over
+    the model group (``_row_parallel``) and the replicated bias."""
+    out = []
+    for x, r, b in zip(xs, _row_parallel(parts, devs), biases):
+        if b is not None:
+            r = r + b.to(x.dtype)
+        out.append(x + r)
+    return out
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _attn_partial(cfg, lp, layer_idx, x, seg, cos, sin, attn_impl):
+    """One member's attention half: q/k/v of its own heads, attention
+    (K1 on CUDA) and its ``wo`` partial -> (partial, k, v)."""
+    q, k, v = _attn_in(cfg, lp, x, cos, sin)
+    a = attn_impl(q, k, v, seg, causal=True,
+                  scale=_attn_scale(cfg, layer_idx),
+                  sliding_window=cfg.sliding_window)
+    return a.reshape(*x.shape[:-1], -1) @ lp["attn"]["wo"].to(x.dtype), k, v
+
+
+def _mlp_partial(cfg, lp, x):
+    """One member's norm and MLP up to its ``wd`` partial."""
+    return _dense_mlp(cfg, lp["mlp"], _norm(cfg, x, lp["ln2"]["scale"],
+                                            lp["ln2"].get("bias")),
+                      dtype_of(cfg.compute_dtype), out_bias=False)
+
+
+def _mlp_members(cfg, lps, devs, xs, run=_call):
+    parts = [run(_mlp_partial, cfg, lp, x) for lp, x in zip(lps, xs)]
+    return _add_reduced(xs, parts, [lp["mlp"].get("bd") for lp in lps], devs)
+
+
+def _block_members(cfg, lps, layer_idx, xs, segs, tables, devs,
+                   attention_fn=None, remat=False):
+    """One block over a model group -> (the members' outputs, each
+    member's (k, v)). Under ``remat`` each member's half-block is
+    checkpointed on its own: a recompute spanning cards would be
+    triggered by the autograd engine's per-device threads at once, and
+    ``torch.utils.checkpoint`` recomputes per graph task without a lock.
+    The sums between the halves save nothing."""
+    attn_impl = attention_fn or packed_attention
+    run = _remat if remat else _call
+    outs = [run(_attn_partial, cfg, lp, layer_idx, x, seg, cos, sin,
+                attn_impl)
+            for lp, x, seg, (cos, sin) in zip(lps, xs, segs, tables)]
+    xs = _add_reduced(xs, [o[0] for o in outs],
+                      [lp["attn"].get("bo") for lp in lps], devs)
+    return _mlp_members(cfg, lps, devs, xs, run), [o[1:] for o in outs]
+
+
+def _forward_group(cfg, trees, devs, starts, ids, seg, pos, return_kv,
+                   attention_fn):
+    """One data group's forward over its ``t > 1`` model members ->
+    (each member's final hidden states, each member's stacked (k, v) or
+    None)."""
+    ids_m = C.broadcast(ids, devs)
+    seg_m = C.broadcast(seg.contiguous(), devs)
+    pos_m = C.broadcast(pos, devs)
+    xs = _embed_members(cfg, trees, devs, ids_m, pos_m, starts)
+    tables = [_rotary_tables(cfg, p) for p in pos_m]
+    layers = [layer_views(tr["blocks"], cfg.n_layers) for tr in trees]
+    remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+    kvs = [([], []) for _ in trees]
+    for li in range(cfg.n_layers):
+        xs, kv = _block_members(cfg, [lv[li] for lv in layers], li, xs,
+                                seg_m, tables, devs, attention_fn, remat)
+        if return_kv:
+            for acc, (k, v) in zip(kvs, kv):
+                acc[0].append(k)
+                acc[1].append(v)
+    hs = [_norm(cfg, x, tr["ln_f"]["scale"], tr["ln_f"].get("bias"))
+          for tr, x in zip(trees, xs)]
+    return hs, ([(torch.stack(k), torch.stack(v)) for k, v in kvs]
+                if return_kv else None)
+
+
+def forward_members(cfg: TransformerConfig, mp: MemberParams,
+                    input_ids: torch.Tensor, seg_ids: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None, *,
+                    return_kv: bool = False, return_aux: bool = False,
+                    attention_fn=None):
+    """``forward`` over the members of a ``dNtM`` layout: ``[S, L]``
+    inputs (on any device) -> (``MemberHidden``, per-member stacked
+    (k, v) or None[, aux]). Data group g runs rows ``data_rows(S,
+    d)[g]``; at t = 1 that is ``forward`` on its one member's tree."""
+    check_layout(cfg, mp.t)
+    seg_ids = seg_ids.to(torch.int32)
+    if positions is None:
+        positions = positions_from_segments(seg_ids)
+    rows = data_rows(input_ids.shape[0], mp.d)
+    starts = mp.vocab_starts(cfg)
+    hs, kvs = [], []
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for g, (r0, r1) in enumerate(rows):
+        trees, devs = mp.group(g)
+        if r1 == r0:
+            hs.append(None)
+            kvs.extend([None] * mp.t)
+            continue
+        ids, seg, pos = (a[r0:r1] for a in (input_ids, seg_ids, positions))
+        if mp.t == 1:
+            dev = devs[0]
+            h, kv, aux = forward(cfg, trees[0], ids.to(dev), seg.to(dev),
+                                 pos.to(dev), return_kv=return_kv,
+                                 return_aux=True, attention_fn=attention_fn)
+            if aux and return_aux and mp.d > 1:
+                raise NotImplementedError(
+                    "router losses over data shards: MoE training at d > 1 "
+                    "comes with expert parallelism, ROADMAP.md, queue 1, "
+                    "item 4.")
+            aux_sum = aux
+            hs.append([h])
+            kvs.append(kv)
+        else:
+            h, kv = _forward_group(cfg, trees, devs, starts, ids, seg, pos,
+                                   return_kv, attention_fn)
+            hs.append(h)
+            kvs.extend(kv if kv is not None else [None] * mp.t)
+    out = MemberHidden(hs, rows), (kvs if return_kv else None)
+    return (*out, aux_sum) if return_aux else out
+
+
+def _gather_rows(parts: List[Optional[torch.Tensor]], device):
+    """Data groups' per-row outputs -> one tensor on ``device`` (empty
+    groups skipped)."""
+    return torch.cat([p.to(device) for p in parts if p is not None], dim=0)
+
+
+
 def head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     if cfg.is_critic:
         return params["head"]["w"]
@@ -463,7 +703,22 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(cfg: TransformerConfig, params: Params,
               hidden: torch.Tensor) -> torch.Tensor:
-    """[..., H] -> [..., V] fp32 logits (any vocab padding sliced off)."""
+    """[..., H] -> [..., V] fp32 logits (any vocab padding sliced off).
+    Given ``MemberParams`` and a ``MemberHidden``: each model member's
+    vocabulary shard, all-gathered over its model group, the groups'
+    rows concatenated on the first member's device."""
+    if isinstance(params, MemberParams):
+        out = []
+        for g, h in enumerate(hidden.hs):
+            if h is None:
+                out.append(None)
+                continue
+            trees, devs = params.group(g)
+            parts = [_matmul_f32(x, head_weight(cfg, tr))
+                     for tr, x in zip(trees, h)]
+            out.append(C.all_gather(parts, devs, dim=-1)[0]
+                       [..., :cfg.vocab_size])
+        return _gather_rows(out, params.devices[0])
     logits = _matmul_f32(hidden, head_weight(cfg, params))
     if logits.shape[-1] != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
@@ -472,8 +727,15 @@ def lm_logits(cfg: TransformerConfig, params: Params,
 
 def critic_values(cfg: TransformerConfig, params: Params,
                   hidden: torch.Tensor) -> torch.Tensor:
-    """[..., H] -> [...] fp32 scalar values."""
+    """[..., H] -> [...] fp32 scalar values. Given ``MemberParams``:
+    each data group's first model member applies the replicated head,
+    the rows concatenated on the first member's device."""
     assert cfg.is_critic
+    if isinstance(params, MemberParams):
+        return _gather_rows(
+            [None if h is None else
+             critic_values(cfg, params.group(g)[0][0], h[0])
+             for g, h in enumerate(hidden.hs)], params.devices[0])
     return _matmul_f32(hidden, params["head"]["w"])[..., 0]
 
 
@@ -497,11 +759,15 @@ def round_cache_len(n: int) -> int:
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  dtype=None, device="cpu") -> KVCache:
-    """A zero cache of ``round_cache_len(max_len)`` slots."""
+                  dtype=None, device="cpu",
+                  n_kv_heads: Optional[int] = None) -> KVCache:
+    """A zero cache of ``round_cache_len(max_len)`` slots over
+    ``n_kv_heads`` (default all of the model's; a model member holds
+    ``nkv / t``)."""
     dtype = dtype or dtype_of(cfg.compute_dtype)
     max_len = round_cache_len(max_len)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_kv_heads or cfg.n_kv_heads, max_len,
+             cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -517,18 +783,37 @@ def prefill(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor,
             ) -> Tuple[torch.Tensor, KVCache]:
     """Packed forward plus a KV cache whose first L slots hold the
     prompt's keys/values. ``total_len`` sizes the cache for the whole
-    generation (prompt + new tokens, rounded) in one allocation."""
-    hidden, (k, v) = forward(cfg, params, input_ids, seg_ids, positions,
-                             return_kv=True, attention_fn=attention_fn)
-    b, lp = input_ids.shape
+    generation (prompt + new tokens, rounded) in one allocation. Given
+    ``MemberParams``: (``MemberHidden``, one cache per member over its
+    rows and its KV heads, None for a member of an empty group)."""
+    hidden, kvs = forward(cfg, params, input_ids, seg_ids, positions,
+                          return_kv=True, attention_fn=attention_fn)
+    lp = input_ids.shape[1]
     total = round_cache_len(total_len if total_len is not None else lp)
-    cache = init_kv_cache(cfg, b, total, dtype=k.dtype, device=k.device)
+    if not isinstance(params, MemberParams):
+        return hidden, _cache_from_kv(cfg, kvs, seg_ids, total)
+    caches = []
+    for i, kv in enumerate(kvs):
+        if kv is None:
+            caches.append(None)
+            continue
+        r0, r1 = hidden.rows[i // params.t]
+        caches.append(_cache_from_kv(cfg, kv, seg_ids[r0:r1].to(
+            params.devices[i]), total))
+    return hidden, caches
+
+
+def _cache_from_kv(cfg, kv, seg_ids, total) -> KVCache:
+    k, v = kv
+    b, lp = seg_ids.shape
+    cache = init_kv_cache(cfg, b, total, dtype=k.dtype, device=k.device,
+                          n_kv_heads=k.shape[3])
     # [nl, B, L, nkv, hd] -> head-major [nl, B, nkv, L, hd]
     cache["k"][:, :, :, :lp] = k.transpose(2, 3)
     cache["v"][:, :, :, :lp] = v.transpose(2, 3)
     cache["valid"][:, :lp] = seg_ids != 0
     cache["length"].fill_(lp)
-    return hidden, cache
+    return cache
 
 
 def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
@@ -548,62 +833,126 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
     generation, where all streams share the padded prompt length), so
     the write is one ``index_copy_`` along the slot axis; otherwise each
     stream writes its own slot, and a stream whose slot lies past the
-    cache writes nothing (neither K/V nor ``valid``)."""
+    cache writes nothing (neither K/V nor ``valid``).
+
+    Given ``MemberParams``, ``cache`` is ``prefill``'s list of member
+    caches: data group g steps its rows of ``token`` on its members,
+    each member with K4 over its own KV heads, and the result is a
+    ``MemberHidden`` and the list of caches."""
     if mesh is not None:
         raise NotImplementedError(
-            "sharded decode is deferred to the parallelism slice of the "
-            "port.")
+            "the decode view's mesh is a later part of ROADMAP.md, queue "
+            "1, item 4.")
+    if isinstance(params, MemberParams):
+        return _decode_members(cfg, params, cache, token, positions,
+                               uniform_slot)
     check_supported(cfg)
-    b = token.shape[0]
-    slot = cache["length"]
-    rows = torch.arange(b, device=token.device)
+    st = _decode_slots(cache, token, uniform_slot)
     x = _embed(cfg, params, token.long(), positions)
     cos, sin = _rotary_tables(cfg, positions)
+    for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
+        # q [B, nq, hd]; k/v [B, nkv, hd]
+        q, k, v = _attn_in(cfg, lp, x, cos, sin)
+        attn = _decode_attend(cfg, li, q, k, v, cache, st)
+        x, _ = _attn_out(cfg, lp, x, attn)
+    x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
+    return x, _advanced(cache)
 
+
+def _advanced(cache: KVCache) -> KVCache:
+    return {"k": cache["k"], "v": cache["v"], "valid": cache["valid"],
+            "length": cache["length"] + 1}
+
+
+def _decode_slots(cache: KVCache, token: torch.Tensor, uniform_slot: bool):
+    """Mark this step's slot valid; returns what the layers' writes
+    need."""
     valid = cache["valid"]
+    slot = cache["length"]
+    st = dict(slot=slot, uniform=uniform_slot,
+              rows=torch.arange(token.shape[0], device=token.device))
     if uniform_slot:
-        s0 = slot[:1].long()
-        valid.index_fill_(1, s0, True)
+        st["s0"] = slot[:1].long()
+        valid.index_fill_(1, st["s0"], True)
     else:
         # a stream whose write index has run past the cache (an idle or
         # finished inflight slot that keeps stepping) writes nothing, as
         # JAX drops out-of-range scatter updates: its write goes to the
         # last slot with that slot's own values
-        inb = slot < valid.shape[1]
-        wpos = slot.clamp(max=valid.shape[1] - 1).long()
-        valid[rows, wpos] = valid[rows, wpos] | inb
-    k_all, v_all = cache["k"], cache["v"]
-    stacked = cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS
-    base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
+        st["inb"] = slot < valid.shape[1]
+        st["wpos"] = slot.clamp(max=valid.shape[1] - 1).long()
+        rows, wpos = st["rows"], st["wpos"]
+        valid[rows, wpos] = valid[rows, wpos] | st["inb"]
+    return st
 
-    for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
-        # q [B, nq, hd]; k/v [B, nkv, hd]
-        q, k, v = _attn_in(cfg, lp, x, cos, sin)
-        # In-place slot write into the stacked cache: replaces the
-        # dynamic_update_slice / scatter of realhf_tpu/models/
-        # transformer.py:618-626 without copying the cache.
-        if uniform_slot:
-            k_all[li].index_copy_(2, s0, k[:, :, None, :].to(k_all.dtype))
-            v_all[li].index_copy_(2, s0, v[:, :, None, :].to(v_all.dtype))
-        else:
-            keep = inb[:, None, None]
-            k_all[li, rows, :, wpos] = torch.where(
-                keep, k.to(k_all.dtype), k_all[li, rows, :, wpos])
-            v_all[li, rows, :, wpos] = torch.where(
-                keep, v.to(v_all.dtype), v_all[li, rows, :, wpos])
-        scale = (base / (li + 1) if cfg.scale_attn_by_inverse_layer_idx
-                 else base)
-        if stacked:
-            attn = stacked_decode_attention(
-                q, k_all, v_all, valid, li, scale=scale,
-                sliding_window=cfg.sliding_window, slot=slot)
-        else:
-            attn = decode_attention(q, k_all[li], v_all[li], valid,
-                                    scale=scale,
-                                    sliding_window=cfg.sliding_window,
-                                    slot=slot)
-        x, _ = _attn_out(cfg, lp, x, attn)
-    x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
-    new_cache = {"k": k_all, "v": v_all, "valid": valid,
-                 "length": slot + 1}
-    return x, new_cache
+
+def _decode_attend(cfg, li, q, k, v, cache, st):
+    """Write layer ``li``'s new K/V into the cache in place and attend
+    (K4 / K5 on CUDA)."""
+    k_all, v_all, valid = cache["k"], cache["v"], cache["valid"]
+    # In-place slot write into the stacked cache: replaces the
+    # dynamic_update_slice / scatter of realhf_tpu/models/
+    # transformer.py:618-626 without copying the cache.
+    if st["uniform"]:
+        s0 = st["s0"]
+        k_all[li].index_copy_(2, s0, k[:, :, None, :].to(k_all.dtype))
+        v_all[li].index_copy_(2, s0, v[:, :, None, :].to(v_all.dtype))
+    else:
+        rows, wpos = st["rows"], st["wpos"]
+        keep = st["inb"][:, None, None]
+        k_all[li, rows, :, wpos] = torch.where(
+            keep, k.to(k_all.dtype), k_all[li, rows, :, wpos])
+        v_all[li, rows, :, wpos] = torch.where(
+            keep, v.to(v_all.dtype), v_all[li, rows, :, wpos])
+    base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
+    scale = base / (li + 1) if cfg.scale_attn_by_inverse_layer_idx else base
+    if cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS:
+        return stacked_decode_attention(
+            q, k_all, v_all, valid, li, scale=scale,
+            sliding_window=cfg.sliding_window, slot=st["slot"])
+    return decode_attention(q, k_all[li], v_all[li], valid, scale=scale,
+                            sliding_window=cfg.sliding_window,
+                            slot=st["slot"])
+
+
+def _decode_members(cfg, mp: MemberParams, caches, token, positions,
+                    uniform_slot):
+    check_layout(cfg, mp.t)
+    rows = data_rows(token.shape[0], mp.d)
+    starts = mp.vocab_starts(cfg)
+    hs, new_caches = [], []
+    for g, (r0, r1) in enumerate(rows):
+        trees, devs = mp.group(g)
+        cs = caches[g * mp.t:(g + 1) * mp.t]
+        if r1 == r0:
+            hs.append(None)
+            new_caches.extend(cs)
+            continue
+        tok, pos = token[r0:r1], positions[r0:r1]
+        if mp.t == 1:
+            h, c = decode_step(cfg, trees[0], cs[0], tok.to(devs[0]),
+                               pos.to(devs[0]), uniform_slot)
+            hs.append([h])
+            new_caches.append(c)
+            continue
+        tok_m, pos_m = C.broadcast(tok, devs), C.broadcast(pos, devs)
+        sts = [_decode_slots(c, x, uniform_slot) for c, x in zip(cs, tok_m)]
+        xs = _embed_members(cfg, trees, devs, tok_m, pos_m, starts)
+        tables = [_rotary_tables(cfg, p) for p in pos_m]
+        layers = [layer_views(tr["blocks"], cfg.n_layers) for tr in trees]
+        for li in range(cfg.n_layers):
+            lps = [lv[li] for lv in layers]
+            parts = []
+            for lp, x, (cos, sin), c, st in zip(lps, xs, tables, cs, sts):
+                q, k, v = _attn_in(cfg, lp, x, cos, sin)
+                a = _decode_attend(cfg, li, q, k, v, c, st)
+                parts.append(a.reshape(*x.shape[:-1], -1)
+                             @ lp["attn"]["wo"].to(x.dtype))
+            xs = _add_reduced(xs, parts, [lp["attn"].get("bo")
+                                          for lp in lps], devs)
+            xs = _mlp_members(cfg, lps, devs, xs)
+        hs.append([_norm(cfg, x, tr["ln_f"]["scale"],
+                         tr["ln_f"].get("bias"))
+                   for tr, x in zip(trees, xs)])
+        new_caches.extend(_advanced(c) for c in cs)
+    return MemberHidden(hs, rows), new_caches

@@ -13,6 +13,7 @@ Nothing here runs at import time: the CPU tests import every module on
 machines without a CUDA toolkit.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -104,3 +105,14 @@ def check(code: int, kernel: str):
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if code != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError {code}")
+
+
+def on_device(device):
+    """The context a ctypes launch runs in: ``device`` made the current
+    CUDA device, since a launch goes to the current device's context
+    whatever card its tensors are on (nothing to switch for a device
+    without an index)."""
+    import torch
+    if device.index is None:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device.index)

@@ -26,6 +26,24 @@ from realhf_tpu_torch.ops.flash_attention import (
 )
 
 
+def member_heads(n_q_heads: int, n_kv_heads: int, t: int):
+    """(query heads, KV heads) of each of ``t`` model members: the
+    counterpart of the JAX package's ``make_sharded_attention``
+    (``ops/attention.py:118``), whose members run the kernel on their
+    own contiguous heads. JAX falls back to its XLA path when ``t`` does
+    not divide the KV heads; the port runs no plain version on CUDA, so
+    that layout raises until KV heads are replicated across the model
+    members (and K4 gets its "seq" route): ROADMAP.md, queue 1, item
+    4."""
+    if n_kv_heads % t or n_q_heads % t:
+        raise NotImplementedError(
+            f"t={t} does not divide the {n_kv_heads} KV heads (and "
+            f"{n_q_heads} query heads): KV heads replicated across model "
+            "members and K4's 'seq' route are the next slice (ROADMAP.md, "
+            "queue 1, item 4).")
+    return n_q_heads // t, n_kv_heads // t
+
+
 def packed_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
                            scale: Optional[float] = None,
                            logits_soft_cap: Optional[float] = None,

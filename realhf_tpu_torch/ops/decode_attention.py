@@ -238,13 +238,16 @@ def _launch(q, k_layer, v_layer, valid, sliding_window, slot, scale,
     if return_stats:
         m = torch.empty((b, nq), dtype=torch.float32, device=dev)
         l = torch.empty((b, nq), dtype=torch.float32, device=dev)
-    code = _kernel()(q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-                     valid.data_ptr(),
-                     slot.data_ptr() if window else None, window,
-                     out.data_ptr(), None if m is None else m.data_ptr(),
-                     None if l is None else l.data_ptr(),
-                     b, nq, nkv, s, hd, sb, sh, ss, scale, drop_warp,
-                     _stream(dev))
+    # the launch goes to the current device's context: make it the
+    # tensors' (a member on another card than the caller's current one)
+    with _build.on_device(dev):
+        code = _kernel()(q.data_ptr(), k_layer.data_ptr(),
+                         v_layer.data_ptr(), valid.data_ptr(),
+                         slot.data_ptr() if window else None, window,
+                         out.data_ptr(), None if m is None else m.data_ptr(),
+                         None if l is None else l.data_ptr(),
+                         b, nq, nkv, s, hd, sb, sh, ss, scale, drop_warp,
+                         _stream(dev))
     _build.check(code, "flash_decode")
     return (out, m, l) if return_stats else out
 

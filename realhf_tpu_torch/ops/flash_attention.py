@@ -289,10 +289,13 @@ def _window_arg(window: Optional[int]) -> int:
 def _launch(name: str, ptrs, q, k, causal: bool, scale: float,
             window: Optional[int]):
     b, l, nq, hd = q.shape
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _kernel(name)(*(t.data_ptr() for t in ptrs), b, l, nq,
-                         k.shape[2], hd, scale, int(causal),
-                         _window_arg(window), stream)
+    # the launch goes to the current device's context: make it the
+    # tensors' (a member on another card than the caller's current one)
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = _kernel(name)(*(t.data_ptr() for t in ptrs), b, l, nq,
+                             k.shape[2], hd, scale, int(causal),
+                             _window_arg(window), stream)
     _build.check(code, name)
 
 

@@ -6,6 +6,16 @@ The two that apply the LM head work in chunks along L: each chunk's
 under autograd the chunk is checkpointed (only its hidden states are
 kept; the backward recomputes its logits), so the full ``[S, L, V]``
 tensor never exists in the forward or the backward.
+
+Given a model's ``MemberParams`` and the ``MemberHidden`` its forward
+returned, the log-probs and the entropy run per data group and come
+back as one ``[S, L]`` tensor on the first member's device. A group of
+``t > 1`` model members is vocabulary-parallel: each member takes its
+head shard's logits, and the row max, the sum of exponentials and the
+label's logit are each reduced over the group. Padded vocabulary
+columns (the last member's, when ``t`` does not divide the vocabulary)
+and columns the logits mask forbids read -1e30, so they add nothing to
+a sum and never win a max.
 """
 
 from typing import Optional
@@ -15,6 +25,10 @@ from torch.utils.checkpoint import checkpoint
 
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.models.sharding import MemberParams
+from realhf_tpu_torch.parallel import collectives as C
+
+_MASKED = -1e30
 
 
 def _head_log_softmax(cfg, params, hidden, temperature, logits_mask):
@@ -77,6 +91,9 @@ def logprobs_from_hidden(
 ) -> torch.Tensor:
     """log p(labels[t] | ...) at every position t, 0 where not ``valid``:
     [S, L] fp32."""
+    if isinstance(params, MemberParams):
+        return _member_rows(cfg, params, hidden, chunk, temperature, labels,
+                            valid, logits_mask)
     lp = _chunked(_chunk_logprobs, hidden, chunk, labels, logits_mask,
                   fixed=(cfg, params, temperature))
     return torch.where(valid, lp, 0.0)
@@ -106,8 +123,104 @@ def entropy_from_hidden(cfg: TransformerConfig, params,
                         temperature: float = 1.0) -> torch.Tensor:
     """Per-position policy entropy [S, L] fp32, chunked like
     ``shifted_logprobs_from_hidden``."""
+    if isinstance(params, MemberParams):
+        return _member_rows(cfg, params, hidden, chunk, temperature)
     return _chunked(_chunk_entropy, hidden, chunk,
                     fixed=(cfg, params, temperature))
+
+
+def _member_logits(cfg, tree, h, s0, temperature, logits_mask):
+    """One model member's head shard over a chunk: fp32 logits [B, c,
+    V/t], -1e30 on padded columns and on columns the mask forbids."""
+    lg = T._matmul_f32(h, T.head_weight(cfg, tree))
+    if temperature != 1.0:
+        lg = lg / temperature
+    keep = s0 + torch.arange(lg.shape[-1], device=lg.device) < cfg.vocab_size
+    if logits_mask is not None:
+        m = logits_mask[..., s0:s0 + lg.shape[-1]].to(lg.device)
+        m = torch.cat([m, m.new_zeros(*m.shape[:-1],
+                                      lg.shape[-1] - m.shape[-1])], -1)
+        keep = keep & m
+    return torch.where(keep, lg, _MASKED)
+
+
+def _member_sums(cfg, tree, h, s0, temperature, logits_mask, mx, labels):
+    """One member's share of a chunk given the group's row max ``mx``:
+    (sum of exp(logit - mx), and the label's logit where the label lies
+    in this shard, else 0) with ``labels``; without, (the sum, and the
+    sum of exp(logit - mx) * logit) for the entropy."""
+    lg = _member_logits(cfg, tree, h, s0, temperature, logits_mask)
+    e = (lg - mx[..., None]).exp()
+    if labels is None:
+        return e.sum(-1), (e * lg).sum(-1)
+    loc = labels.to(lg.device) - s0
+    inside = (loc >= 0) & (loc < lg.shape[-1])
+    got = lg.gather(-1, loc.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+    return e.sum(-1), torch.where(inside, got, torch.zeros_like(got))
+
+
+def _vocab_parallel(cfg, trees, devs, starts, temperature, hs, labels=None,
+                    logits_mask=None, remat=False):
+    """One L chunk of a model group: log-probs of ``labels`` (given) or
+    the entropy, [B, c] fp32 on the first member's device. The row max
+    comes from a pass without gradient (the log-sum-exp's gradient does
+    not depend on it); then each member's sums, checkpointed on its own
+    under ``remat`` (a recompute spanning cards would race between the
+    autograd engine's device threads), are reduced over the group."""
+    with torch.no_grad():
+        mx = C.all_reduce_max(
+            [_member_logits(cfg, tr, h, s0, temperature, logits_mask)
+             .amax(-1) for tr, h, s0 in zip(trees, hs, starts)], devs)
+    run = ((lambda *a: checkpoint(_member_sums, *a, use_reentrant=False))
+           if remat else _member_sums)
+    sums, others = zip(*(run(cfg, tr, h, s0, temperature, logits_mask, m,
+                             labels)
+                         for tr, h, s0, m in zip(trees, hs, starts, mx)))
+    lse = mx[0] + C.reduce_sum(sums, devs[0]).log()
+    other = C.reduce_sum(others, devs[0])
+    if labels is None:
+        return lse - other / C.reduce_sum(sums, devs[0])
+    return other - lse
+
+
+def _member_rows(cfg, mp: MemberParams, hidden, chunk, temperature,
+                 labels=None, valid=None, logits_mask=None):
+    """Log-probs (``labels`` given) or entropy of a ``MemberHidden``,
+    per data group, as one [S, L] tensor on the first member's
+    device."""
+    starts = mp.vocab_starts(cfg)
+    remat = torch.is_grad_enabled()
+    out = []
+    for g, (hs, (r0, r1)) in enumerate(zip(hidden.hs, hidden.rows)):
+        if hs is None:
+            continue
+        trees, devs = mp.group(g)
+        lab = None if labels is None else labels[r0:r1]
+        msk = None if logits_mask is None else logits_mask[r0:r1]
+        if mp.t == 1:
+            dev = devs[0]
+            if lab is None:
+                res = entropy_from_hidden(cfg, trees[0], hs[0], chunk=chunk,
+                                          temperature=temperature)
+            else:
+                res = logprobs_from_hidden(
+                    cfg, trees[0], hs[0], lab.to(dev), valid[r0:r1].to(dev),
+                    chunk=chunk, temperature=temperature,
+                    logits_mask=None if msk is None else msk.to(dev))
+            out.append(res.to(mp.devices[0]))
+            continue
+        parts = []
+        for c0 in range(0, hs[0].shape[1], chunk):
+            sl = slice(c0, c0 + chunk)
+            parts.append(_vocab_parallel(
+                cfg, trees, devs, starts, temperature,
+                [h[:, sl] for h in hs], None if lab is None else lab[:, sl],
+                None if msk is None else msk[:, sl], remat))
+        res = torch.cat(parts, dim=1).to(mp.devices[0])
+        if valid is not None:
+            res = torch.where(valid[r0:r1].to(res.device), res, 0.0)
+        out.append(res)
+    return torch.cat(out, dim=0)
 
 
 def masked_normalization(x: torch.Tensor,

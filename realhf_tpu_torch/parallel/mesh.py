@@ -12,11 +12,20 @@ context-parallel members on one card, and ``[cpu] * 4`` four on the
 CPU. That is the port's counterpart of the virtual CPU devices the JAX
 tests run on.
 
-This slice builds one layout of more than one device: context
-parallelism alone (``c > 1`` with ``d = t = p = 1``), whose members each
-hold a contiguous ``1/c`` of every stream's tokens and meet in ring
-attention (``ops/ring_attention_fused.py``). Every other layout of more
-than one device raises ``NotImplementedError``.
+Two families of layouts of more than one device are built:
+
+- context parallelism alone (``c > 1`` with ``d = t = p = 1``), whose
+  members each hold a contiguous ``1/c`` of every stream's tokens and
+  meet in ring attention (``ops/ring_attention_fused.py``);
+- data and tensor parallelism, ``dNtM`` (``p = c = 1``): member ``i``
+  has data index ``i // t`` and model index ``i % t``; the members of
+  one data index form a model group (they split each weight, as
+  ``models/sharding.py`` says), the members of one model index a data
+  group (they hold disjoint streams and sum their gradients).
+
+The pipeline, context parallelism with d or t, sequence parallelism and
+the decode view's ``gen_tp_size`` raise ``NotImplementedError``, each
+naming its part of ROADMAP.md, queue 1, item 4.
 """
 
 import dataclasses
@@ -34,8 +43,7 @@ CTX_AXIS = "ctx"  # context parallelism (ring attention over sequence)
 MODEL_AXIS = "model"
 MESH_AXES = (PIPE_AXIS, DATA_AXIS, CTX_AXIS, MODEL_AXIS)
 
-_LATER = ("are deferred to the parallelism and distributed-runtime "
-          "slice of the port (ROADMAP.md, queue 5)")
+_ITEM4 = "ROADMAP.md, queue 1, item 4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,18 +162,37 @@ def _check_device(d) -> torch.device:
     return dev
 
 
+def check_layout(parallel: ParallelismConfig):
+    """Raise ``NotImplementedError`` for a layout this port does not
+    build yet, naming the part of item 4 that owns it."""
+    d, t = parallel.data_parallel_size, parallel.tensor_parallel_size
+    if parallel.pipeline_parallel_size > 1:
+        raise NotImplementedError(
+            f"Layout {parallel}: pipeline parallelism (parallel/pipeline.py, "
+            f"schedule.py, smap.py) is the next part of {_ITEM4}.")
+    if parallel.context_parallel_size > 1 and d * t > 1:
+        raise NotImplementedError(
+            f"Layout {parallel}: context parallelism together with data or "
+            f"tensor parallelism waits for the ring's CUDA backward "
+            f"({_ITEM4}); c > 1 runs alone.")
+    if parallel.sequence_parallel:
+        raise NotImplementedError(
+            f"Layout {parallel}: sequence parallelism ('s') is a later "
+            f"part of {_ITEM4}.")
+    if parallel.gen_tp_size:
+        raise NotImplementedError(
+            f"Layout {parallel}: the decode view ('g', gen_tp_size) is a "
+            f"later part of {_ITEM4}.")
+
+
 def make_mesh(parallel: ParallelismConfig,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """The mesh of one model over ``devices`` (default:
-    ``default_devices(world_size)``). Builds a single device and
-    context parallelism alone; raises ``NotImplementedError`` for every
-    other layout of more than one device."""
+    ``default_devices(world_size)``). Builds a single device, every
+    ``dNtM`` layout and context parallelism alone; ``check_layout``
+    raises for the rest."""
+    check_layout(parallel)
     n = parallel.world_size
-    if n > 1 and parallel.context_parallel_size != n:
-        raise NotImplementedError(
-            f"Layout {parallel}: data, tensor and pipeline parallelism "
-            f"{_LATER}; this slice builds context parallelism alone "
-            "(c > 1 with d = t = p = 1).")
     devices = (default_devices(n) if devices is None
                else [_check_device(d) for d in devices])
     if len(devices) != n:
@@ -179,6 +206,32 @@ def make_mesh(parallel: ParallelismConfig,
                                  parallel.context_parallel_size,
                                  parallel.tensor_parallel_size)))
     return Mesh(tuple(devices), shape)
+
+
+def data_index(mesh: Mesh, i: int) -> int:
+    """Member ``i``'s index along the data axis (p = c = 1)."""
+    return i // mesh.shape[MODEL_AXIS]
+
+
+def model_index(mesh: Mesh, i: int) -> int:
+    """Member ``i``'s index along the model axis (p = c = 1)."""
+    return i % mesh.shape[MODEL_AXIS]
+
+
+def model_group(mesh: Mesh, i: int) -> List[int]:
+    """The members that split the weights with member ``i`` (its data
+    index, every model index), in model order."""
+    t = mesh.shape[MODEL_AXIS]
+    base = data_index(mesh, i) * t
+    return list(range(base, base + t))
+
+
+def data_group(mesh: Mesh, i: int) -> List[int]:
+    """The members that hold member ``i``'s weight shard (its model
+    index, every data index), in data order."""
+    t = mesh.shape[MODEL_AXIS]
+    return [g * t + model_index(mesh, i)
+            for g in range(mesh.shape[DATA_AXIS])]
 
 
 @dataclasses.dataclass

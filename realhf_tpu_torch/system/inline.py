@@ -5,8 +5,9 @@ batch (amending every MFC's output into the batch), logs per-step time
 and token counts, evaluates trained roles on the eval dataset by the
 eval frequency, and stops after ``ctl.benchmark_steps`` steps when set.
 Models run on the CUDA card unless ``device`` says otherwise;
-``role_devices`` places a context-parallel role's members
-(``ModelHost``).
+``role_devices`` places the members of a role's layout and ``devices``
+lists the runner's devices, which per-MFC allocations draw their
+replicas' members from (``ModelHost``).
 
 Saving and resuming follow the JAX package's runner: every trained role
 is saved (weights and optimizer state, under ``run_save_path()/role``)
@@ -42,7 +43,8 @@ class InlineRunner:
 
     def __init__(self, spec: ExperimentSpec, device: DeviceLike = None,
                  role_devices: Optional[Dict[str, Sequence[DeviceLike]]]
-                 = None, recover_mode: str = "disabled"):
+                 = None, recover_mode: str = "disabled",
+                 devices: Optional[Sequence[DeviceLike]] = None):
         self.spec = spec
         constants.set_experiment_trial_names(spec.experiment_name,
                                              spec.trial_name)
@@ -89,7 +91,7 @@ class InlineRunner:
         self.host = ModelHost(spec, list(spec.models), self.dfg.nodes,
                               self.tokenizer, device=device,
                               total_steps=total_steps,
-                              role_devices=role_devices)
+                              role_devices=role_devices, devices=devices)
         ctl = spec.ctl
         self.save_ctl = timeutil.EpochStepTimeFreqCtl(
             freq_epoch=ctl.save_freq_epochs, freq_step=ctl.save_freq_steps,
@@ -122,6 +124,14 @@ class InlineRunner:
     @property
     def interfaces(self):
         return self.host.interfaces
+
+    @property
+    def replicas(self):
+        return self.host.replicas
+
+    @property
+    def replica_mgr(self):
+        return self.host.replica_mgr
 
     def run_step(self, batch: data_api.SequenceSample) -> Dict[str, Dict]:
         """Execute the dataflow graph once over one batch; returns the

@@ -1,23 +1,31 @@
-"""Model hosting for the inline runner: one engine per model role on
-one device (with an optimizer for the roles that train), or, for a role
-that no MFC trains or generates with, on the members of a
-context-parallel layout; the algorithm interfaces of the MFCs, MFC
-execution, and each role's checkpoint (weights and optimizer state)."""
+"""Model hosting for the inline runner: one engine per model role, on
+one device or the members of a data- and tensor-parallel layout (with an
+optimizer for the roles that train), or, for a role that no MFC trains
+or generates with, on the members of a context-parallel layout; one
+replica engine per MFC whose allocation (``ExperimentSpec.allocations``)
+differs from its role's layout, kept fresh by parameter reallocation;
+the algorithm interfaces of the MFCs, MFC execution, and each role's
+checkpoint (weights and optimizer state)."""
 
+import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 from realhf_tpu_torch.api import data as data_api
 from realhf_tpu_torch.api import model as model_api
 from realhf_tpu_torch.api.config import ModelInterfaceType, ModelName
-from realhf_tpu_torch.api.dfg import MFCDef, OffloadHook
+from realhf_tpu_torch.api.dfg import MFCDef, OffloadHook, ParamReallocHook
 from realhf_tpu_torch.base import constants, logging, seeding
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.engine import opt_checkpoint
-from realhf_tpu_torch.engine.engine import Engine
+from realhf_tpu_torch.engine.engine import Engine, _tree_map
 from realhf_tpu_torch.models import hf
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
+from realhf_tpu_torch.parallel.mesh import default_devices
+from realhf_tpu_torch.parallel.realloc import ReplicaManager
 
 logger = logging.getLogger("model_host", "benchmark")
 
@@ -35,20 +43,13 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
     rate schedule), with the state saved beside the checkpoint when
     ``spec.restore_optimizer_state``.
 
-    A context-parallel layout (``spec.parallel``: c > 1, d = t = p = 1)
-    builds for an ``inference_only`` role (no MFC trains or generates
-    with it) over ``devices`` (default ``cuda:0 .. c-1``, or c times the
-    CPU when ``device`` is the CPU); the weights are placed on the first
-    member's device. Every other layout of more than one device
-    raises."""
+    A layout of more than one device (``spec.parallel``) builds over
+    ``devices`` (default ``cuda:0 .. n-1``, or n times the CPU when
+    ``device`` is the CPU): every ``dNtM``, trained or not, and context
+    parallelism alone for an ``inference_only`` role (no MFC trains or
+    generates with it)."""
     par = spec.parallel
-    if par.world_size > 1 and (par.context_parallel_size != par.world_size
-                               or not inference_only):
-        raise NotImplementedError(
-            f"Model role {role!r}: layout {par} over more than one device "
-            "is deferred to the parallelism slice of the port (ROADMAP.md, "
-            "queue 5); this slice runs context parallelism alone, on roles "
-            "that no MFC trains or generates with.")
+    _check_ctx(role, par, inference_only)
     dev = resolve_device(devices[0] if devices else device)
     is_critic = spec.is_critic or spec.init_critic_from_actor
     if spec.path:
@@ -85,35 +86,123 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
                            hf_family=spec.hf_family)
 
 
+def _check_ctx(role: str, par, inference_only: bool):
+    if par.context_parallel_size > 1 and not inference_only:
+        raise NotImplementedError(
+            f"Model role {role!r}: layout {par} on a role that an MFC "
+            "trains or generates with: training and generation at c > 1 "
+            "are a later part of ROADMAP.md, queue 1, item 4.")
+
+
+def build_replica(primary: model_api.Model, par, inference_only: bool,
+                  device: DeviceLike = None,
+                  devices: Optional[Sequence[DeviceLike]] = None
+                  ) -> model_api.Model:
+    """A replica of ``primary`` (its config and weights, no optimizer)
+    on layout ``par``. The replica holds weights of its own: an engine
+    of one tree would keep the tensors it is given, so it gets a copy
+    (a reallocation, an EMA merge above all, must never write into the
+    primary's tensors)."""
+    role = primary.name.role
+    _check_ctx(role, par, inference_only)
+    src = primary.engine
+    params = src.params
+    if par.world_size == 1 or par.context_parallel_size > 1:
+        tree = src.gathered_params() if src.sharded else params
+        params = _tree_map(torch.clone, tree)
+    engine = Engine(dataclasses.replace(primary.config), params, device,
+                    parallel=par, devices=devices)
+    return model_api.Model(ModelName(role, 0), engine, primary.tokenizer,
+                           hf_family=primary.hf_family)
+
+
 class ModelHost:
-    """The models of some roles plus MFC execution.
+    """The models of some roles, their MFCs' replicas, and MFC
+    execution.
 
     ``role_devices`` names the devices of a role with a layout of more
     than one device (the JAX package's ``devices_fn``); a role it does
-    not name takes ``build_model``'s default."""
+    not name takes ``build_model``'s default. ``devices`` are the
+    runner's devices, which an ``MFCAllocation``'s ``device_ids`` index
+    (default: every card, or the CPU); a replica without ``device_ids``
+    takes its role's devices when their number fits its layout, else
+    the first of the runner's devices, else the layout's default."""
 
     def __init__(self, spec, roles: List[str], nodes: List[MFCDef],
                  tokenizer, device: DeviceLike = None,
                  total_steps: Optional[int] = None,
                  role_devices: Optional[Dict[str, Sequence[DeviceLike]]]
-                 = None):
+                 = None,
+                 devices: Optional[Sequence[DeviceLike]] = None):
         self.spec = spec
         self.nodes = {n.name: n for n in nodes}
         busy = {n.role for n in nodes if n.interface_type in (
             ModelInterfaceType.TRAIN_STEP, ModelInterfaceType.GENERATE)}
-        role_devices = role_devices or {}
+        self.role_devices = dict(role_devices or {})
+        self.device = device
+        self.devices = (None if devices is None
+                        else [torch.device(d) for d in devices])
         self.models = {
             role: build_model(role, spec.models[role], tokenizer,
                               init_seed=spec.seed, device=device,
                               total_steps=total_steps,
-                              devices=role_devices.get(role),
+                              devices=self.role_devices.get(role),
                               inference_only=role not in busy)
             for role in roles
         }
+        #: MFC name -> the replica its allocation runs on
+        self.replicas: Dict[str, model_api.Model] = {}
+        self.replica_mgr = ReplicaManager()
+        for node in nodes:
+            alloc = spec.alloc_of(node.name)
+            if alloc is None or node.role not in self.models:
+                continue
+            primary = self.models[node.role]
+            if (alloc.parallel.same_layout(primary.engine.parallel)
+                    and alloc.device_ids is None):
+                continue  # the role's own layout: not a replica
+            if node.interface_type == ModelInterfaceType.TRAIN_STEP:
+                raise ValueError(
+                    f"MFC {node.name}: train MFCs run on the role's own "
+                    "layout (replicas have no optimizer).")
+            self.replicas[node.name] = build_replica(
+                primary, alloc.parallel, inference_only=node.interface_type
+                != ModelInterfaceType.GENERATE, device=device,
+                devices=self._alloc_devices(alloc, node.role))
+            logger.info("Created replica for %s: %s (primary %s)",
+                        node.name, alloc.parallel, primary.engine.parallel)
         self.interfaces = {n.name: model_api.make_interface(n.interface_impl)
                            for n in nodes}
         if spec.auto_offload:
             self._resolve_offload_hooks(nodes)
+
+    def _runner_devices(self) -> List:
+        if self.devices is not None:
+            return self.devices
+        dev = resolve_device(self.device)
+        if dev.type == "cpu":
+            return [dev]
+        return default_devices(torch.cuda.device_count())
+
+    def _alloc_devices(self, alloc, role: str):
+        n = alloc.parallel.world_size
+        base = self._runner_devices()
+        if alloc.device_ids is not None:
+            if len(alloc.device_ids) != n:
+                raise ValueError(
+                    f"device_ids {alloc.device_ids} for a layout of {n}")
+            if base[0].type == "cpu":
+                return [base[0]] * n
+            if any(i >= len(base) for i in alloc.device_ids):
+                raise ValueError(f"device_ids {alloc.device_ids} out of "
+                                 f"range for {len(base)} devices")
+            return [base[i] for i in alloc.device_ids]
+        own = self.role_devices.get(role)
+        if own is not None and len(own) == n:
+            return list(own)
+        if self.devices is not None and len(self.devices) >= n:
+            return self.devices[:n]
+        return None
 
     @staticmethod
     def _resolve_offload_hooks(nodes: List[MFCDef]):
@@ -130,11 +219,21 @@ class ModelHost:
                             node.role)
 
     def execute(self, node_name: str, inp: data_api.SequenceSample):
-        """Run one MFC on its role's model: reload offloaded weights,
-        the interface call, then the post-hooks (offload)."""
+        """Run one MFC on its role's model or its replica: reload
+        offloaded weights, refresh a replica from the role's primary
+        when the primary's version moved (``eta`` from a
+        ``ParamReallocHook`` pre-hook), the interface call, then the
+        post-hooks (offload)."""
         node = self.nodes[node_name]
-        model = self.models[node.role]
+        primary = self.models[node.role]
+        model = self.replicas.get(node_name, primary)
         model.engine.ensure_on_device()
+        if model is not primary:
+            eta = next((h.eta for h in node._pre_hooks
+                        if isinstance(h, ParamReallocHook)
+                        and h.eta is not None), 1.0)
+            self.replica_mgr.ensure_fresh(node.role, primary, model,
+                                          eta=eta)
         if node.input_key_remap:
             inp = inp.select(list(inp.keys))
             inp.remap_keys_(node.input_key_remap)

@@ -3,11 +3,12 @@
 
     python3 scripts/torch_ckpt_phases.py [--out records.json]
 
-Builds the kernels, then runs phase ``ckpt_gen`` (the 32-layer LLaMA-7B
-gen model saved streamed and loaded into a new gen runner: weights
-bit-equal to the saved model's and to the registry's eager load, equal
-greedy tokens, exact K1/K4 counts, the q_proj fault) and
-phase ``ckpt_resume`` (the sft cell at 7B width, 4 layers, interrupted
+Builds the kernels, then runs phase ``ckpt_gen`` (the LLaMA-7B gen
+model at ``chip_smoke.CKPT_GEN_LAYERS`` layers saved streamed and loaded
+into a new gen runner: weights bit-equal to the saved model's and to the
+registry's eager load, equal greedy tokens, exact K1/K4 counts, the
+q_proj fault) and phase ``ckpt_resume`` (the sft cell at 7B width,
+``chip_smoke.CKPT_RESUME_LAYERS`` layers, interrupted
 after step 2 and resumed: step 3 bit-equal, exact K1-K3 counts, the
 fresh-moments fault). Prints each phase's seconds and JSON record, and
 "OK" when both passed. Needs one CUDA card, ~30 GB of free disk under

@@ -147,24 +147,33 @@ def test_members_that_share_a_device_share_its_weights(engines):
 
 
 def test_training_and_generation_on_c4_still_raise(engines):
+    """Training and generation at c4 still raise (item 4); a t2 engine
+    of the same weights now builds and gives c4's log-probs."""
     from realhf_tpu_torch.engine.optim import OptimizerConfig
     eng = engines[False]["c4"]
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         eng.train_minibatches([], None)
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         eng.train_batch([], None)
     with pytest.raises(NotImplementedError, match="decode view"):
         eng.generate(None, None, None, None, None, None, 0)
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         Engine(eng.cfg, eng.params_numpy(), device="cpu", parallel=C4,
                devices=["cpu"] * 4, optimizer=OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        Engine(eng.cfg, eng.params_numpy(), device="cpu",
-               parallel=ParallelismConfig(tensor_parallel_size=2),
-               devices=["cpu"] * 2)
+    t2 = Engine(eng.cfg, eng.params_numpy(), device="cpu",
+                parallel=ParallelismConfig(tensor_parallel_size=2),
+                devices=["cpu"] * 2)
+    assert t2.sharded and len(t2.params.trees) == 2
+    ids, seg, _ = _batch(seed=3)
+    np.testing.assert_allclose(t2.forward_logprobs(ids, seg).numpy(),
+                               eng.forward_logprobs(ids, seg).numpy(),
+                               **PORT_TOL)
 
 
 def test_model_host_builds_c4_for_inference_roles_only():
+    """c4 builds for an inference role and raises for a trained one; a
+    trained role at d2 now builds, with its ZeRO-1 optimizer, and holds
+    the seed's weights."""
     from realhf_tpu_torch.api.experiment import ModelSpec
     from realhf_tpu_torch.engine.optim import OptimizerConfig
     from realhf_tpu_torch.system.model_host import build_model
@@ -182,13 +191,19 @@ def test_model_host_builds_c4_for_inference_roles_only():
     explicit = build_model("ref", spec, None, init_seed=1, device="cpu",
                            devices=["cpu"] * 4, inference_only=True)
     assert len(explicit.engine.members) == 4
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         build_model("actor", spec, None, init_seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        build_model("actor", ModelSpec(
-            random_init_config=dict(TINY), optimizer=OptimizerConfig(),
-            parallel=ParallelismConfig(data_parallel_size=2)), None,
-            init_seed=1, device="cpu", inference_only=True)
+    d2 = build_model("actor", ModelSpec(
+        random_init_config=dict(TINY), optimizer=OptimizerConfig(),
+        parallel=ParallelismConfig(data_parallel_size=2), bf16=False), None,
+        init_seed=1, device="cpu", inference_only=True)
+    assert d2.engine.optimizer.cfg.zero1 and d2.engine._zero1[1][0] is not None
+    one = build_model("actor", ModelSpec(random_init_config=dict(TINY),
+                                         bf16=False), None, init_seed=1,
+                      device="cpu")
+    for a, b in zip(d2.engine.params_numpy()["blocks"]["attn"].values(),
+                    one.engine.params_numpy()["blocks"]["attn"].values()):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_ppo_with_ref_and_reward_at_c4_matches_c1(tmp_path):

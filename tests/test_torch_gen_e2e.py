@@ -118,6 +118,18 @@ def test_deferred_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # HF tokenizer
         main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
               "tokenizer_path=/nonexistent", "device=cpu"])
-    with pytest.raises(NotImplementedError):  # more than one device
+    # t = 2 generates (the parallelism slice), the same greedy answers
+    # as one device; the pipeline still raises
+    answers = []
+    for extra in ([], ["model.parallel.tensor_parallel_size=2"]):
+        out = tmp_path / f"gen{len(extra)}.jsonl"
         main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
-              "model.parallel.tensor_parallel_size=2", "device=cpu"])
+              "dataset.train_bs_n_seqs=4", "max_new_tokens=3",
+              "greedy=true", "device=cpu", f"output_file={out}",
+              "benchmark_steps=1"] + extra)
+        answers.append([json.loads(line)["answer"]
+                        for line in out.read_text().splitlines()])
+    assert answers[0] == answers[1] and len(answers[0]) == 4
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
+              "model.parallel.pipeline_parallel_size=2", "device=cpu"])

@@ -260,9 +260,10 @@ def test_grpo_experiment_matches_jax(tmp_path):
     batch, stats = got[1]
     assert all(len(x) == 3 for x in batch.seqlens["packed_input_ids"])
     assert stats["actor_train"]["grpo_kl"] > 0
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        cfg = GRPOConfig(actor_gen_alloc="d2t1")
-        cfg.build()
+    # a per-MFC layout parses into the spec (the parallelism slice;
+    # tests/test_torch_realloc.py runs it)
+    spec = GRPOConfig(actor_gen_alloc="d2t1").build()
+    assert spec.alloc_of("actor_gen").parallel.data_parallel_size == 2
 
 
 def test_profile_experiment_matches_jax():

@@ -154,3 +154,15 @@ MODEL_FEATURE_MODULES = ("ops/moe.py", "scripts/torch_moe_phases.py",
 @pytest.mark.parametrize("rel", MODEL_FEATURE_MODULES)
 def test_model_feature_modules_are_covered(rel):
     test_serving_modules_are_covered(rel)
+
+
+#: the parallelism slice's modules (data and tensor parallelism, ZeRO-1,
+#: parameter reallocation) and the card script of its phases, likewise
+PARALLEL_MODULES = ("models/sharding.py", "parallel/collectives.py",
+                    "parallel/param_stream.py", "parallel/realloc.py",
+                    "scripts/torch_par_phases.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_are_covered(rel):
+    test_serving_modules_are_covered(rel)

@@ -226,8 +226,13 @@ def test_quickstart_cli_runs_ppo_on_cpu_and_raises_without_a_card(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(args)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        main(args + ["device=cpu", "actor_gen_alloc=d2t1"])
+    # a per-MFC layout runs on a replica (the parallelism slice)
+    alloc = main(args + ["device=cpu", "actor_gen_alloc=d2t1",
+                         "trial_name=alloc"])
+    assert set(alloc) == {"actor_train", "critic_train"}
+    assert abs(alloc["actor_train"]["importance_weight"] - 1) < 0.1
+    with pytest.raises(NotImplementedError, match="heuristic"):
+        main(args + ["device=cpu", "allocation_mode=heuristic"])
     # saving: the actor's HF checkpoint, the critic's with its value head,
     # each with its optimizer state
     import os

@@ -200,8 +200,13 @@ def test_optimizer_offload_changes_no_number(jax_run):
 
 
 def test_options_of_later_slices_still_raise(jax_run):
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        _port_engine(jax_run["start"], total=2, zero1=True)
+    """ZeRO-1 is on by default, as in the JAX package; at d = 1 it is
+    the same math as without: the JAX engine's three minibatches."""
+    assert OptimizerConfig().zero1
+    z = _port_engine(jax_run["start"], total=2, zero1=True)
+    mbs, weights = _minibatches()
+    z.train_minibatches(mbs, sft._make_loss_fn(z.cfg), weights)
+    _assert_params(z, jax_run["after3"], atol=5e-5)
     eng = Engine(TransformerConfig(**TINY), jax_run["start"], device="cpu")
     with pytest.raises(RuntimeError, match="no optimizer"):
         eng.train_minibatches(_minibatches()[0], sft._make_loss_fn(eng.cfg))

@@ -209,13 +209,22 @@ def test_minibatch_split_and_stream_packing_match_jax():
 
 
 def test_options_of_later_slices_raise():
-    """ZeRO-1 waits for the parallelism slice; optimizer offload and
+    """ZeRO-1 arrived with the parallelism slice (at d = 1 a step with it
+    is the same bits as without); optimizer offload and
     ``train_minibatches`` arrived with PPO
     (``tests/test_torch_ppo_engine.py``)."""
     cfg = TransformerConfig(**TINY)
     params = _port_params()
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        Engine(cfg, params, device="cpu", optimizer=OptimizerConfig(zero1=True))
+    outs = []
+    for zero1 in (True, False):
+        e = Engine(cfg, params, device="cpu",
+                   optimizer=OptimizerConfig(zero1=zero1, **OPT))
+        mbs, weights = _microbatches()
+        for _ in range(2):
+            e.train_batch(mbs, sft._make_loss_fn(cfg), weights)
+        outs.append(e.params_numpy())
+    for a, b in zip(jax.tree.leaves(outs[0]), jax.tree.leaves(outs[1])):
+        np.testing.assert_array_equal(a, b)
     eng = Engine(cfg, params, device="cpu")
     with pytest.raises(RuntimeError, match="no optimizer"):
         eng.train_batch(_microbatches()[0], sft._make_loss_fn(cfg))
