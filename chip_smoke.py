@@ -327,6 +327,29 @@ exits non-zero):
    streams at 16/16 heads and on the d1t4 members' 8 streams at 8/8, K1
    and K2/K3 on each d2t2 member's sft stream and on the d1t2 actor's
    minibatch stream at 16/16, K1 on the d1t2 ref replica's stream.
+38. pp_sft -- the sft cell at 7B width, 4 layers, 3 steps, at p2 (1F1B,
+   8 microbatches), p2t2 (1F1B) and p2 under GPipe (4 microbatches),
+   each against the d1t1 runner of the same seed: losses, grad norms,
+   the fp32 master weights' update, exact K1-K3 (3 K1 and one K2/K3 a
+   layer a microbatch a train pass); p2's ``forward_logprobs`` against
+   a d1t1 engine of its weights (``PP_LIMITS``); a 1F1B backward sending
+   dx to microbatch m - 1 must miss the grad-norm limit.
+39. pp_gen -- gen-7b-b8's prompt shape (LLaMA-7B, 32 layers, 64 greedy
+   tokens) on a p2 engine through its decode view (d2t1), at g2 (d1t2),
+   after ``set_params`` of perturbed weights, and on a c4 engine at g4
+   (d1t4): exact K1/K4 on the view's members, the teacher-forced gap
+   against the d1t1 model of the same weights, ``drop_decode_view``
+   freeing exactly the view's bytes; a ``set_params`` that leaves the
+   view stale must exceed the gap limit. View build ms, decode ms a
+   token, prefill ms.
+40. pp_ppo -- ppo-7bw-l4's traffic with the actor at p2 (1F1B) dropping
+   its decode view after each rollout and the critic at p2 under GPipe:
+   the ppo phase's first-minibatch limits on both steps, exact K1-K4;
+   a runner whose view's freshness is keyed on the weights object's
+   identity must miss them. Per-MFC seconds, view build ms.
+   kernels (pipeline shapes) -- K1-K3 on one pipeline microbatch of
+   pp_sft's p2 (32/32 heads) and p2t2 (16/16), K1 and K4 on the members
+   of pp_gen's d2t1 view (32/32) and d1t4 view (8/8).
 
 The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
 prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
@@ -340,8 +363,8 @@ interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
-mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft and par_ppo paths, each
-counted from 0; rows
+mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft, pp_gen
+and pp_ppo paths, each counted from 0; rows
 ``*_hd256`` over gemma_gen and gemma_sft), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -6238,15 +6261,19 @@ def phase_tp_gen(smi, seed=1):
     return rec
 
 
-def sft_runner(data, layout, seed):
+def sft_runner(data, layout, seed, schedule=None):
     """The sft cell (16 prompt-answer records, 2 microbatches, lr 1e-5,
     3 epochs of one step) at 7B width and ``PAR_SFT_LAYERS`` layers on
-    ``layout``, its members on ``member_devices``."""
+    ``layout`` (a pipeline layout under ``schedule`` when given), its
+    members on ``member_devices``."""
+    import dataclasses
     from realhf_tpu_torch.parallel.mesh import parse_parallelism
     from realhf_tpu_torch.system.inline import InlineRunner
     spec = build_sft_spec(data, PAR_SFT_LAYERS)
     spec.seed = seed
     par = parse_parallelism(layout)
+    if schedule:
+        par = dataclasses.replace(par, pipeline_schedule=schedule)
     spec.models["default"].parallel = par
     t0 = time.monotonic()
     runner = InlineRunner(without_saves(spec), role_devices={
@@ -6741,6 +6768,564 @@ def phase_kernels_par(segs):
     return fwd, bwd
 
 
+PP_SFT_LAYOUTS = (("p2", "1f1b"), ("p2t2", "1f1b"), ("p2", "gpipe"))
+PP_GEN_LAYERS = 32
+PP_NEW_TOKENS = 64
+PP_FAULT_TOKENS = 16
+PP_PERTURB_SEED = 101
+#: about 3x the largest sound reading of ``scripts/torch_pp_phases.py
+#: --seeds 1 2 3 4 5`` (NVIDIA H100 80GB HBM3, 700.00 W), each with its
+#: planted fault far above it: pp_sft against d1t1 over 3 steps at p2,
+#: p2t2 and p2 under GPipe, loss 1.03e-5-8.0e-5 and grad norm
+#: 3.4e-5-1.64e-4 relative, the master weights' update 0.0083-0.0113
+#: relative (dx sent to microbatch m - 1: grad norm 0.097-0.108, step-2
+#: loss 0.0157-0.0164 off); p2's GPipe log-probs against a d1t1 engine
+#: of its weights 0.0 (bit-equal, so its limit is 0; stage outputs sent
+#: to microbatch m - 1: 7.2-8.2); pp_gen's greedy tokens against the d1t1
+#: teacher-forced pass, max |log-prob gap| 0.183-0.346 over the p2, p2g2,
+#: after-set_params and c4g4 cases (a view left stale by set_params:
+#: 8.9-10.0)
+PP_LIMITS = dict(pp_sft_loss_rel=2.4e-4, pp_sft_grad_norm_rel=5e-4,
+                 pp_sft_update_rel=0.034, pp_sft_logprobs_abs=0.0,
+                 pp_gen_tf_logprob_abs=1.05)
+#: the pp_ppo cell's layouts: the actor at p2 (1F1B) dropping its decode
+#: view after each rollout, the critic at p2 under GPipe
+PP_PPO = {"actor.parallel.pipeline_parallel_size": "2",
+          "actor.drop_decode_view_after_rollout": "true",
+          "critic.parallel.pipeline_parallel_size": "2",
+          "critic.parallel.pipeline_schedule": "gpipe"}
+
+
+def pipeline_launches(layers, members, n_mb, train_passes=0, infer_passes=0,
+                      recompute=3):
+    """Kernel counts of a pipelined engine: every stage member runs its
+    slab on each of the ``n_mb`` microbatches of a pass; a train pass
+    launches K1 ``recompute`` times a layer (the forward, the stage's
+    recompute in the backward, the block checkpoint's recompute inside
+    it) and K2/K3 once, an inference pass K1 once."""
+    return launches_of(layers, members,
+                       fwd=n_mb * (recompute * train_passes + infer_passes),
+                       bwd=n_mb * train_passes)
+
+
+@contextlib.contextmanager
+def output_to_previous_microbatch():
+    """The planted GPipe fault: stage s's output of microbatch m goes to
+    stage s + 1's microbatch m - 1."""
+    from realhf_tpu_torch.parallel import pipeline
+    with patched(pipeline, "_next_key",
+                 lambda s, m, n: (s + 1, (m - 1) % n)):
+        yield
+
+
+@contextlib.contextmanager
+def dx_to_previous_microbatch():
+    """The planted 1F1B fault: the backward sends stage s's input
+    cotangent of microbatch m to stage s - 1's microbatch m - 1."""
+    from realhf_tpu_torch.parallel import schedule
+    with patched(schedule, "_dx_key", lambda s, m, n: (s - 1, (m - 1) % n)):
+        yield
+
+
+def logprob_gap(eng, ref_eng, mbs):
+    """Max |log-prob| gap over the valid tokens of each microbatch dict
+    between two engines (``forward_logprobs``)."""
+    import numpy as np
+    gap = 0.0
+    for mb in mbs:
+        a = eng.forward_logprobs(mb["input_ids"], mb["seg_ids"]).cpu()
+        b = ref_eng.forward_logprobs(mb["input_ids"], mb["seg_ids"]).cpu()
+        keep = np.asarray(mb["seg_ids"]) != 0
+        gap = max(gap, float((a - b).abs()[keep].max()))
+    return gap
+
+
+def phase_pp_sft(smi, seed=1):
+    """The sft cell's traffic at 7B width and 4 layers, 3 steps, at p2
+    (1F1B, M 8), p2t2 (1F1B) and p2 under GPipe (M 4), each against the
+    d1t1 runner of the same seed on the card. Gates per layout: each
+    step's loss and grad norm (relative), the fp32 master weights'
+    update over the 3 steps, exact K1-K3 (``pipeline_launches``: 3 K1
+    and one K2/K3 a layer a microbatch a train pass, one K1 an eval
+    pass); for p2 (1F1B) also ``forward_logprobs`` (GPipe) of the
+    trained engine against a d1t1 engine holding its weights, which a
+    GPipe forward sending each stage's output to microbatch m - 1 must
+    miss. Planted fault: a fresh p2 runner whose 1F1B backward sends dx
+    to microbatch m - 1 (2 steps) must miss the grad-norm limit and, on
+    step 2, the loss limit. Reported: step
+    seconds beside d1t1's, peak memory, the stage inputs the 1F1B
+    forward keeps and the tick inputs GPipe's keep. ``rec["_segs"]``
+    keeps the microbatch streams for ``phase_kernels_pp``."""
+    import torch
+    from realhf_tpu_torch.engine.engine import Engine, _leaves
+    from realhf_tpu_torch.parallel import pipeline, schedule
+    lim = PP_LIMITS
+    rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi, layouts={},
+               limits=lim)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        ref, _ = sft_runner(data, "d1t1", seed)
+        reng = ref.models["default"].engine
+        start = [p.detach().clone() for p in _leaves(reng.params)]
+        reset_peaks([reng.device])
+        ref.run()
+        sync_all()
+        rsteps = sft_steps(ref)
+        rec["ref"] = dict(losses=[s["loss"] for s in rsteps],
+                          grad_norms=[s["grad_norm"] for s in rsteps],
+                          step_secs=list(ref.step_secs),
+                          peak_mem_gb=read_peaks([reng.device]))
+        rmaster = canonical_masters(reng)
+        upd = math.sqrt(sum(float((m - w.float()).pow(2).sum())
+                            for m, w in zip(rmaster, start)))
+        del start, ref, reng
+        gc.collect()
+        torch.cuda.empty_cache()
+        segs = {}
+        for layout, sched in PP_SFT_LAYOUTS:
+            name = layout + ("-gpipe" if sched == "gpipe" else "")
+            runner, setup = sft_runner(data, layout, seed, sched)
+            eng = runner.models["default"].engine
+            mbs = []
+            train_batch = eng.train_batch
+
+            def keep_streams(microbatches, *args, **kw):
+                mbs.extend(microbatches)
+                return train_batch(microbatches, *args, **kw)
+
+            eng.train_batch = keep_streams
+            reset_peaks(eng.members)
+            reset_counts()
+            runner.run()
+            sync_all()
+            counts = read_counts()
+            steps = sft_steps(runner)
+            diff = math.sqrt(sum(float((m - r).pow(2).sum()) for m, r in zip(
+                canonical_masters(eng), rmaster)))
+            pipe, t = eng.pipeline_ctx, eng.parallel.tensor_parallel_size
+            n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+            want = pipeline_launches(PAR_SFT_LAYERS, t, pipe.n_microbatches,
+                                     train_passes=2 * PAR_SFT_STEPS,
+                                     infer_passes=n_eval)
+            r = dict(layout=str(eng.parallel), schedule=pipe.schedule,
+                     n_microbatches=pipe.n_microbatches, setup_secs=setup,
+                     members=[str(d) for d in eng.members],
+                     losses=[s["loss"] for s in steps],
+                     grad_norms=[s["grad_norm"] for s in steps],
+                     step_secs=list(runner.step_secs),
+                     peak_mem_gb=read_peaks(eng.members),
+                     saved_input_bytes=(schedule.last_saved_bytes
+                                        if sched == "1f1b"
+                                        else pipeline.last_saved_bytes),
+                     launches=counts, launches_expected=want,
+                     launches_ok=counts == want, card=smi)
+            r["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+                r["losses"], rec["ref"]["losses"]))
+            r["grad_norm_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+                r["grad_norms"], rec["ref"]["grad_norms"]))
+            r["update_rel"] = diff / upd
+            r["ok"] = (r["launches_ok"] and len(steps) == PAR_SFT_STEPS
+                       and r["loss_rel"] <= lim["pp_sft_loss_rel"]
+                       and r["grad_norm_rel"] <= lim["pp_sft_grad_norm_rel"]
+                       and r["update_rel"] <= lim["pp_sft_update_rel"])
+            if name == "p2":
+                one = Engine(eng.cfg, eng.gathered_params(), eng.device)
+                r["logprobs_abs"] = logprob_gap(eng, one, mbs[:2])
+                with output_to_previous_microbatch():
+                    r["fault_logprobs_abs"] = logprob_gap(eng, one, mbs[:2])
+                r["ok"] &= (r["logprobs_abs"] <= lim["pp_sft_logprobs_abs"]
+                            < r["fault_logprobs_abs"])
+                del one
+            segs[name] = [mb["seg_ids"] for mb in mbs]
+            rec["layouts"][name] = r
+            del runner, eng, mbs
+            gc.collect()
+            torch.cuda.empty_cache()
+        del rmaster
+        frunner, _ = sft_runner(data, "p2", seed, "1f1b")
+        batch = next(iter(frunner.dataloader))
+        with dx_to_previous_microbatch():
+            fsteps = [frunner.run_step(batch)["trainDefault"]
+                      for _ in range(2)]
+        del frunner
+        gc.collect()
+        torch.cuda.empty_cache()
+    fault = dict(grad_norms=[s["grad_norm"] for s in fsteps],
+                 losses=[s["loss"] for s in fsteps])
+    fault["grad_norm_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        fault["grad_norms"], rec["ref"]["grad_norms"]))
+    fault["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        fault["losses"], rec["ref"]["losses"]))
+    rec["planted_fault"] = dict(dx_to_previous_microbatch=fault)
+    rec["fault_fails"] = (fault["grad_norm_rel"] > lim["pp_sft_grad_norm_rel"]
+                          and fault["loss_rel"] > lim["pp_sft_loss_rel"])
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = rec["fault_fails"] and all(
+        r["ok"] for r in rec["layouts"].values())
+    rec["_segs"] = segs
+    return rec
+
+
+def pp_prompts(seed, vocab, n=8, lo=100, hi=512):
+    """gen-7b-b8's prompt shape: ``n`` prompts of ``lo``-``hi`` tokens,
+    drawn from ``seed``, left-padded -> (ids, seg, pos, prompts)."""
+    import numpy as np
+    from realhf_tpu_torch.engine import packing
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(2, vocab, size=int(rng.integers(lo, hi + 1)))
+               .astype(np.int32) for _ in range(n)]
+    return (*packing.left_padded_prompts(prompts, 0), prompts)
+
+
+@contextlib.contextmanager
+def view_not_refreshed_after_set_params():
+    """The planted decode-view fault: ``set_params`` leaves the engine's
+    weight epoch where it was, so the view keeps the old weights."""
+    from realhf_tpu_torch.engine.engine import Engine
+    real = Engine.set_params
+
+    def stale(self, params):
+        epoch = self.params_epoch
+        real(self, params)
+        self.params_epoch = epoch
+
+    with patched(Engine, "set_params", stale):
+        yield
+
+
+def view_generate(eng, ids, seg, pos, new_tokens):
+    """One greedy generate through ``eng``'s decode view -> (the view's
+    build or refresh ms, stats, items (prompt, tokens, log-probs),
+    launches)."""
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    reset_counts()
+    sync_all()
+    t0 = time.monotonic()
+    view = eng.decode_engine()
+    sync_all()
+    build_ms = (time.monotonic() - t0) * 1e3
+    out = eng.generate(ids, seg, pos, None, GenerationHyperparameters(
+        max_new_tokens=new_tokens, greedy=True), None, 0).to_host()
+    sync_all()
+    counts = read_counts()
+    items = [(ids[b][seg[b] != 0], out.tokens[b, :int(out.lengths[b])],
+              out.logprobs[b, :int(out.lengths[b])])
+             for b in range(ids.shape[0])]
+    return view, build_ms, eng.generate_stats[-1], items, counts
+
+
+def freed_by_drop(eng):
+    """(``decode_view_param_bytes``, the bytes the allocator got back
+    from ``drop_decode_view``) over the members' distinct cards."""
+    import torch
+    devs = list(dict.fromkeys(eng.members))
+    held = eng.decode_view_param_bytes()
+    sync_all()
+    gc.collect()
+    before = sum(torch.cuda.memory_allocated(d) for d in devs)
+    eng.drop_decode_view()
+    gc.collect()
+    sync_all()
+    after = sum(torch.cuda.memory_allocated(d) for d in devs)
+    return held, before - after
+
+
+def phase_pp_gen(smi, seed=1):
+    """gen-7b-b8's prompt shape (8 prompts of 100-512 tokens, greedy, 64
+    new tokens) at LLaMA-7B width and depth (32 layers, 16 a stage):
+    a p2 engine generating through its default decode view (d2t1), then
+    at g2 (view d1t2), and a c4 engine through its view at g4 (d1t4),
+    members on ``member_devices``. Gates per case: exact K1/K4 counts on
+    the view's members, the greedy tokens' log-probs against one packed
+    teacher-forced K1 forward of the d1t1 model with the same weights,
+    and ``drop_decode_view`` returning exactly
+    ``decode_view_param_bytes`` to the allocator. Then the p2 engine's
+    ``set_params`` of perturbed weights: its view must follow (gap
+    against the perturbed d1t1 model). Planted fault: ``set_params``
+    that leaves the weight epoch, back to the first weights (16 tokens),
+    must exceed the limit. Reported: the view's build ms, decode ms a
+    token, prefill ms."""
+    import torch
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.models.config import llama_config
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.model_host import build_model
+    lim = PP_LIMITS["pp_gen_tf_logprob_abs"]
+    ref = build_model("default", ModelSpec(random_init_config=llama_config(
+        "7b", n_layers=PP_GEN_LAYERS), bf16=True), None, init_seed=seed)
+    rcfg, rparams = ref.engine.cfg, ref.engine.params
+    ids, seg, pos, _ = pp_prompts(seed, rcfg.vocab_size)
+    rec = dict(n_layers=PP_GEN_LAYERS, new_tokens=PP_NEW_TOKENS, seed=seed,
+               card=smi, cases={}, limits=PP_LIMITS)
+
+    def case(eng, tf_params):
+        view, build_ms, st, items, counts = view_generate(
+            eng, ids, seg, pos, PP_NEW_TOKENS)
+        want = launches_of(PP_GEN_LAYERS, len(view.members), fwd=1,
+                           decode=st["decode_steps"])
+        r = dict(layout=str(eng.parallel), view=str(view.parallel),
+                 view_build_ms=build_ms, **step_summary(st, smi),
+                 launches=counts, launches_expected=want,
+                 launches_ok=counts == want,
+                 tf=tf_gaps(packed_teacher_forced(rcfg, tf_params,
+                                                  items)[0], items),
+                 peak_mem_gb=read_peaks(eng.members))
+        r["tf_ok"] = r["tf"]["max_abs"] <= lim
+        r["view_param_bytes"], r["freed_bytes"] = freed_by_drop(eng)
+        r["drop_ok"] = r["freed_bytes"] == r["view_param_bytes"] > 0
+        r["ok"] = r["launches_ok"] and r["tf_ok"] and r["drop_ok"]
+        return r
+
+    def build(layout):
+        par = parse_parallelism(layout)
+        return build_model("default", ModelSpec(
+            random_init_config=llama_config("7b", n_layers=PP_GEN_LAYERS),
+            bf16=True, parallel=par), None, init_seed=seed,
+            devices=member_devices(par.world_size),
+            inference_only=True).engine
+
+    eng = build("p2")
+    reset_peaks(eng.members)
+    rec["cases"]["p2"] = case(eng, rparams)
+    eng.set_gen_tp(2)
+    rec["cases"]["p2g2"] = case(eng, rparams)
+    moved = perturbed(rparams, PP_PERTURB_SEED)
+    eng.set_params(moved)
+    follow = case(eng, moved)
+    rec["cases"]["p2g2_after_set_params"] = follow
+    del moved
+    gc.collect()
+    eng.decode_engine()  # the view holds the perturbed weights again
+    with view_not_refreshed_after_set_params():
+        eng.set_params(rparams)
+    _, _, _, items, _ = view_generate(eng, ids, seg, pos, PP_FAULT_TOKENS)
+    rec["planted_fault"] = dict(view_not_refreshed=tf_gaps(
+        packed_teacher_forced(rcfg, rparams, items)[0], items))
+    rec["fault_fails"] = rec["planted_fault"]["view_not_refreshed"][
+        "max_abs"] > lim
+    del eng, items
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = build("c4g4")
+    reset_peaks(eng.members)
+    rec["cases"]["c4g4"] = case(eng, rparams)
+    del eng, ref, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["cases"].values()))
+    rec["ok"] = rec["fault_fails"] and all(
+        r["ok"] for r in rec["cases"].values())
+    rec["_segs"] = dict(prefill=seg)
+    return rec
+
+
+def expected_pp_ppo_launches(runner, n_layers, n_minibatches):
+    """Per step: actor_gen's prefill (K1) and decode steps (K4) on each
+    member of the actor's decode view; rew_inf and ref_inf on one device
+    (K1); critic_inf one GPipe pass of the critic's M microbatches; each
+    train MFC per minibatch one pipelined train pass (3 K1 and one K2/K3
+    a layer a microbatch) over its engine's M."""
+    host = runner.host
+    actor = host.models["actor"].engine
+    critic = host.models["critic"].engine
+    gen = actor.generate_stats
+    steps = len(gen)
+    view_members = len(actor._decode_view.members)
+    out = [launches_of(n_layers, view_members, fwd=steps,
+                       decode=sum(s["decode_steps"] for s in gen)),
+           launches_of(n_layers, 1, fwd=2 * steps),
+           pipeline_launches(n_layers, 1, critic.pipeline_ctx.n_microbatches,
+                             infer_passes=steps)]
+    for eng in (actor, critic):
+        out.append(pipeline_launches(
+            n_layers, 1, eng.pipeline_ctx.n_microbatches,
+            train_passes=n_minibatches * steps))
+    return add_counts(*out)
+
+
+@contextlib.contextmanager
+def view_keyed_on_tree_identity():
+    """The planted refresh fault: the decode view's freshness keyed on
+    the identity of the weights object (the JAX package's key, whose
+    train step replaces the tree) in place of the version: the port
+    trains in place, so the view keeps the rollout-1 weights."""
+    from realhf_tpu_torch.engine.engine import Engine
+    with patched(Engine, "_weights_key", lambda self: id(self.params)):
+        yield
+
+
+def timed_view_builds(eng, out):
+    """Wraps ``eng.decode_engine`` to append each call's ms (the view's
+    build or refresh, synchronised) to ``out``."""
+    real = eng.decode_engine
+
+    def timed():
+        sync_all()
+        t0 = time.monotonic()
+        view = real()
+        sync_all()
+        out.append((time.monotonic() - t0) * 1e3)
+        return view
+
+    eng.decode_engine = timed
+
+
+def phase_pp_ppo(smi):
+    """ppo-7bw-l4's traffic (7B width, 4 layers a role, 16 prompts, up
+    to 128 sampled tokens, 4 minibatches, 2 steps) with the actor at p2
+    (1F1B, M 8) dropping its decode view after each rollout, the critic
+    at p2 under GPipe (M 4), ref and reward on one device. Gates: the
+    ppo phase's first-minibatch limits on both steps (the second after
+    the view was rebuilt from the trained weights), exact K1-K4, the
+    rollout in range, the view dropped after the last rollout. Planted
+    fault: a runner without the drop whose view's freshness is keyed on
+    the weights object's identity must miss the limits on step 2.
+    Reported: per-MFC seconds and the view build ms of each step."""
+    import torch
+    from realhf_tpu_torch.system.inline import InlineRunner
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 160, seed=1)
+        spec, vocab = build_ppo_spec(data, PPO_LAYERS, 2, extra=PP_PPO)
+        t0 = time.monotonic()
+        runner = InlineRunner(without_saves(spec), role_devices={
+            "actor": member_devices(2), "critic": member_devices(2)})
+        sync_all()
+        setup = time.monotonic() - t0
+        seen = watch_ppo_runner(runner)
+        actor = runner.models["actor"].engine
+        builds = []
+        timed_view_builds(actor, builds)
+        reset_peaks(member_devices(2))
+        reset_counts()
+        runner.run()
+        sync_all()
+        counts = read_counts()
+        want = expected_pp_ppo_launches(runner, PPO_LAYERS, PPO_MINIBATCHES)
+        firsts = first_minibatches(seen)
+        rec = dict(
+            n_layers=PPO_LAYERS, card=smi, setup_secs=setup,
+            layouts={r: str(runner.models[r].engine.parallel)
+                     for r in PPO_ROLES},
+            schedules={r: runner.models[r].engine.pipeline_ctx.schedule
+                       for r in ("actor", "critic")},
+            view=str(actor._decode_view.parallel),
+            view_build_ms=builds,
+            view_dropped=actor.decode_view_param_bytes() == 0,
+            step_secs=list(runner.step_secs),
+            mfc_secs={k: list(v) for k, v in seen["mfc_secs"].items()},
+            first_minibatch=dict(
+                importance_weight=[m["importance_weight"] for m in firsts],
+                ppo_approx_kl=[m["ppo_approx_kl"] for m in firsts],
+                limits=PPO_FIRST_MINIBATCH_LIMITS),
+            rollout=check_ppo_rollout(runner.last_batch, vocab),
+            peak_mem_gb=read_peaks(member_devices(2)),
+            launches=counts, launches_expected=want,
+            launches_ok=counts == want)
+        rec["first_minibatch_ok"] = first_minibatch_ok(firsts)
+        del runner, seen, actor
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec, _ = build_ppo_spec(data, PPO_LAYERS, 2, extra=dict(
+            PP_PPO, **{"actor.drop_decode_view_after_rollout": "false"}))
+        with view_keyed_on_tree_identity():
+            runner = InlineRunner(without_saves(spec), role_devices={
+                "actor": member_devices(2), "critic": member_devices(2)})
+            seen = watch_ppo_runner(runner)
+            runner.run()
+        ffirsts = first_minibatches(seen)
+        del runner, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["planted_fault"] = dict(view_keyed_on_tree_identity=dict(
+        importance_weight=[m["importance_weight"] for m in ffirsts],
+        ppo_approx_kl=[m["ppo_approx_kl"] for m in ffirsts]))
+    rec["fault_fails"] = not first_minibatch_ok(ffirsts)
+    rec["ok"] = bool(
+        rec["first_minibatch_ok"] and rec["fault_fails"]
+        and rec["launches_ok"] and rec["view_dropped"]
+        and len(rec["step_secs"]) == 2
+        and all(rec["rollout"][k] for k in (
+            "tokens_in_range", "tokens_inside_mask", "logprobs_ok")))
+    return rec
+
+
+PP_PHASES = (("pp_sft", phase_pp_sft), ("pp_gen", phase_pp_gen),
+             ("pp_ppo", phase_pp_ppo))
+
+
+def run_pp_phases(smi):
+    """The pipeline and decode-view phases, each freeing its models
+    before the next. Returns the records and the segment matrices their
+    members ran at."""
+    recs, segs = {}, {}
+    for name, fn in PP_PHASES:
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        if "_segs" in recs[name]:
+            segs[name] = recs[name].pop("_segs")
+        emit(name, **recs[name])
+    return recs, segs
+
+
+def phase_kernels_pp(segs):
+    """K1-K4 against their plain versions at the shapes the pipeline
+    phases launched them at, with the limits and planted faults of phase
+    3: K1 and K2/K3 on one pipeline microbatch (one stream) of pp_sft's
+    p2 at 32/32 heads and of its p2t2 at 16/16 heads (the longest
+    stream of each; one record a stream, so without the shifted-boundary
+    fault); K1 and K4 on each member of pp_gen's d2t1 view (4
+    prompt rows at 32/32 heads, the cache of prompt length +
+    ``PP_NEW_TOKENS`` slots, half the new tokens written) and on the
+    d1t4 view's members (8 rows at 8/8). hd 128; the first case of each
+    kind timed."""
+    import torch
+    from realhf_tpu_torch.models.transformer import data_rows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def on_card(seg):
+        return torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+
+    def longest_row(arrays):
+        rows = [a[i:i + 1] for a in arrays for i in range(a.shape[0])]
+        return on_card(max(rows, key=lambda a: (a != 0).sum()))
+
+    nq, hd = 32, 128
+    fwd, bwd = [], []
+    for name, h, first in (("p2", nq, True), ("p2t2", nq // 2, False)):
+        # one record a stream: no segment boundary to shift, no fault
+        seg = longest_row(segs["pp_sft"][name])
+        label = f"pp_sft_{name}_microbatch"
+        fwd.append(check_flash_fwd(label, 1, seg.shape[1], h, h, hd, seg,
+                                   True, gen, timed=first))
+        bwd.append(check_flash_bwd(label, 1, seg.shape[1], h, h, hd, seg,
+                                   True, gen, timed=first))
+    prefill = on_card(segs["pp_gen"]["prefill"])
+    b, lp = prefill.shape
+    for view, d, t in (("d2t1", 2, 1), ("d1t4", 1, 4)):
+        for j, (r0, r1) in enumerate(data_rows(b, d)):
+            seg, first = prefill[r0:r1], j == 0 and view == "d2t1"
+            h = nq // t
+            fwd.append(check_flash_fwd(
+                f"pp_gen_{view}_prefill_member{j * t}", r1 - r0, lp, h, h,
+                hd, seg, True, gen, timed=first, plant_fault=j == 0))
+            spans = [(lp - int(n), lp + PP_NEW_TOKENS // 2)
+                     for n in (seg != 0).sum(-1)]
+            fwd.append(check_flash_decode(
+                f"pp_gen_{view}_decode_member{j * t}", r1 - r0,
+                lp + PP_NEW_TOKENS, h, h, hd, spans, gen, timed=first))
+    for rec in fwd + bwd:
+        rec["member_shape"] = True
+    del gen
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
     own instantiation, or its own kernel for K2/K3, timed on the hd 256
@@ -6749,7 +7334,8 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     dpo, grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
     ckpt_resume's resumed step, serve_gen, the four serve
     configurations, mixtral_gen, mixtral_sft, mistral, gpt2_gen, tp_gen,
-    tp_sft and par_ppo), each counted from 0 just before its path and
+    tp_sft, par_ppo, pp_sft, pp_gen and pp_ppo), each counted from 0 just
+    before its path and
     read just after it; an ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft)."""
     def sums(ps):
         return {k: sum(p["launches"][k] for p in ps)
@@ -6957,6 +7543,16 @@ def main(argv=None):
     bwd_recs += par_bwd
     RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
     ok &= all(r["ok"] for r in par_fwd + par_bwd)
+    pp_recs, pp_segs = run_pp_phases(smi)
+    ok &= all(r["ok"] for r in pp_recs.values())
+    pp_fwd, pp_bwd = phase_kernels_pp(pp_segs)
+    del pp_segs
+    for r in pp_fwd + pp_bwd:
+        print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
+    kernel_recs += pp_fwd
+    bwd_recs += pp_bwd
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
+    ok &= all(r["ok"] for r in pp_fwd + pp_bwd)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -6980,7 +7576,8 @@ def main(argv=None):
         + list(serve_rec["configs"].values())
         + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")]
         + [gemma_recs["gpt2_gen"]]
-        + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")],
+        + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")]
+        + [pp_recs[k] for k in ("pp_sft", "pp_gen", "pp_ppo")],
         [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]])))
     print(smi)
     print(json.dumps({"ok": True, "device": {

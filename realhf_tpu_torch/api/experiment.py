@@ -34,6 +34,10 @@ class ModelSpec:
     #: restore the optimizer state saved beside ``path``; the resume path
     #: sets it, a new run from a checkpoint starts with a fresh one
     restore_optimizer_state: bool = False
+    #: free the decode view's weights after each generate MFC of a
+    #: pipeline, context-parallel or ``g`` layout (the next rollout moves
+    #: them in again): one copy of the weights between rollouts
+    drop_decode_view_after_rollout: bool = False
 
 
 @dataclasses.dataclass

@@ -30,6 +30,7 @@ raise (later slices). ``offload`` keeps one pinned host copy and frees
 every device's; ``ensure_on_device`` places it on every device again.
 """
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,10 +53,16 @@ from realhf_tpu_torch.parallel import collectives as C
 from realhf_tpu_torch.parallel.mesh import (
     ParallelismConfig,
     data_group,
+    data_index,
     default_devices,
+    holders,
     make_mesh,
-    model_group,
+    member_at,
+    model_index,
+    pipe_index,
 )
+from realhf_tpu_torch.parallel.pipeline import PipelineContext
+from realhf_tpu_torch.parallel.schedule import default_microbatches
 
 logger = logging.getLogger("engine")
 
@@ -103,10 +110,17 @@ class Engine:
                 devices[0] if devices is not None else device)]
         self.device = self.members[0]
         self._ctx = self.parallel.context_parallel_size > 1
-        #: data and tensor parallelism over more than one member
+        #: pipeline, data and tensor parallelism over more than one member
         self.sharded = n > 1 and not self._ctx
         if self.sharded:
             T.check_layout(cfg, self.parallel.tensor_parallel_size)
+        self.pipeline_ctx = self._pipeline_ctx()
+        #: bumped by every install of weights (``set_params``, a
+        #: reallocation into this engine): with ``version``, what keys
+        #: the decode view's freshness
+        self.params_epoch = 0
+        self._decode_view: Optional["Engine"] = None
+        self._view_key = None
         self.params = None
         self._member_params = None
         #: the weights wait on the host (``offload``) until the next use
@@ -131,10 +145,33 @@ class Engine:
                 self.optimizer = optim.AdamW(
                     optimizer, list(_leaves(self.params)), total_train_steps)
 
+    def _pipeline_ctx(self) -> Optional[PipelineContext]:
+        p = self.parallel.pipeline_parallel_size
+        if p == 1:
+            return None
+        if self.cfg.n_layers % p:
+            raise ValueError(f"n_layers={self.cfg.n_layers} not divisible by "
+                             f"pipeline_parallel_size={p}")
+        sched = self.parallel.pipeline_schedule
+        return PipelineContext(
+            p, self.parallel.pipeline_microbatches
+            or default_microbatches(p, sched), sched)
+
+    @property
+    def pipeline_ctx_infer(self) -> Optional[PipelineContext]:
+        """The pipeline of inference-only forwards: always GPipe (there
+        is no backward to schedule)."""
+        if self.pipeline_ctx is None:
+            return None
+        return dataclasses.replace(self.pipeline_ctx, schedule="gpipe")
+
     @property
     def n_streams(self) -> int:
-        """Preferred [S, L] stream-batch rows: one per data member."""
-        return self.parallel.data_parallel_size
+        """Preferred [S, L] stream-batch rows: one per data member, times
+        the pipeline's microbatch count at p > 1."""
+        d = self.parallel.data_parallel_size
+        return d * (self.pipeline_ctx.n_microbatches
+                    if self.pipeline_ctx is not None else 1)
 
     def _cast_param_dtype(self, params):
         """Place leaves on this engine's device in cfg.param_dtype
@@ -150,16 +187,24 @@ class Engine:
         """Install new weights (a tensor or numpy tree, canonical or
         padded for any t, or another engine's ``MemberParams``) on the
         device, or on every member. The optimizer state, fp32 master
-        copies included, is kept, as in the JAX package."""
+        copies included, is kept, as in the JAX package. ``None`` makes
+        a sharded engine's member trees uninitialised (a reallocation
+        fills them)."""
+        self.params_epoch += 1
         if isinstance(params, MemberParams):
-            params = sharding.gather_params(self.cfg, params.group(0)[0])
+            params = sharding.gather_member_params(self.cfg, params)
         if self.sharded:
-            t = self.parallel.tensor_parallel_size
-            self.params = MemberParams(
-                params_from_numpy(params, dtype=T.dtype_of(
-                    self.cfg.param_dtype), cfg=self.cfg,
-                    devices=self.members, t=t),
-                list(self.members), self.parallel.data_parallel_size, t)
+            self.params = None  # the old copies go before the new ones come
+            par = self.parallel
+            d, t = par.data_parallel_size, par.tensor_parallel_size
+            p, pdt = par.pipeline_parallel_size, T.dtype_of(
+                self.cfg.param_dtype)
+            trees = (sharding.empty_member_trees(
+                self.cfg, self.members, d, t, p, pdt) if params is None
+                else params_from_numpy(params, dtype=pdt, cfg=self.cfg,
+                                       devices=self.members, t=t, p=p))
+            self.params = MemberParams(trees, list(self.members), d, t, p,
+                                       self.pipeline_ctx)
             self.offloaded = False
             return
         self.params = self._cast_param_dtype(params)
@@ -184,12 +229,10 @@ class Engine:
 
     def gathered_params(self, device=None):
         """The canonical tree of a sharded engine's weights, gathered
-        from the first data group's members onto ``device`` (default:
-        the first member's)."""
-        dev = torch.device(device) if device is not None else self.device
-        trees, _ = self.params.group(0)
-        return sharding.gather_params(
-            self.cfg, [_tree_map(lambda a: a.to(dev), tr) for tr in trees])
+        from the first data group's members of every stage onto
+        ``device`` (default: the first member's)."""
+        return sharding.gather_member_params(self.cfg, self.params,
+                                             device or self.device)
 
     def _member_leaves(self) -> List[torch.Tensor]:
         """Every member's leaves, member-major, each in ``_leaves``
@@ -200,23 +243,29 @@ class Engine:
     # ZeRO-1 and the gradient sums of a sharded engine
     # ------------------------------------------------------------------
     def _leaf_specs(self):
-        return [spec for _, spec in sharding.flat_specs(self.cfg)]
+        """(path, spec, staged) of every leaf in ``_leaves`` order; a
+        block leaf is staged (split into layer slabs) at p > 1."""
+        p = self.parallel.pipeline_parallel_size
+        return [(path, spec, p > 1 and sharding.is_staged(path))
+                for path, spec in sharding.flat_specs(self.cfg)]
 
     def _zero1_slices(self, zero1: bool):
         """Per member, per leaf: the slice of the shard whose optimizer
         state the member holds (``zero1_moment_spec``'s data dim over
-        the logical shape), or None for the whole shard."""
+        the stage's logical shape, never the layer dim of a slab), or
+        None for the whole shard."""
         d, t = (self.parallel.data_parallel_size,
                 self.parallel.tensor_parallel_size)
-        specs = self._leaf_specs()
         out = []
         for i, tree in enumerate(self.params.trees):
             row = []
-            for spec, p in zip(specs, _leaves(tree)):
+            for (_, spec, staged), p in zip(self._leaf_specs(), _leaves(tree)):
                 shape = list(p.shape)
                 sd = sharding.split_dim(spec)
                 if sd is not None:
                     shape[sd] *= t
+                if staged:
+                    spec = ("pipe",) + tuple(spec[1:])
                 zspec = sharding.zero1_moment_spec(
                     spec, shape, d if zero1 else 1)
                 if sharding.DATA not in zspec:
@@ -224,24 +273,25 @@ class Engine:
                     continue
                 z = zspec.index(sharding.DATA)
                 n = p.shape[z] // d
-                row.append((z, (i // t) * n, n))
+                row.append((z, data_index(self.mesh, i) * n, n))
             out.append(row)
         return out
 
     def _sum_grads(self, acc):
-        """Each leaf's gradient summed over the members that hold it: a
-        split leaf over its data group, a replicated leaf over every
-        member. ``acc[member][leaf]`` -> the same nesting; members on
-        one device share the summed tensor."""
-        specs = self._leaf_specs()
+        """Each leaf's gradient summed over the members that hold it
+        (``mesh.holders``): a split leaf over its model index, a block
+        leaf within its stage, over everything else it is replicated
+        on. ``acc[member][leaf]`` -> the same nesting; members on one
+        device share the summed tensor."""
         out = [list(row) for row in acc]
-        for k, spec in enumerate(specs):
-            if sharding.split_dim(spec) is None:
-                groups = [list(range(len(self.members)))]
-            else:
-                groups = [data_group(self.mesh, j)
-                          for j in range(self.parallel.tensor_parallel_size)]
-            for grp in groups:
+        for k, (_, spec, staged) in enumerate(self._leaf_specs()):
+            split = sharding.split_dim(spec) is not None
+            done = set()
+            for i in range(len(self.members)):
+                if i in done:
+                    continue
+                grp = holders(self.mesh, i, split, staged)
+                done.update(grp)
                 summed = C.all_reduce([acc[m][k] for m in grp],
                                       [self.members[m] for m in grp])
                 for m, g in zip(grp, summed):
@@ -249,36 +299,42 @@ class Engine:
         return out
 
     def _logical_norm(self, grads):
-        """The norm of the logical gradient: each split leaf's t shards
-        once, each replicated leaf once (from the first data group)."""
+        """The norm of the logical gradient: each element once (data
+        index 0; every model index of a split leaf; every stage of a
+        block leaf)."""
         total = None
-        for k, spec in enumerate(self._leaf_specs()):
-            grp = (model_group(self.mesh, 0)
-                   if sharding.split_dim(spec) is not None else [0])
-            for m in grp:
-                sq = grads[m][k].float().pow(2).sum().to(self.device)
-                total = sq if total is None else total + sq
+        p, t = (self.parallel.pipeline_parallel_size,
+                self.parallel.tensor_parallel_size)
+        for k, (_, spec, staged) in enumerate(self._leaf_specs()):
+            split = sharding.split_dim(spec) is not None
+            for s in (range(p) if staged else [0]):
+                for j in (range(t) if split else [0]):
+                    sq = grads[member_at(self.mesh, s, 0, j)][k].float(
+                    ).pow(2).sum().to(self.device)
+                    total = sq if total is None else total + sq
         return torch.sqrt(total)
 
     def _gather_zero1(self):
         """After a ZeRO-1 step each data member holds its own updated
         slice of every split-over-data leaf: all-gather the slices over
-        the data group into every member's shard."""
-        t = self.parallel.tensor_parallel_size
+        each data group (one stage, one model index) into every member's
+        shard."""
+        p, t = (self.parallel.pipeline_parallel_size,
+                self.parallel.tensor_parallel_size)
         leaves = [list(_leaves(tr)) for tr in self.params.trees]
         for k in range(len(leaves[0])):
-            for j in range(t):
-                grp = data_group(self.mesh, j)
-                sl = self._zero1[grp[0]][k]
-                if sl is None:
-                    continue
-                z = sl[0]
-                parts = [leaves[m][k].narrow(*self._zero1[m][k])
-                         for m in grp]
-                full = C.all_gather(parts, [self.members[m] for m in grp],
-                                    dim=z)
-                for m, f in zip(grp, full):
-                    leaves[m][k].copy_(f)
+            for s in range(p):
+                for j in range(t):
+                    grp = data_group(self.mesh, member_at(self.mesh, s, 0, j))
+                    sl = self._zero1[grp[0]][k]
+                    if sl is None:
+                        continue
+                    parts = [leaves[m][k].narrow(*self._zero1[m][k])
+                             for m in grp]
+                    full = C.all_gather(parts, [self.members[m] for m in grp],
+                                        dim=sl[0])
+                    for m, f in zip(grp, full):
+                        leaves[m][k].copy_(f)
 
     # ------------------------------------------------------------------
     # Optimizer state across the numpy boundary
@@ -290,22 +346,28 @@ class Engine:
         if not self.sharded:
             return self.optimizer.state_spec()
         t = self.parallel.tensor_parallel_size
-        canon = [sharding.canonical_shape(self.cfg, path, spec, p.shape, t)
-                 for (path, spec), p in zip(sharding.flat_specs(self.cfg),
-                                            _leaves(self.params.trees[0]))]
+        p = self.parallel.pipeline_parallel_size
+        canon = []
+        for (path, spec, staged), leaf in zip(self._leaf_specs(),
+                                              _leaves(self.params.trees[0])):
+            shape = list(sharding.canonical_shape(self.cfg, path, spec,
+                                                  leaf.shape, t))
+            if staged:
+                shape[0] *= p
+            canon.append(tuple(shape))
         f32 = np.dtype(np.float32)
         n_master = sum(w is not None for w in self.optimizer.master[
             :len(canon)])
         count = ((), np.dtype(np.int32))
-        return ([(tuple(s), f32) for s in canon[:n_master]] + [count]
-                + [(tuple(s), f32) for s in canon] * 2 + [count])
+        return ([(s, f32) for s in canon[:n_master]] + [count]
+                + [(s, f32) for s in canon] * 2 + [count])
 
     def iter_opt_state_numpy(self):
         """Yield the optimizer-state leaves as host numpy arrays, one at a
         time, in the JAX package's order, dtypes and 0-d step counts. An
         offloaded state is read from its pinned host copy. A sharded
-        engine gathers each leaf over its members and cuts the
-        vocabulary padding off."""
+        engine gathers each leaf over its members (data slices, model
+        shards, stage slabs) and cuts the vocabulary padding off."""
         if not self.sharded:
             for x in self.optimizer.state_leaves():
                 yield (np.asarray(x, np.int32) if isinstance(x, int)
@@ -323,20 +385,23 @@ class Engine:
     def _canonical_state(self, per_unit, device="cpu"):
         """Per (member, leaf) state tensors -> each leaf's canonical
         tensor on ``device``: data slices concatenated along the ZeRO-1
-        dim, model shards along the split dim, the vocabulary
-        unpadded."""
+        dim, model shards along the split dim, stage slabs along the
+        layer dim, the vocabulary unpadded."""
         k_leaves = len(self._zero1[0])
-        t = self.parallel.tensor_parallel_size
-        for k, (path, spec) in enumerate(sharding.flat_specs(self.cfg)):
-            shards = []
-            for j in range(t):
-                grp = data_group(self.mesh, j)
-                sl = self._zero1[grp[0]][k]
-                parts = [per_unit[m * k_leaves + k].to(device) for m in grp]
-                shards.append(torch.cat(parts, dim=sl[0]) if sl is not None
-                              else parts[0])
-            sd = sharding.split_dim(spec)
-            full = torch.cat(shards, dim=sd) if sd is not None else shards[0]
+        par = self.parallel
+        p, t = par.pipeline_parallel_size, par.tensor_parallel_size
+        for k, (path, spec, staged) in enumerate(self._leaf_specs()):
+            parts = []
+            for s in range(p if staged else 1):
+                row = []
+                for j in range(t):
+                    grp = data_group(self.mesh, member_at(self.mesh, s, 0, j))
+                    sl = self._zero1[grp[0]][k]
+                    ds = [per_unit[m * k_leaves + k].to(device) for m in grp]
+                    row.append(torch.cat(ds, dim=sl[0]) if sl is not None
+                               else ds[0])
+                parts.append(row)
+            full = sharding.join_chunks(parts, path, spec)
             yield sharding.repad_vocab_leaf(self.cfg, path, full, 1)
 
     def opt_state_numpy(self) -> list:
@@ -366,15 +431,16 @@ class Engine:
         opt.count = counts.pop()
 
     def _scatter_state(self, per_unit, k, arr):
-        path, spec = sharding.flat_specs(self.cfg)[k]
-        t = self.parallel.tensor_parallel_size
+        path, spec, staged = self._leaf_specs()[k]
+        par = self.parallel
+        p, t = par.pipeline_parallel_size, par.tensor_parallel_size
         full = sharding.repad_vocab_leaf(
             self.cfg, path, torch.from_numpy(np.asarray(arr, np.float32)),
             t)
-        sd = sharding.split_dim(spec)
         for m in range(len(self.members)):
-            shard = (full.chunk(t, dim=sd)[m % t] if sd is not None
-                     else full)
+            shard = sharding.member_chunk(
+                full, path, spec, pipe_index(self.mesh, m),
+                model_index(self.mesh, m), p if staged else 1, t)
             sl = self._zero1[m][k]
             if sl is not None:
                 shard = shard.narrow(*sl)
@@ -528,7 +594,8 @@ class Engine:
             n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
             return self._gather(self._ctx_hidden(ids, seg), n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
-                         self._tensor(seg_ids))
+                         self._tensor(seg_ids),
+                         pipeline=self.pipeline_ctx_infer)
         if self.sharded:  # each data group's first model member's copy
             return T._gather_rows([None if x is None else x[0]
                                    for x in h.hs], self.device)
@@ -542,7 +609,8 @@ class Engine:
             return self._ctx_logprobs(input_ids, seg_ids, temperature,
                                       logits_mask)
         ids, seg = self._tensor(input_ids), self._tensor(seg_ids)
-        h, _ = T.forward(self.cfg, self.params, ids, seg)
+        h, _ = T.forward(self.cfg, self.params, ids, seg,
+                         pipeline=self.pipeline_ctx_infer)
         mask = (None if logits_mask is None
                 else self._tensor(logits_mask, dtype=torch.bool))
         return F.shifted_logprobs_from_hidden(
@@ -560,7 +628,8 @@ class Engine:
             return self._gather([T.critic_values(self.cfg, p, h) for p, h
                                  in zip(self._member_params, hs)], n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
-                         self._tensor(seg_ids))
+                         self._tensor(seg_ids),
+                         pipeline=self.pipeline_ctx_infer)
         return T.critic_values(self.cfg, self.params, h)
 
     def generate(self, prompt_ids, prompt_seg, prompt_pos,
@@ -569,18 +638,91 @@ class Engine:
                  eos_token_id: Optional[int], pad_token_id: int
                  ) -> gen_mod.GenerationOutput:
         """Batch generation from [B, Lp] left-padded prompts (numpy or
-        tensors); ``generator`` must live on this engine's device."""
-        if self._ctx:
-            raise NotImplementedError(
-                "generation on a context-parallel layout (the JAX "
-                "package's decode view, engine.py:653) is a later part of "
-                "ROADMAP.md, queue 1, item 4.")
+        tensors); ``generator`` must live on this engine's device. Runs
+        on the decode view (``decode_engine``) where there is one."""
+        eng = self.decode_engine()
         out = gen_mod.generate(
-            self.cfg, self.params, self._tensor(prompt_ids),
-            self._tensor(prompt_seg), self._tensor(prompt_pos), generator,
+            self.cfg, eng.params, eng._tensor(prompt_ids),
+            eng._tensor(prompt_seg), eng._tensor(prompt_pos), generator,
             gconfig, eos_token_id=eos_token_id, pad_token_id=pad_token_id)
         self.generate_stats.append(dict(out.stats))
         return out
+
+    # ------------------------------------------------------------------
+    # The decode view
+    # ------------------------------------------------------------------
+    def decode_engine(self) -> "Engine":
+        """The engine generation runs on: this one for a dNtM layout at
+        ``g == t`` (it decodes in place), else the decode view.
+
+        On a pipeline or context-parallel layout, or at ``g != t``: an
+        optimizer-free engine at ``d' = n / g``, ``t' = g`` over the same
+        member devices, built once and kept. Its weights come by
+        ``reallocate`` from this engine's, one leaf in flight, whenever
+        this engine's ``version`` or ``params_epoch`` moved since they
+        last did, or after ``drop_decode_view``; a refresh writes them
+        in place (never a second copy)."""
+        par = self.parallel
+        g = par.gen_tp_size or par.tensor_parallel_size
+        if (par.pipeline_parallel_size == 1 and not self._ctx
+                and g == par.tensor_parallel_size):
+            return self
+        if self._decode_view is None:
+            view_par = ParallelismConfig(data_parallel_size=len(self.members)
+                                         // g, tensor_parallel_size=g)
+            logger.info("Building the decode view %s of a %s layout",
+                        view_par, par)
+            self._decode_view = Engine(self.cfg, None, parallel=view_par,
+                                       devices=self.members)
+        view = self._decode_view
+        key = self._weights_key()
+        if view.params is None:
+            view.set_params(None)
+            self._view_key = None
+        if self._view_key != key:
+            from realhf_tpu_torch.parallel.realloc import reallocate
+            reallocate(self.cfg, self.params, view)
+            self._view_key = key
+        return view
+
+    def _weights_key(self):
+        """What the decode view's freshness is keyed on: the optimizer
+        steps and the installs of weights (the port updates its weights
+        in place, so the weights object's identity never moves)."""
+        return (self.version, self.params_epoch)
+
+    def drop_decode_view(self):
+        """Free the decode view's weights (the view object stays; the
+        next generate moves the weights in again)."""
+        if self._decode_view is not None:
+            self._decode_view.params = None
+            self._view_key = None
+
+    def decode_view_param_bytes(self) -> int:
+        """Bytes the decode view's weights hold over all its members (0
+        when there is none or it was dropped): one logical copy split
+        over the view's t and replicated over its d, the quantity
+        ``drop_decode_view`` frees."""
+        view = self._decode_view
+        if view is None or view.params is None:
+            return 0
+        return sum(p.numel() * p.element_size()
+                   for tr in view.params.trees for p in _leaves(tr))
+
+    def set_gen_tp(self, gen_tp: int):
+        """Install a decode-view model degree (the allocation
+        shorthand's ``g``), checked against the layout now; a changed
+        degree discards the view."""
+        n = len(self.members)
+        if gen_tp and n % gen_tp:
+            raise ValueError(f"gen_tp_size={gen_tp} does not divide the "
+                             f"layout's {n} devices.")
+        if gen_tp == self.parallel.gen_tp_size:
+            return
+        self.parallel = dataclasses.replace(self.parallel,
+                                            gen_tp_size=gen_tp)
+        self._decode_view = None
+        self._view_key = None
 
     # ------------------------------------------------------------------
     # Context parallelism

@@ -38,6 +38,9 @@ class ModelConfigCLI:
         default_factory=OptimizerConfig)
     parallel: ParallelismConfig = dataclasses.field(
         default_factory=ParallelismConfig)
+    #: free the decode view's weights after each generate MFC
+    #: (``ModelSpec.drop_decode_view_after_rollout``)
+    drop_decode_view_after_rollout: bool = False
 
     def to_spec(self, train: bool = True) -> ModelSpec:
         """The spec of this model; ``train`` gives it its optimizer."""
@@ -51,7 +54,9 @@ class ModelConfigCLI:
             optimizer=self.optimizer if train else None,
             parallel=self.parallel,
             gradient_checkpointing=self.gradient_checkpointing,
-            bf16=self.bf16)
+            bf16=self.bf16,
+            drop_decode_view_after_rollout=(
+                self.drop_decode_view_after_rollout))
 
 
 @dataclasses.dataclass

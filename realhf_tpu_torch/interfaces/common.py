@@ -76,7 +76,9 @@ def forward_with_aux(cfg, params, input_ids, seg_ids):
     """Model forward returning (hidden, aux-loss dict). For a
     mixture-of-experts model the dict carries the router's
     load-balancing / z losses summed over the layers, which a training
-    objective must add; a dense model returns an empty dict."""
+    objective must add; a dense model returns an empty dict. A pipeline
+    layout's schedule rides on its ``MemberParams`` (the JAX interfaces
+    pass ``engine.pipeline_ctx`` here)."""
     h, _, aux = T.forward(cfg, params, input_ids, seg_ids, return_aux=True)
     return h, aux
 

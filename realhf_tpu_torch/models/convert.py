@@ -8,10 +8,10 @@ directions are bit-exact; bfloat16 leaves travel as numpy arrays of
 ``base/safetensors_io.BF16`` (``ml_dtypes.bfloat16`` where that package
 is installed, else a structured dtype over the same 16 bits).
 
-A data- and tensor-parallel engine takes the same trees, canonical or
-padded for any t: ``params_from_numpy(..., cfg=, devices=, t=)`` gives
-one tree per member (``models/sharding.shard_params``), each member's
-leaves its own copy on its own device.
+A pipeline-, data- and tensor-parallel engine takes the same trees,
+canonical or padded for any t: ``params_from_numpy(..., cfg=, devices=,
+t=, p=)`` gives one tree per member (``models/sharding.shard_params``),
+each member's leaves its own copy on its own device.
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -38,16 +38,19 @@ def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def params_from_numpy(tree: Tree, device="cpu",
                       dtype: Optional[torch.dtype] = None, *, cfg=None,
                       devices: Optional[Sequence] = None,
-                      t: int = 1):
+                      t: int = 1, p: int = 1):
     """numpy tree -> tensor tree on ``device`` (cast to ``dtype`` if
     given, else keeping each leaf's dtype). With ``devices`` (the members
-    of a dNtM layout, in (data, model) order), ``t`` and the model's
-    ``cfg``: a canonical or tp-padded tree (numpy or tensors) -> a list
-    of trees, member i's holding model shard ``i % t`` on ``devices[i]``,
-    every member its own copy."""
+    of a dNtMpP layout, in (pipe, data, model) order), ``t``, ``p`` and
+    the model's ``cfg``: a canonical or tp-padded tree (numpy or tensors)
+    -> a list of trees, member i's holding stage ``i // (d * t)``'s layer
+    slabs and model shard ``i % t`` on ``devices[i]``, every member its
+    own copy."""
     if devices is not None:
-        shards = sharding.shard_params(cfg, tree, t)
-        return [_map(lambda a, d=d: _member_leaf(a, d, dtype), shards[i % t])
+        shards = sharding.shard_params(cfg, tree, t, p)
+        per_stage = len(devices) // p
+        return [_map(lambda a, d=d: _member_leaf(a, d, dtype),
+                     shards[(i // per_stage) * t + i % t])
                 for i, d in enumerate(devices)]
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
                 else _to_tensor(v, device, dtype))

@@ -18,9 +18,18 @@ multiple (``pad_vocab``), the padding in the last member's shard;
 ``gather_params`` undoes the split and the padding, giving the
 canonical tree ``Engine.params_numpy`` returns at one device.
 
+A pipeline layout of ``p`` stages splits every block leaf (``staged``,
+the ``blocks`` subtree) along its leading layer dim into ``p``
+contiguous slabs, stage ``s`` holding layers ``[s * n / p, (s + 1) * n /
+p)``, the JAX package's ``param_pspecs(pipeline_parallel=True)``; the
+embedding, final norm and heads are replicated over the stages, as in
+JAX (``parallel/pipeline.py``). ``member_chunk`` / ``join_chunks`` give
+and undo one member's part of a logical leaf at any layout.
+
 ``MemberParams`` is what a sharded engine hands its loss functions in
 place of a tree: ``models/transformer.py`` and ``ops/functional.py``
-run their data- and tensor-parallel paths when they are given one.
+run their pipeline, data- and tensor-parallel paths when they are given
+one.
 """
 
 import dataclasses
@@ -90,6 +99,45 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 def split_dim(spec: Spec) -> Optional[int]:
     """The dim a spec splits over the model members, or None."""
     return spec.index(MODEL) if MODEL in spec else None
+
+
+def is_staged(path) -> bool:
+    """A block leaf: split into layer slabs over the pipeline stages."""
+    return path[0] == "blocks"
+
+
+def member_chunk(leaf, path, spec: Spec, s: int, j: int, p: int, t: int):
+    """Stage ``s``, model member ``j``'s part of a logical leaf (padded
+    for ``t``): its layer slab, then its model chunk. Tensor parts are
+    views, numpy parts copies."""
+    if p > 1 and is_staged(path):
+        leaf = _chunk(leaf, 0, p, s)
+    sd = split_dim(spec)
+    if sd is not None and t > 1:
+        if leaf.shape[sd] % t:
+            raise ValueError(
+                f"a leaf of shape {tuple(leaf.shape)} does not split over "
+                f"{t} model members along dim {sd}")
+        leaf = _chunk(leaf, sd, t, j)
+    return leaf
+
+
+def join_chunks(parts, path, spec: Spec):
+    """``parts[s][j]`` (stage-major, then model) -> the logical leaf, on
+    the first part's device: ``member_chunk``'s inverse."""
+    sd = split_dim(spec)
+
+    def cat(xs, dim):
+        if len(xs) == 1:
+            return xs[0]
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat([x.to(xs[0].device) for x in xs], dim=dim)
+        return np.concatenate(xs, axis=dim)
+
+    if not is_staged(path):
+        parts = parts[:1]  # replicated over the stages
+    return cat([cat(row, sd) if sd is not None else row[0] for row in parts],
+               0)
 
 
 def flat_specs(cfg: TransformerConfig) -> List[Tuple[Tuple[str, ...], Spec]]:
@@ -218,12 +266,6 @@ def zero1_moment_spec(spec: Spec, shape, dp: int) -> Spec:
 # ----------------------------------------------------------------------
 # Trees per member
 # ----------------------------------------------------------------------
-def _map_specs(fn, params, specs):
-    return {k: (_map_specs(fn, params[k], specs[k])
-                if isinstance(params[k], dict) else fn(params[k], specs[k]))
-            for k in params}
-
-
 def _chunk(a, dim: int, t: int, j: int):
     n = a.shape[dim] // t
     if isinstance(a, torch.Tensor):
@@ -231,73 +273,129 @@ def _chunk(a, dim: int, t: int, j: int):
     return np.take(a, np.arange(j * n, (j + 1) * n), axis=dim)
 
 
+def _map_paths(fn, tree, prefix=()):
+    return {k: (_map_paths(fn, v, prefix + (k,)) if isinstance(v, dict)
+                else fn(prefix + (k,), v))
+            for k, v in tree.items()}
+
+
 def shard_params(cfg: TransformerConfig, params: Dict[str, Any],
-                 t: int) -> List[Dict[str, Any]]:
-    """A canonical (or any tp-padded) tree -> ``t`` trees, member
-    ``j``'s holding the ``j``-th chunk of each split leaf and the whole
-    of each replicated one. Tensor chunks are views (the caller copies
-    them where it places them); numpy chunks are copies."""
+                 t: int, p: int = 1) -> List[Dict[str, Any]]:
+    """A canonical (or any tp-padded) tree -> ``p * t`` trees, stage
+    ``s``, model member ``j``'s at ``s * t + j``: its layer slab of each
+    block leaf and its chunk of each split leaf (``member_chunk``), the
+    whole of each replicated one. Tensor chunks are views (the caller
+    copies them where it places them); numpy chunks are copies."""
     params = normalize_vocab_padding(cfg, params, t)
-    specs = param_specs(cfg)
-
-    def leaf(j):
-        def fn(a, spec):
-            d = split_dim(spec)
-            if d is None or t == 1:
-                return a
-            if a.shape[d] % t:
-                raise ValueError(
-                    f"a leaf of shape {tuple(a.shape)} does not split "
-                    f"over {t} model members along dim {d}")
-            return _chunk(a, d, t, j)
-        return fn
-
-    return [_map_specs(leaf(j), params, specs) for j in range(t)]
+    specs = dict(flat_specs(cfg))
+    return [_map_paths(lambda path, a, s=s, j=j: member_chunk(
+                a, path, specs[path], s, j, p, t), params)
+            for s in range(p) for j in range(t)]
 
 
-def gather_params(cfg: TransformerConfig,
-                  trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    """``t`` member trees (one model group) -> the canonical tree:
-    split leaves concatenated in model order on the first tree's
-    device, replicated ones taken from the first, vocabulary padding
-    cut off."""
-    specs = param_specs(cfg)
+def gather_params(cfg: TransformerConfig, trees: Sequence[Dict[str, Any]],
+                  p: int = 1) -> Dict[str, Any]:
+    """``p * t`` member trees (one model group of each stage, stage-major)
+    -> the canonical tree: every leaf joined on the first tree's device
+    (``join_chunks``), replicated ones taken from the first stage's
+    first member, vocabulary padding cut off."""
+    t = len(trees) // p
+    specs = dict(flat_specs(cfg))
 
-    def gather(path_trees, spec):
-        d = split_dim(spec)
-        first = path_trees[0]
-        if d is None or len(path_trees) == 1:
-            return first
-        if isinstance(first, torch.Tensor):
-            return torch.cat([a.to(first.device) for a in path_trees], dim=d)
-        return np.concatenate(path_trees, axis=d)
+    def get(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
 
-    def walk(ts, sp):
-        return {k: (walk([x[k] for x in ts], sp[k])
-                    if isinstance(ts[0][k], dict) else
-                    gather([x[k] for x in ts], sp[k]))
-                for k in ts[0]}
-
-    return unpad_vocab(cfg, walk(list(trees), specs))
+    return unpad_vocab(cfg, _map_paths(
+        lambda path, _: join_chunks(
+            [[get(trees[s * t + j], path) for j in range(t)]
+             for s in range(p if is_staged(path) else 1)], path,
+            specs[path]), trees[0]))
 
 
 @dataclasses.dataclass
 class MemberParams:
-    """The weights of a data- and tensor-parallel layout: one tree per
-    member, flat in (data, model) order, each on its member's device.
-    ``d * t == len(trees)``."""
+    """The weights of a pipeline-, data- and tensor-parallel layout: one
+    tree per member, flat in (pipe, data, model) order, each on its
+    member's device. ``p * d * t == len(trees)``. ``pipeline`` is the
+    engine's ``parallel/pipeline.PipelineContext`` when ``p > 1`` (the
+    forward reads its schedule and microbatch count)."""
     trees: List[Dict[str, Any]]
     devices: List[torch.device]
     d: int
     t: int
+    p: int = 1
+    pipeline: Any = None
 
-    def group(self, g: int) -> Tuple[List[Dict[str, Any]],
-                                     List[torch.device]]:
-        """Data group ``g``'s model members: their trees and devices."""
-        sl = slice(g * self.t, (g + 1) * self.t)
-        return self.trees[sl], self.devices[sl]
+    def group(self, g: int, s: Optional[int] = None
+              ) -> Tuple[List[Dict[str, Any]], List[torch.device]]:
+        """Stage ``s``'s (default: the last, which holds the final
+        hidden states) data group ``g``'s model members: their trees
+        and devices."""
+        s = self.p - 1 if s is None else s
+        base = (s * self.d + g) * self.t
+        return self.trees[base:base + self.t], self.devices[base:base + self.t]
+
+    def stages(self, g: int = 0) -> List[Tuple[List[Dict[str, Any]],
+                                               List[torch.device]]]:
+        """Data group ``g``'s model group of every stage, in stage
+        order."""
+        return [self.group(g, s) for s in range(self.p)]
+
+    def canonical_trees(self) -> List[Dict[str, Any]]:
+        """Data group 0's model groups of every stage, stage-major: what
+        ``gather_params`` joins."""
+        return [tr for trees, _ in self.stages(0) for tr in trees]
 
     def vocab_starts(self, cfg: TransformerConfig) -> List[int]:
         """The first (padded) vocabulary row each model member holds."""
         per = padded_vocab_size(cfg, self.t) // self.t
         return [j * per for j in range(self.t)]
+
+
+def gather_member_params(cfg: TransformerConfig, mp: MemberParams,
+                         device=None) -> Dict[str, Any]:
+    """The canonical tree of ``mp``'s weights on ``device`` (default:
+    its first member's)."""
+    dev = torch.device(device) if device is not None else mp.devices[0]
+    return gather_params(cfg, [_map_paths(lambda _, a: a.to(dev), tr)
+                               for tr in mp.canonical_trees()], mp.p)
+
+
+def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
+                       d: int, t: int, p: int, dtype: torch.dtype
+                       ) -> List[Dict[str, Any]]:
+    """Uninitialised member trees of a ``dNtMpP`` layout (each leaf its
+    member's shard shape, vocabulary padded for t), on their devices:
+    the target of a reallocation."""
+    shapes = init_shapes(cfg)
+    vp = padded_vocab_size(cfg, t)
+    specs = dict(flat_specs(cfg))
+    out = []
+    for i, dev in enumerate(devices):
+        s = i // (d * t)
+
+        def leaf(path, shape, dev=dev, s=s):
+            shape = list(shape)
+            if tuple(path) == ("embed", "wte"):
+                shape[0] = vp
+            elif tuple(path) == ("head", "w") and _carries_vocab_head(cfg):
+                shape[1] = vp
+            if p > 1 and is_staged(path):
+                shape[0] //= p
+            sd = split_dim(specs[tuple(path)])
+            if sd is not None:
+                shape[sd] //= t
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        out.append(_map_paths(leaf, shapes))
+    return out
+
+
+def init_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The logical shape of every leaf of ``transformer.init_params``."""
+    from realhf_tpu_torch.models import transformer as T
+    with torch.device("meta"):
+        tree = T.init_params(cfg, None, device="meta")
+    return _map_paths(lambda _, a: tuple(a.shape), tree)

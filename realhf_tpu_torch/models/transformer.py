@@ -34,6 +34,16 @@ rotary and attention (K1, K4) on the member's own heads, row-parallel
 (``_row_parallel``), and the LM head by vocabulary shard. Hidden states
 come back as a ``MemberHidden``; a decode cache is one ``KVCache`` per
 member over its ``nkv / t`` heads.
+
+Pipeline parallelism: given a ``MemberParams`` of ``p > 1`` stages (or a
+tree and a ``pipeline=`` context), ``forward`` embeds on the first
+stage's members, runs the block slabs through the schedule
+(``parallel/pipeline.py`` GPipe, or ``parallel/schedule.py`` 1F1B when
+the context says so and autograd is on), each stage-tick a slab of
+``_block`` (t = 1) or ``_block_members`` (t > 1) on the stage's members,
+and applies the final norm on the last stage's members, whose trees the
+heads then use. A prefill (``return_kv``) or a decode step at p > 1
+raises: generation goes through the engine's decode view.
 """
 
 import dataclasses
@@ -55,6 +65,8 @@ from realhf_tpu_torch.ops.moe import moe_mlp_with_losses
 from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 from realhf_tpu_torch.parallel import collectives as C
+from realhf_tpu_torch.parallel.pipeline import ONE_F_ONE_B, pipeline_blocks
+from realhf_tpu_torch.parallel.schedule import pipeline_blocks_1f1b
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -377,6 +389,10 @@ def forward(cfg: TransformerConfig, params: Params,
     summed over the layers (empty for a dense model). ``kvs`` is ``(k,
     v)`` stacked ``[n_layers, B, L, nkv, hd]`` when ``return_kv``, else
     None. Heads apply separately (``lm_logits``, ``critic_values``).
+    ``pipeline`` (a ``parallel/pipeline.PipelineContext``) runs the
+    blocks as that pipeline, its stages slabs of the one tree on its
+    device (a ``MemberParams`` of p > 1 stages brings its own); the aux
+    losses are then weighted per microbatch.
 
     Under gradient checkpointing a block's recompute routes its tokens
     as the first pass did: the same inputs through the same
@@ -384,24 +400,44 @@ def forward(cfg: TransformerConfig, params: Params,
     whose top-2 adds onto 0 commute), and ``torch.utils.checkpoint``
     raises if a recomputed tensor's shape differs, as an expert's slice
     would."""
-    if pipeline is not None:
-        raise NotImplementedError(
-            "pipeline parallelism is the next part of ROADMAP.md, queue 1, "
-            "item 4.")
     if isinstance(params, MemberParams):
         return forward_members(cfg, params, input_ids, seg_ids, positions,
                                return_kv=return_kv, return_aux=return_aux,
-                               attention_fn=attention_fn)
+                               attention_fn=attention_fn, pipeline=pipeline)
     check_supported(cfg)
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
         positions = positions_from_segments(seg_ids)
     x = _embed(cfg, params, input_ids.long(), positions)
     cos, sin = _rotary_tables(cfg, positions)
-    ks, vs = [], []
+    if pipeline is not None:
+        _check_pipelined(cfg, pipeline, return_kv)
+        per = cfg.n_layers // pipeline.n_stages
+        stages = [([{"blocks": _tree_narrow(params["blocks"], s * per, per)}],
+                   [x.device]) for s in range(pipeline.n_stages)]
+        hs, aux_sum = _run_pipeline(cfg, pipeline, stages, [x], seg_ids, cos,
+                                    sin, attention_fn)
+        x, kvs = hs[0], None
+    else:
+        kv = ([], []) if return_kv else None
+        x, aux_sum = _layers(cfg, layer_views(params["blocks"], cfg.n_layers),
+                             0, x, seg_ids, cos, sin, attention_fn, kv)
+        kvs = (torch.stack(kv[0]), torch.stack(kv[1])) if return_kv else None
+    x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
+    if return_aux:
+        return x, kvs, aux_sum
+    return x, kvs
+
+
+def _layers(cfg, views, first, x, seg_ids, cos, sin, attention_fn, kv=None):
+    """Layers ``first, first + 1, ...`` (their weights ``views``) on one
+    tree -> (the residual, each aux loss summed over the layers);
+    appends each layer's k/v to ``kv`` when given. Under autograd with
+    gradient checkpointing each block is recomputed in the backward."""
     aux_sum: Dict[str, torch.Tensor] = {}
     remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
-    for li, lp in enumerate(layer_views(params["blocks"], cfg.n_layers)):
+    for i, lp in enumerate(views):
+        li = first + i
         if remat:
             x, (k, v), aux = checkpoint(_block, cfg, lp, li, x, seg_ids, cos,
                                         sin, attention_fn,
@@ -409,16 +445,94 @@ def forward(cfg: TransformerConfig, params: Params,
         else:
             x, (k, v), aux = _block(cfg, lp, li, x, seg_ids, cos, sin,
                                     attention_fn)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
+        if kv is not None:
+            kv[0].append(k)
+            kv[1].append(v)
         for name, val in aux.items():
             aux_sum[name] = aux_sum[name] + val if name in aux_sum else val
-    x = _norm(cfg, x, params["ln_f"]["scale"], params["ln_f"].get("bias"))
-    kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
-    if return_aux:
-        return x, kvs, aux_sum
-    return x, kvs
+    return x, aux_sum
+
+
+# ----------------------------------------------------------------------
+# Pipeline parallelism
+# ----------------------------------------------------------------------
+def _tree_narrow(tree, start: int, n: int):
+    return {k: (_tree_narrow(v, start, n) if isinstance(v, dict)
+                else v.narrow(0, start, n)) for k, v in tree.items()}
+
+
+def _check_pipelined(cfg: TransformerConfig, pipe, return_kv: bool):
+    if return_kv:
+        raise ValueError(
+            "a KV-cache prefill on a pipeline layout: generation runs on "
+            "the engine's decode view (Engine.decode_engine).")
+    if cfg.n_layers % pipe.n_stages:
+        raise ValueError(f"n_layers={cfg.n_layers} does not split into "
+                         f"{pipe.n_stages} pipeline stages.")
+
+
+def _stage_step(cfg: TransformerConfig, attention_fn):
+    """The pipeline's ``block_step``: stage s's slab of ``n_layers / S``
+    blocks (global layer indices) on one microbatch, over the stage's
+    model members."""
+
+    def step(s, trees, xs, segs, coss, sins):
+        views = [layer_views(tr["blocks"], _slab_len(tr)) for tr in trees]
+        first = s * len(views[0])
+        if len(trees) == 1:
+            y, aux = _layers(cfg, views[0], first, xs[0], segs[0], coss[0],
+                             sins[0], attention_fn)
+            return [y], aux
+        remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+        devs = [x.device for x in xs]
+        tables = list(zip(coss, sins))
+        for i in range(len(views[0])):
+            xs, _ = _block_members(cfg, [v[i] for v in views], first + i, xs,
+                                   segs, tables, devs, attention_fn, remat)
+        return xs, {}
+
+    return step
+
+
+def _slab_len(tree) -> int:
+    return tree["blocks"]["ln1"]["scale"].shape[0]
+
+
+def _run_pipeline(cfg, pipe, stages, xs, seg_ids, cos, sin, attention_fn):
+    """The blocks over ``stages`` by ``pipe``'s schedule: 1F1B's own
+    backward when it is asked for and autograd is on, else GPipe (with
+    each stage-tick checkpointed as a whole under ``pipeline_remat ==
+    "tick"`` and gradient checkpointing)."""
+    step = _stage_step(cfg, attention_fn)
+    if pipe.schedule == ONE_F_ONE_B and torch.is_grad_enabled():
+        return pipeline_blocks_1f1b(pipe, stages, xs, seg_ids, cos, sin,
+                                    step, return_aux=True)
+    remat_tick = (cfg.gradient_checkpointing and cfg.pipeline_remat == "tick"
+                  and torch.is_grad_enabled())
+    return pipeline_blocks(pipe, stages, xs, seg_ids, cos, sin, step,
+                           return_aux=True, remat_tick=remat_tick)
+
+
+def _forward_pipeline(cfg, mp: MemberParams, pipe, g, ids, seg, pos,
+                      attention_fn):
+    """Data group ``g``'s forward over its stages -> (the last stage's
+    members' final hidden states, aux)."""
+    stages = mp.stages(g)
+    trees0, devs0 = stages[0]
+    if mp.t == 1:
+        dev = devs0[0]
+        xs = [_embed(cfg, trees0[0], ids.to(dev).long(), pos.to(dev))]
+    else:
+        xs = _embed_members(cfg, trees0, devs0, C.broadcast(ids, devs0),
+                            C.broadcast(pos, devs0), mp.vocab_starts(cfg))
+    dev = devs0[0]
+    pos0 = pos.to(dev)
+    cos, sin = _rotary_tables(cfg, pos0)
+    hs, aux = _run_pipeline(cfg, pipe, stages, xs, seg.to(dev), cos, sin,
+                            attention_fn)
+    trees, _ = stages[-1]
+    return [_norm(cfg, h, tr["ln_f"]["scale"], tr["ln_f"].get("bias"))
+            for tr, h in zip(trees, hs)], aux
 
 
 def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
@@ -612,15 +726,21 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
                     input_ids: torch.Tensor, seg_ids: torch.Tensor,
                     positions: Optional[torch.Tensor] = None, *,
                     return_kv: bool = False, return_aux: bool = False,
-                    attention_fn=None):
-    """``forward`` over the members of a ``dNtM`` layout: ``[S, L]``
+                    attention_fn=None, pipeline=None):
+    """``forward`` over the members of a ``dNtMpP`` layout: ``[S, L]``
     inputs (on any device) -> (``MemberHidden``, per-member stacked
     (k, v) or None[, aux]). Data group g runs rows ``data_rows(S,
-    d)[g]``; at t = 1 that is ``forward`` on its one member's tree."""
+    d)[g]``; at t = p = 1 that is ``forward`` on its one member's tree.
+    At p > 1 each data group runs the pipeline of ``pipeline`` (default
+    ``mp.pipeline``) and the hidden states are the last stage's."""
     check_layout(cfg, mp.t)
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
         positions = positions_from_segments(seg_ids)
+    pipe = None
+    if mp.p > 1:
+        pipe = pipeline or mp.pipeline
+        _check_pipelined(cfg, pipe, return_kv)
     rows = data_rows(input_ids.shape[0], mp.d)
     starts = mp.vocab_starts(cfg)
     hs, kvs = [], []
@@ -632,19 +752,25 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
             kvs.extend([None] * mp.t)
             continue
         ids, seg, pos = (a[r0:r1] for a in (input_ids, seg_ids, positions))
-        if mp.t == 1:
-            dev = devs[0]
-            h, kv, aux = forward(cfg, trees[0], ids.to(dev), seg.to(dev),
-                                 pos.to(dev), return_kv=return_kv,
-                                 return_aux=True, attention_fn=attention_fn)
+        if pipe is not None or mp.t == 1:
+            if pipe is not None:
+                h, aux = _forward_pipeline(cfg, mp, pipe, g, ids, seg, pos,
+                                           attention_fn)
+            else:
+                dev = devs[0]
+                h, kv, aux = forward(
+                    cfg, trees[0], ids.to(dev), seg.to(dev), pos.to(dev),
+                    return_kv=return_kv, return_aux=True,
+                    attention_fn=attention_fn)
+                h = [h]
+                kvs.append(kv)
             if aux and return_aux and mp.d > 1:
                 raise NotImplementedError(
                     "router losses over data shards: MoE training at d > 1 "
                     "comes with expert parallelism, ROADMAP.md, queue 1, "
                     "item 4.")
             aux_sum = aux
-            hs.append([h])
-            kvs.append(kv)
+            hs.append(h)
         else:
             h, kv = _forward_group(cfg, trees, devs, starts, ids, seg, pos,
                                    return_kv, attention_fn)
@@ -818,7 +944,7 @@ def _cache_from_kv(cfg, kv, seg_ids, total) -> KVCache:
 
 def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
                 token: torch.Tensor, positions: torch.Tensor,
-                uniform_slot: bool = False, mesh=None
+                uniform_slot: bool = False
                 ) -> Tuple[torch.Tensor, KVCache]:
     """Feed ``token`` [B] at ``positions`` [B]; return the hidden state
     [B, H] for the next token's logits and the cache.
@@ -839,10 +965,6 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
     caches: data group g steps its rows of ``token`` on its members,
     each member with K4 over its own KV heads, and the result is a
     ``MemberHidden`` and the list of caches."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the decode view's mesh is a later part of ROADMAP.md, queue "
-            "1, item 4.")
     if isinstance(params, MemberParams):
         return _decode_members(cfg, params, cache, token, positions,
                                uniform_slot)
@@ -918,6 +1040,10 @@ def _decode_attend(cfg, li, q, k, v, cache, st):
 def _decode_members(cfg, mp: MemberParams, caches, token, positions,
                     uniform_slot):
     check_layout(cfg, mp.t)
+    if mp.p > 1:
+        raise ValueError("a decode step on a pipeline layout: generation "
+                         "runs on the engine's decode view "
+                         "(Engine.decode_engine).")
     rows = data_rows(token.shape[0], mp.d)
     starts = mp.vocab_starts(cfg)
     hs, new_caches = [], []

@@ -17,15 +17,20 @@ Two families of layouts of more than one device are built:
 - context parallelism alone (``c > 1`` with ``d = t = p = 1``), whose
   members each hold a contiguous ``1/c`` of every stream's tokens and
   meet in ring attention (``ops/ring_attention_fused.py``);
-- data and tensor parallelism, ``dNtM`` (``p = c = 1``): member ``i``
-  has data index ``i // t`` and model index ``i % t``; the members of
-  one data index form a model group (they split each weight, as
+- pipeline, data and tensor parallelism, ``dNtMpP`` (``c = 1``): member
+  ``i`` has pipe index ``i // (d * t)``, data index ``(i // t) % d`` and
+  model index ``i % t``. The members of one pipe index form a stage,
+  which holds a contiguous ``n_layers / p`` slab of the blocks
+  (``parallel/pipeline.py``); within a stage, the members of one data
+  index form a model group (they split each weight, as
   ``models/sharding.py`` says), the members of one model index a data
   group (they hold disjoint streams and sum their gradients).
 
-The pipeline, context parallelism with d or t, sequence parallelism and
-the decode view's ``gen_tp_size`` raise ``NotImplementedError``, each
-naming its part of ROADMAP.md, queue 1, item 4.
+Context parallelism with d, t or p and sequence parallelism raise
+``NotImplementedError``, each naming its part of ROADMAP.md, queue 1,
+item 4. ``gen_tp_size`` (``g``) is the model degree of the decode view
+(``engine/engine.py`` ``Engine.decode_engine``); it must divide the
+layout's device count.
 """
 
 import dataclasses
@@ -164,32 +169,31 @@ def _check_device(d) -> torch.device:
 
 def check_layout(parallel: ParallelismConfig):
     """Raise ``NotImplementedError`` for a layout this port does not
-    build yet, naming the part of item 4 that owns it."""
+    build yet, naming the part of item 4 that owns it, and
+    ``ValueError`` for a decode-view degree that does not divide the
+    layout."""
     d, t = parallel.data_parallel_size, parallel.tensor_parallel_size
-    if parallel.pipeline_parallel_size > 1:
+    p = parallel.pipeline_parallel_size
+    if parallel.context_parallel_size > 1 and d * t * p > 1:
         raise NotImplementedError(
-            f"Layout {parallel}: pipeline parallelism (parallel/pipeline.py, "
-            f"schedule.py, smap.py) is the next part of {_ITEM4}.")
-    if parallel.context_parallel_size > 1 and d * t > 1:
-        raise NotImplementedError(
-            f"Layout {parallel}: context parallelism together with data or "
-            f"tensor parallelism waits for the ring's CUDA backward "
-            f"({_ITEM4}); c > 1 runs alone.")
+            f"Layout {parallel}: context parallelism together with data, "
+            f"tensor or pipeline parallelism waits for the ring's CUDA "
+            f"backward ({_ITEM4}); c > 1 runs alone.")
     if parallel.sequence_parallel:
         raise NotImplementedError(
-            f"Layout {parallel}: sequence parallelism ('s') is a later "
+            f"Layout {parallel}: sequence parallelism ('s') is the next "
             f"part of {_ITEM4}.")
-    if parallel.gen_tp_size:
-        raise NotImplementedError(
-            f"Layout {parallel}: the decode view ('g', gen_tp_size) is a "
-            f"later part of {_ITEM4}.")
+    g = parallel.gen_tp_size
+    if g and parallel.world_size % g:
+        raise ValueError(f"Layout {parallel}: gen_tp_size={g} does not "
+                         f"divide its {parallel.world_size} devices.")
 
 
 def make_mesh(parallel: ParallelismConfig,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """The mesh of one model over ``devices`` (default:
     ``default_devices(world_size)``). Builds a single device, every
-    ``dNtM`` layout and context parallelism alone; ``check_layout``
+    ``dNtMpP`` layout and context parallelism alone; ``check_layout``
     raises for the rest."""
     check_layout(parallel)
     n = parallel.world_size
@@ -208,30 +212,49 @@ def make_mesh(parallel: ParallelismConfig,
     return Mesh(tuple(devices), shape)
 
 
+def pipe_index(mesh: Mesh, i: int) -> int:
+    """Member ``i``'s stage (c = 1)."""
+    return i // (mesh.shape[DATA_AXIS] * mesh.shape[MODEL_AXIS])
+
+
 def data_index(mesh: Mesh, i: int) -> int:
-    """Member ``i``'s index along the data axis (p = c = 1)."""
-    return i // mesh.shape[MODEL_AXIS]
+    """Member ``i``'s index along the data axis (c = 1)."""
+    return (i // mesh.shape[MODEL_AXIS]) % mesh.shape[DATA_AXIS]
 
 
 def model_index(mesh: Mesh, i: int) -> int:
-    """Member ``i``'s index along the model axis (p = c = 1)."""
+    """Member ``i``'s index along the model axis (c = 1)."""
     return i % mesh.shape[MODEL_AXIS]
 
 
+def member_at(mesh: Mesh, s: int, g: int, j: int) -> int:
+    """The member at stage ``s``, data index ``g``, model index ``j``."""
+    return (s * mesh.shape[DATA_AXIS] + g) * mesh.shape[MODEL_AXIS] + j
+
+
 def model_group(mesh: Mesh, i: int) -> List[int]:
-    """The members that split the weights with member ``i`` (its data
-    index, every model index), in model order."""
+    """The members that split the weights with member ``i`` (its stage
+    and data index, every model index), in model order."""
     t = mesh.shape[MODEL_AXIS]
-    base = data_index(mesh, i) * t
+    base = i - model_index(mesh, i)
     return list(range(base, base + t))
 
 
 def data_group(mesh: Mesh, i: int) -> List[int]:
-    """The members that hold member ``i``'s weight shard (its model
-    index, every data index), in data order."""
-    t = mesh.shape[MODEL_AXIS]
-    return [g * t + model_index(mesh, i)
-            for g in range(mesh.shape[DATA_AXIS])]
+    """The members that hold member ``i``'s weight shard (its stage and
+    model index, every data index), in data order."""
+    s, j = pipe_index(mesh, i), model_index(mesh, i)
+    return [member_at(mesh, s, g, j) for g in range(mesh.shape[DATA_AXIS])]
+
+
+def holders(mesh: Mesh, i: int, split: bool, staged: bool) -> List[int]:
+    """The members that hold the same values of a leaf as member ``i``:
+    a leaf split over the model members (``split``) only on its model
+    index, a block leaf (``staged``) only in its stage; replicated over
+    everything else."""
+    return [k for k in range(len(mesh.devices))
+            if (not split or model_index(mesh, k) == model_index(mesh, i))
+            and (not staged or pipe_index(mesh, k) == pipe_index(mesh, i))]
 
 
 @dataclasses.dataclass

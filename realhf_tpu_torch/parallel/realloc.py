@@ -4,10 +4,11 @@ The counterpart of the JAX package's ``parallel/realloc.py``. There,
 moving a model between two meshes is one ``jax.device_put`` onto the
 target shardings; here the port writes the move out leaf by leaf: each
 logical leaf is gathered from the source's first data group (its model
-shards concatenated on the target's first device), its vocabulary
-re-padded for the target's t (``models/sharding.repad_vocab_leaf``),
-and each target member's chunk copied into that member's tensor in
-place. One leaf is in flight at a time, so the move needs the source,
+shards and stage slabs joined on the target's first device), its
+vocabulary re-padded for the target's t
+(``models/sharding.repad_vocab_leaf``), and each target member's chunk
+(its stage's slab, its model chunk: ``sharding.member_chunk``) copied
+into that member's tensor in place. One leaf is in flight at a time, so the move needs the source,
 the target and one leaf of memory, never a second whole model.
 
 An ``eta`` below 1 merges instead of overwriting: ``target = eta *
@@ -41,22 +42,28 @@ def _get(tree, path):
 
 
 def _targets(engine):
-    """(member trees, t) of an engine at any layout: one tree per member
-    of a sharded engine, else its one tree."""
+    """(member trees, [(stage, model index) of each], p, t) of an engine
+    at any layout: one tree per member of a sharded engine, else its one
+    tree."""
     if getattr(engine, "sharded", False):
-        return engine.params.trees, engine.params.t
-    return [engine.params], 1
+        mp = engine.params
+        per = mp.d * mp.t
+        return (mp.trees, [(i // per, i % mp.t) for i in range(len(mp.trees))],
+                mp.p, mp.t)
+    return [engine.params], [(0, 0)], 1, 1
 
 
 def _source_leaf(src, path, spec, device):
     """The logical leaf at ``path`` (padded for the source's t) on
-    ``device``: model shards of the first data group concatenated."""
+    ``device``: the first data group's model shards and stage slabs
+    joined."""
     if not isinstance(src, MemberParams):
         return _get(src, path).to(device)
-    parts = [_get(tr, path).to(device) for tr in src.group(0)[0]]
-    sd = shard_rules.split_dim(spec)
-    return parts[0] if sd is None or len(parts) == 1 else torch.cat(
-        parts, dim=sd)
+    trees = src.canonical_trees()
+    stages = range(src.p) if shard_rules.is_staged(path) else [0]
+    return shard_rules.join_chunks(
+        [[_get(trees[s * src.t + j], path).to(device) for j in range(src.t)]
+         for s in stages], path, spec)
 
 
 def _ema(src: torch.Tensor, dst: torch.Tensor, eta: float) -> torch.Tensor:
@@ -64,16 +71,16 @@ def _ema(src: torch.Tensor, dst: torch.Tensor, eta: float) -> torch.Tensor:
             + (1.0 - eta) * dst.to(torch.float32)).to(dst.dtype)
 
 
-def _install_leaf(cfg, trees, t, path, spec, leaf, eta):
-    """Re-pad ``leaf`` (a logical leaf, any padding) for ``t`` and copy
-    each member's chunk into its tensor in place (EMA when eta < 1)."""
+def _install_leaf(cfg, target, path, spec, leaf, eta):
+    """Re-pad ``leaf`` (a logical leaf, any padding) for the target's t
+    and copy each member's chunk into its tensor in place (EMA when
+    eta < 1). ``target`` is ``_targets``'s result."""
+    trees, coords, p, t = target
     leaf = shard_rules.repad_vocab_leaf(cfg, path, leaf, t)
-    sd = shard_rules.split_dim(spec)
-    chunks = (leaf.chunk(t, dim=sd) if sd is not None and t > 1
-              else [leaf] * t)
-    for i, tree in enumerate(trees):
+    for tree, (s, j) in zip(trees, coords):
         dst = _get(tree, path)
-        src = chunks[i % t].to(device=dst.device, dtype=dst.dtype)
+        src = shard_rules.member_chunk(leaf, path, spec, s, j, p, t).to(
+            device=dst.device, dtype=dst.dtype)
         if dst.shape != src.shape:
             raise ValueError(f"{'/'.join(path)}: a {tuple(src.shape)} "
                              f"chunk for a {tuple(dst.shape)} member leaf")
@@ -88,6 +95,7 @@ def _synchronize(engine):
 
 
 def _finish(engine):
+    engine.params_epoch += 1  # a decode view of the target is stale now
     if not getattr(engine, "sharded", False) and engine._ctx:
         engine._place_members()
 
@@ -101,11 +109,11 @@ def reallocate(cfg: TransformerConfig, src_params: Any, dst_engine,
     dst_engine.ensure_on_device()
     _synchronize(dst_engine)
     t0 = time.monotonic()
-    trees, t = _targets(dst_engine)
+    target = _targets(dst_engine)
     dev = dst_engine.members[0]
     for path, spec in shard_rules.flat_specs(cfg):
         leaf = _source_leaf(src_params, path, spec, dev)
-        _install_leaf(cfg, trees, t, path, spec, leaf, eta)
+        _install_leaf(cfg, target, path, spec, leaf, eta)
     _synchronize(dst_engine)
     dt = time.monotonic() - t0
     _finish(dst_engine)
@@ -120,7 +128,7 @@ def install_param_chunks(cfg: TransformerConfig, dst_engine, n_chunks: int,
     cast and optionally EMA-merged. Returns (seconds, bytes received)."""
     dst_engine.ensure_on_device()
     t0 = time.monotonic()
-    trees, t = _targets(dst_engine)
+    target = _targets(dst_engine)
     specs = dict(shard_rules.flat_specs(cfg))
     seen, total = set(), 0
     for i in range(n_chunks):
@@ -129,7 +137,7 @@ def install_param_chunks(cfg: TransformerConfig, dst_engine, n_chunks: int,
             total += param_stream.leaf_nbytes(arr)
             leaf = arr if isinstance(arr, torch.Tensor) else \
                 torch.from_numpy(arr)
-            _install_leaf(cfg, trees, t, path, specs[path], leaf, eta)
+            _install_leaf(cfg, target, path, specs[path], leaf, eta)
             seen.add(path)
     missing = set(specs) - seen
     assert not missing, f"param stream missed leaves: {sorted(missing)}"
@@ -140,12 +148,12 @@ def install_param_chunks(cfg: TransformerConfig, dst_engine, n_chunks: int,
 
 def offload_to_host(params: Any) -> Any:
     """A host copy of a model's weights: a tree's leaves on the CPU, or
-    the model shards of a sharded model's first data group (either
-    installs with ``Engine.set_params``)."""
+    the model shards and stage slabs of a sharded model's first data
+    group (either installs with ``Engine.set_params``)."""
     if isinstance(params, MemberParams):
-        trees = [_cpu_tree(tr) for tr in params.group(0)[0]]
-        return MemberParams(trees, [torch.device("cpu")] * params.t, 1,
-                            params.t)
+        trees = [_cpu_tree(tr) for tr in params.canonical_trees()]
+        return MemberParams(trees, [torch.device("cpu")] * len(trees), 1,
+                            params.t, params.p)
     return _cpu_tree(params)
 
 

@@ -1,11 +1,14 @@
 """Model hosting for the inline runner: one engine per model role, on
-one device or the members of a data- and tensor-parallel layout (with an
-optimizer for the roles that train), or, for a role that no MFC trains
-or generates with, on the members of a context-parallel layout; one
-replica engine per MFC whose allocation (``ExperimentSpec.allocations``)
-differs from its role's layout, kept fresh by parameter reallocation;
-the algorithm interfaces of the MFCs, MFC execution, and each role's
-checkpoint (weights and optimizer state)."""
+one device or the members of a pipeline-, data- and tensor-parallel
+layout (with an optimizer for the roles that train), or, for a role
+that no MFC trains, on the members of a context-parallel layout (its
+generation runs on the engine's decode view); one replica engine per
+MFC whose allocation (``ExperimentSpec.allocations``) differs from its
+role's layout, kept fresh by parameter reallocation (an allocation that
+only adds a decode degree ``g`` is not a replica: it sets the engine's
+``gen_tp_size``); the algorithm interfaces of the MFCs, MFC execution
+(with ``drop_decode_view_after_rollout`` after each generate MFC), and
+each role's checkpoint (weights and optimizer state)."""
 
 import dataclasses
 import os
@@ -45,9 +48,9 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
 
     A layout of more than one device (``spec.parallel``) builds over
     ``devices`` (default ``cuda:0 .. n-1``, or n times the CPU when
-    ``device`` is the CPU): every ``dNtM``, trained or not, and context
-    parallelism alone for an ``inference_only`` role (no MFC trains or
-    generates with it)."""
+    ``device`` is the CPU): every ``dNtMpP``, trained or not, and context
+    parallelism alone for an ``inference_only`` role (no MFC trains
+    it)."""
     par = spec.parallel
     _check_ctx(role, par, inference_only)
     dev = resolve_device(devices[0] if devices else device)
@@ -90,8 +93,8 @@ def _check_ctx(role: str, par, inference_only: bool):
     if par.context_parallel_size > 1 and not inference_only:
         raise NotImplementedError(
             f"Model role {role!r}: layout {par} on a role that an MFC "
-            "trains or generates with: training and generation at c > 1 "
-            "are a later part of ROADMAP.md, queue 1, item 4.")
+            "trains: training at c > 1 is a later part of ROADMAP.md, "
+            "queue 1, item 4.")
 
 
 def build_replica(primary: model_api.Model, par, inference_only: bool,
@@ -136,8 +139,8 @@ class ModelHost:
                  devices: Optional[Sequence[DeviceLike]] = None):
         self.spec = spec
         self.nodes = {n.name: n for n in nodes}
-        busy = {n.role for n in nodes if n.interface_type in (
-            ModelInterfaceType.TRAIN_STEP, ModelInterfaceType.GENERATE)}
+        trained = {n.role for n in nodes
+                   if n.interface_type == ModelInterfaceType.TRAIN_STEP}
         self.role_devices = dict(role_devices or {})
         self.device = device
         self.devices = (None if devices is None
@@ -147,7 +150,7 @@ class ModelHost:
                               init_seed=spec.seed, device=device,
                               total_steps=total_steps,
                               devices=self.role_devices.get(role),
-                              inference_only=role not in busy)
+                              inference_only=role not in trained)
             for role in roles
         }
         #: MFC name -> the replica its allocation runs on
@@ -160,14 +163,16 @@ class ModelHost:
             primary = self.models[node.role]
             if (alloc.parallel.same_layout(primary.engine.parallel)
                     and alloc.device_ids is None):
-                continue  # the role's own layout: not a replica
+                # the role's own layout: not a replica; a ``g`` reaches
+                # the engine's decode view
+                self._install_gen_tp(primary, alloc.parallel, node.name)
+                continue
             if node.interface_type == ModelInterfaceType.TRAIN_STEP:
                 raise ValueError(
                     f"MFC {node.name}: train MFCs run on the role's own "
                     "layout (replicas have no optimizer).")
             self.replicas[node.name] = build_replica(
-                primary, alloc.parallel, inference_only=node.interface_type
-                != ModelInterfaceType.GENERATE, device=device,
+                primary, alloc.parallel, inference_only=True, device=device,
                 devices=self._alloc_devices(alloc, node.role))
             logger.info("Created replica for %s: %s (primary %s)",
                         node.name, alloc.parallel, primary.engine.parallel)
@@ -203,6 +208,21 @@ class ModelHost:
         if self.devices is not None and len(self.devices) >= n:
             return self.devices[:n]
         return None
+
+    @staticmethod
+    def _install_gen_tp(model, par, node_name: str):
+        """An allocation that differs from the role's layout only by
+        ``gen_tp_size`` sets the engine's decode degree (the weight
+        layout is the same)."""
+        eng = model.engine
+        cur = eng.parallel.gen_tp_size
+        if not par.gen_tp_size or par.gen_tp_size == cur:
+            return
+        if cur:
+            logger.warning("MFC %s sets gen_tp_size=%d over an engine at "
+                           "gen_tp_size=%d; the last one wins.", node_name,
+                           par.gen_tp_size, cur)
+        eng.set_gen_tp(par.gen_tp_size)
 
     @staticmethod
     def _resolve_offload_hooks(nodes: List[MFCDef]):
@@ -248,6 +268,14 @@ class ModelHost:
             raise NotImplementedError(node.interface_type)
         if isinstance(out, data_api.SequenceSample) and node.output_key_remap:
             out.remap_keys_(node.output_key_remap)
+        if (node.interface_type == ModelInterfaceType.GENERATE
+                and self.spec.models[node.role]
+                .drop_decode_view_after_rollout):
+            freed = model.engine.decode_view_param_bytes()
+            model.engine.drop_decode_view()
+            if freed:
+                logger.info("Dropped %s's decode view after %s (%.2f GB).",
+                            node.role, node_name, freed / 2 ** 30)
         for h in node._post_hooks:
             if isinstance(h, OffloadHook):
                 model.engine.offload()

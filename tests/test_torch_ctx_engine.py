@@ -147,16 +147,17 @@ def test_members_that_share_a_device_share_its_weights(engines):
 
 
 def test_training_and_generation_on_c4_still_raise(engines):
-    """Training and generation at c4 still raise (item 4); a t2 engine
-    of the same weights now builds and gives c4's log-probs."""
+    """Training at c4 still raises (item 4); generation at c4 runs on
+    the decode view (d4t1), with the greedy tokens of a t2 engine of the
+    same weights, which also gives c4's log-probs."""
+    from realhf_tpu_torch.engine import packing
     from realhf_tpu_torch.engine.optim import OptimizerConfig
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
     eng = engines[False]["c4"]
     with pytest.raises(NotImplementedError, match="item 4"):
         eng.train_minibatches([], None)
     with pytest.raises(NotImplementedError, match="item 4"):
         eng.train_batch([], None)
-    with pytest.raises(NotImplementedError, match="decode view"):
-        eng.generate(None, None, None, None, None, None, 0)
     with pytest.raises(NotImplementedError, match="item 4"):
         Engine(eng.cfg, eng.params_numpy(), device="cpu", parallel=C4,
                devices=["cpu"] * 4, optimizer=OptimizerConfig())
@@ -167,6 +168,16 @@ def test_training_and_generation_on_c4_still_raise(engines):
     ids, seg, _ = _batch(seed=3)
     np.testing.assert_allclose(t2.forward_logprobs(ids, seg).numpy(),
                                eng.forward_logprobs(ids, seg).numpy(),
+                               **PORT_TOL)
+    rng = np.random.default_rng(4)
+    prompt = packing.left_padded_prompts(
+        [rng.integers(1, 100, size=n).astype(np.int32) for n in (5, 9, 3)],
+        pad_id=0)
+    gc = GenerationHyperparameters(max_new_tokens=6, greedy=True)
+    got, want = (e.generate(*prompt, None, gc, None, 0) for e in (eng, t2))
+    assert str(eng.decode_engine().parallel) == "d4t1p1"
+    np.testing.assert_array_equal(got.tokens.numpy(), want.tokens.numpy())
+    np.testing.assert_allclose(got.logprobs.numpy(), want.logprobs.numpy(),
                                **PORT_TOL)
 
 

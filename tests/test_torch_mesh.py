@@ -65,21 +65,23 @@ def test_context_parallel_mesh_builds_over_repeated_devices():
 
 @pytest.mark.parametrize("spec", ["d2", "t2", "p2", "d2c2", "t2c2", "p2c2"])
 def test_other_layouts_of_several_devices_still_raise(spec):
-    """d2 and t2 build (the data- and tensor-parallel slice), each
-    member in its groups; the pipeline and ctx with d or t still raise,
-    naming their part of item 4."""
+    """d2, t2 and p2 build (the data-, tensor- and pipeline-parallel
+    slices), each member in its groups; ctx with d, t or p still raises,
+    naming its part of item 4."""
     par = mesh.parse_parallelism(spec)
-    if spec in ("d2", "t2"):
+    if "c" not in spec:
         m = mesh.make_mesh(par, ["cpu"] * 2)
         d, t = par.data_parallel_size, par.tensor_parallel_size
-        assert m.shape == dict(pipe=1, data=d, ctx=1, model=t)
+        p = par.pipeline_parallel_size
+        assert m.shape == dict(pipe=p, data=d, ctx=1, model=t)
+        assert [mesh.pipe_index(m, i) for i in range(2)] == (
+            [0, 1] if p == 2 else [0, 0])
         assert [mesh.data_group(m, i) for i in range(2)] == (
-            [[0], [1]] if t == 2 else [[0, 1], [0, 1]])
+            [[0, 1], [0, 1]] if d == 2 else [[0], [1]])
         assert [mesh.model_group(m, i) for i in range(2)] == (
             [[0, 1], [0, 1]] if t == 2 else [[0], [1]])
         return
-    match = "pipeline" if spec.startswith("p") else "ring's CUDA backward"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ring's CUDA backward"):
         mesh.make_mesh(par, ["cpu"] * par.world_size)
 
 

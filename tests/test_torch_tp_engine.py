@@ -333,9 +333,10 @@ def test_layouts_of_later_parts_raise(jax_one):
     moe = dict(TINY, mlp_type="moe", moe=MoEConfig(num_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         _port(moe, 1, 2, None)
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
         Engine(TransformerConfig(**TINY), w, device="cpu",
-               parallel=ParallelismConfig(pipeline_parallel_size=2),
+               parallel=ParallelismConfig(tensor_parallel_size=2,
+                                          sequence_parallel=True),
                devices=["cpu"] * 2)
     from realhf_tpu_torch.engine.inflight import InflightBatchingGenerator
     eng = _port(TINY, 1, 2, w)

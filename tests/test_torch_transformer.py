@@ -174,9 +174,9 @@ def test_prefill_and_decode_steps(name, uniform_slot, stacked, monkeypatch):
 
 
 def test_moe_and_pipeline_are_deferred():
-    """Expert parallelism and the pipelined forward still raise; a MoE
-    model without expert parallelism builds, with the JAX package's
-    leaves."""
+    """Expert parallelism and a pipelined prefill (generation goes
+    through the decode view) still raise; a MoE model without expert
+    parallelism builds, with the JAX package's leaves."""
     from realhf_tpu.models.config import MoEConfig as JMoE
     from realhf_tpu_torch.models.config import MoEConfig
     kw = dict(BASE, **CONFIGS["llama_gqa_linear"])
@@ -194,8 +194,10 @@ def test_moe_and_pipeline_are_deferred():
     tcfg = TransformerConfig(**kw)
     tp = T.init_params(tcfg, torch.Generator().manual_seed(0))
     ids = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        T.forward(tcfg, tp, ids, ids + 1, pipeline=object())
+    from realhf_tpu_torch.parallel.pipeline import PipelineContext
+    with pytest.raises(ValueError, match="decode view"):
+        T.forward(tcfg, tp, ids, ids + 1, return_kv=True,
+                  pipeline=PipelineContext(2, 2))
 
 
 def test_init_params_matches_jax_tree_and_scales():
