@@ -350,6 +350,29 @@ exits non-zero):
    kernels (pipeline shapes) -- K1-K3 on one pipeline microbatch of
    pp_sft's p2 (32/32 heads) and p2t2 (16/16), K1 and K4 on the members
    of pp_gen's d2t1 view (32/32) and d1t4 view (8/8).
+41. cp_sft -- the ``sft`` experiment on one 16384-token stream a step
+   (six records of 1536-3584 tokens packed across the shard boundaries)
+   at 7B width, 4 layers, 3 steps, at c2, c4 and d1t2c2s, each against
+   the d1t1 runner of the same seed: losses, grad norms, the fp32 master
+   weights' update (``CP_LIMITS``), exact K6 (plain and lse rounds),
+   push and K2/K3 ring-round counts; c4's ``forward_logprobs`` against a
+   d1t1 engine of its weights, which K6 with its key offsets one shard
+   off must exceed; a ring backward summing dk/dv into shard src + 1
+   must miss the limits. Step seconds and peak memory beside d1t1's.
+42. sp_sft -- the sft cell at 7B width, 4 layers, 3 steps, at d1t2s
+   and d2t2s against d1t2 and d2t2: ``forward_logprobs`` bit-equal,
+   losses, grad norms and the update on ``PAR_LIMITS``' tp_sft limits,
+   exact K1-K3; a reduce-scatter handing member j member j + 1's slice
+   must break the forward and miss the loss limit. Step seconds and peak
+   memory beside the layout without ``s``.
+   kernels (ring rounds) -- K2/K3 at ring rounds at each cp_sft layout's
+   shard shape (B 1; c4: lc 4096, 32/32 heads of 128; c2: lc 8192,
+   32/32; d1t2c2s: lc 8192, 16/16) on the stream it trained on: the
+   diagonal round of the first shard a record crosses into and its round
+   against the shard before (a k_off one 64-key tile off must exceed the
+   limits); K6's lse at each layout's n and heads against
+   ``flash_attention_plain``'s over the gathered stream, row by row, and
+   its o bit-equal to a launch without the lse.
 
 The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
 prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
@@ -363,9 +386,10 @@ interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
-mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft, pp_gen
-and pp_ppo paths, each counted from 0; rows
-``*_hd256`` over gemma_gen and gemma_sft), the
+mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft, pp_gen,
+pp_ppo, cp_sft and sp_sft paths, each counted from 0; rows
+``*_hd256`` over gemma_gen and gemma_sft; rows ``flash_bwd_*_ring`` and
+``ring_attention_lse`` for the ring's backward), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -1583,9 +1607,10 @@ def reset_counts():
     from realhf_tpu_torch.ops import flash_attention as fa
     from realhf_tpu_torch.ops import ring_attention_fused as rf
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.dq_ring_launches = fa.dkv_ring_launches = 0
     da.launches = 0
     da.stacked_launches = 0
-    rf.round_launches = rf.push_launches = 0
+    rf.round_launches = rf.round_lse_launches = rf.push_launches = 0
 
 
 def read_counts():
@@ -1595,7 +1620,16 @@ def read_counts():
     return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
                 flash_bwd_dkv=fa.dkv_launches, flash_decode=da.launches,
                 flash_decode_stacked=da.stacked_launches,
-                ring_round=rf.round_launches, ring_push=rf.push_launches)
+                ring_round=rf.round_launches, ring_push=rf.push_launches,
+                flash_bwd_dq_ring=fa.dq_ring_launches,
+                flash_bwd_dkv_ring=fa.dkv_ring_launches,
+                ring_round_lse=rf.round_lse_launches)
+
+
+#: the launches of the ring's backward (K2/K3 at ring rounds, K6's last
+#: round with the lse) in a path that trains no context-parallel layout
+NO_RING_BWD = dict(flash_bwd_dq_ring=0, flash_bwd_dkv_ring=0,
+                   ring_round_lse=0)
 
 
 def build_gen_spec(data_path, n_layers, max_new_tokens, benchmark_steps,
@@ -1802,7 +1836,9 @@ def write_prompt_answers(path, n, seed, lo=100, hi=400):
                 "answer": " " + words(int(rng.integers(lo, hi + 1)))}) + "\n")
 
 
-def build_sft_spec(data_path, n_layers, lr="1e-5", model_config=None):
+def build_sft_spec(data_path, n_layers, lr="1e-5", model_config=None,
+                   overrides=None):
+    """The sft cell's spec (``overrides`` replace its CLI settings)."""
     from realhf_tpu_torch.base.testing import IntegerTokenizer
     from realhf_tpu_torch.experiments.common import apply_overrides
     from realhf_tpu_torch.experiments.sft_exp import SFTConfig
@@ -1814,7 +1850,7 @@ def build_sft_spec(data_path, n_layers, lr="1e-5", model_config=None):
                           "dataset.train_bs_n_seqs": "16",
                           "dataset.max_seqlen": "1024",
                           "n_mbs": "2", "model.optimizer.lr": lr,
-                          "eval_freq_epochs": "3"})
+                          "eval_freq_epochs": "3", **(overrides or {})})
     spec = cfg.build()
     mspec = spec.models["default"]
     mspec.random_init_config = (model_config
@@ -1904,7 +1940,8 @@ def phase_sft(smi):
     n_bwd = SFT_LAYERS * 2 * 3  # layers x microbatches x steps
     want = dict(flash_fwd=2 * n_bwd + SFT_LAYERS * n_eval_batches * len(evals),
                 flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd, flash_decode=0,
-                flash_decode_stacked=0, ring_round=0, ring_push=0)
+                flash_decode_stacked=0, ring_round=0,
+                ring_push=0, **NO_RING_BWD)
     tokens = runner.last_batch.total_len("packed_input_ids")
     mb_tokens = [mb.total_len("packed_input_ids") for mb in
                  common.split_minibatches(runner.last_batch, 2)]
@@ -2364,7 +2401,7 @@ def expected_ppo_launches(n_layers, n_minibatches, gen_stats):
         flash_fwd=(n_layers + 3 * n_layers) * steps + 2 * bwd,
         flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
         flash_decode=n_layers * sum(st["decode_steps"] for st in gen_stats),
-        flash_decode_stacked=0, ring_round=0, ring_push=0)
+        flash_decode_stacked=0, ring_round=0, ring_push=0, **NO_RING_BWD)
 
 
 def tree_bytes(tree) -> int:
@@ -2959,8 +2996,8 @@ def phase_ctx(smi):
     ``CTX_TIMED_CALLS`` calls after it (host clock, every card
     synchronised), the peak memory that of every member device. Two bf16
     paths that round in other places drift apart over 32 layers; a plain fp32
-    reference on the card (the same weights widened, ``forward_ctx`` with
-    ``ring_attention_plain``) tells rounding from a fault: c4 must be no
+    reference on the card (the same weights widened, ``forward_ctx`` at c4
+    with ``ring_attention_plain``) tells rounding from a fault: c4 must be no
     further from it than c1, within ``fp32_mean_ratio``."""
     import dataclasses
     import functools
@@ -2970,6 +3007,7 @@ def phase_ctx(smi):
     from realhf_tpu_torch.engine.engine import Engine
     from realhf_tpu_torch.models import transformer as T
     from realhf_tpu_torch.models.config import TransformerConfig, llama_config
+    from realhf_tpu_torch.models.sharding import MemberParams
     from realhf_tpu_torch.ops import functional as F
     from realhf_tpu_torch.ops.ring_attention import ring_attention_plain
     from realhf_tpu_torch.parallel.mesh import ParallelismConfig
@@ -3029,21 +3067,18 @@ def phase_ctx(smi):
                                 compute_dtype="float32")
     p32 = {d: _tree_map(lambda t, d=d: t.to(d, torch.float32), params)
            for d in dict.fromkeys(devs)}
-    members = [p32[d] for d in devs]
+    members = MemberParams([p32[d] for d in devs], list(devs), 1, 1,
+                           c=CTX_MEMBERS)
     ids_t = torch.as_tensor(ids, device="cuda")
     seg_t = torch.as_tensor(seg, device="cuda")
-    labels, lvalid = F.next_token_labels(ids_t, seg_t)
     t0 = time.monotonic()
     with torch.no_grad():
-        hs = T.forward_ctx(
-            cfg32, members, ring_shards(ids_t, devs), ring_shards(seg_t, devs),
-            ring_shards(T.positions_from_segments(seg_t), devs),
+        hs, _ = T.forward_ctx(
+            cfg32, members, ids_t, seg_t,
             attention_fn=functools.partial(ring_attention_plain,
                                            block_q=1024, block_k=1024))
-        lps["fp32"] = ring_gather([F.logprobs_from_hidden(
-            cfg32, p, h, lab, val) for p, h, lab, val in zip(
-                members, hs, ring_shards(labels, devs),
-                ring_shards(lvalid, devs))]).cpu().numpy()
+        lps["fp32"] = F.shifted_logprobs_from_hidden(
+            cfg32, members, hs, ids_t, seg_t).cpu().numpy()
     sync_all()
     ref_secs = time.monotonic() - t0
     del p32, members, hs
@@ -3260,7 +3295,7 @@ def algo_launches(fwd=0, bwd=0, decode=0):
     ``decode``, nothing else."""
     return dict(flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
                 flash_decode=decode, flash_decode_stacked=0, ring_round=0,
-                ring_push=0)
+                ring_push=0, **NO_RING_BWD)
 
 
 def seven_b_roles(spec, n_layers=ALGO_LAYERS):
@@ -4212,7 +4247,7 @@ def phase_ckpt_gen(smi):
                 want = dict(flash_fwd=n_layers, flash_bwd_dq=0,
                             flash_bwd_dkv=0, flash_decode=n_layers * n_decode,
                             flash_decode_stacked=0, ring_round=0,
-                            ring_push=0)
+                            ring_push=0, **NO_RING_BWD)
                 out.update(tokens_equal=bool(np.array_equal(
                     gen_tokens(lrunner), want_tokens)),
                     decode_steps=n_decode, launches=counts,
@@ -4435,7 +4470,7 @@ def phase_ckpt_resume(smi):
     n = L * mbs  # one step: layers x microbatches
     want = dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n,
                 flash_decode=0, flash_decode_stacked=0, ring_round=0,
-                ring_push=0)
+                ring_push=0, **NO_RING_BWD)
     rec["launches"] = c["launches"]
     rec["launches_expected"] = want
     rec["launches_ok"] = c["launches"] == want
@@ -5353,7 +5388,7 @@ def phase_mixtral_gen(smi, seed=1):
     n_decode = sum(st["decode_steps"] for st in stats)
     want = dict(flash_fwd=nl * len(stats), flash_bwd_dq=0, flash_bwd_dkv=0,
                 flash_decode=nl * n_decode, flash_decode_stacked=0,
-                ring_round=0, ring_push=0)
+                ring_round=0, ring_push=0, **NO_RING_BWD)
     items = sequences_of(seen, 1)
     tf_routes = []
     with recording_routes(tf_routes):
@@ -5469,7 +5504,7 @@ def phase_mixtral_sft(smi):
     want = dict(flash_fwd=2 * n_bwd + nl * len(runner.eval_dataloader)
                 * n_eval, flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
                 flash_decode=0, flash_decode_stacked=0, ring_round=0,
-                ring_push=0)
+                ring_push=0, **NO_RING_BWD)
     tokens = runner.last_batch.total_len("packed_input_ids")
     mb_tokens = [mb.total_len("packed_input_ids") for mb in
                  common.split_minibatches(runner.last_batch, 2)]
@@ -5688,7 +5723,7 @@ def phase_mistral(smi, seed=1):
     st = eng.generate_stats[0]
     want = dict(flash_fwd=nl, flash_bwd_dq=0, flash_bwd_dkv=0,
                 flash_decode=nl * st["decode_steps"], flash_decode_stacked=0,
-                ring_round=0, ring_push=0)
+                ring_round=0, ring_push=0, **NO_RING_BWD)
     items = sequences_of(seen)
     long_ = {i for i, (p, *_) in enumerate(items)
              if len(p) > eng.cfg.sliding_window}
@@ -5849,7 +5884,8 @@ def tf_gen_phase(smi, family, hf, n_layers, faults, seed):
     n_decode = sum(st["decode_steps"] for st in stats)
     want = dict(flash_fwd=n_layers * len(stats), flash_bwd_dq=0,
                 flash_bwd_dkv=0, flash_decode=n_layers * n_decode,
-                flash_decode_stacked=0, ring_round=0, ring_push=0)
+                flash_decode_stacked=0, ring_round=0,
+                ring_push=0, **NO_RING_BWD)
     cfg = eng.cfg
     items = sequences_of(seen, 1)
     lps, _ = packed_teacher_forced(cfg, eng.params, items)
@@ -5949,7 +5985,7 @@ def phase_gemma_sft(smi):
     want = dict(flash_fwd=2 * n_bwd + nl * len(runner.eval_dataloader)
                 * len(evals), flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
                 flash_decode=0, flash_decode_stacked=0, ring_round=0,
-                ring_push=0)
+                ring_push=0, **NO_RING_BWD)
     tokens = runner.last_batch.total_len("packed_input_ids")
     mb_tokens = [mb.total_len("packed_input_ids") for mb in
                  common.split_minibatches(runner.last_batch, n_mbs)]
@@ -6140,7 +6176,8 @@ def launches_of(layers, members, fwd=0, bwd=0, decode=0):
                 flash_bwd_dq=layers * members * bwd,
                 flash_bwd_dkv=layers * members * bwd,
                 flash_decode=layers * members * decode,
-                flash_decode_stacked=0, ring_round=0, ring_push=0)
+                flash_decode_stacked=0, ring_round=0,
+                ring_push=0, **NO_RING_BWD)
 
 
 def add_counts(*ds):
@@ -6164,9 +6201,9 @@ def row_partial_dropped(member=1):
 
 
 def phase_tp_gen(smi, seed=1):
-    """gen-7b-b8's traffic (LLaMA-7B, 32 layers, 8 prompts of 100-512
-    words, 128 new tokens; one greedy and one sampled batch) through the
-    gen experiment at d2t2 and at d1t4, the members on
+    """gen-7b-b8's traffic (LLaMA-7B at ``PAR_GEN_LAYERS`` layers, 8
+    prompts of 100-512 words, 128 new tokens; one greedy and one sampled
+    batch) through the gen experiment at d2t2 and at d1t4, the members on
     ``member_devices``. Gates per layout: exact K1/K4 counts (each member
     runs K1 once a layer a prefill and K4 once a layer a decode step),
     tokens in range, and the greedy tokens' log-probs against one packed
@@ -7083,8 +7120,7 @@ def phase_pp_gen(smi, seed=1):
         return build_model("default", ModelSpec(
             random_init_config=llama_config("7b", n_layers=PP_GEN_LAYERS),
             bf16=True, parallel=par), None, init_seed=seed,
-            devices=member_devices(par.world_size),
-            inference_only=True).engine
+            devices=member_devices(par.world_size)).engine
 
     eng = build("p2")
     reset_peaks(eng.members)
@@ -7326,7 +7362,633 @@ def phase_kernels_pp(segs):
     return fwd, bwd
 
 
-def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
+# ----------------------------------------------------------------------
+# Training on context-parallel layouts and sequence parallelism
+# ----------------------------------------------------------------------
+#: the cp_sft records (tokens, the end-of-sequence one included): one
+#: batch of six, 16384 tokens packed into one stream a step in the
+#: dataloader's order; no length is a multiple of 1024, so records cross
+#: the members' shard boundaries
+CP_RECORDS = (3584, 1536, 3000, 2616, 2824, 2824)
+CP_LAYOUTS = ("c2", "c4", "d1t2c2s")
+#: each sequence-parallel layout and the layout without ``s`` it is held
+#: against
+SP_LAYOUTS = (("d1t2s", "d1t2"), ("d2t2s", "d2t2"))
+#: about 3x the largest sound reading of ``scripts/torch_cp_phases.py
+#: --seeds 1 2 3 4 5`` (H100 80GB HBM3, 700 W), each with its planted
+#: fault far above it: cp_sft against d1t1 over 3 steps at c2, c4 and
+#: d1t2c2s, loss 7.6e-5-1.34e-4 and grad norm 9.1e-4-1.18e-3 relative
+#: (two bf16 attentions that round in other orders; tp_sft, whose K1
+#: rows are d1t1's, reads 10x less), the master weights' update
+#: 0.0021-0.0048 relative (dk/dv summed into shard src + 1: loss
+#: 0.0073-0.0085, grad norm 0.019-0.025, update 0.318-0.325 off); c4's
+#: log-probs against d1t1 of its weights 0.056-0.067 (K6's key offsets
+#: one shard off: 10.6-12.0); sp_sft's forward against the layout
+#: without ``s`` 0.0 (bit-equal, so its limit is 0; the reduce-scatter
+#: handing member j member j + 1's slice: 5.8-6.5), its steps on
+#: ``PAR_LIMITS`` (loss 1.4e-5-7.2e-5, grad norm 3.5e-5-1.34e-4, update
+#: 0.0057-0.0059; the shifted slice: step-1 loss 2.9e-4-4.7e-3 off)
+CP_LIMITS = dict(cp_sft_loss_rel=4e-4, cp_sft_grad_norm_rel=3.5e-3,
+                 cp_sft_update_rel=0.0145, cp_sft_logprobs_abs=0.2,
+                 sp_sft_forward_abs=0.0)
+
+
+def cp_launches(layers, t, n, train_passes=0, infer_passes=0):
+    """Kernel counts of a context-parallel engine of ``n`` members a ring
+    and ``t`` model members (one ring a layer a model index a forward): a
+    train forward launches K6's first n - 1 rounds plainly and its last
+    with the lse, n members each, and pushes in every round but the last;
+    its backward launches K2 and K3 once a round not out of reach (n (n +
+    1) / 2 causal); an inference forward launches all n rounds plainly.
+    No K1, and no K6 recompute: the ring lies outside the checkpoint
+    regions."""
+    rings = layers * t
+    out = launches_of(0, 0)
+    out["ring_round"] = rings * n * ((n - 1) * train_passes
+                                     + n * infer_passes)
+    out["ring_push"] = rings * n * (n - 1) * (train_passes + infer_passes)
+    if train_passes:
+        out["ring_round_lse"] = rings * n * train_passes
+        out["flash_bwd_dq_ring"] = out["flash_bwd_dkv_ring"] = (
+            rings * n * (n + 1) // 2 * train_passes)
+    return out
+
+
+@contextlib.contextmanager
+def dkv_into_next_shard():
+    """The planted ring-backward fault: the dk/dv partials of round (i,
+    src) are summed into shard src + 1."""
+    import torch
+    from realhf_tpu_torch.ops import ring_attention as ra
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+
+    def faulty(qs, ks, vs, segs, outs, lses, dos, *, causal, sliding_window,
+               round_fn):
+        n, lc = len(qs), qs[0].shape[1]
+        deltas = [ra.attention_delta(o, do) for o, do in zip(outs, dos)]
+        dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+              for q in qs]
+        dk = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+              for k in ks]
+        dv = [torch.zeros_like(x) for x in dk]
+        for _, i, src in ra.ring_bwd_rounds(n, lc, causal, sliding_window):
+            dev = qs[i].device
+            pq, pk, pv = round_fn(qs[i], ks[src].to(dev), vs[src].to(dev),
+                                  segs[i], segs[src].to(dev), dos[i],
+                                  lses[i], deltas[i], i * lc, src * lc)
+            dq[i] += pq
+            bad = (src + 1) % n
+            dk[bad] += pk.to(dk[bad].device)
+            dv[bad] += pv.to(dv[bad].device)
+        return ([g.to(q.dtype) for g, q in zip(dq, qs)],
+                [g.to(k.dtype) for g, k in zip(dk, ks)],
+                [g.to(v.dtype) for g, v in zip(dv, vs)])
+
+    with patched(rf, "ring_attention_bwd", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def key_offsets_one_shard_off():
+    """The planted ring-forward fault: K6 takes every KV half at the
+    global offset of the next shard (the causal mask on wrong
+    positions)."""
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    real = rf.round_key_offsets
+
+    def shifted(member, rnd, n, lc, lch, n_dirs):
+        return [o + lc for o in real(member, rnd, n, lc, lch, n_dirs)]
+
+    with patched(rf, "round_key_offsets", shifted):
+        yield
+
+
+@contextlib.contextmanager
+def reduce_scatter_shifted():
+    """The planted sequence-parallel fault: the reduce-scatter hands
+    member j the slice of member j + 1."""
+    from realhf_tpu_torch.parallel import collectives
+
+    real = collectives.reduce_scatter
+
+    def shifted(xs, devices, dim):
+        outs = real(xs, devices, dim)
+        return [outs[(j + 1) % len(outs)].to(d)
+                for j, d in enumerate(devices)]
+
+    with patched(collectives, "reduce_scatter", shifted):
+        yield
+
+
+def write_cp_records(path, seed):
+    """The cp_sft dataset: the ``CP_RECORDS`` records, each a prompt of
+    a quarter to a half of its words and the answer the rest."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def words(k):
+        return " ".join(f"w{int(w)}" for w in rng.integers(0, 5000, size=k))
+
+    with open(path, "w") as f:
+        for i, n in enumerate(CP_RECORDS):
+            p = int(rng.integers(n // 4, n // 2))
+            f.write(json.dumps({"id": i, "prompt": words(p),
+                                "answer": " " + words(n - 1 - p)}) + "\n")
+
+
+def cp_runner(data, layout, seed):
+    """The sft experiment (``SFTConfig.build``) on the cp_sft records at
+    7B width and ``PAR_SFT_LAYERS`` layers, one microbatch of one stream
+    a step, 3 epochs of one step, on ``layout`` over
+    ``member_devices``."""
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.inline import InlineRunner
+    spec = build_sft_spec(data, PAR_SFT_LAYERS, overrides={
+        "dataset.train_bs_n_seqs": str(len(CP_RECORDS)),
+        "dataset.max_seqlen": str(max(CP_RECORDS)), "n_mbs": "1"})
+    spec.seed = seed
+    par = parse_parallelism(layout)
+    spec.models["default"].parallel = par
+    t0 = time.monotonic()
+    runner = InlineRunner(without_saves(spec), role_devices={
+        "default": member_devices(par.world_size)})
+    sync_all()
+    return runner, time.monotonic() - t0
+
+
+def start_weights(eng):
+    """The engine's canonical weights in fp32, in its leaf order, on the
+    host (so the run's peak does not count them)."""
+    from realhf_tpu_torch.engine.engine import _leaves
+    tree = eng.gathered_params() if eng.sharded else eng.params
+    return [p.detach().float().cpu() for p in _leaves(tree)]
+
+
+def counted_run(runner):
+    """Run the runner's steps with the launches counted -> a record of
+    its steps, seconds, peak memory and counts, the fp32 masters'
+    update norm over the run, the masters, and the microbatch dicts the
+    engine trained on."""
+    eng = runner.models["default"].engine
+    start = start_weights(eng)
+    mbs = []
+    train_batch = eng.train_batch
+
+    def keep(microbatches, *args, **kw):
+        mbs.extend(microbatches)
+        return train_batch(microbatches, *args, **kw)
+
+    eng.train_batch = keep
+    reset_peaks(eng.members)
+    reset_counts()
+    runner.run()
+    sync_all()
+    counts = read_counts()
+    del eng.train_batch
+    steps = sft_steps(runner)
+    master = canonical_masters(eng)
+    upd = math.sqrt(sum(float((m - w.to(m.device)).pow(2).sum())
+                        for m, w in zip(master, start)))
+    peaks = read_peaks(eng.members)
+    rec = dict(layout=str(eng.parallel), members=[str(d) for d in eng.members],
+               losses=[s["loss"] for s in steps],
+               grad_norms=[s["grad_norm"] for s in steps],
+               step_secs=list(runner.step_secs),
+               peak_mem_gb=max(peaks.values()), peak_mem_gb_by_device=peaks,
+               launches=counts, update_norm=upd)
+    return rec, master, mbs
+
+
+def to_host(tensors):
+    """A reference's fp32 masters moved to the host, so they hold no
+    device memory while the layouts held against them run (their peak
+    would count them)."""
+    return [t.cpu() for t in tensors]
+
+
+def held_against(rec, ref, master, ref_master, lim, prefix):
+    """loss and grad norm (max relative gap over the steps) and the fp32
+    masters' update (|master - ref master| / |ref's update|) of a run
+    against its reference, and whether each is within ``lim``. The
+    reference's masters may wait on the host (``to_host``), one leaf at
+    a time coming back."""
+    rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        rec["losses"], ref["losses"]))
+    rec["grad_norm_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        rec["grad_norms"], ref["grad_norms"]))
+    rec["update_rel"] = math.sqrt(sum(
+        float((m - r.to(m.device)).pow(2).sum())
+        for m, r in zip(master, ref_master))) / ref["update_norm"]
+    rec["step_secs_vs_ref"] = [a / b for a, b in zip(rec["step_secs"],
+                                                     ref["step_secs"])]
+    rec["peak_mem_vs_ref"] = rec["peak_mem_gb"] / ref["peak_mem_gb"]
+    return (len(rec["losses"]) == PAR_SFT_STEPS
+            and rec["loss_rel"] <= lim[f"{prefix}_loss_rel"]
+            and rec["grad_norm_rel"] <= lim[f"{prefix}_grad_norm_rel"]
+            and rec["update_rel"] <= lim[f"{prefix}_update_rel"])
+
+
+def free():
+    """Collect what the caller dropped and give the cache back."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cp_sft(smi, seed=1):
+    """The sft experiment on one 16384-token stream a step (six records
+    of 1024-4096 tokens packed across the shard boundaries) at 7B width
+    and 4 layers, 3 steps, at c2, c4 and d1t2c2s (every member on
+    ``member_devices``), each against the d1t1 runner of the same seed on
+    the card. Gates per layout: each step's loss and grad norm
+    (relative), the fp32 master weights' update over the 3 steps, exact
+    K6 (plain and lse rounds), push and K2/K3 ring-entry counts
+    (``cp_launches``); for c4 also ``forward_logprobs`` of the trained
+    engine against a d1t1 engine of its weights, which K6 with every key
+    shard's offset one shard off must miss. Planted fault: a fresh
+    c2 runner whose ring backward sums round (i, src)'s dk/dv into shard
+    src + 1 (3 steps) must miss the loss, grad-norm or update limit (wk
+    and wv then learn from the wrong shard's keys). Reported: step
+    seconds and peak memory beside d1t1's. ``rec["_segs"]`` keeps each
+    layout's streams for ``phase_kernels_cp``."""
+    from realhf_tpu_torch.engine.engine import Engine
+    lim = CP_LIMITS
+    rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi, layouts={},
+               records=list(CP_RECORDS), limits=lim)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "cp.jsonl")
+        write_cp_records(data, seed=3)
+        ref, setup = cp_runner(data, "d1t1", seed)
+        rec["ref"], rmaster, _ = counted_run(ref)
+        rmaster = to_host(rmaster)
+        rec["ref"]["setup_secs"] = setup
+        del ref
+        free()
+        for layout in CP_LAYOUTS:
+            runner, setup = cp_runner(data, layout, seed)
+            eng = runner.models["default"].engine
+            r, master, mbs = counted_run(runner)
+            r["setup_secs"] = setup
+            n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+            par = eng.parallel
+            r["launches_expected"] = cp_launches(
+                PAR_SFT_LAYERS, par.tensor_parallel_size,
+                par.context_parallel_size, train_passes=PAR_SFT_STEPS,
+                infer_passes=n_eval)
+            r["launches_ok"] = r["launches"] == r["launches_expected"]
+            r["stream_len"] = int(mbs[0]["seg_ids"].shape[1])
+            r["ok"] = held_against(r, rec["ref"], master, rmaster, lim,
+                                   "cp_sft") and r["launches_ok"]
+            if layout == "c4":
+                one = Engine(eng.cfg, eng.gathered_params(), eng.device)
+                r["logprobs_abs"] = logprob_gap(eng, one, mbs[:1])
+                with key_offsets_one_shard_off():
+                    r["fault_logprobs_abs"] = logprob_gap(eng, one, mbs[:1])
+                r["ok"] &= (r["logprobs_abs"] <= lim["cp_sft_logprobs_abs"]
+                            < r["fault_logprobs_abs"])
+                del one
+            rec.setdefault("_segs", {})[layout] = [mb["seg_ids"]
+                                                   for mb in mbs]
+            r["card"] = smi
+            rec["layouts"][layout] = r
+            del runner, eng, master, mbs
+            free()
+        frunner, _ = cp_runner(data, "c2", seed)
+        with dkv_into_next_shard():
+            fault, fmaster, _ = counted_run(frunner)
+        fault["within_limits"] = held_against(fault, rec["ref"], fmaster,
+                                              rmaster, lim, "cp_sft")
+        del frunner, rmaster, fmaster
+        free()
+    rec["planted_fault"] = dict(dkv_into_next_shard={
+        k: fault[k] for k in ("losses", "grad_norms", "loss_rel",
+                              "grad_norm_rel", "update_rel")})
+    rec["fault_fails"] = not fault["within_limits"]
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = rec["fault_fails"] and all(
+        r["ok"] for r in rec["layouts"].values())
+    return rec
+
+
+def phase_sp_sft(smi, seed=1):
+    """The sft cell's traffic (16 records a step, 2 microbatches) at 7B
+    width and 4 layers, 3 steps, at d1t2s and d2t2s, each against the
+    same layout without ``s`` (d1t2, d2t2) of the same seed on the card.
+    Gates: ``forward_logprobs`` of the untrained engines bit-equal
+    (``sp_sft_forward_abs`` 0: the reduce-scatter sums in the
+    all-reduce's order and the norms are per token), each step's loss and
+    grad norm and the masters' update on ``PAR_LIMITS``' tp_sft limits,
+    exact K1-K3 counts (K1 twice a layer a member a train pass: each
+    member's attention half is one checkpoint region, as at d x t).
+    Planted fault: the
+    reduce-scatter handing member j the slice of member j + 1 must break
+    the forward's bit-equality and miss the loss limit. Reported: step
+    seconds and peak memory beside the layout without ``s``."""
+    import numpy as np
+    plim, lim = PAR_LIMITS, CP_LIMITS
+    rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi, layouts={},
+               limits=dict(sp_sft_forward_abs=lim["sp_sft_forward_abs"],
+                           **{k: v for k, v in plim.items()
+                              if k.startswith("tp_sft")}))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        for layout, base in SP_LAYOUTS:
+            lps, runs = {}, {}
+            for lay in (base, layout):
+                runner, setup = sft_runner(data, lay, seed)
+                eng = runner.models["default"].engine
+                # the first batch's tokens as two streams of one record
+                ids = next(iter(runner.dataloader)).data["packed_input_ids"]
+                ids = ids[:ids.shape[0] // 2 * 2].reshape(2, -1)
+                mb = dict(input_ids=ids, seg_ids=np.ones_like(ids))
+                lps[lay] = eng.forward_logprobs(mb["input_ids"],
+                                                mb["seg_ids"]).cpu()
+                if lay == layout:
+                    with reduce_scatter_shifted():
+                        bad = eng.forward_logprobs(mb["input_ids"],
+                                                   mb["seg_ids"]).cpu()
+                r, master, mbs = counted_run(runner)
+                r["setup_secs"] = setup
+                n, n_mb = len(eng.members), 2
+                n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+                r["launches_expected"] = launches_of(
+                    PAR_SFT_LAYERS, n, fwd=2 * n_mb * PAR_SFT_STEPS + n_eval,
+                    bwd=n_mb * PAR_SFT_STEPS)
+                r["launches_ok"] = r["launches"] == r["launches_expected"]
+                runs[lay] = (r, to_host(master) if lay == base else master)
+                del runner, eng, mbs, master
+                free()
+            r, master = runs[layout]
+            base_rec, base_master = runs[base]
+            r["ok"] = held_against(r, base_rec, master, base_master, plim,
+                                   "tp_sft") and r["launches_ok"]
+            r["forward_abs"] = float((lps[layout] - lps[base]).abs().max())
+            r["forward_bit_equal"] = bool((lps[layout] == lps[base]).all())
+            r["fault_forward_abs"] = float((bad - lps[base]).abs().max())
+            r["ok"] &= (r["forward_abs"] <= lim["sp_sft_forward_abs"]
+                        < r["fault_forward_abs"])
+            r["base"] = base_rec
+            r["card"] = smi
+            rec["layouts"][layout] = r
+            del master, base_master, runs
+            free()
+        frunner, _ = sft_runner(data, "d1t2s", seed)
+        batch = next(iter(frunner.dataloader))
+        with reduce_scatter_shifted():
+            floss = [frunner.run_step(batch)["trainDefault"]["loss"]]
+        del frunner
+        free()
+    ref_loss = rec["layouts"]["d1t2s"]["base"]["losses"][0]
+    fault = dict(losses=floss, loss_rel=abs(floss[0] - ref_loss) / ref_loss)
+    rec["planted_fault"] = dict(reduce_scatter_shifted=fault)
+    rec["fault_fails"] = fault["loss_rel"] > plim["tp_sft_loss_rel"]
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = rec["fault_fails"] and all(
+        r["ok"] for r in rec["layouts"].values())
+    return rec
+
+
+CP_PHASES = (("cp_sft", phase_cp_sft), ("sp_sft", phase_sp_sft))
+
+
+def run_cp_phases(smi):
+    """The context- and sequence-parallel training phases, each freeing
+    its models before the next. Returns the records and the streams each
+    cp_sft layout trained on."""
+    recs, segs = {}, None
+    for name, fn in CP_PHASES:
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        if "_segs" in recs[name]:
+            segs = recs[name].pop("_segs")
+        emit(name, **recs[name])
+    return recs, segs
+
+
+def cp_round_inputs(seg, n, gen, nq=32, hd=128):
+    """Random bf16 q/k/v/do over the stream ``seg`` [1, L] of ``n``
+    shards, K1's o and lse over the whole stream (what K6's last round
+    gives the ring's backward) and delta."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    L = seg.shape[1]
+    q, do = (torch.randn((1, L, nq, hd), generator=gen,
+                         device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn((1, L, nq, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, seg)
+    return q, k, v, do, o, lse, fa.attention_delta(o, do)
+
+
+def check_ring_bwd_round(name, inputs, seg, n, i, src, timed=False,
+                         plant_fault=False):
+    """K2 and K3 at one ring round (member i's q shard against shard
+    src's keys, global offsets, the keys' own segment ids, fp32 out)
+    against their plain arithmetic on the same values widened to fp32, on
+    the row-RMS limits of ``LIMITS``. With ``plant_fault`` the kernels
+    also run with k_off one 64-key tile off, which must miss the dq and
+    dk limits. Timed: both kernels, the plain round, SDPA's backward on
+    the same (q shard, key shard) pairs (the mask at global positions)
+    and the bound of the pairs the mask allows."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, o, lse, delta = inputs
+    L = seg.shape[1]
+    lc = L // n
+    rows, cols = slice(i * lc, (i + 1) * lc), slice(src * lc, (src + 1) * lc)
+    qi, doi = q[:, rows].contiguous(), do[:, rows].contiguous()
+    ks, vs = k[:, cols].contiguous(), v[:, cols].contiguous()
+    si, sk = seg[:, rows].contiguous(), seg[:, cols].contiguous()
+    li, di = lse[:, :, rows].contiguous(), delta[:, :, rows].contiguous()
+    nq, nkv, hd = q.shape[2], k.shape[2], q.shape[3]
+    kw = dict(causal=True, seg_k=sk, q_off=i * lc, k_off=src * lc,
+              out_dtype=torch.float32)
+    args = (qi, ks, vs, si, doi, li, di)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fa._bwd_plain(qi.float(), ks.float(), vs.float(), si, li,
+                        doi.float(), di, scale=hd ** -0.5, window=None,
+                        **kw)
+    tok_q, tok_k = si != 0, sk != 0
+    q_rows = tok_q[:, :, None].expand(1, lc, nq)
+    kv_rows = tok_k[:, :, None].expand(1, lc, nkv)
+    crossing = bool(i and seg[0, i * lc] != 0
+                    and seg[0, i * lc - 1] == seg[0, i * lc])
+    rec = dict(kernel="flash_bwd_ring", case=name, shape=[1, lc, nq, nkv, hd],
+               q_off=i * lc, k_off=src * lc, record_crosses_into_shard=crossing,
+               tokens=int(tok_q.sum()))
+    for key, got, want, rws in (("dq", dq, ref[0], q_rows),
+                                ("dk", dk, ref[1], kv_rows),
+                                ("dv", dv, ref[2], kv_rows)):
+        rec[f"{key}_max_abs_err"] = max_err(got, want)
+        rec[f"{key}_row_rel_err"] = row_rel_err(got, want, rws, 0.01)
+        rec[f"{key}_row_rel_limit"] = LIMITS[f"flash_bwd_{key}_row_rel"]
+        rec[f"{key}_finite"] = bool(torch.isfinite(got).all())
+    dq2 = fa.flash_bwd_dq(*args, **kw)
+    rec["deterministic"] = bool(torch.equal(dq, dq2))
+    rec["ok"] = rec["deterministic"] and all(
+        rec[f"{key}_row_rel_err"] <= rec[f"{key}_row_rel_limit"]
+        and rec[f"{key}_finite"] for key in ("dq", "dk", "dv"))
+    if plant_fault:
+        bad = dict(kw, k_off=src * lc + 64)
+        rec["planted_fault"] = "k_off one 64-key tile off"
+        for key, got, want, rws, heads in (
+                ("dq", fa.flash_bwd_dq(*args, **bad), ref[0], q_rows, nq),
+                ("dk", fa.flash_bwd_dkv(*args, **bad)[0], ref[1], kv_rows,
+                 nkv)):
+            err = row_rel_err(got, want, rws, 0.01)
+            rec[f"planted_fault_{key}_row_rel_err"] = err
+            rec["ok"] &= err > LIMITS[f"flash_bwd_{key}_row_rel"]
+    if timed:
+        rec["dq_ms"] = cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw))
+        rec["dkv_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw))
+        rec["plain_ms"] = cuda_ms(lambda: fa._bwd_plain(
+            qi, ks, vs, si, li, doi, di, scale=hd ** -0.5, window=None,
+            **kw), iters=3, warmup=1)
+        mask = fa.segment_mask(si, sk, True, q_off=i * lc, k_off=src * lc)
+        rec["library_ms"] = sdpa_masked_backward_ms(qi, ks, vs, doi, mask)
+        pairs = int(mask.sum()) * nq
+        stats = 4 * (2 * li.numel() + si.numel() + sk.numel())
+        rows_bytes = 2 * (int(tok_q.sum()) * 2 * nq
+                          + int(tok_k.sum()) * 2 * nkv) * hd
+        rec["dq_flops"] = 6.0 * hd * pairs
+        rec["dq_bytes"] = rows_bytes + stats + 4 * dq.numel()
+        rec["dkv_flops"] = 8.0 * hd * pairs
+        rec["dkv_bytes"] = rows_bytes + stats + 4 * (dk.numel() + dv.numel())
+        rec["dq_bound_ms"], rec["dq_bound_by"] = bound_ms(rec["dq_flops"],
+                                                          rec["dq_bytes"])
+        rec["dkv_bound_ms"], rec["dkv_bound_by"] = bound_ms(
+            rec["dkv_flops"], rec["dkv_bytes"])
+    del ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sdpa_masked_backward_ms(q, k, v, do, mask) -> float:
+    """SDPA's backward (dq, dk and dv) under a boolean mask [B, Lq, Lk];
+    timed only, never called by the port."""
+    import torch
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if q.shape[2] != k.shape[2] else {}
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None], **gqa)
+    g = do.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                               retain_graph=True))
+
+
+def check_ring_lse(name, seg, n, gen, nq=32, hd=128, timed=False):
+    """K6 with the lse output over ``member_devices(n)``: its lse row by
+    row against ``flash_attention_plain``'s over the gathered stream
+    (NEG_INF exactly on rows with no valid key; ``LIMITS["flash_fwd_lse"]``
+    on the others), and its o bit-equal to a launch without the lse.
+    Timed: the ring with and without the lse, the bound as
+    ``ring_bound``, SDPA's forward on the whole stream."""
+    import torch
+    from realhf_tpu_torch.ops import flash_attention as fa
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    devs = member_devices(n)
+    L = seg.shape[1]
+    q = torch.randn((1, L, nq, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((1, L, nq, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    shards = [ring_shards(t, devs) for t in (q, k, v, seg)]
+    opts = dict(causal=True, scale=hd ** -0.5, sliding_window=None,
+                block_q=256, block_k=512, bidirectional=True)
+    outs, lses = rf._ring_forward(*shards, with_lse=True, **opts)
+    plain_o = rf._ring_forward(*shards, **opts)
+    sync_all()
+    got = torch.cat([x.to("cuda:0") for x in lses], dim=-1)
+
+    def plain_lse(dtype=torch.float32):
+        # four heads at a time: the whole stream's fp32 scores of every
+        # head would not fit on the card
+        return torch.cat([fa.flash_attention_plain(
+            q[:, :, h:h + 4].to(dtype), k[:, :, h:h + 4].to(dtype),
+            v[:, :, h:h + 4].to(dtype), seg)[1] for h in range(0, nq, 4)],
+            dim=1)
+
+    want = plain_lse()
+    valid = (want > NEG_INF / 2)
+    rec = dict(kernel="ring_attention_lse", case=name,
+               shape=[1, L // n, nq, nq, hd], members=n,
+               lse_max_abs_err=float((got - want).abs()[valid].max()),
+               lse_limit=LIMITS["flash_fwd_lse"],
+               empty_rows_neg_inf=bool((got[~valid] == NEG_INF).all()),
+               o_bit_equal_without_lse=all(torch.equal(a, b) for a, b
+                                           in zip(outs, plain_o)))
+    rec["max_abs_err"] = rec["lse_max_abs_err"]
+    rec["ok"] = (rec["lse_max_abs_err"] <= rec["lse_limit"]
+                 and rec["empty_rows_neg_inf"]
+                 and rec["o_bit_equal_without_lse"])
+    if timed:
+        rec["ms"] = cuda_ms(lambda: rf._ring_forward(*shards, with_lse=True,
+                                                     **opts), iters=5)
+        rec["without_lse_ms"] = cuda_ms(lambda: rf._ring_forward(
+            *shards, **opts), iters=5)
+        rec["plain_ms"] = cuda_ms(lambda: plain_lse(torch.bfloat16),
+                                  iters=1, warmup=1)
+        rec["bound_ms"], rec["bound_by"], _ = ring_bound(
+            seg, devs, nq, nq, hd, True, None)
+        mask = fa.segment_mask(seg, seg, True)[:, None]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), iters=5)
+    del q, k, v, shards, outs, lses, plain_o
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: the ring shards of cp_sft's layouts that K2/K3 at ring rounds and K6's
+#: lse are held at: (layout, members a ring, q = kv heads of a member)
+CP_KERNEL_SHARDS = (("c4", 4, 32), ("c2", 2, 32), ("d1t2c2s", 2, 16))
+
+
+def phase_kernels_cp(segs):
+    """K2/K3 at ring rounds and K6's lse at each of cp_sft's shard shapes
+    (``CP_KERNEL_SHARDS``: B 1, lc 4096 with 32/32 heads of 128 at c4;
+    lc 8192 with 32/32 at c2 and 16/16, a model member's heads, at
+    d1t2c2s), each on the stream that layout trained on (``segs``: layout
+    -> its streams): the diagonal round of shard i, and the off-diagonal
+    round of shard i against shard i - 1 (q_off = i lc, k_off = (i - 1)
+    lc) with the k_off fault, i the first shard a record crosses into
+    (shard 1 when none does, which the record says); K6's lse over the
+    same stream at that layout's n. The c4 cases timed."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    bwd, lse = [], []
+    for layout, n, heads in CP_KERNEL_SHARDS:
+        timed = not bwd
+        seg = torch.as_tensor(segs[layout][0], dtype=torch.int32,
+                              device="cuda")
+        lc = seg.shape[1] // n
+        i = next((j for j in range(1, n) if seg[0, j * lc] != 0
+                  and seg[0, j * lc - 1] == seg[0, j * lc]), 1)
+        inputs = cp_round_inputs(seg, n, gen, nq=heads)
+        bwd += [check_ring_bwd_round(f"cp_sft_{layout}_shard{i}_diagonal",
+                                     inputs, seg, n, i, i, timed=timed),
+                check_ring_bwd_round(f"cp_sft_{layout}_shard{i}_keys{i - 1}",
+                                     inputs, seg, n, i, i - 1,
+                                     plant_fault=True)]
+        del inputs
+        torch.cuda.empty_cache()
+        lse.append(check_ring_lse(f"cp_sft_{layout}", seg, n, gen, nq=heads,
+                                  timed=timed))
+        torch.cuda.empty_cache()
+    del gen
+    return bwd, lse
+
+
+def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
+                 cp_bwd_recs, cp_lse_recs):
     """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
     own instantiation, or its own kernel for K2/K3, timed on the hd 256
     cases). ``launches`` sums the kernel's counts over the paths at hd
@@ -7334,12 +7996,15 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     dpo, grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
     ckpt_resume's resumed step, serve_gen, the four serve
     configurations, mixtral_gen, mixtral_sft, mistral, gpt2_gen, tp_gen,
-    tp_sft, par_ppo, pp_sft, pp_gen and pp_ppo), each counted from 0 just
-    before its path and
-    read just after it; an ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft)."""
+    tp_sft, par_ppo, pp_sft, pp_gen, pp_ppo, cp_sft and sp_sft), each
+    counted from 0 just before its path and read just after it; an
+    ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft). The
+    ``_ring`` rows are K2/K3 launched at a ring round (a round of the
+    ring's backward, timed at cp_sft's c4 rounds) and
+    ``ring_attention_lse`` K6's last round with the lse output."""
     def sums(ps):
-        return {k: sum(p["launches"][k] for p in ps)
-                for k in ps[0]["launches"]}
+        keys = dict.fromkeys(k for p in ps for k in p["launches"])
+        return {k: sum(p["launches"].get(k, 0) for p in ps) for k in keys}
 
     def fwd_row(name, src, replaces, wide, counts):
         recs = [r for r in kernel_recs
@@ -7383,6 +8048,30 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths):
     out += list(bwd_rows(False, launches))
     out += [fwd_row(*row, True, wide_launches) for row in rows]
     out += list(bwd_rows(True, wide_launches))
+    t = next(r for r in cp_bwd_recs if "dq_ms" in r)
+    for name, key, outs, replaces in (
+            ("flash_bwd_dq_ring", "dq", ("dq",),
+             "realhf_tpu/ops/flash_attention.py:157"),
+            ("flash_bwd_dkv_ring", "dkv", ("dk", "dv"),
+             "realhf_tpu/ops/flash_attention.py:195")):
+        out.append(dict(
+            name=name, route="cuda",
+            source="realhf_tpu_torch/csrc/flash_bwd.cu", replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r[f"{o}_max_abs_err"] for r in cp_bwd_recs
+                            for o in outs),
+            ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
+            library_ms=t["library_ms"]))
+    t = next(r for r in cp_lse_recs if "ms" in r)
+    out.append(dict(
+        name="ring_attention_lse", route="cuda",
+        source="realhf_tpu_torch/csrc/ring_attention.cu",
+        replaces="realhf_tpu/ops/ring_attention_fused.py:103",
+        launches=launches["ring_round_lse"],
+        max_abs_err=max(r["max_abs_err"] for r in cp_lse_recs), ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"]))
     for name, count in (("ring_attention", "ring_round"),
                         ("ring_push", "ring_push")):
         recs = [r for r in ring_recs if r["kernel"] == name]
@@ -7553,6 +8242,14 @@ def main(argv=None):
     bwd_recs += pp_bwd
     RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs
     ok &= all(r["ok"] for r in pp_fwd + pp_bwd)
+    cp_recs, cp_segs = run_cp_phases(smi)
+    ok &= all(r["ok"] for r in cp_recs.values())
+    cp_bwd, cp_lse = phase_kernels_cp(cp_segs)
+    del cp_segs
+    for r in cp_bwd + cp_lse:
+        print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
+    RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs + cp_bwd + cp_lse
+    ok &= all(r["ok"] for r in cp_bwd + cp_lse)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -7577,8 +8274,9 @@ def main(argv=None):
         + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")]
         + [gemma_recs["gpt2_gen"]]
         + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")]
-        + [pp_recs[k] for k in ("pp_sft", "pp_gen", "pp_ppo")],
-        [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]])))
+        + [pp_recs[k] for k in ("pp_sft", "pp_gen", "pp_ppo")]
+        + [cp_recs[k] for k in ("cp_sft", "sp_sft")],
+        [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]], cp_bwd, cp_lse)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,6 +103,21 @@
 // is empty). Twice the CTAs also keep more SMs busy when the KV heads
 // are few (Gemma-2B has one).
 //
+// A ring round (the backward of ring attention, ops/ring_attention_fused.py
+// `RingAttentionFn`): member i's q shard against shard src's keys. The
+// entries then take the keys' own segment ids `segk` (a record may cross
+// from one shard into the next, so the two shards' ids differ) and the
+// global stream offsets of the q rows and of the keys (`q_pos`, `k_pos`);
+// the causal and window tests of the marks and of each pair, and the
+// causal bound on K2's tile count, read global positions (q_pos + row,
+// k_pos + key), as K6's rounds do (csrc/ring_attention.cu). With
+// `out_f32` they write dq (dk, dv) as fp32, so the ring sums its partials
+// once in fp32 before the single rounding to bf16. A plain call passes
+// segk = seg, offsets 0 and bf16 outputs: the same integer tests and the
+// same float arithmetic as before the ring round existed, so its bits are
+// unchanged. The hd 256 kernels take no offsets (the entries refuse a
+// ring round at hd 256).
+//
 // Left for later: a TMA producer warp (the copies are issued by the
 // consumer threads), a third stage, and one tile's elementwise work under
 // the next tile's products (each tile waits on its own products twice).
@@ -187,6 +202,16 @@ __device__ __forceinline__ void store_row(bf16* row, const float (&acc)[HD / 2],
     out[4 * i] = pack_bf16(acc[4 * i + OFF] * mul, acc[4 * i + OFF + 1] * mul);
 }
 
+// The same row in fp32 (a ring round's partial), from acc[4 i + OFF + {0, 1}].
+template <int HD, int OFF>
+__device__ __forceinline__ void store_row_f32(float* row, const float (&acc)[HD / 2],
+                                              float mul) {
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+    *reinterpret_cast<float2*>(row + 8 * i) =
+        make_float2(acc[4 * i + OFF] * mul, acc[4 * i + OFF + 1] * mul);
+}
+
 // ---------------------------------------------------------------------
 // K2: dq
 // ---------------------------------------------------------------------
@@ -196,9 +221,10 @@ template <int HD, bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ seg,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int L, int nq,
-                    int nkv, float scale, int causal, int window) {
+                    const int* __restrict__ segk, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int L, int nq, int nkv, float scale, int causal,
+                    int window, int q_pos, int k_pos, int out_f32) {
   using LY = Layout<HD>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t sbase;
@@ -223,19 +249,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const bf16* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const int* segb = seg + (size_t)b * L;
+  const int* segkb = segk + (size_t)b * L;
   const size_t stat_off = ((size_t)b * nq + h) * L;
+  const int dpos = q_pos - k_pos;  // global row less global key of equal local index
 
-  // --- K1's marks: the key tiles each warpgroup needs ---------------------
+  // --- K1's marks: the key tiles each warpgroup needs (global positions) --
   int q_lo[NWG], q_hi[NWG], q_first[NWG], q_last[NWG];
   uint64_t q_bits[NWG];
   q_id_summary(segb, q0, L, tid, red, q_lo, q_hi, q_bits);
 #pragma unroll
   for (int g = 0; g < NWG; ++g) {
-    q_first[g] = q0 + g * WG_ROWS;
-    q_last[g] = min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
+    q_first[g] = q_pos + q0 + g * WG_ROWS;
+    q_last[g] = q_pos + min(q0 + g * WG_ROWS + WG_ROWS, L) - 1;
   }
   const int n_all = (L + BK - 1) / BK;
-  const int n_tiles = causal ? min(n_all, (min(q0 + BQ, L) - 1) / BK + 1) : n_all;
+  const int reach_end = min(q0 + BQ, L) - 1 + dpos;  // last local key a row may see
+  const int n_tiles = !causal ? n_all : reach_end < 0 ? 0 : min(n_all, reach_end / BK + 1);
   const int nwords = (n_tiles + 31) >> 5;
   const bool seg_vec = (L & 3) == 0;
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
@@ -244,14 +273,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bool reach[NWG], any = false;
 #pragma unroll
     for (int g = 0; g < NWG; ++g) {
-      reach[g] = tile_in_reach(k0, k0 + n - 1, q_first[g], q_last[g], causal,
+      reach[g] = tile_in_reach(k_pos + k0, k_pos + k0 + n - 1, q_first[g], q_last[g], causal,
                                WIN ? window : -1);
       any |= reach[g];
     }
     if (!any) return;
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
-    key_tile_ids(segb, k0, n, seg_vec, lo, hi, bits);
+    key_tile_ids(segkb, k0, n, seg_vec, lo, hi, bits);
 #pragma unroll
     for (int g = 0; g < NWG; ++g)
       mark[g] = reach[g] && lo <= q_hi[g] && hi >= q_lo[g] && (bits & q_bits[g]) != 0;
@@ -274,7 +303,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sK = sbase + LY::RING_A, sV = sbase + LY::RING_B;
   const uint32_t sSeg = sbase + LY::SEG;
   auto load = [&](int j, int st) {
-    load_kv_tile<HD>(sK, sV, sSeg, kb, vb, segb, kv_row, j * BK, L, st, tid);
+    load_kv_tile<HD>(sK, sV, sSeg, kb, vb, segkb, kv_row, j * BK, L, st, tid);
   };
 
   float acc[HD / 2];
@@ -288,8 +317,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   walk_tiles(vis, nwords, wg, j0, load, [&](int j, int st) {
     const int k0 = j * BK;
-    const bool diag = causal && k0 + BK - 1 > wq0;
-    const bool wide = WIN && wq0 + WG_ROWS - 1 - k0 >= window;
+    const bool diag = causal && k0 + BK - 1 > wq0 + dpos;
+    const bool wide = WIN && wq0 + dpos + WG_ROWS - 1 - k0 >= window;
     const uint32_t sKt = sK + st * LY::TILE_BYTES, sVt = sV + st * LY::TILE_BYTES;
     const int* seg_tile = seg_s + st * BK;
 
@@ -316,8 +345,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * i + 2 * tq + e;
           const int id = e ? ids.y : ids.x;
-          const bool keep0 = keep_pair(sq0, id, qi0 - (k0 + c), diag, wide, window);
-          const bool keep1 = keep_pair(sq1, id, qi1 - (k0 + c), diag, wide, window);
+          const bool keep0 = keep_pair(sq0, id, qi0 + dpos - (k0 + c), diag, wide, window);
+          const bool keep1 = keep_pair(sq1, id, qi1 + dpos - (k0 + c), diag, wide, window);
           const float p0 = keep0 ? expf(s[4 * i + e] * scale - lse0) : 0.f;
           const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - lse1) : 0.f;
           x[4 * h2 + e] = keep0 ? p0 * (dp[4 * i + e] - dl0) : 0.f;
@@ -339,6 +368,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   });
 
   // --- epilogue: dq = scale * acc; rows with no valid key hold 0 -----------
+  if (out_f32) {
+    float* out = reinterpret_cast<float*>(dq) + q_off + 2 * tq;
+    if (qi0 < L) store_row_f32<HD, 0>(out + (size_t)qi0 * q_row, acc, scale);
+    if (qi1 < L) store_row_f32<HD, 2>(out + (size_t)qi1 * q_row, acc, scale);
+    return;
+  }
   bf16* out = dq + q_off + 2 * tq;
   if (qi0 < L) store_row<HD, 0>(out + (size_t)qi0 * q_row, acc, scale);
   if (qi1 < L) store_row<HD, 2>(out + (size_t)qi1 * q_row, acc, scale);
@@ -351,10 +386,11 @@ template <int HD, bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ seg,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, int nq, int nkv, float scale, int causal,
-                     int window) {
+                     const int* __restrict__ segk, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int nq, int nkv,
+                     float scale, int causal, int window, int q_pos, int k_pos,
+                     int out_f32) {
   using LY = Layout<HD>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t sbase;
@@ -379,11 +415,13 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t kv_row = (size_t)nkv * HD;
   const size_t kv_off = (size_t)b * L * kv_row + (size_t)kvh * HD;
   const int* segb = seg + (size_t)b * L;
+  const int* segkb = segk + (size_t)b * L;
+  const int dpos = q_pos - k_pos;  // global row less global key of equal local index
 
   // --- each warpgroup's range and residue set of non-zero key ids ---------
   int k_lo[NWG], k_hi[NWG];
   uint64_t k_bits[NWG];
-  q_id_summary(segb, k0, L, tid, red, k_lo, k_hi, k_bits);
+  q_id_summary(segkb, k0, L, tid, red, k_lo, k_hi, k_bits);
 
   // --- mark the q tiles each warpgroup needs (K1's rule, transposed:
   // `tile_in_reach` with the q tile as the rows and the warpgroup's keys
@@ -395,24 +433,24 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int t0 = j * BK;
     const int last = min(t0 + BK, L) - 1;
-    if (causal && last < k0) return;  // every query before every key
-    if (WIN && t0 - (min(k0 + BQ, L) - 1) >= window) return;  // past the window
+    if (causal && last + dpos < k0) return;  // every query before every key
+    if (WIN && t0 + dpos - (min(k0 + BQ, L) - 1) >= window) return;  // past the window
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
     key_tile_ids(segb, t0, min(BK, L - t0), seg_vec, lo, hi, bits);
 #pragma unroll
     for (int g = 0; g < NWG; ++g)
       mark[g] = lo <= k_hi[g] && hi >= k_lo[g] && (bits & k_bits[g]) != 0 &&
-                (!causal || last >= k0 + g * WG_ROWS) &&
-                (!WIN || t0 - (min(k0 + g * WG_ROWS + WG_ROWS, L) - 1) < window);
+                (!causal || last + dpos >= k0 + g * WG_ROWS) &&
+                (!WIN || t0 + dpos - (min(k0 + g * WG_ROWS + WG_ROWS, L) - 1) < window);
   });
 
   // --- this thread's two key rows (the accumulator layout) ---------------
   const int tq = lane & 3;
   const int kr0 = wk0 + (warp & 3) * 16 + (lane >> 2);
   const int kr1 = kr0 + 8;
-  const int sk0 = kr0 < L ? segb[kr0] : 0;
-  const int sk1 = kr1 < L ? segb[kr1] : 0;
+  const int sk0 = kr0 < L ? segkb[kr0] : 0;
+  const int sk1 = kr1 < L ? segkb[kr1] : 0;
 
   // --- the walk over (q head of the group, marked q tile) ----------------
   const uint32_t sK = sbase + LY::OWN_A, sV = sbase + LY::OWN_B;
@@ -453,7 +491,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (jn >= 0) load(gn, jn, st ^ 1);
     if ((vis[wg * nwords + (j >> 5)] >> (j & 31)) & 1u) {
-      const int q0 = j * BK;
+      const int q0 = j * BK + dpos;  // the tile's first row, on the keys' positions
       const bool diag = causal && q0 < wk0 + WG_ROWS - 1;
       const bool wide = WIN && q0 + BK - 1 - wk0 >= window;
       const uint32_t sQt = sQ + st * LY::TILE_BYTES, sDOt = sDO + st * LY::TILE_BYTES;
@@ -529,6 +567,19 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // --- epilogue: dk = scale * dk_acc, dv; keys with no valid query hold 0 --
+  if (out_f32) {
+    float* dkf = reinterpret_cast<float*>(dk) + kv_off + 2 * tq;
+    float* dvf = reinterpret_cast<float*>(dv) + kv_off + 2 * tq;
+    if (kr0 < L) {
+      store_row_f32<HD, 0>(dkf + (size_t)kr0 * kv_row, dk_acc, scale);
+      store_row_f32<HD, 0>(dvf + (size_t)kr0 * kv_row, dv_acc, 1.f);
+    }
+    if (kr1 < L) {
+      store_row_f32<HD, 2>(dkf + (size_t)kr1 * kv_row, dk_acc, scale);
+      store_row_f32<HD, 2>(dvf + (size_t)kr1 * kv_row, dv_acc, 1.f);
+    }
+    return;
+  }
   bf16* dkb = dk + kv_off + 2 * tq;
   bf16* dvb = dv + kv_off + 2 * tq;
   if (kr0 < L) {
@@ -873,9 +924,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <int HD, bool WIN>
-int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int L, int nq, int nkv,
-              float scale, int causal, int window, cudaStream_t stream) {
+int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* segk,
+              const void* dout, const void* lse, const void* delta, void* dq, int B, int L,
+              int nq, int nkv, float scale, int causal, int window, int q_pos, int k_pos,
+              int out_f32, cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, WIN>, smem);
@@ -883,17 +935,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* seg, cons
   dim3 grid((L + BQ - 1) / BQ, nq, B);
   flash_bwd_dq_kernel<HD, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), L, nq, nkv, scale, causal, window);
+      static_cast<const int*>(seg), static_cast<const int*>(segk),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, nq, nkv, scale, causal,
+      window, q_pos, k_pos, out_f32);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool WIN>
 int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
-               const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-               int B, int L, int nq, int nkv, float scale, int causal, int window,
-               cudaStream_t stream) {
+               const void* segk, const void* dout, const void* lse, const void* delta,
+               void* dk, void* dv, int B, int L, int nq, int nkv, float scale, int causal,
+               int window, int q_pos, int k_pos, int out_f32, cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<HD>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD, WIN>, smem);
@@ -901,9 +954,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
   dim3 grid((L + BQ - 1) / BQ, nkv, B);
   flash_bwd_dkv_kernel<HD, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, nq, nkv, scale, causal, window);
+      static_cast<const int*>(seg), static_cast<const int*>(segk),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L,
+      nq, nkv, scale, causal, window, q_pos, k_pos, out_f32);
   return (int)cudaGetLastError();
 }
 
@@ -945,38 +999,47 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* seg
 }  // namespace
 
 // Both entry points return a cudaError_t code (0 = launched), allocate
-// nothing and run on `stream` without synchronising.
+// nothing and run on `stream` without synchronising. A plain call passes
+// segk = seg, q_pos = k_pos = 0 and out_f32 = 0; a ring round (hd 64 or
+// 128) passes the keys' own ids, the two shards' global offsets and
+// out_f32 = 1 for fp32 outputs. The hd 256 kernels take no ring round.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg,
-                                 const void* dout, const void* lse, const void* delta,
-                                 void* dq, int B, int L, int nq, int nkv, int hd, float scale,
+                                 const void* segk, const void* dout, const void* lse,
+                                 const void* delta, void* dq, int B, int L, int nq, int nkv,
+                                 int hd, int q_pos, int k_pos, int out_f32, float scale,
                                  int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool win = window >= 0;
   if (hd == 128)
     return (win ? launch_dq<128, true> : launch_dq<128, false>)(
-        q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
+        q, k, v, seg, segk, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, q_pos,
+        k_pos, out_f32, st);
   if (hd == 64)
     return (win ? launch_dq<64, true> : launch_dq<64, false>)(
-        q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
-  if (hd == 256)
+        q, k, v, seg, segk, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, q_pos,
+        k_pos, out_f32, st);
+  if (hd == 256 && segk == seg && q_pos == 0 && k_pos == 0 && !out_f32)
     return (win ? launch_dq_wide<true> : launch_dq_wide<false>)(
         q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* seg,
-                                  const void* dout, const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int L, int nq, int nkv, int hd,
+                                  const void* segk, const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv, int B, int L, int nq,
+                                  int nkv, int hd, int q_pos, int k_pos, int out_f32,
                                   float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool win = window >= 0;
   if (hd == 128)
     return (win ? launch_dkv<128, true> : launch_dkv<128, false>)(
-        q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
+        q, k, v, seg, segk, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window,
+        q_pos, k_pos, out_f32, st);
   if (hd == 64)
     return (win ? launch_dkv<64, true> : launch_dkv<64, false>)(
-        q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
-  if (hd == 256)
+        q, k, v, seg, segk, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window,
+        q_pos, k_pos, out_f32, st);
+  if (hd == 256 && segk == seg && q_pos == 0 && k_pos == 0 && !out_f32)
     return (win ? launch_dkv_wide<true> : launch_dkv_wide<false>)(
         q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;

@@ -27,7 +27,13 @@
 // h / (nq / nkv). The fp32 state m / l / acc of each row lives in a
 // per-member buffer between rounds; round 0 (`first`) starts it and the
 // last round (`last`) normalises into o (bf16), a row that saw no valid
-// key as 0, never NaN.
+// key as 0, never NaN. Given an `lse` buffer [B, nq, lc] fp32, the last
+// round also writes each row's log-sum-exp in K1's convention (the max of
+// the scaled scores plus the log of the row sum, NEG_INF for a row that
+// saw no valid key), which the ring's backward hands K2 and K3 (one
+// launch per non-skipped round, ops/ring_attention_fused.py
+// `RingAttentionFn`). A launch without it (`lse` null) runs the same
+// arithmetic and writes the same o as before the buffer existed.
 //
 // Layouts (row-major, contiguous): q/o [B, lc, nq, hd], segq [B, lc]
 // int32; each direction's k/v [B, lch, nkv, hd] and seg [B, lch]; state
@@ -132,7 +138,8 @@ ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
                   const int* __restrict__ sk0, const bf16* __restrict__ k1,
                   const bf16* __restrict__ v1, const int* __restrict__ sk1,
                   float* __restrict__ m_st, float* __restrict__ l_st,
-                  float* __restrict__ acc_st, bf16* __restrict__ o, int lc, int lch,
+                  float* __restrict__ acc_st, bf16* __restrict__ o,
+                  float* __restrict__ lse, int lc, int lch,
                   int nq, int nkv, int q_off, int k_off0, int k_off1, int n_dirs,
                   int first, int last, float scale, int causal, int window) {
   using SM = Smem<HD>;
@@ -264,6 +271,10 @@ ring_round_kernel(const bf16* __restrict__ q, const int* __restrict__ segq,
     bf16* ob = o + (size_t)b * lc * q_row + (size_t)h * HD + 2 * tq;
     if (qi0 < lc) store_o_row<HD, 0>(ob + (size_t)qi0 * q_row, acc, l0);
     if (qi1 < lc) store_o_row<HD, 2>(ob + (size_t)qi1 * q_row, acc, l1);
+    if (lse != nullptr && tq == 0) {
+      if (qi0 < lc) lse[s0 + qi0] = l0 > 0.f ? m0 + logf(l0) : NEG_INF;
+      if (qi1 < lc) lse[s0 + qi1] = l1 > 0.f ? m1 + logf(l1) : NEG_INF;
+    }
   } else if (touch) {
     if (qi0 < lc) store_row<HD, 0>(m_st, l_st, acc_st, s0 + qi0, tq, m0, l0, acc);
     if (qi1 < lc) store_row<HD, 2>(m_st, l_st, acc_st, s0 + qi1, tq, m1, l1, acc);
@@ -312,8 +323,8 @@ struct DeviceGuard {
 template <int HD>
 int launch_round(const void* q, const void* segq, const void* k0, const void* v0,
                  const void* sk0, const void* k1, const void* v1, const void* sk1,
-                 void* m, void* l, void* acc, void* o, int B, int lc, int lch, int nq,
-                 int nkv, int q_off, int k_off0, int k_off1, int n_dirs, int first,
+                 void* m, void* l, void* acc, void* o, void* lse, int B, int lc, int lch,
+                 int nq, int nkv, int q_off, int k_off0, int k_off1, int n_dirs, int first,
                  int last, float scale, int causal, int window, cudaStream_t stream) {
   if (B == 0 || lc == 0) return (int)cudaSuccess;
   const size_t smem = smem_bytes<HD>(n_dirs * ((lch + BK - 1) / BK));
@@ -327,31 +338,33 @@ int launch_round(const void* q, const void* segq, const void* k0, const void* v0
       static_cast<const int*>(sk0), static_cast<const bf16*>(k1),
       static_cast<const bf16*>(v1), static_cast<const int*>(sk1),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
-      static_cast<bf16*>(o), lc, lch, nq, nkv, q_off, k_off0, k_off1, n_dirs, first,
-      last, scale, causal, window);
+      static_cast<bf16*>(o), static_cast<float*>(lse), lc, lch, nq, nkv, q_off, k_off0,
+      k_off1, n_dirs, first, last, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Each entry returns a cudaError_t code (0 = launched), allocates nothing
-// and runs on `stream` (a stream of `device`) without synchronising.
+// and runs on `stream` (a stream of `device`) without synchronising. `lse`
+// may be null; given, the last round also writes the rows' lse
+// [B, nq, lc].
 extern "C" int ring_round_bf16(const void* q, const void* segq, const void* k0,
                                const void* v0, const void* sk0, const void* k1,
                                const void* v1, const void* sk1, void* m, void* l,
-                               void* acc, void* o, int B, int lc, int lch, int nq,
-                               int nkv, int hd, int q_off, int k_off0, int k_off1,
+                               void* acc, void* o, void* lse, int B, int lc, int lch,
+                               int nq, int nkv, int hd, int q_off, int k_off0, int k_off1,
                                int n_dirs, int first, int last, float scale, int causal,
                                int window, int device, void* stream) {
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128)
-    return launch_round<128>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, B, lc, lch,
-                             nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
+    return launch_round<128>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, lse, B, lc,
+                             lch, nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
                              causal, window, st);
   if (hd == 64)
-    return launch_round<64>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, B, lc, lch,
-                            nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
+    return launch_round<64>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, lse, B, lc,
+                            lch, nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
                             causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

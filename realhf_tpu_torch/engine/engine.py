@@ -1,7 +1,7 @@
 """The per-model execution engine: train, inference and generate.
 
 One ``Engine`` holds one model's parameters on one device, or on the
-members of a context-parallel layout (below). It runs the inference
+members of a ``dNcCtMpP[s]`` layout (below). It runs the inference
 forwards (hidden states, next-token log-probs, critic
 values), batch generation, and, when built with an optimizer, one
 optimizer step over a list of microbatches (``train_batch``) or one per
@@ -17,17 +17,24 @@ optimizer state does so between steps: pinned host buffers, made once
 and reused, copies on PyTorch's current stream, synchronised before the
 device tensors are dropped. On ``device="cpu"`` only the flags move.
 
-Context parallelism (``parallel.context_parallel_size = n > 1``, over
-``devices``: n entries, repeats allowed, default ``cuda:0 .. n-1``): the
-inference forwards pad each stream's L to a multiple of ``n * 8`` with
-segment id 0, take positions and next-token labels from the whole
-stream, give member i the i-th contiguous shard of every stream, run
-``transformer.forward_ctx`` (ring attention between each block's
-halves) and gather the ``[S, L]`` outputs back on the first member's
-device. The weights are placed once per distinct device; members that
-share a device share that copy. Training and generation on such a layout
-raise (later slices). ``offload`` keeps one pinned host copy and frees
-every device's; ``ensure_on_device`` places it on every device again.
+A layout of more than one member (over ``devices``: one entry per
+member, repeats allowed, default ``cuda:0 .. n-1``) holds its weights as
+a ``models/sharding.MemberParams``, which the loss functions and the
+forwards take in place of a tree. Context parallelism (``c > 1``, alone
+or with d and t; with p it raises, as in the JAX package): the members
+of one context group that share a device share one tree, and
+``transformer.forward_ctx`` pads each stream's L to a multiple of ``8 c``
+(``8 c t`` with ``sp``) with segment id 0, takes positions from the whole
+streams, runs the ring between each block's halves and gathers the final
+hidden states onto each model member of context index 0, where the
+interface's loss runs unchanged; the gradients flow back through that
+gather and through the ring's backward (K2/K3 per round on CUDA).
+
+The optimizer steps each distinct tree once (a "unit": ``units``), its
+ZeRO-1 slice over the data index. A leaf's gradient is summed over every
+unit that holds its values (data and context copies, ``mesh.holders``)
+before the step, so the copies stay equal after it; the clipping norm
+counts each logical element once.
 """
 
 import dataclasses
@@ -40,7 +47,7 @@ from realhf_tpu_torch.base import logging
 from realhf_tpu_torch.base.device import DeviceLike, resolve_device
 from realhf_tpu_torch.base.safetensors_io import tensor_to_numpy
 from realhf_tpu_torch.engine import generation as gen_mod
-from realhf_tpu_torch.engine import offload, optim, packing
+from realhf_tpu_torch.engine import offload, optim
 from realhf_tpu_torch.models import sharding
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
@@ -65,10 +72,6 @@ from realhf_tpu_torch.parallel.pipeline import PipelineContext
 from realhf_tpu_torch.parallel.schedule import default_microbatches
 
 logger = logging.getLogger("engine")
-
-_CTX_TRAIN = ("training on a context-parallel layout (the differentiable "
-              "ring on CUDA) is a later part of ROADMAP.md, queue 1, "
-              "item 4.")
 
 #: loss_fn(params, microbatch tensors) -> (scalar loss, {name: scalar})
 LossFn = Callable[[Any, Dict[str, torch.Tensor]],
@@ -102,16 +105,14 @@ class Engine:
             self.mesh = make_mesh(
                 self.parallel, devices if devices is not None
                 else default_devices(n, device))
-            #: the members' devices: in ring order (ctx), or in (data,
-            #: model) order
+            #: the members' devices, in (pipe, data, ctx, model) order
             self.members = list(self.mesh.devices)
         else:
             self.members = [resolve_device(
                 devices[0] if devices is not None else device)]
         self.device = self.members[0]
-        self._ctx = self.parallel.context_parallel_size > 1
-        #: pipeline, data and tensor parallelism over more than one member
-        self.sharded = n > 1 and not self._ctx
+        #: more than one member: the weights are a ``MemberParams``
+        self.sharded = n > 1
         if self.sharded:
             T.check_layout(cfg, self.parallel.tensor_parallel_size)
         self.pipeline_ctx = self._pipeline_ctx()
@@ -122,7 +123,8 @@ class Engine:
         self._decode_view: Optional["Engine"] = None
         self._view_key = None
         self.params = None
-        self._member_params = None
+        #: the first member of each distinct tree (a sharded engine)
+        self.units: List[int] = [0]
         #: the weights wait on the host (``offload``) until the next use
         self.offloaded = False
         self._host_params = None  # pinned buffers, made at the first offload
@@ -134,8 +136,6 @@ class Engine:
         self.optimizer: Optional[optim.AdamW] = None
         self._zero1 = None
         if optimizer is not None and optimizer.type != "empty":
-            if self._ctx:
-                raise NotImplementedError(_CTX_TRAIN)
             if self.sharded:
                 self._zero1 = self._zero1_slices(optimizer.zero1)
                 self.optimizer = optim.AdamW(
@@ -197,28 +197,20 @@ class Engine:
             self.params = None  # the old copies go before the new ones come
             par = self.parallel
             d, t = par.data_parallel_size, par.tensor_parallel_size
-            p, pdt = par.pipeline_parallel_size, T.dtype_of(
-                self.cfg.param_dtype)
+            p, c = par.pipeline_parallel_size, par.context_parallel_size
+            pdt = T.dtype_of(self.cfg.param_dtype)
             trees = (sharding.empty_member_trees(
-                self.cfg, self.members, d, t, p, pdt) if params is None
+                self.cfg, self.members, d, t, p, pdt, c) if params is None
                 else params_from_numpy(params, dtype=pdt, cfg=self.cfg,
-                                       devices=self.members, t=t, p=p))
+                                       devices=self.members, t=t, p=p, c=c))
             self.params = MemberParams(trees, list(self.members), d, t, p,
-                                       self.pipeline_ctx)
+                                       self.pipeline_ctx, c,
+                                       par.sequence_parallel)
+            self.units = self.params.units()
             self.offloaded = False
             return
         self.params = self._cast_param_dtype(params)
-        self._place_members()
         self.offloaded = False
-
-    def _place_members(self):
-        """Every member's weights: this engine's copy on the first
-        member's device, one more copy per other distinct device."""
-        on = {self.device: self.params}
-        for d in self.members:
-            if d not in on:
-                on[d] = _tree_map(lambda a, d=d: a.to(d), self.params)
-        self._member_params = [on[d] for d in self.members]
 
     def params_numpy(self):
         """Host numpy copy with the JAX package's paths and shapes (the
@@ -234,10 +226,18 @@ class Engine:
         return sharding.gather_member_params(self.cfg, self.params,
                                              device or self.device)
 
+    def _unit_trees(self) -> List[Dict[str, Any]]:
+        """Each distinct tree once, in ``units`` order."""
+        return [self.params.trees[u] for u in self.units]
+
+    def _unit_of(self) -> Dict[int, int]:
+        """member -> the index (in ``units``) of the tree it holds."""
+        at = {id(self.params.trees[u]): k for k, u in enumerate(self.units)}
+        return {i: at[id(tr)] for i, tr in enumerate(self.params.trees)}
+
     def _member_leaves(self) -> List[torch.Tensor]:
-        """Every member's leaves, member-major, each in ``_leaves``
-        order."""
-        return [p for tr in self.params.trees for p in _leaves(tr)]
+        """Every unit's leaves, unit-major, each in ``_leaves`` order."""
+        return [p for tr in self._unit_trees() for p in _leaves(tr)]
 
     # ------------------------------------------------------------------
     # ZeRO-1 and the gradient sums of a sharded engine
@@ -250,14 +250,15 @@ class Engine:
                 for path, spec in sharding.flat_specs(self.cfg)]
 
     def _zero1_slices(self, zero1: bool):
-        """Per member, per leaf: the slice of the shard whose optimizer
-        state the member holds (``zero1_moment_spec``'s data dim over
-        the stage's logical shape, never the layer dim of a slab), or
-        None for the whole shard."""
+        """Per unit, per leaf: the slice of the shard whose optimizer
+        state the unit holds (``zero1_moment_spec``'s data dim over the
+        stage's logical shape, never the layer dim of a slab; JAX shards
+        the moments over the data axis only, so context copies each hold
+        the same slice), or None for the whole shard."""
         d, t = (self.parallel.data_parallel_size,
                 self.parallel.tensor_parallel_size)
         out = []
-        for i, tree in enumerate(self.params.trees):
+        for i, tree in zip(self.units, self._unit_trees()):
             row = []
             for (_, spec, staged), p in zip(self._leaf_specs(), _leaves(tree)):
                 shape = list(p.shape)
@@ -278,30 +279,35 @@ class Engine:
         return out
 
     def _sum_grads(self, acc):
-        """Each leaf's gradient summed over the members that hold it
-        (``mesh.holders``): a split leaf over its model index, a block
-        leaf within its stage, over everything else it is replicated
-        on. ``acc[member][leaf]`` -> the same nesting; members on one
-        device share the summed tensor."""
+        """Each leaf's gradient summed over the units that hold its
+        values (``mesh.holders``: a split leaf over its model index, a
+        block leaf within its stage, over everything else it is
+        replicated on, data and context copies alike).
+        ``acc[unit][leaf]`` -> the same nesting; units on one device
+        share the summed tensor."""
+        unit_of = self._unit_of()
         out = [list(row) for row in acc]
         for k, (_, spec, staged) in enumerate(self._leaf_specs()):
             split = sharding.split_dim(spec) is not None
             done = set()
-            for i in range(len(self.members)):
-                if i in done:
+            for i in self.units:
+                if unit_of[i] in done:
                     continue
-                grp = holders(self.mesh, i, split, staged)
+                grp = list(dict.fromkeys(
+                    unit_of[m] for m in holders(self.mesh, i, split, staged)))
                 done.update(grp)
-                summed = C.all_reduce([acc[m][k] for m in grp],
-                                      [self.members[m] for m in grp])
-                for m, g in zip(grp, summed):
-                    out[m][k] = g
+                summed = C.all_reduce([acc[u][k] for u in grp],
+                                      [self.members[self.units[u]]
+                                       for u in grp])
+                for u, g in zip(grp, summed):
+                    out[u][k] = g
         return out
 
     def _logical_norm(self, grads):
-        """The norm of the logical gradient: each element once (data
-        index 0; every model index of a split leaf; every stage of a
-        block leaf)."""
+        """The norm of the logical gradient: each element once (data and
+        context index 0; every model index of a split leaf; every stage
+        of a block leaf)."""
+        unit_of = self._unit_of()
         total = None
         p, t = (self.parallel.pipeline_parallel_size,
                 self.parallel.tensor_parallel_size)
@@ -309,32 +315,39 @@ class Engine:
             split = sharding.split_dim(spec) is not None
             for s in (range(p) if staged else [0]):
                 for j in (range(t) if split else [0]):
-                    sq = grads[member_at(self.mesh, s, 0, j)][k].float(
-                    ).pow(2).sum().to(self.device)
+                    u = unit_of[member_at(self.mesh, s, 0, j)]
+                    sq = grads[u][k].float().pow(2).sum().to(self.device)
                     total = sq if total is None else total + sq
         return torch.sqrt(total)
+
+    def _data_groups(self):
+        """Each data group (one stage, context and model index) as the
+        indices of its units in data order, each group once (context
+        copies on one device share their units)."""
+        unit_of = self._unit_of()
+        groups = {}
+        for i in self.units:
+            grp = tuple(unit_of[m] for m in data_group(self.mesh, i))
+            groups.setdefault(grp, None)
+        return list(groups)
 
     def _gather_zero1(self):
         """After a ZeRO-1 step each data member holds its own updated
         slice of every split-over-data leaf: all-gather the slices over
-        each data group (one stage, one model index) into every member's
-        shard."""
-        p, t = (self.parallel.pipeline_parallel_size,
-                self.parallel.tensor_parallel_size)
-        leaves = [list(_leaves(tr)) for tr in self.params.trees]
+        each data group into every unit's shard."""
+        leaves = [list(_leaves(tr)) for tr in self._unit_trees()]
         for k in range(len(leaves[0])):
-            for s in range(p):
-                for j in range(t):
-                    grp = data_group(self.mesh, member_at(self.mesh, s, 0, j))
-                    sl = self._zero1[grp[0]][k]
-                    if sl is None:
-                        continue
-                    parts = [leaves[m][k].narrow(*self._zero1[m][k])
-                             for m in grp]
-                    full = C.all_gather(parts, [self.members[m] for m in grp],
-                                        dim=sl[0])
-                    for m, f in zip(grp, full):
-                        leaves[m][k].copy_(f)
+            for grp in self._data_groups():
+                sl = self._zero1[grp[0]][k]
+                if sl is None:
+                    continue
+                parts = [leaves[u][k].narrow(*self._zero1[u][k])
+                         for u in grp]
+                full = C.all_gather(
+                    parts, [self.members[self.units[u]] for u in grp],
+                    dim=sl[0])
+                for u, f in zip(grp, full):
+                    leaves[u][k].copy_(f)
 
     # ------------------------------------------------------------------
     # Optimizer state across the numpy boundary
@@ -390,12 +403,14 @@ class Engine:
         k_leaves = len(self._zero1[0])
         par = self.parallel
         p, t = par.pipeline_parallel_size, par.tensor_parallel_size
+        unit_of = self._unit_of()
         for k, (path, spec, staged) in enumerate(self._leaf_specs()):
             parts = []
             for s in range(p if staged else 1):
                 row = []
                 for j in range(t):
-                    grp = data_group(self.mesh, member_at(self.mesh, s, 0, j))
+                    grp = [unit_of[m] for m in data_group(
+                        self.mesh, member_at(self.mesh, s, 0, j))]
                     sl = self._zero1[grp[0]][k]
                     ds = [per_unit[m * k_leaves + k].to(device) for m in grp]
                     row.append(torch.cat(ds, dim=sl[0]) if sl is not None
@@ -437,14 +452,14 @@ class Engine:
         full = sharding.repad_vocab_leaf(
             self.cfg, path, torch.from_numpy(np.asarray(arr, np.float32)),
             t)
-        for m in range(len(self.members)):
+        for u, m in enumerate(self.units):
             shard = sharding.member_chunk(
                 full, path, spec, pipe_index(self.mesh, m),
                 model_index(self.mesh, m), p if staged else 1, t)
-            sl = self._zero1[m][k]
+            sl = self._zero1[u][k]
             if sl is not None:
                 shard = shard.narrow(*sl)
-            per_unit[m * len(self._zero1[0]) + k].copy_(shard)
+            per_unit[u * len(self._zero1[0]) + k].copy_(shard)
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -482,8 +497,6 @@ class Engine:
         the optimizer state, which the first update brings to the device,
         goes back to the host after the last. ``loss_fn_key`` is unused,
         as in ``train_batch``."""
-        if self._ctx:
-            raise NotImplementedError(_CTX_TRAIN)
         if self.optimizer is None:
             raise RuntimeError("Engine has no optimizer (inference-only).")
         if loss_weights is None:
@@ -499,7 +512,7 @@ class Engine:
         w = np.asarray(loss_weights if loss_weights is not None
                        else [1.0] * n, np.float32)
         w = (w / w.sum()).tolist()
-        trees = self.params.trees if self.sharded else [self.params]
+        trees = self._unit_trees() if self.sharded else [self.params]
         leaves = [list(_leaves(tr)) for tr in trees]
         acc = [[torch.zeros_like(p, dtype=torch.float32) for p in row]
                for row in leaves]
@@ -559,7 +572,7 @@ class Engine:
         if self.offloaded:
             return
         if self.device.type == "cuda":
-            trees = self.params.trees if self.sharded else [self.params]
+            trees = self._unit_trees() if self.sharded else [self.params]
             leaves = [p for tr in trees for p in _leaves(tr)]
             self._host_params = offload.to_pinned_host(leaves,
                                                        self._host_params)
@@ -567,7 +580,6 @@ class Engine:
             it = iter(self._host_params)
             for tr in trees:
                 _set_leaves(tr, [next(it) for _ in _leaves(tr)])
-            self._member_params = None  # other devices' copies go too
         self.offloaded = True
 
     def ensure_on_device(self):
@@ -578,11 +590,9 @@ class Engine:
         if self.device.type == "cuda":
             moved = iter(offload.to_devices(self._host_params,
                                             self._devices))
-            trees = self.params.trees if self.sharded else [self.params]
+            trees = self._unit_trees() if self.sharded else [self.params]
             for tr in trees:
                 _set_leaves(tr, [next(moved) for _ in _leaves(tr)])
-            if not self.sharded:
-                self._place_members()
         self.offloaded = False
 
     # ------------------------------------------------------------------
@@ -590,9 +600,6 @@ class Engine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def forward_hidden(self, input_ids, seg_ids) -> torch.Tensor:
-        if self._ctx:
-            n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
-            return self._gather(self._ctx_hidden(ids, seg), n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
                          self._tensor(seg_ids),
                          pipeline=self.pipeline_ctx_infer)
@@ -605,9 +612,6 @@ class Engine:
     def forward_logprobs(self, input_ids, seg_ids, temperature: float = 1.0,
                          logits_mask=None) -> torch.Tensor:
         """Next-token log-probs [S, L] fp32 (0 at segment ends and pads)."""
-        if self._ctx:
-            return self._ctx_logprobs(input_ids, seg_ids, temperature,
-                                      logits_mask)
         ids, seg = self._tensor(input_ids), self._tensor(seg_ids)
         h, _ = T.forward(self.cfg, self.params, ids, seg,
                          pipeline=self.pipeline_ctx_infer)
@@ -622,11 +626,6 @@ class Engine:
         """Critic or reward scalar outputs [S, L] fp32."""
         if not self.cfg.is_critic:
             raise ValueError("forward_values needs a critic model.")
-        if self._ctx:
-            n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
-            hs = self._ctx_hidden(ids, seg)
-            return self._gather([T.critic_values(self.cfg, p, h) for p, h
-                                 in zip(self._member_params, hs)], n_real)
         h, _ = T.forward(self.cfg, self.params, self._tensor(input_ids),
                          self._tensor(seg_ids),
                          pipeline=self.pipeline_ctx_infer)
@@ -664,7 +663,8 @@ class Engine:
         in place (never a second copy)."""
         par = self.parallel
         g = par.gen_tp_size or par.tensor_parallel_size
-        if (par.pipeline_parallel_size == 1 and not self._ctx
+        if (par.pipeline_parallel_size == 1
+                and par.context_parallel_size == 1
                 and g == par.tensor_parallel_size):
             return self
         if self._decode_view is None:
@@ -707,7 +707,7 @@ class Engine:
         if view is None or view.params is None:
             return 0
         return sum(p.numel() * p.element_size()
-                   for tr in view.params.trees for p in _leaves(tr))
+                   for tr in view._unit_trees() for p in _leaves(tr))
 
     def set_gen_tp(self, gen_tp: int):
         """Install a decode-view model degree (the allocation
@@ -723,56 +723,6 @@ class Engine:
                                             gen_tp_size=gen_tp)
         self._decode_view = None
         self._view_key = None
-
-    # ------------------------------------------------------------------
-    # Context parallelism
-    # ------------------------------------------------------------------
-    def _ctx_pad(self, input_ids, seg_ids):
-        """-> (the caller's L, ids, seg): [S, L] padded to a multiple of
-        n * 8 with segment id 0, on the first member's device."""
-        mult = 8 * len(self.members)
-        seg_ids = np.asarray(seg_ids)
-        return (seg_ids.shape[1],
-                self._tensor(packing.pad_stream_len(input_ids, mult)),
-                self._tensor(packing.pad_stream_len(seg_ids, mult)))
-
-    def _split(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """[S, L, ...] -> member i's contiguous i-th shard along L, on
-        its device."""
-        return [c.to(d).contiguous() for c, d in
-                zip(t.chunk(len(self.members), dim=1), self.members)]
-
-    def _gather(self, shards: List[torch.Tensor], n_real: int):
-        """Members' [S, lc, ...] outputs -> [S, L, ...] on this engine's
-        device, cut back to the caller's L."""
-        return torch.cat([s.to(self.device) for s in shards],
-                         dim=1)[:, :n_real]
-
-    def _ctx_hidden(self, ids, seg) -> List[torch.Tensor]:
-        """Members' final hidden states of padded [S, L] streams; the
-        positions come from the whole streams."""
-        pos = T.positions_from_segments(seg)
-        return T.forward_ctx(self.cfg, self._member_params, self._split(ids),
-                             self._split(seg), self._split(pos))
-
-    def _ctx_logprobs(self, input_ids, seg_ids, temperature, logits_mask):
-        n_real, ids, seg = self._ctx_pad(input_ids, seg_ids)
-        # labels and validity from the whole stream: a shard's last
-        # token predicts the next shard's first
-        labels, valid = F.next_token_labels(ids, seg)
-        hs = self._ctx_hidden(ids, seg)
-        masks = [None] * len(self.members)
-        if logits_mask is not None:
-            mask = packing.pad_stream_len(logits_mask, 8 * len(self.members),
-                                          fill=True)
-            masks = self._split(self._tensor(mask, dtype=torch.bool))
-        lps = [F.logprobs_from_hidden(self.cfg, p, h, lab, val,
-                                      temperature=temperature,
-                                      logits_mask=m)
-               for p, h, lab, val, m in zip(
-                   self._member_params, hs, self._split(labels),
-                   self._split(valid), masks)]
-        return self._gather(lps, n_real)
 
 
 def _leaves(tree):

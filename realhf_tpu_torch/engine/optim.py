@@ -23,7 +23,11 @@ default, as in the JAX package), a tensor's state covers one slice of
 it (``slices``: the dim of ``models/sharding.zero1_moment_spec`` and the
 member's range along it); the engine all-gathers the updated slices
 over the data group. The clipping norm is then the engine's, taken over
-the logical gradient. With
+the logical gradient. On a context-parallel layout the engine hands it
+each distinct tree once (context copies on one device share a tree);
+copies on other devices each step the same data slice with the same
+summed gradient, so they stay equal (the JAX package shards the moments
+over the data axis only). With
 ``OptimizerConfig.offload`` the engine keeps the state in pinned host
 memory between train calls (``AdamW.offload`` / ``ensure_on_device``).
 """

@@ -38,20 +38,27 @@ def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def params_from_numpy(tree: Tree, device="cpu",
                       dtype: Optional[torch.dtype] = None, *, cfg=None,
                       devices: Optional[Sequence] = None,
-                      t: int = 1, p: int = 1):
+                      t: int = 1, p: int = 1, c: int = 1):
     """numpy tree -> tensor tree on ``device`` (cast to ``dtype`` if
     given, else keeping each leaf's dtype). With ``devices`` (the members
-    of a dNtMpP layout, in (pipe, data, model) order), ``t``, ``p`` and
-    the model's ``cfg``: a canonical or tp-padded tree (numpy or tensors)
-    -> a list of trees, member i's holding stage ``i // (d * t)``'s layer
-    slabs and model shard ``i % t`` on ``devices[i]``, every member its
-    own copy."""
+    of a dNcCtMpP layout, in (pipe, data, ctx, model) order), ``t``,
+    ``p``, ``c`` and the model's ``cfg``: a canonical or tp-padded tree
+    (numpy or tensors) -> a list of trees, member i's holding stage
+    ``i // (d * c * t)``'s layer slabs and model shard ``i % t`` on
+    ``devices[i]``; the members of one context group on one device share
+    one copy (``sharding.shared_tree_key``), every other member has its
+    own."""
     if devices is not None:
         shards = sharding.shard_params(cfg, tree, t, p)
         per_stage = len(devices) // p
-        return [_map(lambda a, d=d: _member_leaf(a, d, dtype),
-                     shards[(i // per_stage) * t + i % t])
-                for i, d in enumerate(devices)]
+        out, made = [], {}
+        for i, d in enumerate(devices):
+            key = sharding.shared_tree_key(i, c, t, d)
+            if key not in made:
+                made[key] = _map(lambda a, d=d: _member_leaf(a, d, dtype),
+                                 shards[(i // per_stage) * t + i % t])
+            out.append(made[key])
+        return out
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
                 else _to_tensor(v, device, dtype))
             for k, v in tree.items()}

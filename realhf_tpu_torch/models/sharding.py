@@ -316,31 +316,43 @@ def gather_params(cfg: TransformerConfig, trees: Sequence[Dict[str, Any]],
 
 @dataclasses.dataclass
 class MemberParams:
-    """The weights of a pipeline-, data- and tensor-parallel layout: one
-    tree per member, flat in (pipe, data, model) order, each on its
-    member's device. ``p * d * t == len(trees)``. ``pipeline`` is the
-    engine's ``parallel/pipeline.PipelineContext`` when ``p > 1`` (the
-    forward reads its schedule and microbatch count)."""
+    """The weights of a ``dNcCtMpP`` layout: one tree per member, flat
+    in (pipe, data, ctx, model) order, each on its member's device.
+    ``p * d * c * t == len(trees)``. The members of one context group
+    (same stage, data and model index) that lie on one device share one
+    tree object (``units`` lists each distinct tree once). ``pipeline``
+    is the engine's ``parallel/pipeline.PipelineContext`` when ``p > 1``
+    (the forward reads its schedule and microbatch count); ``sp`` turns
+    on sequence parallelism (the forward splits the residual stream of a
+    model group along its tokens over the model members)."""
     trees: List[Dict[str, Any]]
     devices: List[torch.device]
     d: int
     t: int
     p: int = 1
     pipeline: Any = None
+    c: int = 1
+    sp: bool = False
 
-    def group(self, g: int, s: Optional[int] = None
+    def index(self, g: int, c: int = 0, j: int = 0,
+              s: Optional[int] = None) -> int:
+        """The member at stage ``s`` (default: the last), data index
+        ``g``, context index ``c``, model index ``j``."""
+        s = self.p - 1 if s is None else s
+        return ((s * self.d + g) * self.c + c) * self.t + j
+
+    def group(self, g: int, s: Optional[int] = None, c: int = 0
               ) -> Tuple[List[Dict[str, Any]], List[torch.device]]:
         """Stage ``s``'s (default: the last, which holds the final
-        hidden states) data group ``g``'s model members: their trees
-        and devices."""
-        s = self.p - 1 if s is None else s
-        base = (s * self.d + g) * self.t
+        hidden states) model group of data index ``g`` and context index
+        ``c``: their trees and devices."""
+        base = self.index(g, c, 0, s)
         return self.trees[base:base + self.t], self.devices[base:base + self.t]
 
     def stages(self, g: int = 0) -> List[Tuple[List[Dict[str, Any]],
                                                List[torch.device]]]:
-        """Data group ``g``'s model group of every stage, in stage
-        order."""
+        """Data group ``g``'s (context index 0) model group of every
+        stage, in stage order."""
         return [self.group(g, s) for s in range(self.p)]
 
     def canonical_trees(self) -> List[Dict[str, Any]]:
@@ -348,10 +360,25 @@ class MemberParams:
         ``gather_params`` joins."""
         return [tr for trees, _ in self.stages(0) for tr in trees]
 
+    def units(self) -> List[int]:
+        """The first member of each distinct tree, in member order."""
+        seen, out = set(), []
+        for i, tr in enumerate(self.trees):
+            if id(tr) not in seen:
+                seen.add(id(tr))
+                out.append(i)
+        return out
+
     def vocab_starts(self, cfg: TransformerConfig) -> List[int]:
         """The first (padded) vocabulary row each model member holds."""
         per = padded_vocab_size(cfg, self.t) // self.t
         return [j * per for j in range(self.t)]
+
+
+def shared_tree_key(i: int, c: int, t: int, device) -> tuple:
+    """Members of one context group on one device share a tree: member
+    ``i``'s (stage and data index, model index, device)."""
+    return (i // (c * t), i % t, device)
 
 
 def gather_member_params(cfg: TransformerConfig, mp: MemberParams,
@@ -364,17 +391,22 @@ def gather_member_params(cfg: TransformerConfig, mp: MemberParams,
 
 
 def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
-                       d: int, t: int, p: int, dtype: torch.dtype
+                       d: int, t: int, p: int, dtype: torch.dtype, c: int = 1
                        ) -> List[Dict[str, Any]]:
-    """Uninitialised member trees of a ``dNtMpP`` layout (each leaf its
-    member's shard shape, vocabulary padded for t), on their devices:
-    the target of a reallocation."""
+    """Uninitialised member trees of a ``dNcCtMpP`` layout (each leaf its
+    member's shard shape, vocabulary padded for t), on their devices,
+    shared within a context group on one device: the target of a
+    reallocation."""
     shapes = init_shapes(cfg)
     vp = padded_vocab_size(cfg, t)
     specs = dict(flat_specs(cfg))
-    out = []
+    out, made = [], {}
     for i, dev in enumerate(devices):
-        s = i // (d * t)
+        key = shared_tree_key(i, c, t, dev)
+        if key in made:
+            out.append(made[key])
+            continue
+        s = i // (d * c * t)
 
         def leaf(path, shape, dev=dev, s=s):
             shape = list(shape)
@@ -389,7 +421,8 @@ def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
                 shape[sd] //= t
             return torch.empty(shape, dtype=dtype, device=dev)
 
-        out.append(_map_paths(leaf, shapes))
+        made[key] = _map_paths(leaf, shapes)
+        out.append(made[key])
     return out
 
 

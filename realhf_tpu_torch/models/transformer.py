@@ -14,10 +14,7 @@ decode step that writes the cache in place.
 
 Attention goes through ``ops/attention.py``, which runs the CUDA kernels
 on CUDA tensors and the plain PyTorch versions on CPU tensors; the
-projections and MLP are ``torch.matmul``. ``forward_ctx`` runs the same
-blocks over context-parallel members that each hold a shard of every
-stream, with ring attention (``ops/ring_attention_fused.py``) between
-each block's two halves. Under autograd with
+projections and MLP are ``torch.matmul``. Under autograd with
 ``cfg.gradient_checkpointing`` each block is recomputed in the backward
 from its input (``torch.utils.checkpoint``), as the JAX package's
 ``jax.checkpoint(..., policy=nothing_saveable)`` does.
@@ -44,6 +41,27 @@ the context says so and autograd is on), each stage-tick a slab of
 and applies the final norm on the last stage's members, whose trees the
 heads then use. A prefill (``return_kv``) or a decode step at p > 1
 raises: generation goes through the engine's decode view.
+
+Context and sequence parallelism (``forward_ctx``, for a ``MemberParams``
+of ``c > 1`` or with ``sp``): member ``(g, c, j)`` holds data group g's
+streams' contiguous token shard c (the streams padded with segment id 0
+to a multiple of ``8 c`` tokens, ``8 c t`` with ``sp``) and model slice
+j. Each layer runs the first half of the block on every member, the
+ring over the C members of each model index (``ring_attention_fused``,
+differentiable: K6 forward, K2/K3 per round backward), then ``wo`` and
+the MLP with their row-parallel sums over the model members. With
+``sp`` the residual of a model group is split again along its tokens
+over the model members, the JAX package's ``P(DATA, (CTX, MODEL),
+None)``: each row-parallel sum is a reduce-scatter (the same sums as
+the all-reduce, then sliced, so the values equal those without ``sp``),
+the norms run on the shard, and an all-gather comes before the q/k/v and
+the MLP's up projections. The final hidden states are gathered along
+the tokens onto each model member of context index 0, where the heads
+run. Under gradient checkpointing each member's half-blocks are
+checkpointed on their own and the ring and the sums lie outside every
+checkpoint region, so the recompute launches no K6; with ``s`` alone
+(c = 1) each member's attention half, K1 included, is one region, as on
+the d x t path.
 """
 
 import dataclasses
@@ -304,7 +322,13 @@ def _attn_in(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
              cos: torch.Tensor, sin: torch.Tensor):
     """The block up to attention: norm, q/k/v projections and rotary
     over [B, L, H] -> q [B, L, nq, hd], k/v [B, L, nkv, hd]."""
-    ln1 = _norm(cfg, x, lp["ln1"]["scale"], lp["ln1"].get("bias"))
+    return _qkv_rotary(cfg, lp, _norm(cfg, x, lp["ln1"]["scale"],
+                                      lp["ln1"].get("bias")), cos, sin)
+
+
+def _qkv_rotary(cfg: TransformerConfig, lp: Params, ln1: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor):
+    """``_attn_in`` after the norm."""
     q, k, v = _qkv(cfg, lp, ln1)
     if cfg.apply_rotary:
         q = apply_rotary(q, cos, sin, cfg.rotary_interleaved)
@@ -535,48 +559,177 @@ def _forward_pipeline(cfg, mp: MemberParams, pipe, g, ids, seg, pos,
             for tr, h in zip(trees, hs)], aux
 
 
-def forward_ctx(cfg: TransformerConfig, member_params: List[Params],
-                input_ids: List[torch.Tensor], seg_ids: List[torch.Tensor],
-                positions: List[torch.Tensor], *,
-                attention_fn=None) -> List[torch.Tensor]:
-    """Context-parallel forward: member ``i`` holds the contiguous
-    shard ``[B, lc]`` of every stream's tokens, its segment ids and its
-    positions within the WHOLE stream, on its own device, with
-    ``member_params[i]`` there (members that share a device share one
-    tree). Returns each member's final hidden states [B, lc, H] after
-    the final norm.
+def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
+                input_ids: torch.Tensor, seg_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, *,
+                return_kv: bool = False, return_aux: bool = False,
+                attention_fn=None):
+    """``forward`` over a ``dNcCtM[s]`` layout (``mp.c > 1`` or
+    ``mp.sp``; the module note): ``[S, L]`` inputs on any device ->
+    (``MemberHidden`` at L, per-member (k, v) or None[, aux]). Positions
+    come from the whole streams. ``attention_fn`` replaces the ring at
+    c > 1 (it takes the C members' shards), packed attention at c = 1.
+    A prefill (``return_kv``) at c > 1 raises (generation runs on the
+    engine's decode view), as do MoE aux losses at c > 1 (item 4)."""
+    c = mp.c
+    if mp.p > 1:
+        raise NotImplementedError(
+            f"a c={c} or sequence-parallel layout with p={mp.p}: pipeline "
+            "parallelism combines with neither here.")
+    if return_kv and c > 1:
+        raise ValueError(
+            "a KV-cache prefill on a context-parallel layout: generation "
+            "runs on the engine's decode view (Engine.decode_engine).")
+    if return_aux and c > 1 and cfg.mlp_type == "moe":
+        raise NotImplementedError(
+            "router losses over context shards: MoE training at c > 1 comes "
+            "with expert parallelism, ROADMAP.md, queue 1, item 4.")
+    seg_ids = seg_ids.to(torch.int32)
+    if positions is None:
+        positions = positions_from_segments(seg_ids)
+    n_real = input_ids.shape[1]
+    mult = 8 * c * (mp.t if mp.sp else 1)
+    pad = -n_real % mult
+    if pad:
+        input_ids, seg_ids, positions = (
+            F.pad(a, (0, pad)) for a in (input_ids, seg_ids, positions))
+    rows = data_rows(input_ids.shape[0], mp.d)
+    hs, kvs = [], []
+    for g, (r0, r1) in enumerate(rows):
+        if r1 == r0:
+            hs.append(None)
+            kvs.extend([None] * (c * mp.t))
+            continue
+        h, kv = _forward_ctx_group(
+            cfg, mp, g, *(a[r0:r1] for a in (input_ids, seg_ids, positions)),
+            return_kv, attention_fn)
+        hs.append([x[:, :n_real] for x in h])
+        kvs.extend(kv if kv is not None else [None] * (c * mp.t))
+    out = MemberHidden(hs, rows), (kvs if return_kv else None)
+    return (*out, {}) if return_aux else out
 
-    The layers run layer-major over the members: a member's attention at
-    layer l needs every member's K/V of layer l, so each layer runs the
-    first half of the block (``_attn_in``) on every member, then the ring
-    (``attention_fn``, default ``ring_attention_fused``) over all of
-    them, then the second half (``_attn_out``). JAX gets this order from
-    SPMD; one process driving the members writes it out. A MoE layer
-    routes each member's tokens on its own (routing is per token, pads
-    masked by the member's segment ids); the aux losses are dropped, as
-    this path only infers."""
-    check_supported(cfg)
-    ring = attention_fn or ring_attention_fused
+
+def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
+                       attention_fn):
+    """Data group ``g``'s padded rows over its C x t members -> (each
+    model member's final hidden states over the whole padded streams, on
+    member (g, 0, j), and each member's stacked (k, v) at c = 1 when
+    ``return_kv``)."""
+    n_c, t = mp.c, mp.t
+    sp = mp.sp and t > 1
+    at = [[mp.index(g, ci, j, 0) for j in range(t)] for ci in range(n_c)]
+    trees = [[mp.trees[i] for i in row] for row in at]
+    devs = [[mp.devices[i] for i in row] for row in at]
+    starts = mp.vocab_starts(cfg)
     views = {}
-    for p in member_params:
-        if id(p) not in views:
-            views[id(p)] = layer_views(p["blocks"], cfg.n_layers)
-    layers = [views[id(p)] for p in member_params]
-    segs = [s.to(torch.int32).contiguous() for s in seg_ids]
-    xs = [_embed(cfg, p, ids.long(), pos)
-          for p, ids, pos in zip(member_params, input_ids, positions)]
-    tables = [_rotary_tables(cfg, pos) for pos in positions]
+    for row in trees:
+        for tr in row:
+            if id(tr) not in views:
+                views[id(tr)] = layer_views(tr["blocks"], cfg.n_layers)
+    layers = [[views[id(tr)] for tr in row] for row in trees]
+    shard = [a.chunk(n_c, dim=1) for a in (ids, seg, pos)]
+    segs = [C.broadcast(shard[1][ci].contiguous(), devs[ci])
+            for ci in range(n_c)]
+    poss = [C.broadcast(shard[2][ci], devs[ci]) for ci in range(n_c)]
+    xs = [_embed_members(cfg, trees[ci], devs[ci],
+                         C.broadcast(shard[0][ci], devs[ci]), poss[ci],
+                         starts, sp=sp) for ci in range(n_c)]
+    tables = [[_rotary_tables(cfg, p) for p in row] for row in poss]
+    remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+    run = _remat if remat else _call
+    kvs = [[([], []) for _ in range(t)] for _ in range(n_c)]
     for li in range(cfg.n_layers):
-        qkv = [_attn_in(cfg, lv[li], x, cos, sin)
-               for lv, x, (cos, sin) in zip(layers, xs, tables)]
-        q, k, v = (list(t) for t in zip(*qkv))
-        attn = ring(q, k, v, segs, causal=True,
-                    scale=_attn_scale(cfg, li),
-                    sliding_window=cfg.sliding_window)
-        xs = [_attn_out(cfg, lv[li], x, a, seg)[0]
-              for lv, x, a, seg in zip(layers, xs, attn, segs)]
-    return [_norm(cfg, x, p["ln_f"]["scale"], p["ln_f"].get("bias"))
-            for p, x in zip(member_params, xs)]
+        lps = [[lv[li] for lv in row] for row in layers]
+        if n_c == 1:  # sequence parallelism alone: no ring
+            xs[0], kv = _sp_block(cfg, lps[0], li, xs[0], segs[0],
+                                  tables[0], devs[0], attention_fn, run)
+            if return_kv:
+                for acc, (k, v) in zip(kvs[0], kv):
+                    acc[0].append(k)
+                    acc[1].append(v)
+            continue
+        qkv = []
+        for ci in range(n_c):
+            if sp:  # the norm on the shard, then the all-gather
+                lns = C.all_gather(
+                    [run(_norm, cfg, x, lp["ln1"]["scale"],
+                         lp["ln1"].get("bias"))
+                     for lp, x in zip(lps[ci], xs[ci])], devs[ci], dim=1)
+                qkv.append([run(_qkv_rotary, cfg, lp, h, cos, sin)
+                            for lp, h, (cos, sin) in
+                            zip(lps[ci], lns, tables[ci])])
+            else:
+                qkv.append([run(_attn_in, cfg, lp, x, cos, sin)
+                            for lp, x, (cos, sin) in
+                            zip(lps[ci], xs[ci], tables[ci])])
+        attn = _ring_attention(cfg, li, qkv, segs, attention_fn)
+        for ci in range(n_c):
+            if t == 1 and not sp:
+                xs[ci] = [run(_attn_out, cfg, lps[ci][0], xs[ci][0],
+                              attn[ci][0], segs[ci][0])[0]]
+                continue
+            parts = [run(_attn_proj, lp, x, a)
+                     for lp, x, a in zip(lps[ci], xs[ci], attn[ci])]
+            xs[ci] = _add_reduced(xs[ci], parts, [lp["attn"].get("bo")
+                                                  for lp in lps[ci]],
+                                  devs[ci], sp)
+            xs[ci] = _mlp_members(cfg, lps[ci], devs[ci], xs[ci], run, sp)
+    hs = []
+    for j in range(t):
+        col = []
+        for ci in range(n_c):
+            fin = [_norm(cfg, x, tr["ln_f"]["scale"], tr["ln_f"].get("bias"))
+                   for tr, x in zip(trees[ci], xs[ci])]
+            if sp:
+                fin = C.all_gather(fin, devs[ci], dim=1)
+            col.append(fin[j])
+        hs.append(col[0] if n_c == 1 else
+                  torch.cat([h.to(devs[0][j]) for h in col], dim=1))
+    if not return_kv:
+        return hs, None
+    return hs, [(torch.stack(k), torch.stack(v))
+                for row in kvs for k, v in row]
+
+
+def _sp_block(cfg, lps, layer_idx, xs, segs, tables, devs, attention_fn,
+              run):
+    """One block over a model group whose residual is split along the
+    tokens (``sp``, no ring) -> (the members' residual shards, each
+    member's (k, v)): the norm on the shard, an all-gather, then each
+    member's attention half in its own checkpoint region (K1 recomputed,
+    as ``_block_members``), a reduce-scatter, and the MLP half."""
+    lns = C.all_gather([run(_norm, cfg, x, lp["ln1"]["scale"],
+                                lp["ln1"].get("bias"))
+                        for lp, x in zip(lps, xs)], devs, dim=1)
+    outs = [run(_attn_partial_normed, cfg, lp, layer_idx, h, seg, cos, sin,
+                attention_fn or packed_attention)
+            for lp, h, seg, (cos, sin) in zip(lps, lns, segs, tables)]
+    xs = _add_reduced(xs, [o[0] for o in outs],
+                      [lp["attn"].get("bo") for lp in lps], devs, True)
+    return _mlp_members(cfg, lps, devs, xs, run, True), [o[1:] for o in outs]
+
+
+def _attn_proj(lp, x, attn):
+    """A member's ``wo`` partial of its heads' attention output (over the
+    whole shard; ``x`` is the residual, perhaps its ``sp`` slice)."""
+    return attn.flatten(-2) @ lp["attn"]["wo"].to(x.dtype)
+
+
+def _ring_attention(cfg, li, qkv, segs, attention_fn):
+    """Layer ``li``'s attention of every member: ``qkv[c][j]`` -> the
+    outputs ``[c][j]``, one ring per model index over the C members
+    (``ring_attention_fused`` unless ``attention_fn``)."""
+    n_c, t = len(qkv), len(qkv[0])
+    ring = attention_fn or ring_attention_fused
+    out = [[None] * t for _ in range(n_c)]
+    for j in range(t):
+        q, k, v = ([qkv[ci][j][w] for ci in range(n_c)] for w in range(3))
+        for ci, o in enumerate(ring(
+                q, k, v, [segs[ci][j] for ci in range(n_c)], causal=True,
+                scale=_attn_scale(cfg, li),
+                sliding_window=cfg.sliding_window)):
+            out[ci][j] = o
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -614,10 +767,14 @@ def _row_parallel(parts: List[torch.Tensor],
     return C.all_reduce(parts, devs)
 
 
-def _embed_members(cfg, trees, devs, ids_m, pos_m, starts):
+def _embed_members(cfg, trees, devs, ids_m, pos_m, starts, sp=False):
     """The vocab-parallel embedding: each member looks up its own rows
-    of ``wte`` and zeroes the others, an all-reduce sums them, then the
-    replicated position table and scale apply per member."""
+    of ``wte`` and zeroes the others, an all-reduce sums them (with
+    ``sp`` a reduce-scatter along the tokens), then the replicated
+    position table and scale apply per member. A single member (t = 1)
+    takes ``_embed``."""
+    if len(trees) == 1:
+        return [_embed(cfg, trees[0], ids_m[0].long(), pos_m[0])]
     cdt = dtype_of(cfg.compute_dtype)
     parts = []
     for tr, ids, s0 in zip(trees, ids_m, starts):
@@ -626,8 +783,13 @@ def _embed_members(cfg, trees, devs, ids_m, pos_m, starts):
         inside = (loc >= 0) & (loc < wte.shape[0])
         e = wte[loc.clamp(0, wte.shape[0] - 1)].to(cdt)
         parts.append(torch.where(inside[..., None], e, torch.zeros_like(e)))
+    if sp:
+        summed = C.reduce_scatter(parts, devs, dim=1)
+        pos_m = [p.chunk(len(devs), dim=1)[j] for j, p in enumerate(pos_m)]
+    else:
+        summed = C.all_reduce(parts, devs)
     out = []
-    for tr, x, pos in zip(trees, C.all_reduce(parts, devs), pos_m):
+    for tr, x, pos in zip(trees, summed, pos_m):
         if cfg.uses_absolute_position:
             x = x + tr["embed"]["wpe"][
                 pos.long() + cfg.abs_position_embedding_offset].to(cdt)
@@ -637,11 +799,15 @@ def _embed_members(cfg, trees, devs, ids_m, pos_m, starts):
     return out
 
 
-def _add_reduced(xs, parts, biases, devs):
+def _add_reduced(xs, parts, biases, devs, sp=False):
     """Each member's residual plus the row-parallel partials summed over
-    the model group (``_row_parallel``) and the replicated bias."""
+    the model group (``_row_parallel``; with ``sp`` a reduce-scatter
+    along the tokens onto the member's residual shard) and the
+    replicated bias."""
+    summed = (C.reduce_scatter(parts, devs, dim=1) if sp
+              else _row_parallel(parts, devs))
     out = []
-    for x, r, b in zip(xs, _row_parallel(parts, devs), biases):
+    for x, r, b in zip(xs, summed, biases):
         if b is not None:
             r = r + b.to(x.dtype)
         out.append(x + r)
@@ -659,11 +825,20 @@ def _remat(fn, *args):
 def _attn_partial(cfg, lp, layer_idx, x, seg, cos, sin, attn_impl):
     """One member's attention half: q/k/v of its own heads, attention
     (K1 on CUDA) and its ``wo`` partial -> (partial, k, v)."""
-    q, k, v = _attn_in(cfg, lp, x, cos, sin)
+    return _attn_partial_normed(
+        cfg, lp, layer_idx, _norm(cfg, x, lp["ln1"]["scale"],
+                                  lp["ln1"].get("bias")),
+        seg, cos, sin, attn_impl)
+
+
+def _attn_partial_normed(cfg, lp, layer_idx, ln1, seg, cos, sin, attn_impl):
+    """``_attn_partial`` after the norm."""
+    q, k, v = _qkv_rotary(cfg, lp, ln1, cos, sin)
     a = attn_impl(q, k, v, seg, causal=True,
                   scale=_attn_scale(cfg, layer_idx),
                   sliding_window=cfg.sliding_window)
-    return a.reshape(*x.shape[:-1], -1) @ lp["attn"]["wo"].to(x.dtype), k, v
+    return a.reshape(*ln1.shape[:-1], -1) @ lp["attn"]["wo"].to(ln1.dtype), \
+        k, v
 
 
 def _mlp_partial(cfg, lp, x):
@@ -673,9 +848,21 @@ def _mlp_partial(cfg, lp, x):
                       dtype_of(cfg.compute_dtype), out_bias=False)
 
 
-def _mlp_members(cfg, lps, devs, xs, run=_call):
-    parts = [run(_mlp_partial, cfg, lp, x) for lp, x in zip(lps, xs)]
-    return _add_reduced(xs, parts, [lp["mlp"].get("bd") for lp in lps], devs)
+def _mlp_members(cfg, lps, devs, xs, run=_call, sp=False):
+    """The MLP half over a model group; with ``sp`` each member's norm
+    runs on its residual shard (a checkpoint region of its own under
+    ``run``) and an all-gather precedes the up projections."""
+    if sp:
+        lns = C.all_gather([run(_norm, cfg, x, lp["ln2"]["scale"],
+                                lp["ln2"].get("bias"))
+                            for lp, x in zip(lps, xs)], devs, dim=1)
+        cdt = dtype_of(cfg.compute_dtype)
+        parts = [run(_dense_mlp, cfg, lp["mlp"], h, cdt, False)
+                 for lp, h in zip(lps, lns)]
+    else:
+        parts = [run(_mlp_partial, cfg, lp, x) for lp, x in zip(lps, xs)]
+    return _add_reduced(xs, parts, [lp["mlp"].get("bd") for lp in lps], devs,
+                        sp)
 
 
 def _block_members(cfg, lps, layer_idx, xs, segs, tables, devs,
@@ -734,6 +921,10 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
     At p > 1 each data group runs the pipeline of ``pipeline`` (default
     ``mp.pipeline``) and the hidden states are the last stage's."""
     check_layout(cfg, mp.t)
+    if mp.c > 1 or (mp.sp and mp.t > 1):
+        return forward_ctx(cfg, mp, input_ids, seg_ids, positions,
+                           return_kv=return_kv, return_aux=return_aux,
+                           attention_fn=attention_fn)
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
         positions = positions_from_segments(seg_ids)

@@ -18,6 +18,15 @@ Every function takes ``window`` (None = none): a sliding window in which
 a query sees only the keys less than ``window`` positions behind it, as
 ``segment_mask``'s ``sliding_window``. The kernels skip the key tiles out
 of reach, and give the windowless bits for a window of L or more.
+
+A round of the ring's backward (``ops/ring_attention_fused.py``
+``RingAttentionFn``) holds one member's q shard against another's keys:
+``flash_bwd_dq`` and ``flash_bwd_dkv`` then take the keys' own segment
+ids ``seg_k``, the global stream offsets ``q_off`` and ``k_off`` of the
+two shards (the causal and window tests read global positions) and
+``out_dtype=torch.float32`` for fp32 partials; on CUDA the kernels take
+them at hd 64 or 128. With the defaults the kernels' bits are those of
+the kernels before the ring round existed.
 """
 
 import ctypes
@@ -32,23 +41,28 @@ NEG_INF = -2.0 ** 30
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
 #: kernel launches made by ``flash_attention`` (K1), ``flash_bwd_dq``
-#: (K2) and ``flash_bwd_dkv`` (K3); reset them to 0 to count the
-#: launches of one run
+#: (K2) and ``flash_bwd_dkv`` (K3) at default arguments, and by K2 and K3
+#: at a ring round (a round of the ring's backward, module note); reset
+#: them to 0 to count the launches of one run
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+dq_ring_launches = 0
+dkv_ring_launches = 0
 _fns = {}
 
 
 def segment_mask(seg_q: torch.Tensor, seg_k: torch.Tensor, causal: bool,
-                 sliding_window: Optional[int] = None) -> torch.Tensor:
+                 sliding_window: Optional[int] = None, *, q_off: int = 0,
+                 k_off: int = 0) -> torch.Tensor:
     """[B, Lq, Lk] bool: same non-zero segment (+ causality, + optional
-    sliding window). Positions inside a segment are contiguous, so the
-    stream-index difference is the in-segment position difference."""
+    sliding window), the queries at stream positions ``q_off ..`` and the
+    keys at ``k_off ..``. Positions inside a segment are contiguous, so
+    the stream-index difference is the in-segment position difference."""
     mask = (seg_q[:, :, None] == seg_k[:, None, :]) & (seg_q[:, :, None] != 0)
     lq, lk = seg_q.shape[1], seg_k.shape[1]
-    idx_q = torch.arange(lq, device=seg_q.device)[:, None]
-    idx_k = torch.arange(lk, device=seg_q.device)[None, :]
+    idx_q = q_off + torch.arange(lq, device=seg_q.device)[:, None]
+    idx_k = k_off + torch.arange(lk, device=seg_q.device)[None, :]
     if causal:
         mask = mask & (idx_q >= idx_k)[None]
     if sliding_window is not None:
@@ -176,9 +190,13 @@ def flash_attention_plain(q, k, v, seg_ids, *, causal: bool = True,
 
 
 def _bwd_plain(q, k, v, seg_ids, lse, do, delta, *, causal: bool,
-               scale: float, window: Optional[int] = None):
+               scale: float, window: Optional[int] = None, seg_k=None,
+               q_off: int = 0, k_off: int = 0, out_dtype=None):
     """K2's and K3's arithmetic in plain PyTorch, given delta
-    [B, nq, L] = rowsum(o * do) (fp32 throughout)."""
+    [B, nq, L] = rowsum(o * do) (fp32 throughout): q rows with ids
+    ``seg_ids`` at stream offset ``q_off`` against keys with ids
+    ``seg_k`` (default ``seg_ids``) at ``k_off``; dq in ``out_dtype``
+    (default q's), dk/dv in it (default k's)."""
     b, l, nq, hd = q.shape
     nkv = k.shape[2]
     group = nq // nkv
@@ -187,7 +205,8 @@ def _bwd_plain(q, k, v, seg_ids, lse, do, delta, *, causal: bool,
     dof = do.to(torch.float32).reshape(b, l, nkv, group, hd)
     lse_ = lse.reshape(b, nkv, group, l)[..., None]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
-    keep = segment_mask(seg_ids, seg_ids, causal, window)[:, None, None] \
+    keep = segment_mask(seg_ids, seg_ids if seg_k is None else seg_k, causal,
+                        window, q_off=q_off, k_off=k_off)[:, None, None] \
         & (lse_ > NEG_INF / 2)
     p = torch.where(keep, torch.exp(s - lse_), 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
@@ -195,8 +214,8 @@ def _bwd_plain(q, k, v, seg_ids, lse, do, delta, *, causal: bool,
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)   # qf carries the scale
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    return (dq.reshape(b, l, nq, hd).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    return (dq.reshape(b, l, nq, hd).to(out_dtype or q.dtype),
+            dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype))
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -222,15 +241,18 @@ def flash_attention_bwd_plain(q, k, v, seg_ids, o, lse, do, *,
 
 def _kernel(name: str):
     """The ctypes entry ``name`` of its library, typed: pointers, then
-    B, L, nq, nkv, hd, scale, causal, window, stream."""
+    B, L, nq, nkv, hd, (K2 and K3: q_off, k_off, out_f32,) scale,
+    causal, window, stream."""
     fn = _fns.get(name)
     if fn is None:
-        lib, n_ptrs = {"flash_fwd_bf16": ("flash_fwd", 6),
-                       "flash_bwd_dq_bf16": ("flash_bwd", 8),
-                       "flash_bwd_dkv_bf16": ("flash_bwd", 9)}[name]
+        lib, n_ptrs, n_ring = {"flash_fwd_bf16": ("flash_fwd", 6, 0),
+                               "flash_bwd_dq_bf16": ("flash_bwd", 9, 3),
+                               "flash_bwd_dkv_bf16": ("flash_bwd", 10, 3),
+                               }[name]
         fn = getattr(_build.library(lib), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = ([p] * n_ptrs + [i] * (5 + n_ring)
+                       + [ctypes.c_float, i, i, p])
         fn.restype = i
         _fns[name] = fn
     return fn
@@ -287,16 +309,39 @@ def _window_arg(window: Optional[int]) -> int:
 
 
 def _launch(name: str, ptrs, q, k, causal: bool, scale: float,
-            window: Optional[int]):
+            window: Optional[int], ring=()):
     b, l, nq, hd = q.shape
     # the launch goes to the current device's context: make it the
     # tensors' (a member on another card than the caller's current one)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = _kernel(name)(*(t.data_ptr() for t in ptrs), b, l, nq,
-                             k.shape[2], hd, scale, int(causal),
+                             k.shape[2], hd, *ring, scale, int(causal),
                              _window_arg(window), stream)
     _build.check(code, name)
+
+
+def _ring_args(q, k, v, seg_ids, seg_k, q_off: int, k_off: int, out_dtype):
+    """(seg_k, (q_off, k_off, out_f32)) of a K2/K3 launch, checked, and
+    whether it is a ring round: (seg_ids, (0, 0, 0)) and False with the
+    defaults."""
+    if (seg_k is None and q_off == 0 and k_off == 0
+            and out_dtype in (None, q.dtype)):
+        return seg_ids, (0, 0, 0), False
+    seg_k = seg_ids if seg_k is None else seg_k
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(
+            f"a ring round of the backward kernels takes hd 64 or 128, got "
+            f"{q.shape[-1]}: hd 256 on the ring (K6 and the offset K2/K3) "
+            "is owed, ROADMAP.md, queue 1, item 4")
+    if out_dtype not in (None, torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("a ring round's q and key shards have one length, "
+                         f"got {q.shape[1]} and {k.shape[1]}")
+    _check_cuda_inputs(q, k, v, seg_k)
+    return (seg_k, (int(q_off), int(k_off), int(out_dtype == torch.float32)),
+            True)
 
 
 def _scale(q, scale: Optional[float]) -> float:
@@ -330,39 +375,58 @@ def flash_attention(q, k, v, seg_ids, *, causal: bool = True,
 
 
 def flash_bwd_dq(q, k, v, seg_ids, do, lse, delta, *, causal: bool = True,
-                 scale: Optional[float] = None,
-                 window: Optional[int] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, window: Optional[int] = None,
+                 seg_k=None, q_off: int = 0, k_off: int = 0,
+                 out_dtype=None) -> torch.Tensor:
     """dq of packed-segment attention from the saved lse and delta (K2
-    on CUDA tensors, the plain arithmetic on CPU tensors)."""
+    on CUDA tensors, the plain arithmetic on CPU tensors). ``seg_k``,
+    ``q_off``, ``k_off`` and ``out_dtype``: a ring round (module note)."""
     scale = _scale(q, scale)
     if not q.is_cuda:
         return _bwd_plain(q, k, v, seg_ids, lse, do, delta, causal=causal,
-                          scale=scale, window=window)[0]
+                          scale=scale, window=window, seg_k=seg_k,
+                          q_off=q_off, k_off=k_off, out_dtype=out_dtype)[0]
     _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta)
-    dq = torch.empty_like(q)
-    _launch("flash_bwd_dq_bf16", (q, k, v, seg_ids, do, lse, delta, dq), q,
-            k, causal, scale, window)
-    global dq_launches
-    dq_launches += 1
+    seg_k, args, ring = _ring_args(q, k, v, seg_ids, seg_k, q_off, k_off,
+                                   out_dtype)
+    dq = torch.empty_like(q, dtype=out_dtype or q.dtype)
+    _launch("flash_bwd_dq_bf16",
+            (q, k, v, seg_ids, seg_k, do, lse, delta, dq), q, k, causal,
+            scale, window, args)
+    global dq_launches, dq_ring_launches
+    if ring:
+        dq_ring_launches += 1
+    else:
+        dq_launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, seg_ids, do, lse, delta, *, causal: bool = True,
                   scale: Optional[float] = None,
-                  window: Optional[int] = None
+                  window: Optional[int] = None, seg_k=None, q_off: int = 0,
+                  k_off: int = 0, out_dtype=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of packed-segment attention, each GQA group summed (K3
-    on CUDA tensors, the plain arithmetic on CPU tensors)."""
+    on CUDA tensors, the plain arithmetic on CPU tensors). ``seg_k``,
+    ``q_off``, ``k_off`` and ``out_dtype``: a ring round (module note)."""
     scale = _scale(q, scale)
     if not q.is_cuda:
         return _bwd_plain(q, k, v, seg_ids, lse, do, delta, causal=causal,
-                          scale=scale, window=window)[1:]
+                          scale=scale, window=window, seg_k=seg_k,
+                          q_off=q_off, k_off=k_off, out_dtype=out_dtype)[1:]
     _check_bwd_inputs(q, k, v, seg_ids, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv_bf16", (q, k, v, seg_ids, do, lse, delta, dk, dv),
-            q, k, causal, scale, window)
-    global dkv_launches
-    dkv_launches += 1
+    seg_k, args, ring = _ring_args(q, k, v, seg_ids, seg_k, q_off, k_off,
+                                   out_dtype)
+    dk = torch.empty_like(k, dtype=out_dtype or k.dtype)
+    dv = torch.empty_like(v, dtype=out_dtype or v.dtype)
+    _launch("flash_bwd_dkv_bf16",
+            (q, k, v, seg_ids, seg_k, do, lse, delta, dk, dv), q, k, causal,
+            scale, window, args)
+    global dkv_launches, dkv_ring_launches
+    if ring:
+        dkv_ring_launches += 1
+    else:
+        dkv_launches += 1
     return dk, dv
 
 

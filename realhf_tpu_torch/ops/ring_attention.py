@@ -17,12 +17,28 @@ differ). Every function is differentiable by autograd.
 
 ``ring_attention_plain`` is the path for members that lie on the CPU,
 and the yardstick of the ring kernel (K6, ``ops/ring_attention_fused.py``)
-on the card.
+on the card. With ``return_lse`` it also gives each member's log-sum-exp
+``[B, nq, lc]`` in the flash kernels' convention (K1's: the max of the
+scaled scores plus the log of the row sum, NEG_INF for a row with no
+valid key).
+
+``ring_attention_bwd`` is the ring's backward schedule
+(``ops/ring_attention_fused.RingAttentionFn`` runs it on CUDA and CPU
+members alike): from each member's final o and lse and delta =
+rowsum(do * o), one round per (member i, key shard src = (i - r) mod n)
+at global offsets, in a fixed order (``ring_bwd_rounds``: rounds in
+order, members in order within a round, rounds out of reach by position
+skipped); round (i, src) gives a partial of dq_i and partials of
+dk_src / dv_src, all summed in fp32 and rounded once. The round itself
+is the caller's: K2/K3, whose wrappers take their plain arithmetic on
+CPU tensors.
 """
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from realhf_tpu_torch.ops.flash_attention import attention_delta
 
 NEG_INF = -2.0 ** 30
 
@@ -114,23 +130,31 @@ def finalize(m, l_sum, acc, dtype) -> torch.Tensor:
     return out.transpose(1, 2).to(dtype)
 
 
+def state_lse(m: torch.Tensor, l_sum: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp of a finished online-softmax state [B, nq, Lq]:
+    m + log(l), NEG_INF for a row with no valid key."""
+    safe = torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))
+    return torch.where(m > NEG_INF / 2, m + torch.log(safe), NEG_INF)
+
+
 def ring_attention_plain(qs: Sequence[torch.Tensor],
                          ks: Sequence[torch.Tensor],
                          vs: Sequence[torch.Tensor],
                          segs: Sequence[torch.Tensor], *,
                          causal: bool = True, scale: Optional[float] = None,
                          sliding_window: Optional[int] = None,
-                         block_q: int = 512, block_k: int = 512
-                         ) -> List[torch.Tensor]:
+                         block_q: int = 512, block_k: int = 512,
+                         return_lse: bool = False):
     """Attention over the stream the members' shards make up: one
     output shard ``[B, lc, nq, hd]`` per member, on the member's device
-    and in its q's dtype. Shards of ``lc`` tokens are taken in tiles of
+    and in its q's dtype (with ``return_lse``: and each member's lse
+    ``[B, nq, lc]`` fp32). Shards of ``lc`` tokens are taken in tiles of
     the largest divisors of ``lc`` not above ``block_q`` / ``block_k``."""
     n = len(qs)
     lc = qs[0].shape[1]
     scale = float(scale) if scale is not None else qs[0].shape[-1] ** -0.5
     bq, bk = _fit_block(lc, block_q), _fit_block(lc, block_k)
-    outs = []
+    outs, lses = [], []
     for idx, (q, seg) in enumerate(zip(qs, segs)):
         b, _, nq, hd = q.shape
         dev = q.device
@@ -145,4 +169,68 @@ def ring_attention_plain(qs: Sequence[torch.Tensor],
                 sliding_window, bq, bk)
             state = _combine(state, part)
         outs.append(finalize(*state, q.dtype))
-    return outs
+        lses.append(state_lse(state[0], state[1]))
+    return (outs, lses) if return_lse else outs
+
+
+# ----------------------------------------------------------------------
+# The backward
+# ----------------------------------------------------------------------
+def round_out_of_reach(i: int, src: int, lc: int, causal: bool,
+                       sliding_window: Optional[int]) -> bool:
+    """Whether member ``i``'s queries can see no key of shard ``src`` by
+    position alone: causal and every key after every query, or a window
+    and every key at least ``sliding_window`` behind every query."""
+    if causal and src * lc > i * lc + lc - 1:
+        return True
+    return (sliding_window is not None
+            and i * lc - (src * lc + lc - 1) >= sliding_window)
+
+
+def ring_bwd_rounds(n: int, lc: int, causal: bool,
+                    sliding_window: Optional[int]
+                    ) -> List[Tuple[int, int, int]]:
+    """(round r, member i, key shard src) of every round the backward
+    runs, in its order: rounds in order, members in order within a
+    round, ``round_out_of_reach`` pairs left out. Causal without a
+    window that is n (n + 1) / 2 rounds of n * n."""
+    return [(r, i, (i - r) % n) for r in range(n) for i in range(n)
+            if not round_out_of_reach(i, (i - r) % n, lc, causal,
+                                      sliding_window)]
+
+
+#: round_fn(q_i, k_src, v_src, seg_i, seg_src, do_i, lse_i, delta_i,
+#: q_off, k_off) -> fp32 partials (dq_i, dk_src, dv_src) on q_i's device
+RoundFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def ring_attention_bwd(qs, ks, vs, segs, outs, lses, dos, *, causal: bool,
+                       sliding_window: Optional[int], round_fn: RoundFn):
+    """The ring's backward schedule -> (dqs, dks, dvs), each member's on
+    its device in its input's dtype. Per member delta_i = rowsum(do_i *
+    o_i); then ``round_fn`` per ``ring_bwd_rounds`` entry, its dq
+    partial added into member i's fp32 sum and its dk / dv partials moved
+    to shard src's device and added into that shard's, in the order of
+    the rounds; each sum is rounded once at the end."""
+    n = len(qs)
+    lc = qs[0].shape[1]
+    deltas = [attention_delta(o, do) for o, do in zip(outs, dos)]
+    dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+          for q in qs]
+    dk = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+          for k in ks]
+    dv = [torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+          for v in vs]
+    for _, i, src in ring_bwd_rounds(n, lc, causal, sliding_window):
+        dev = qs[i].device
+        pq, pk, pv = round_fn(
+            qs[i], ks[src].to(dev), vs[src].to(dev), segs[i],
+            segs[src].to(dev), dos[i], lses[i], deltas[i], i * lc,
+            src * lc)
+        dq[i] += pq
+        dk[src] += pk.to(dk[src].device)
+        dv[src] += pv.to(dv[src].device)
+    return ([g.to(q.dtype) for g, q in zip(dq, qs)],
+            [g.to(k.dtype) for g, k in zip(dk, ks)],
+            [g.to(v.dtype) for g, v in zip(dv, vs)])
+

@@ -23,11 +23,22 @@ that slot. The host never synchronises per round. The same schedule runs
 across cards (the push writes through the peer pointer) and among members
 that share a card (a device-local copy).
 
-Like the JAX kernel it is a forward: its output carries no gradient, and
-CUDA inputs that ask for one are refused (the differentiable ring on
-CUDA is a later slice). ``ring_round_plain`` is the round kernel's
-function in plain PyTorch; ``_run_ring`` takes it for CPU members, which
-the tests use to hold the schedule itself against the JAX kernel.
+Inputs that ask for a gradient go through ``RingAttentionFn``, on CUDA
+and CPU members alike: its forward is the ring above, whose last round
+also writes each member's log-sum-exp (K6's ``lse`` output; the plain
+ring's on CPU members), and its backward is
+``ops/ring_attention.ring_attention_bwd``'s schedule with each round on
+the backward kernels: K2 for member i's dq partial and K3 for shard
+src's dk/dv partials, both at the pair's global offsets and with the
+keys' own segment ids, in fp32, each launch inside ``_build.on_device``
+of member i's device (the backward runs on whichever autograd thread
+the graph gives it). The partials are summed in fp32 and rounded once.
+Per ring and backward that is one K2 and one K3 launch per round not out
+of reach by position (``ring_bwd_rounds``: n (n + 1) / 2 of n * n when
+causal without a window); CPU members take the plain arithmetic of the
+same rounds. ``ring_round_plain`` is the round kernel's function in
+plain PyTorch; ``_run_ring`` takes it for CPU members, which the tests
+use to hold the schedule itself against the JAX kernel.
 """
 
 import contextlib
@@ -37,21 +48,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from realhf_tpu_torch.ops import _build
+from realhf_tpu_torch.ops import flash_attention as FA
 from realhf_tpu_torch.ops.ring_attention import (
     NEG_INF,
     _combine,
     _fit_block,
     _partial_attention,
     finalize,
+    ring_attention_bwd,
     ring_attention_plain,
+    state_lse,
 )
 
 #: the least tile a shard (or a half of one) must have, as in the JAX kernel
 MIN_TILE = 8
-#: kernel launches of the round kernel (one per member per round) and of
-#: the push kernel (one per member per round but the last); reset them to
-#: 0 to count the launches of one run
+#: kernel launches of the round kernel (one per member per round), of
+#: its last round with the lse output (in place of the plain last round,
+#: one per member per differentiable ring) and of the push kernel (one
+#: per member per round but the last); reset them to 0 to count the
+#: launches of one run
 round_launches = 0
+round_lse_launches = 0
 push_launches = 0
 _fns = {}
 #: (device index, member, 0 compute / 1 comm) -> stream, made once
@@ -87,13 +104,14 @@ def round_key_offsets(member: int, rnd: int, n: int, lc: int, lch: int,
 def ring_round_plain(q, seg_q, kv, m, l_sum, acc, o, *, q_off: int,
                      k_offs: Sequence[int], scale: float, causal: bool,
                      sliding_window: Optional[int], first: bool,
-                     last: bool):
+                     last: bool, lse: Optional[torch.Tensor] = None):
     """The round kernel's function in plain PyTorch: q [B, lc, nq, hd]
     against each direction's (k, v, seg_k) half at global offsets
     ``q_off`` and ``k_offs[d]``, merged into the fp32 state m/l
     [B, nq, lc], acc [B, nq, lc, hd] (started fresh when ``first``);
     the state is updated in place, or, when ``last``, normalised into o
-    [B, lc, nq, hd] (a row with no valid key 0)."""
+    [B, lc, nq, hd] (a row with no valid key 0) and, given ``lse``
+    [B, nq, lc], the rows' log-sum-exp written there."""
     b, lc, nq, hd = q.shape
     if first:
         state = (torch.full((b, nq, lc), NEG_INF, device=q.device),
@@ -107,6 +125,8 @@ def ring_round_plain(q, seg_q, kv, m, l_sum, acc, o, *, q_off: int,
             sliding_window))
     if last:
         o.copy_(finalize(*state, o.dtype))
+        if lse is not None:
+            lse.copy_(state_lse(state[0], state[1]))
     else:
         for dst, src in zip((m, l_sum, acc), state):
             dst.copy_(src)
@@ -118,10 +138,10 @@ def _kernel(name: str):
         fn = getattr(_build.library("ring_attention"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            # 12 pointers; B, lc, lch, nq, nkv, hd, q_off, k_off0,
-            # k_off1, n_dirs, first, last; scale; causal, window,
-            # device; stream
-            "ring_round_bf16": [p] * 12 + [i] * 12 + [ctypes.c_float]
+            # 13 pointers (lse may be null); B, lc, lch, nq, nkv, hd,
+            # q_off, k_off0, k_off1, n_dirs, first, last; scale; causal,
+            # window, device; stream
+            "ring_round_bf16": [p] * 13 + [i] * 12 + [ctypes.c_float]
                                + [i] * 3 + [p],
             "ring_push": [p, p, p, i, i, p],
             "ring_enable_peer": [i, i],
@@ -133,29 +153,35 @@ def _kernel(name: str):
 
 def _launch_round(q, seg_q, kv, m, l_sum, acc, o, *, q_off: int,
                   k_offs: Sequence[int], scale: float, causal: bool,
-                  sliding_window: Optional[int], first: bool, last: bool):
+                  sliding_window: Optional[int], first: bool, last: bool,
+                  lse: Optional[torch.Tensor] = None):
     """One round of one member: the kernel on the current stream of q's
-    card, the plain version for CPU tensors."""
+    card, the plain version for CPU tensors. ``lse`` (the last round
+    only): the rows' log-sum-exp is written there too."""
     if not q.is_cuda:
         ring_round_plain(q, seg_q, kv, m, l_sum, acc, o, q_off=q_off,
                          k_offs=k_offs, scale=scale, causal=causal,
                          sliding_window=sliding_window, first=first,
-                         last=last)
+                         last=last, lse=lse)
         return
     (k0, v0, s0), (k1, v1, s1) = kv[0], kv[-1]
     b, lc, nq, hd = q.shape
     lch, nkv = k0.shape[1], k0.shape[2]
     dev = q.device
+    ptrs = (q, seg_q, k0, v0, s0, k1, v1, s1, m, l_sum, acc, o)
     code = _kernel("ring_round_bf16")(
-        *(t.data_ptr() for t in (q, seg_q, k0, v0, s0, k1, v1, s1, m, l_sum,
-                                 acc, o)),
+        *(t.data_ptr() for t in ptrs),
+        None if lse is None else lse.data_ptr(),
         b, lc, lch, nq, nkv, hd, q_off, k_offs[0], k_offs[-1], len(kv),
         int(first), int(last), scale, int(causal),
         -1 if sliding_window is None else int(sliding_window), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "ring_round_bf16")
-    global round_launches
-    round_launches += 1
+    global round_launches, round_lse_launches
+    if lse is None:
+        round_launches += 1
+    else:
+        round_lse_launches += 1
 
 
 def _launch_push(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
@@ -244,10 +270,13 @@ class _Schedule:
 
 
 def _run_ring(qs, ks, vs, segs, *, n_dirs: int, lch: int, scale: float,
-              causal: bool, sliding_window: Optional[int]
+              causal: bool, sliding_window: Optional[int],
+              lses: Optional[List[torch.Tensor]] = None
               ) -> List[torch.Tensor]:
     """The ring's schedule over the members (CUDA streams and events for
     CUDA members; in order on the CPU, where each step runs at once).
+    Given ``lses`` (one [B, nq, lc] fp32 buffer per member), the last
+    round writes each member's log-sum-exp there.
 
     Each member has two slots per direction for the KV halves it holds
     (k/v ``[2, n_dirs, B, lch, nkv, hd]``, seg ``[2, n_dirs, B, lch]``) and
@@ -322,7 +351,9 @@ def _run_ring(qs, ks, vs, segs, *, n_dirs: int, lch: int, scale: float,
                                                        n_dirs),
                               scale=scale, causal=causal,
                               sliding_window=sliding_window, first=r == 0,
-                              last=r == n - 1)
+                              last=r == n - 1,
+                              lse=(lses[j] if lses is not None and r == n - 1
+                                   else None))
     if sched is not None:
         sched.finish([("c", j, n - 1) for j in range(n)]
                      + [("p", j, n - 2) for j in range(n) if n > 1])
@@ -358,18 +389,12 @@ def _check_members(qs, ks, vs, segs):
 
 
 def _check_cuda_members(qs, ks, vs, segs):
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for group in (qs, ks, vs) for t in group):
-        raise RuntimeError(
-            "ring_attention_fused's kernel output carries no gradient: the "
-            "differentiable ring on CUDA is a later slice of the port; "
-            "run inference forwards under torch.no_grad / inference_mode.")
     hd = qs[0].shape[-1]
     if hd not in (64, 128):
         raise ValueError(
             f"ring attention kernel supports hd 64 or 128, got {hd}: hd 256 "
-            "(Gemma) on the ring waits for the context-parallel training "
-            "slice, ROADMAP.md queue 1, item 4")
+            "(Gemma) in K6 and the offset K2/K3 is owed, ROADMAP.md queue "
+            "1, item 4")
     for j, member in enumerate(zip(qs, ks, vs, segs)):
         for name, t in zip(("q", "k", "v", "seg"), member):
             if not t.is_contiguous():
@@ -381,6 +406,77 @@ def _check_cuda_members(qs, ks, vs, segs):
             if t.dtype != want:
                 raise TypeError(f"member {j}: ring attention kernel takes "
                                 f"{want} {name}, got {t.dtype}")
+
+
+def _ring_forward(qs, ks, vs, segs, *, causal, scale, sliding_window,
+                  block_q, block_k, bidirectional, with_lse=False):
+    """The forward over checked members -> outputs (and, ``with_lse``,
+    each member's lse): the plain ring on CPU members, K6 on CUDA ones."""
+    n = len(qs)
+    on_cuda = qs[0].is_cuda
+    kw = dict(causal=causal, scale=scale, sliding_window=sliding_window)
+    lc = qs[0].shape[1]
+    if n == 1:  # the plain ring's own tiles, one round on CUDA
+        n_dirs, lch, bq, bk = 1, lc, 512, 512
+    else:
+        bq = _fit_block(lc, block_q, MIN_TILE)
+        n_dirs, lch, bk = _plan_dirs(lc, block_k, bidirectional)
+    if not on_cuda:
+        return ring_attention_plain(qs, ks, vs, segs, block_q=bq,
+                                    block_k=bk, return_lse=with_lse, **kw)
+    lses = ([torch.empty((q.shape[0], q.shape[2], lc), dtype=torch.float32,
+                         device=q.device) for q in qs] if with_lse else None)
+    outs = _run_ring(qs, ks, vs, segs, n_dirs=n_dirs, lch=lch, lses=lses,
+                     **kw)
+    return (outs, lses) if with_lse else outs
+
+
+def _round_kernels(causal: bool, scale: float, window: Optional[int]):
+    """One backward round on its member's device: K2's dq partial and
+    K3's dk/dv partials in fp32 (their plain arithmetic on the CPU)."""
+
+    def round_fn(q, k, v, seg_q, seg_k, do, lse, delta, q_off, k_off):
+        kw = dict(causal=causal, scale=scale, window=window, seg_k=seg_k,
+                  q_off=q_off, k_off=k_off, out_dtype=torch.float32)
+        with _build.on_device(q.device):
+            dq = FA.flash_bwd_dq(q, k, v, seg_q, do, lse, delta, **kw)
+            dk, dv = FA.flash_bwd_dkv(q, k, v, seg_q, do, lse, delta, **kw)
+        return dq, dk, dv
+
+    return round_fn
+
+
+class RingAttentionFn(torch.autograd.Function):
+    """Differentiable ring attention over the members: ``apply(opts, *qs,
+    *ks, *vs, *segs)`` -> one output per member. The forward is the ring
+    (K6 on CUDA members), saving each member's q, k, v, seg, o and lse;
+    the backward is ``ring_attention_bwd``'s schedule on K2/K3 (module
+    note). ``opts`` is a dict of ``_ring_forward``'s options."""
+
+    @staticmethod
+    def forward(ctx, opts, *tensors):
+        n = len(tensors) // 4
+        qs, ks, vs, segs = (list(tensors[i * n:(i + 1) * n])
+                            for i in range(4))
+        outs, lses = _ring_forward(qs, ks, vs, segs, with_lse=True, **opts)
+        ctx.save_for_backward(*qs, *ks, *vs, *segs, *outs, *lses)
+        ctx.n, ctx.opts = n, opts
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *dos):
+        n, opts = ctx.n, ctx.opts
+        saved = ctx.saved_tensors
+        qs, ks, vs, segs, outs, lses = (list(saved[i * n:(i + 1) * n])
+                                        for i in range(6))
+        dos = [d.contiguous() if d is not None else torch.zeros_like(o)
+               for d, o in zip(dos, outs)]
+        dqs, dks, dvs = ring_attention_bwd(
+            qs, ks, vs, segs, outs, lses, dos, causal=opts["causal"],
+            sliding_window=opts["sliding_window"],
+            round_fn=_round_kernels(opts["causal"], opts["scale"],
+                                    opts["sliding_window"]))
+        return (None, *dqs, *dks, *dvs, *([None] * n))
 
 
 def ring_attention_fused(qs: Sequence[torch.Tensor],
@@ -403,22 +499,16 @@ def ring_attention_fused(qs: Sequence[torch.Tensor],
     splits each shard into two halves that counter-rotate, falling back
     to one direction when a half would not tile. One member is the JAX
     package's ``n == 1`` case: attention over its own shard (a single
-    round on CUDA)."""
+    round on CUDA). Inputs that require a gradient (under grad mode) go
+    through ``RingAttentionFn``."""
     _check_members(qs, ks, vs, segs)
-    n = len(qs)
     scale = float(scale) if scale is not None else qs[0].shape[-1] ** -0.5
-    on_cuda = qs[0].is_cuda
-    if on_cuda:
+    if qs[0].is_cuda:
         _check_cuda_members(qs, ks, vs, segs)
-    kw = dict(causal=causal, scale=scale, sliding_window=sliding_window)
-    lc = qs[0].shape[1]
-    if n == 1:
-        if not on_cuda:
-            return ring_attention_plain(qs, ks, vs, segs, **kw)
-        return _run_ring(qs, ks, vs, segs, n_dirs=1, lch=lc, **kw)
-    bq = _fit_block(lc, block_q, MIN_TILE)
-    n_dirs, lch, bk = _plan_dirs(lc, block_k, bidirectional)
-    if not on_cuda:
-        return ring_attention_plain(qs, ks, vs, segs, block_q=bq,
-                                    block_k=bk, **kw)
-    return _run_ring(qs, ks, vs, segs, n_dirs=n_dirs, lch=lch, **kw)
+    opts = dict(causal=causal, scale=scale, sliding_window=sliding_window,
+                block_q=block_q, block_k=block_k,
+                bidirectional=bidirectional)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for group in (qs, ks, vs) for t in group):
+        return list(RingAttentionFn.apply(opts, *qs, *ks, *vs, *segs))
+    return _ring_forward(qs, ks, vs, segs, **opts)

@@ -66,6 +66,22 @@ def all_gather(xs: Sequence[torch.Tensor], devices: Sequence[torch.device],
                    devices)
 
 
+def reduce_scatter(xs: Sequence[torch.Tensor],
+                   devices: Sequence[torch.device], dim: int
+                   ) -> List[torch.Tensor]:
+    """Member j gets the j-th of ``len(xs)`` equal chunks along ``dim``
+    of the sum of all members' tensors, on its device: ``reduce_sum`` on
+    the first member's device (the same order of sums as
+    ``all_reduce``), then sliced. Each slice is a tensor of its own, so
+    the whole sum is freed once it is sliced. The backward is the
+    all-gather of the gradient slices."""
+    if len(xs) == 1:
+        return [xs[0]]
+    total = reduce_sum(xs, devices[0])
+    return [c.to(d, copy=True)
+            for c, d in zip(total.chunk(len(xs), dim=dim), devices)]
+
+
 def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
               ) -> List[torch.Tensor]:
     """``x`` on every member's device."""

@@ -12,25 +12,26 @@ context-parallel members on one card, and ``[cpu] * 4`` four on the
 CPU. That is the port's counterpart of the virtual CPU devices the JAX
 tests run on.
 
-Two families of layouts of more than one device are built:
+Member ``i`` of a ``dNcCtMpP`` layout has pipe index ``i // (d * c *
+t)``, data index ``(i // (c * t)) % d``, context index ``(i // t) % c``
+and model index ``i % t``. The members of one pipe index form a stage,
+which holds a contiguous ``n_layers / p`` slab of the blocks
+(``parallel/pipeline.py``); within a stage, the members of one (data,
+context) index form a model group (they split each weight, as
+``models/sharding.py`` says), the members of one (data, model) index a
+context group (each holds a contiguous ``1/c`` of every stream's tokens,
+and they meet in ring attention, ``ops/ring_attention_fused.py``), and
+the members of one (context, model) index a data group (they hold
+disjoint streams and sum their gradients). With sequence parallelism
+(``s``, at t > 1) the residual stream of a model group is split once
+more along its tokens over the model members (``models/transformer.py``).
 
-- context parallelism alone (``c > 1`` with ``d = t = p = 1``), whose
-  members each hold a contiguous ``1/c`` of every stream's tokens and
-  meet in ring attention (``ops/ring_attention_fused.py``);
-- pipeline, data and tensor parallelism, ``dNtMpP`` (``c = 1``): member
-  ``i`` has pipe index ``i // (d * t)``, data index ``(i // t) % d`` and
-  model index ``i % t``. The members of one pipe index form a stage,
-  which holds a contiguous ``n_layers / p`` slab of the blocks
-  (``parallel/pipeline.py``); within a stage, the members of one data
-  index form a model group (they split each weight, as
-  ``models/sharding.py`` says), the members of one model index a data
-  group (they hold disjoint streams and sum their gradients).
-
-Context parallelism with d, t or p and sequence parallelism raise
-``NotImplementedError``, each naming its part of ROADMAP.md, queue 1,
-item 4. ``gen_tp_size`` (``g``) is the model degree of the decode view
-(``engine/engine.py`` ``Engine.decode_engine``); it must divide the
-layout's device count.
+Context parallelism together with pipeline parallelism raises, with the
+JAX package's message (its engine refuses the pair too), as does
+sequence parallelism with pipeline parallelism; a MoE model at
+t > 1 raises in ``models/transformer.check_layout``. ``gen_tp_size``
+(``g``) is the model degree of the decode view (``engine/engine.py``
+``Engine.decode_engine``); it must divide the layout's device count.
 """
 
 import dataclasses
@@ -47,8 +48,6 @@ DATA_AXIS = "data"
 CTX_AXIS = "ctx"  # context parallelism (ring attention over sequence)
 MODEL_AXIS = "model"
 MESH_AXES = (PIPE_AXIS, DATA_AXIS, CTX_AXIS, MODEL_AXIS)
-
-_ITEM4 = "ROADMAP.md, queue 1, item 4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,20 +168,21 @@ def _check_device(d) -> torch.device:
 
 def check_layout(parallel: ParallelismConfig):
     """Raise ``NotImplementedError`` for a layout this port does not
-    build yet, naming the part of item 4 that owns it, and
+    build (context with pipeline parallelism, as the JAX package, and
+    sequence with pipeline parallelism), and
     ``ValueError`` for a decode-view degree that does not divide the
     layout."""
-    d, t = parallel.data_parallel_size, parallel.tensor_parallel_size
-    p = parallel.pipeline_parallel_size
-    if parallel.context_parallel_size > 1 and d * t * p > 1:
+    if (parallel.context_parallel_size > 1
+            and parallel.pipeline_parallel_size > 1):
         raise NotImplementedError(
-            f"Layout {parallel}: context parallelism together with data, "
-            f"tensor or pipeline parallelism waits for the ring's CUDA "
-            f"backward ({_ITEM4}); c > 1 runs alone.")
-    if parallel.sequence_parallel:
+            "pipeline parallelism cannot be combined with context "
+            "parallelism (ring attention) yet; use pp x tp x dp or "
+            "cp x tp x dp.")
+    if parallel.sequence_parallel and parallel.pipeline_parallel_size > 1:
         raise NotImplementedError(
-            f"Layout {parallel}: sequence parallelism ('s') is the next "
-            f"part of {_ITEM4}.")
+            f"Layout {parallel}: sequence parallelism together with "
+            "pipeline parallelism is a later part of ROADMAP.md, queue 1, "
+            "item 4.")
     g = parallel.gen_tp_size
     if g and parallel.world_size % g:
         raise ValueError(f"Layout {parallel}: gen_tp_size={g} does not "
@@ -192,9 +192,8 @@ def check_layout(parallel: ParallelismConfig):
 def make_mesh(parallel: ParallelismConfig,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """The mesh of one model over ``devices`` (default:
-    ``default_devices(world_size)``). Builds a single device, every
-    ``dNtMpP`` layout and context parallelism alone; ``check_layout``
-    raises for the rest."""
+    ``default_devices(world_size)``). Builds every layout but those
+    ``check_layout`` raises for."""
     check_layout(parallel)
     n = parallel.world_size
     devices = (default_devices(n) if devices is None
@@ -213,45 +212,63 @@ def make_mesh(parallel: ParallelismConfig,
 
 
 def pipe_index(mesh: Mesh, i: int) -> int:
-    """Member ``i``'s stage (c = 1)."""
-    return i // (mesh.shape[DATA_AXIS] * mesh.shape[MODEL_AXIS])
+    """Member ``i``'s stage."""
+    return i // (mesh.shape[DATA_AXIS] * mesh.shape[CTX_AXIS]
+                 * mesh.shape[MODEL_AXIS])
 
 
 def data_index(mesh: Mesh, i: int) -> int:
-    """Member ``i``'s index along the data axis (c = 1)."""
-    return (i // mesh.shape[MODEL_AXIS]) % mesh.shape[DATA_AXIS]
+    """Member ``i``'s index along the data axis."""
+    return (i // (mesh.shape[CTX_AXIS] * mesh.shape[MODEL_AXIS])
+            ) % mesh.shape[DATA_AXIS]
+
+
+def ctx_index(mesh: Mesh, i: int) -> int:
+    """Member ``i``'s index along the context axis: its token shard."""
+    return (i // mesh.shape[MODEL_AXIS]) % mesh.shape[CTX_AXIS]
 
 
 def model_index(mesh: Mesh, i: int) -> int:
-    """Member ``i``'s index along the model axis (c = 1)."""
+    """Member ``i``'s index along the model axis."""
     return i % mesh.shape[MODEL_AXIS]
 
 
-def member_at(mesh: Mesh, s: int, g: int, j: int) -> int:
-    """The member at stage ``s``, data index ``g``, model index ``j``."""
-    return (s * mesh.shape[DATA_AXIS] + g) * mesh.shape[MODEL_AXIS] + j
+def member_at(mesh: Mesh, s: int, g: int, j: int, c: int = 0) -> int:
+    """The member at stage ``s``, data index ``g``, context index ``c``,
+    model index ``j``."""
+    return (((s * mesh.shape[DATA_AXIS] + g) * mesh.shape[CTX_AXIS] + c)
+            * mesh.shape[MODEL_AXIS] + j)
 
 
 def model_group(mesh: Mesh, i: int) -> List[int]:
-    """The members that split the weights with member ``i`` (its stage
-    and data index, every model index), in model order."""
+    """The members that split the weights with member ``i`` (its stage,
+    data and context index, every model index), in model order."""
     t = mesh.shape[MODEL_AXIS]
     base = i - model_index(mesh, i)
     return list(range(base, base + t))
 
 
+def ctx_group(mesh: Mesh, i: int) -> List[int]:
+    """The members whose token shards make up member ``i``'s streams
+    (its stage, data and model index, every context index), in ring
+    order."""
+    s, g, j = pipe_index(mesh, i), data_index(mesh, i), model_index(mesh, i)
+    return [member_at(mesh, s, g, j, c) for c in range(mesh.shape[CTX_AXIS])]
+
+
 def data_group(mesh: Mesh, i: int) -> List[int]:
-    """The members that hold member ``i``'s weight shard (its stage and
-    model index, every data index), in data order."""
-    s, j = pipe_index(mesh, i), model_index(mesh, i)
-    return [member_at(mesh, s, g, j) for g in range(mesh.shape[DATA_AXIS])]
+    """The members that hold member ``i``'s weight shard and token shard
+    of other streams (its stage, context and model index, every data
+    index), in data order."""
+    s, c, j = pipe_index(mesh, i), ctx_index(mesh, i), model_index(mesh, i)
+    return [member_at(mesh, s, g, j, c) for g in range(mesh.shape[DATA_AXIS])]
 
 
 def holders(mesh: Mesh, i: int, split: bool, staged: bool) -> List[int]:
     """The members that hold the same values of a leaf as member ``i``:
     a leaf split over the model members (``split``) only on its model
     index, a block leaf (``staged``) only in its stage; replicated over
-    everything else."""
+    everything else (data and context indices included)."""
     return [k for k in range(len(mesh.devices))
             if (not split or model_index(mesh, k) == model_index(mesh, i))
             and (not staged or pipe_index(mesh, k) == pipe_index(mesh, i))]

@@ -43,13 +43,13 @@ def _get(tree, path):
 
 def _targets(engine):
     """(member trees, [(stage, model index) of each], p, t) of an engine
-    at any layout: one tree per member of a sharded engine, else its one
-    tree."""
+    at any layout: each distinct tree of a sharded engine once (context
+    copies on one device share one), else its one tree."""
     if getattr(engine, "sharded", False):
         mp = engine.params
-        per = mp.d * mp.t
-        return (mp.trees, [(i // per, i % mp.t) for i in range(len(mp.trees))],
-                mp.p, mp.t)
+        per = mp.d * mp.c * mp.t
+        return ([mp.trees[i] for i in engine.units],
+                [(i // per, i % mp.t) for i in engine.units], mp.p, mp.t)
     return [engine.params], [(0, 0)], 1, 1
 
 
@@ -96,8 +96,6 @@ def _synchronize(engine):
 
 def _finish(engine):
     engine.params_epoch += 1  # a decode view of the target is stale now
-    if not getattr(engine, "sharded", False) and engine._ctx:
-        engine._place_members()
 
 
 def reallocate(cfg: TransformerConfig, src_params: Any, dst_engine,

@@ -36,8 +36,8 @@ logger = logging.getLogger("model_host", "benchmark")
 def build_model(role: str, spec, tokenizer, init_seed: int,
                 device: DeviceLike = None,
                 total_steps: Optional[int] = None,
-                devices: Optional[Sequence[DeviceLike]] = None,
-                inference_only: bool = False) -> model_api.Model:
+                devices: Optional[Sequence[DeviceLike]] = None
+                ) -> model_api.Model:
     """Instantiate one model role on ``device`` (None = the CUDA card):
     its weights from the HF-layout checkpoint at ``spec.path`` (streamed
     one layer at a time onto the device, the host holding one layer plus
@@ -48,11 +48,9 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
 
     A layout of more than one device (``spec.parallel``) builds over
     ``devices`` (default ``cuda:0 .. n-1``, or n times the CPU when
-    ``device`` is the CPU): every ``dNtMpP``, trained or not, and context
-    parallelism alone for an ``inference_only`` role (no MFC trains
-    it)."""
+    ``device`` is the CPU): every ``dNcCtMpP[s]`` layout, trained or not,
+    but c with p (``parallel/mesh.check_layout`` raises)."""
     par = spec.parallel
-    _check_ctx(role, par, inference_only)
     dev = resolve_device(devices[0] if devices else device)
     is_critic = spec.is_critic or spec.init_critic_from_actor
     if spec.path:
@@ -89,15 +87,7 @@ def build_model(role: str, spec, tokenizer, init_seed: int,
                            hf_family=spec.hf_family)
 
 
-def _check_ctx(role: str, par, inference_only: bool):
-    if par.context_parallel_size > 1 and not inference_only:
-        raise NotImplementedError(
-            f"Model role {role!r}: layout {par} on a role that an MFC "
-            "trains: training at c > 1 is a later part of ROADMAP.md, "
-            "queue 1, item 4.")
-
-
-def build_replica(primary: model_api.Model, par, inference_only: bool,
+def build_replica(primary: model_api.Model, par,
                   device: DeviceLike = None,
                   devices: Optional[Sequence[DeviceLike]] = None
                   ) -> model_api.Model:
@@ -105,12 +95,12 @@ def build_replica(primary: model_api.Model, par, inference_only: bool,
     on layout ``par``. The replica holds weights of its own: an engine
     of one tree would keep the tensors it is given, so it gets a copy
     (a reallocation, an EMA merge above all, must never write into the
-    primary's tensors)."""
+    primary's tensors; a layout of several members places its own
+    copies)."""
     role = primary.name.role
-    _check_ctx(role, par, inference_only)
     src = primary.engine
     params = src.params
-    if par.world_size == 1 or par.context_parallel_size > 1:
+    if par.world_size == 1:
         tree = src.gathered_params() if src.sharded else params
         params = _tree_map(torch.clone, tree)
     engine = Engine(dataclasses.replace(primary.config), params, device,
@@ -139,8 +129,6 @@ class ModelHost:
                  devices: Optional[Sequence[DeviceLike]] = None):
         self.spec = spec
         self.nodes = {n.name: n for n in nodes}
-        trained = {n.role for n in nodes
-                   if n.interface_type == ModelInterfaceType.TRAIN_STEP}
         self.role_devices = dict(role_devices or {})
         self.device = device
         self.devices = (None if devices is None
@@ -149,8 +137,7 @@ class ModelHost:
             role: build_model(role, spec.models[role], tokenizer,
                               init_seed=spec.seed, device=device,
                               total_steps=total_steps,
-                              devices=self.role_devices.get(role),
-                              inference_only=role not in trained)
+                              devices=self.role_devices.get(role))
             for role in roles
         }
         #: MFC name -> the replica its allocation runs on
@@ -172,7 +159,7 @@ class ModelHost:
                     f"MFC {node.name}: train MFCs run on the role's own "
                     "layout (replicas have no optimizer).")
             self.replicas[node.name] = build_replica(
-                primary, alloc.parallel, inference_only=True, device=device,
+                primary, alloc.parallel, device=device,
                 devices=self._alloc_devices(alloc, node.role))
             logger.info("Created replica for %s: %s (primary %s)",
                         node.name, alloc.parallel, primary.engine.parallel)

@@ -42,29 +42,50 @@ def build_other(src, name="flash_fwd"):
 
 
 #: the C entry points of each attention library and their pointer counts
+#: in sources from before the ring round (no ``segk``)
 ENTRIES = {"flash_fwd": {"flash_fwd_bf16": 6},
            "flash_bwd": {"flash_bwd_dq_bf16": 8, "flash_bwd_dkv_bf16": 9}}
 
 
 def use_library(name, lib, src=None):
     """Makes the wrappers launch ``lib`` as the library ``name``. A
-    ``src`` from before the kernels took a window (no ``int window`` in
-    its C entry points) is called with its own argument list, the window
-    left out, so its windowless launches can be held against this
-    checkout's."""
-    import ctypes
+    ``src`` whose K2/K3 entries predate the ring round (no ``segk``) is
+    called with its own argument list: the keys' ids and the round's
+    offsets left out (a plain call passes seg, 0, 0, 0 there). One from
+    before the kernels took a window (no ``int window``) is called without
+    the window too. So such a build's plain launches can be held against
+    this checkout's."""
     from realhf_tpu_torch.ops import _build
     from realhf_tpu_torch.ops import flash_attention as fa
     _build._libs[name] = lib
     fa._fns.clear()
-    if src is None or "int window" in open(src).read():
+    if src is None:
+        return
+    text = open(src).read()
+    windowed = "int window" in text
+    ringed = name != "flash_bwd" or "segk" in text
+    if windowed and ringed:
         return
     p, i = ctypes.c_void_p, ctypes.c_int
     for entry, n_ptrs in ENTRIES[name].items():
         fn = getattr(lib, entry)
-        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = ([p] * n_ptrs + [i] * 5 + [ctypes.c_float, i]
+                       + [i] * windowed + [p])
         fn.restype = i
-        fa._fns[entry] = lambda *a, fn=fn: fn(*a[:-2], a[-1])
+
+        def call(*a, fn=fn, n_ptrs=n_ptrs):
+            a = list(a)
+            if not ringed:
+                # this checkout's K2/K3: n_ptrs + 1 pointers (segk 5th),
+                # B..hd, q_off, k_off, out_f32, scale, causal, window,
+                # stream
+                if a[4] != a[3] or a[n_ptrs + 6:n_ptrs + 9] != [0, 0, 0]:
+                    raise ValueError(f"{src} takes no ring round")
+                a = a[:4] + a[5:n_ptrs + 6] + a[n_ptrs + 9:]
+            if not windowed:
+                a = a[:-2] + a[-1:]
+            return fn(*a)
+        fa._fns[entry] = call
 
 
 def ptxas_lines(log):

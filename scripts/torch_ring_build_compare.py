@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K6 built from this checkout against K6 built from another source file
-(another revision's ``ring_attention.cu``, with the same C entry), on the
-card.
+(another revision's ``ring_attention.cu``; one from before the lse output
+is called without the lse pointer), on the card.
 
     python3 scripts/torch_ring_build_compare.py --other path/to/ring_attention.cu
                                                 [--out readings.json]
@@ -19,6 +19,7 @@ case differs. Needs one CUDA card and nvcc (about a minute on an H100).
 """
 
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -49,9 +50,25 @@ def main(argv=None):
     this_log = _build.build_log.get("ring_attention", "")
     other, other_log = build_other(args.other, "ring_attention")
 
+    other_has_lse = "void* lse" in open(args.other).read()
+
     def use(lib):
         _build._libs["ring_attention"] = lib
         rf._fns.clear()
+        if lib is other and not other_has_lse:
+            # a source from before the lse output: its round entry takes
+            # 12 pointers, this checkout's a 13th (null without the lse)
+            fn = other.ring_round_bf16
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = ([p] * 12 + [i] * 12 + [ctypes.c_float] + [i] * 3
+                           + [p])
+            fn.restype = i
+
+            def call(*a):
+                if a[12] is not None:
+                    raise ValueError(f"{args.other} writes no lse")
+                return fn(*a[:12], *a[13:])
+            rf._fns["ring_round_bf16"] = call
 
     # the ring cases of phase kernels, their shards made as check_ring
     # makes them; the push case is not run

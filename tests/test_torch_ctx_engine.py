@@ -139,28 +139,49 @@ def test_stream_length_not_a_multiple_of_the_members(engines, l):
 def test_members_that_share_a_device_share_its_weights(engines):
     eng = engines[False]["c4"]
     assert eng.members == [eng.device] * 4
-    assert all(p is eng.params for p in eng._member_params)
+    trees = eng.params.trees
+    assert all(t is trees[0] for t in trees) and eng.units == [0]
     eng.offload()  # on the CPU only the flags move
     assert eng.offloaded
     eng.ensure_on_device()
-    assert all(p is eng.params for p in eng._member_params)
+    assert all(t is trees[0] for t in eng.params.trees)
 
 
 def test_training_and_generation_on_c4_still_raise(engines):
-    """Training at c4 still raises (item 4); generation at c4 runs on
-    the decode view (d4t1), with the greedy tokens of a t2 engine of the
-    same weights, which also gives c4's log-probs."""
+    """c4 with a pipeline still raises (with the JAX package's message);
+    training at c4 builds and steps as c1 does (the ring's backward;
+    ``tests/test_torch_ctx_train.py`` holds it against JAX); generation
+    at c4 runs on the decode view (d4t1), with the greedy tokens of a t2
+    engine of the same weights, which also gives c4's log-probs."""
+    import dataclasses
+
     from realhf_tpu_torch.engine import packing
     from realhf_tpu_torch.engine.optim import OptimizerConfig
     from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
     eng = engines[False]["c4"]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.train_minibatches([], None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.train_batch([], None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Engine(eng.cfg, eng.params_numpy(), device="cpu", parallel=C4,
-               devices=["cpu"] * 4, optimizer=OptimizerConfig())
+    with pytest.raises(NotImplementedError, match="cannot be combined"):
+        Engine(eng.cfg, eng.params_numpy(), device="cpu",
+               parallel=parse_parallelism("c4p2"), devices=["cpu"] * 8,
+               optimizer=OptimizerConfig())
+    ids, seg, _ = _batch(seed=5)
+    mb = [dict(input_ids=ids, seg_ids=seg)]
+
+    def loss_fn(p, b):
+        from realhf_tpu_torch.models import transformer as T
+        from realhf_tpu_torch.ops import functional as F
+        h, _ = T.forward(eng.cfg, p, b["input_ids"], b["seg_ids"])
+        return -F.shifted_logprobs_from_hidden(
+            eng.cfg, p, h, b["input_ids"], b["seg_ids"]).mean(), {}
+
+    opt = OptimizerConfig(lr=1e-3, warmup_steps_proportion=0.0)
+    cfg = dataclasses.replace(eng.cfg)
+    steps = [Engine(cfg, eng.params_numpy(), device="cpu", optimizer=opt,
+                    total_train_steps=2, **kw).train_batch(mb, loss_fn)
+             for kw in (dict(parallel=C4, devices=["cpu"] * 4), {})]
+    np.testing.assert_allclose([steps[0]["loss"], steps[0]["grad_norm"]],
+                               [steps[1]["loss"], steps[1]["grad_norm"]],
+                               **PORT_TOL)
     t2 = Engine(eng.cfg, eng.params_numpy(), device="cpu",
                 parallel=ParallelismConfig(tensor_parallel_size=2),
                 devices=["cpu"] * 2)
@@ -182,15 +203,14 @@ def test_training_and_generation_on_c4_still_raise(engines):
 
 
 def test_model_host_builds_c4_for_inference_roles_only():
-    """c4 builds for an inference role and raises for a trained one; a
-    trained role at d2 now builds, with its ZeRO-1 optimizer, and holds
-    the seed's weights."""
+    """c4 builds for an inference role and, with its optimizer, for a
+    trained one (c4 with p raises); a trained role at d2 builds, with its
+    ZeRO-1 optimizer, and holds the seed's weights."""
     from realhf_tpu_torch.api.experiment import ModelSpec
     from realhf_tpu_torch.engine.optim import OptimizerConfig
     from realhf_tpu_torch.system.model_host import build_model
     spec = ModelSpec(random_init_config=dict(TINY), parallel=C4, bf16=False)
-    model = build_model("ref", spec, None, init_seed=1, device="cpu",
-                        inference_only=True)
+    model = build_model("ref", spec, None, init_seed=1, device="cpu")
     assert model.engine.members == [model.engine.device] * 4
     one = build_model("ref", ModelSpec(random_init_config=dict(TINY),
                                        bf16=False), None, init_seed=1,
@@ -200,14 +220,23 @@ def test_model_host_builds_c4_for_inference_roles_only():
                     one.engine.params_numpy()["blocks"]["attn"].values()):
         np.testing.assert_array_equal(a, b)
     explicit = build_model("ref", spec, None, init_seed=1, device="cpu",
-                           devices=["cpu"] * 4, inference_only=True)
+                           devices=["cpu"] * 4)
     assert len(explicit.engine.members) == 4
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model("actor", spec, None, init_seed=1, device="cpu")
+    trained = build_model("actor", ModelSpec(
+        random_init_config=dict(TINY), optimizer=OptimizerConfig(),
+        parallel=C4, bf16=False), None, init_seed=1, device="cpu")
+    assert trained.engine.optimizer is not None
+    assert trained.engine.units == [0]  # one tree, one optimizer state
+    with pytest.raises(NotImplementedError, match="cannot be combined"):
+        build_model("actor", ModelSpec(
+            random_init_config=dict(TINY), optimizer=OptimizerConfig(),
+            parallel=ParallelismConfig(context_parallel_size=2,
+                                       pipeline_parallel_size=2),
+            bf16=False), None, init_seed=1, device="cpu")
     d2 = build_model("actor", ModelSpec(
         random_init_config=dict(TINY), optimizer=OptimizerConfig(),
         parallel=ParallelismConfig(data_parallel_size=2), bf16=False), None,
-        init_seed=1, device="cpu", inference_only=True)
+        init_seed=1, device="cpu")
     assert d2.engine.optimizer.cfg.zero1 and d2.engine._zero1[1][0] is not None
     one = build_model("actor", ModelSpec(random_init_config=dict(TINY),
                                          bf16=False), None, init_seed=1,

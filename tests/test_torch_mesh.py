@@ -1,6 +1,6 @@
 """The port's parallelism config and mesh against the JAX package's:
 ``parse_parallelism`` and ``ParallelismConfig`` field for field, and which
-layouts build (one device; context parallelism alone) and which still
+layouts build (every ``dNcCtMpP[s]`` but c with p) and which still
 raise."""
 
 import dataclasses
@@ -66,8 +66,10 @@ def test_context_parallel_mesh_builds_over_repeated_devices():
 @pytest.mark.parametrize("spec", ["d2", "t2", "p2", "d2c2", "t2c2", "p2c2"])
 def test_other_layouts_of_several_devices_still_raise(spec):
     """d2, t2 and p2 build (the data-, tensor- and pipeline-parallel
-    slices), each member in its groups; ctx with d, t or p still raises,
-    naming its part of item 4."""
+    slices), each member in its groups; ctx with d or t builds too, each
+    member in its data, context and model groups (``(pipe, data, ctx,
+    model)`` order); ctx with p still raises, with the JAX package's
+    message."""
     par = mesh.parse_parallelism(spec)
     if "c" not in spec:
         m = mesh.make_mesh(par, ["cpu"] * 2)
@@ -81,8 +83,30 @@ def test_other_layouts_of_several_devices_still_raise(spec):
         assert [mesh.model_group(m, i) for i in range(2)] == (
             [[0, 1], [0, 1]] if t == 2 else [[0], [1]])
         return
-    with pytest.raises(NotImplementedError, match="ring's CUDA backward"):
-        mesh.make_mesh(par, ["cpu"] * par.world_size)
+    if par.pipeline_parallel_size > 1:
+        with pytest.raises(NotImplementedError, match=(
+                r"pipeline parallelism cannot be combined with context "
+                r"parallelism \(ring attention\) yet")):
+            mesh.make_mesh(par, ["cpu"] * par.world_size)
+        return
+    m = mesh.make_mesh(par, ["cpu"] * 4)
+    d = par.data_parallel_size
+    assert m.shape == dict(pipe=1, data=d, ctx=2, model=4 // (2 * d))
+    # d2c2: members (g, c) = 0 (0, 0), 1 (0, 1), 2 (1, 0), 3 (1, 1);
+    # t2c2: (c, j) = 0 (0, 0), 1 (0, 1), 2 (1, 0), 3 (1, 1)
+    assert [mesh.ctx_index(m, i) for i in range(4)] == (
+        [0, 1, 0, 1] if d == 2 else [0, 0, 1, 1])
+    assert [mesh.ctx_group(m, i) for i in range(4)] == (
+        [[0, 1], [0, 1], [2, 3], [2, 3]] if d == 2
+        else [[0, 2], [1, 3], [0, 2], [1, 3]])
+    assert [mesh.data_group(m, i) for i in range(4)] == (
+        [[0, 2], [1, 3], [0, 2], [1, 3]] if d == 2
+        else [[0], [1], [2], [3]])
+    assert [mesh.model_group(m, i) for i in range(4)] == (
+        [[0], [1], [2], [3]] if d == 2 else [[0, 1], [0, 1], [2, 3], [2, 3]])
+    assert [mesh.member_at(m, 0, mesh.data_index(m, i),
+                           mesh.model_index(m, i), mesh.ctx_index(m, i))
+            for i in range(4)] == list(range(4))
 
 
 def test_default_devices_are_the_cards():

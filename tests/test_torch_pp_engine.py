@@ -302,7 +302,8 @@ def test_offload_and_contexts_at_p2(weights):
 def test_layouts_that_still_raise(weights):
     with pytest.raises(ValueError, match="not divisible"):
         _port(dict(TINY, n_layers=3), "p2", None)
-    with pytest.raises(NotImplementedError, match="ring's CUDA backward"):
+    with pytest.raises(NotImplementedError, match="cannot be combined with "
+                       "context parallelism"):
         _port(TINY, "p2c2", weights)
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         _port(TINY, "t2p2s", weights)

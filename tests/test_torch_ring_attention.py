@@ -254,11 +254,20 @@ def _stub_members(inputs, n=4, grad=False, dtype=None):
 
 def test_cuda_wrapper_checks_before_it_launches(monkeypatch):
     launched = []
-    monkeypatch.setattr(rf, "_run_ring", lambda *a, **kw: launched.append(a))
+
+    def fake_ring(qs, *a, **kw):
+        launched.append(kw.get("lses"))
+        return [torch.zeros(q.shape, dtype=q.dtype) for q in qs]
+
+    monkeypatch.setattr(rf, "_run_ring", fake_ring)
     inputs = make_inputs(hd=64)
     bf16 = torch.bfloat16
-    with pytest.raises(RuntimeError, match="no gradient"):
-        rf.ring_attention_fused(*_stub_members(inputs, grad=True, dtype=bf16))
+    # inputs that ask for a gradient go through the differentiable ring,
+    # whose forward asks K6 for the rows' lse
+    outs = rf.ring_attention_fused(*_stub_members(inputs, grad=True,
+                                                  dtype=bf16))
+    assert type(outs[0].grad_fn).__name__ == "RingAttentionFnBackward"
+    assert len(launched.pop()) == 4
     with pytest.raises(TypeError, match="bfloat16 q"):
         rf.ring_attention_fused(*_stub_members(inputs))
     with pytest.raises(ValueError, match="hd 64 or 128"):
@@ -273,6 +282,6 @@ def test_cuda_wrapper_checks_before_it_launches(monkeypatch):
         rf.ring_attention_fused(qs[:3] + [qs[3].as_subclass(torch.Tensor)],
                                 ks, vs, segs)
     assert not launched
-    with torch.no_grad():  # a valid call reaches the launch
+    with torch.no_grad():  # a valid call reaches the launch, without lse
         rf.ring_attention_fused(qs, ks, vs, segs)
-    assert len(launched) == 1
+    assert launched == [None]

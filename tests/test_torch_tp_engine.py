@@ -336,8 +336,9 @@ def test_layouts_of_later_parts_raise(jax_one):
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         Engine(TransformerConfig(**TINY), w, device="cpu",
                parallel=ParallelismConfig(tensor_parallel_size=2,
+                                          pipeline_parallel_size=2,
                                           sequence_parallel=True),
-               devices=["cpu"] * 2)
+               devices=["cpu"] * 4)
     from realhf_tpu_torch.engine.inflight import InflightBatchingGenerator
     eng = _port(TINY, 1, 2, w)
     with pytest.raises(NotImplementedError, match="serving engine"):
