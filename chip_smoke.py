@@ -135,8 +135,8 @@ exits non-zero):
    beside). The generation log-probs shifted by one token must read an
    approximate KL over 10x its limit, the old values shifted by one
    token a value loss over 10x its limit.
-14. ctx -- ``Engine.forward_logprobs`` of a 32-layer LLaMA-7B (random bf16
-   weights) over one packed stream of 32768 tokens (documents of 12288,
+14. ctx -- ``Engine.forward_logprobs`` of LLaMA-7B at 8 of its 32
+   layers (random bf16 weights) over one packed stream of 32768 tokens (documents of 12288,
    7168, 6144, 4096 and 2816 tokens, then 256 of padding) on a c4 layout
    over ``member_devices(4)``, then on c1 with the same weight tensors
    (K1 over the whole stream): seconds, tokens/s, peak memory, exact
@@ -183,8 +183,8 @@ exits non-zero):
    random prompts of 100-512 tokens, 128 new tokens, 1 step: the six
    MFCs with PPO's launch formula, per-MFC seconds.
 
-22. ckpt_gen -- checkpoint IO at the gen cell's full width and depth
-   (32 layers, bf16, ~13.5 GB): the model saved with the streamed save
+22. ckpt_gen -- checkpoint IO at the gen cell's full width, 8 of its 32
+   layers (bf16, ~3.7 GB): the model saved with the streamed save
    (``models/hf/registry.py``) under ``_ckpt_scratch/`` beside this
    script (the free disk checked first), then loaded into a new gen
    runner (``model.path``; ``build_model`` streams one layer at a time
@@ -211,14 +211,15 @@ exits non-zero):
 
 24. serve_gen -- the ``gen`` experiment with ``use_inflight_batching``
    and 4 slots (``engine/inflight.py``) through ``GenerationConfig.build()``
-   and ``InlineRunner`` at 32-layer LLaMA-7B: 8 prompts of 100-512 words,
-   128 greedy tokens. Each sequence's log-probs against one teacher-forced
-   forward (K1) of prompt + tokens, each token that forward's argmax up to
-   a tie margin, exact counts (K1 = 32 x fills, K4 = 32 x decode steps);
+   and ``InlineRunner`` at LLaMA-7B, 8 of its 32 layers: 8 prompts of
+   100-512 words, 128 greedy tokens. Each sequence's log-probs against one
+   teacher-forced forward (K1) of prompt + tokens, each token that forward's
+   argmax up to a tie margin, exact counts (K1 = 8 x fills, K4 = 8 x
+   decode steps);
    token agreement with the batch path on the same batch is reported.
 25. serve -- ``serving/scheduler.py`` ``ContinuousScheduler`` over the
    generator, composed from ``ServeConfig(...).build().serving`` as a
-   rollout server composes them, at 32-layer LLaMA-7B: 24 requests
+   rollout server composes them, at LLaMA-7B, 8 of its 32 layers: 24 requests
    (100-512 tokens from a phrase book, 8 behind one 256-token prefix, 128
    greedy tokens) in 3 waves over 8 slots, chunk 8, in four
    configurations: (a) dense bf16 with a weight push (version 1, the
@@ -298,9 +299,10 @@ exits non-zero):
    biases, tied head), gen-7b-b8's traffic: K1 = 48 a prefill, K4 = 48 a
    decode step; the teacher-forced gate, which the pass reading the
    position table one row later must exceed.
-34. tp_gen -- gen-7b-b8's traffic (LLaMA-7B, 32 layers) through the
+34. tp_gen -- gen-7b-b8's traffic (LLaMA-7B, 4 of its 32 layers: the
+   depth cut for the script's time) through the
    ``gen`` experiment at d2t2 and at d1t4, members on
-   ``member_devices``: K1 = 32 x members a prefill, K4 = 32 x members a
+   ``member_devices``: K1 = 4 x members a prefill, K4 = 4 x members a
    decode step; the greedy tokens teacher-forced through the d1t1 model
    of the same weights (``PAR_LIMITS``), which d2t2 with member 1's
    row-parallel partial dropped must exceed; decode ms a token and
@@ -309,7 +311,7 @@ exits non-zero):
    steps, against the d1t1 runner of the same seed: losses, grad norms,
    the fp32 master weights' update, exact K1-K3; gradients not summed
    over the data group must miss the grad-norm limit.
-36. realloc -- the 32-layer LLaMA-7B moved d1t1 -> d1t2 -> d2t1 -> d2t2
+36. realloc -- the 4-layer LLaMA-7B moved d1t1 -> d1t2 -> d2t1 -> d2t2
    -> d1t1 (``parallel/realloc.py``): every target's canonical leaves
    digest-equal to the source's, the last bit-equal to a host copy of
    the first, an EMA move (eta 0.3) bit-equal to a plain fp32 lerp; a
@@ -334,7 +336,7 @@ exits non-zero):
    layer a microbatch a train pass); p2's ``forward_logprobs`` against
    a d1t1 engine of its weights (``PP_LIMITS``); a 1F1B backward sending
    dx to microbatch m - 1 must miss the grad-norm limit.
-39. pp_gen -- gen-7b-b8's prompt shape (LLaMA-7B, 32 layers, 64 greedy
+39. pp_gen -- gen-7b-b8's prompt shape (LLaMA-7B, 8 layers, 64 greedy
    tokens) on a p2 engine through its decode view (d2t1), at g2 (d1t2),
    after ``set_params`` of perturbed weights, and on a c4 engine at g4
    (d1t4): exact K1/K4 on the view's members, the teacher-forced gap
@@ -373,12 +375,42 @@ exits non-zero):
    limits); K6's lse at each layout's n and heads against
    ``flash_attention_plain``'s over the gathered stream, row by row, and
    its o bit-equal to a launch without the lse.
+43. moe_tp -- (run right after mixtral_gen) mixtral_gen's d1t1 engine,
+   its weights waiting on the host, reallocated to d1t2 and d1t4 (each
+   model member its slice of every expert's FFN width, the router
+   whole): mixtral_gen's greedy prompts, 64 greedy tokens; exact K1/K4,
+   the mean teacher-forced gap against the d1t1 engine, which d1t2 with
+   member 1's row-parallel partial dropped must exceed; the
+   reallocation's seconds, decode ms a token, host reads a decode step.
+44. kv_rep -- ``google/gemma-2b`` (8 q heads on one KV head of 256) at
+   d1t2 and d1t4, its KV weights whole on every model member: full width
+   at 9 of its 18 layers (the depth cut for the script's time), 8
+   prompts of 100-512 tokens, 64 greedy tokens through the
+   decode's "seq" route (each member its slice of the cache slots, K4
+   with its softmax statistics, the flash merge); exact K1/K4 (K4 with
+   statistics a layer a member a decode step), the teacher-forced gap
+   against the d1t1 model of the same weights, which a merge leaving
+   member 1's partial out must exceed. Then the sft cell at 6 of its 18
+   layers (the depth cut), 3 steps at d1t2 against d1t1: loss, grad
+   norm, update (``MOE_PAR_LIMITS``), exact K1-K3; the replicated wk/wv
+   gradients left unsummed over the model members must miss them.
+45. moe_sft_par -- mixtral_sft's model and records at d2t1 (ragged:
+   router losses over data shards), d2t2 with expert parallelism at
+   capacity 1.25 (4 experts a data member, dispatch over the whole
+   batch) and c2 (ragged, one stream a step: router losses over context
+   shards, K6 and the ring's K2/K3), each against a d1t1 engine of the
+   same start weights replaying the same microbatches: loss, grad norm,
+   the aux loss, the update, exact counts; routing per shard (the port
+   before this slice) on a fresh d2t2/c2 runner's first step must miss
+   the loss or aux limit.
 
 The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
 prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
 K4 at the Gemma-7B and Gemma-2B decodes and K5 on a stacked layer at
 the Gemma-7B decode (timed), non-causal and windowed cases
-(``phase_kernels_hd256``).
+(``phase_kernels_hd256``), and K4 with its statistics at kv_rep's "seq"
+slices (B 8, 8/1 heads, S 320 and 192, streams empty in the slice; o, m
+and l against the plain version; ``seq_kernel_cases``).
 
 The phases before 22 run with the saves of their trained roles switched
 off (``without_saves``: ``enable_save=False`` on every train MFC's
@@ -386,10 +418,12 @@ interface), as they ran before the port could save.
 
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
-mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft, pp_gen,
-pp_ppo, cp_sft and sp_sft paths, each counted from 0; rows
-``*_hd256`` over gemma_gen and gemma_sft; rows ``flash_bwd_*_ring`` and
-``ring_attention_lse`` for the ring's backward), the
+moe_tp, mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft,
+pp_gen, pp_ppo, cp_sft, sp_sft and moe_sft_par paths, each counted from
+0; rows ``*_hd256`` over gemma_gen, gemma_sft and kv_rep, of whose K4
+launches ``flash_decode_seq_hd256`` counts those with the statistics;
+rows ``flash_bwd_*_ring`` and ``ring_attention_lse`` for the ring's
+backward), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -1004,6 +1038,7 @@ def phase_kernels_hd256():
     fwd.append(check_flash_decode("stacked_mid_layer_hd256", 8, 640, 16, 16,
                                   256, spans, gen, timed=True,
                                   stacked_layers=3, layer=1))
+    fwd += seq_kernel_cases(gen, lengths)
     for r in fwd + bwd:
         r["hd256"] = True
     del gen
@@ -1610,6 +1645,7 @@ def reset_counts():
     fa.dq_ring_launches = fa.dkv_ring_launches = 0
     da.launches = 0
     da.stacked_launches = 0
+    da.stats_launches = 0
     rf.round_launches = rf.round_lse_launches = rf.push_launches = 0
 
 
@@ -1623,13 +1659,16 @@ def read_counts():
                 ring_round=rf.round_launches, ring_push=rf.push_launches,
                 flash_bwd_dq_ring=fa.dq_ring_launches,
                 flash_bwd_dkv_ring=fa.dkv_ring_launches,
-                ring_round_lse=rf.round_lse_launches)
+                ring_round_lse=rf.round_lse_launches,
+                flash_decode_stats=da.stats_launches)
 
 
 #: the launches of the ring's backward (K2/K3 at ring rounds, K6's last
-#: round with the lse) in a path that trains no context-parallel layout
+#: round with the lse) in a path that trains no context-parallel layout,
+#: and of K4 with its statistics (the "seq" route) in a path that decodes
+#: on no replicated-KV layout
 NO_RING_BWD = dict(flash_bwd_dq_ring=0, flash_bwd_dkv_ring=0,
-                   ring_round_lse=0)
+                   ring_round_lse=0, flash_decode_stats=0)
 
 
 def build_gen_spec(data_path, n_layers, max_new_tokens, benchmark_steps,
@@ -2952,7 +2991,7 @@ def phase_ppo_parity(seed=PPO_PARITY_SEED):
 # ----------------------------------------------------------------------
 # ctx and ppo_ctx: context-parallel inference through the entry points
 # ----------------------------------------------------------------------
-# c4 against c1 on the same bf16 weights (K6 against K1 over 32 layers):
+# c4 against c1 on the same bf16 weights (K6 against K1 over every layer):
 # log-probs of the stream's valid positions, and ppo_ctx's reference
 # log-probs and rewards, each about 3x the sound reading; and c4's mean
 # distance from a plain fp32 reference at most ``fp32_mean_ratio`` times
@@ -2962,6 +3001,10 @@ CTX_LIMITS = dict(logprobs_abs=0.6, logprobs_mean_abs=0.033,
                   ref_logprobs_mean_abs=0.024, rewards_rel=0.035)
 # timed forward calls per engine in phase ctx, after the counted one
 CTX_TIMED_CALLS = 3
+# depth cut (the script's time): ctx at 8 of LLaMA-7B's 32 layers since
+# the replicated-KV and MoE-over-members phases came; its limits were
+# read at 32 layers, where the drift they bound is larger
+CTX_LAYERS = 8
 
 
 def reset_peaks(devs):
@@ -2987,15 +3030,15 @@ def ctx_launches(n_layers, n_members):
 
 
 def phase_ctx(smi):
-    """``Engine.forward_logprobs`` of a 32-layer LLaMA-7B (random bf16
-    weights) over one packed stream of 32768 tokens (documents of 12288,
+    """``Engine.forward_logprobs`` of LLaMA-7B at ``CTX_LAYERS`` layers
+    (random bf16 weights) over one packed stream of 32768 tokens (documents of 12288,
     7168, 6144, 4096 and 2816 tokens, then 256 of padding) on a c4
     layout over ``member_devices(4)``, then on c1 with the same weight
     tensors, where K1 runs over the whole stream. Each engine's first
     call is counted and checked; the seconds are the median of the
     ``CTX_TIMED_CALLS`` calls after it (host clock, every card
     synchronised), the peak memory that of every member device. Two bf16
-    paths that round in other places drift apart over 32 layers; a plain fp32
+    paths that round in other places drift apart over the layers; a plain fp32
     reference on the card (the same weights widened, ``forward_ctx`` at c4
     with ``ring_attention_plain``) tells rounding from a fault: c4 must be no
     further from it than c1, within ``fp32_mean_ratio``."""
@@ -3013,8 +3056,8 @@ def phase_ctx(smi):
     from realhf_tpu_torch.parallel.mesh import ParallelismConfig
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = TransformerConfig(**llama_config("7b"), param_dtype="bfloat16",
-                            compute_dtype="bfloat16")
+    cfg = TransformerConfig(**llama_config("7b", n_layers=CTX_LAYERS),
+                            param_dtype="bfloat16", compute_dtype="bfloat16")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     params = T.init_params(cfg, gen, "cuda")
@@ -4028,12 +4071,11 @@ def run_algo_phases(smi):
 # phases 22-23: checkpoint IO and resume
 # ----------------------------------------------------------------------
 CKPT_NEW_TOKENS = 32
-# ckpt_gen saves and loads the gen cell's model at its full 32 layers
-# (13.5 GB), so its load rate and host peak are read at full size;
-# ckpt_resume's depth is cut from the sft cell's 4 to keep the script
-# inside its time: its checks are bit-equality, which depth does not
-# change
-CKPT_GEN_LAYERS = 32
+# ckpt_gen saves and loads the gen cell's model at 8 of its 32 layers
+# (~3.7 GB) and ckpt_resume at 2 of the sft cell's 4, to keep the script
+# inside its time: their checks are bit-equality, which depth does not
+# change; the load rate and host peak are read at that size
+CKPT_GEN_LAYERS = 8
 CKPT_RESUME_LAYERS = 2
 #: a sound resume is bit-equal (reads 0); the planted fault (fresh
 #: moments) must move some parameter by at least ten times this share
@@ -4428,8 +4470,10 @@ def phase_ckpt_resume(smi):
                 c, setup = runner_of("ckpt-b", 3, mode="resume")
             finally:
                 model_host.opt_checkpoint.restore_engine_opt_state = restore
-            if fresh_moments:  # its final save and dump would replace B's
-                c._maybe_save = lambda *args, **kw: None
+            # the fault's final save and dump would replace B's; the sound
+            # run's is not the subject (B's saves are timed), and skipping
+            # it keeps the script inside its time
+            c._maybe_save = lambda *args, **kw: None
             ceng = c.models["default"].engine
             before = param_snapshot(ceng)
             ids = watch_steps(c)
@@ -4456,7 +4500,7 @@ def phase_ckpt_resume(smi):
             del c, ceng, before, after
             return out
 
-        # the fault first: the sound run's final save rewrites B's save
+        # the fault first, then the sound run, both from B's last save
         rec["fault_fresh_moments"] = resume(fresh_moments=True)
         rec["c"] = resume()
     finally:
@@ -4490,7 +4534,11 @@ def phase_ckpt_resume(smi):
 # ----------------------------------------------------------------------
 # phase serve: the serving engine (inflight generator + scheduler)
 # ----------------------------------------------------------------------
-SERVE_LAYERS = 32
+#: depth cut (the script's time): serve_gen and serve at 8 of
+#: LLaMA-7B's 32 layers since the replicated-KV and MoE-over-members
+#: phases came; the limits below were read at 32, where the bf16 drift
+#: they bound is larger
+SERVE_LAYERS = 8
 SERVE_NEW_TOKENS = 128
 SERVE_SLOTS = 8
 SERVE_CHUNK = 8
@@ -4517,7 +4565,7 @@ SERVE_LIMITS = dict(tf_logprob_abs=0.9, tie_margin=1.1,
 
 
 def serve_model(seed=1):
-    """The 32-layer LLaMA-7B (bf16, random weights from ``seed``) as the
+    """LLaMA-7B at ``SERVE_LAYERS`` layers (bf16, random weights from ``seed``) as the
     rollout server builds it (``system/model_host.build_model``)."""
     from realhf_tpu_torch.api.experiment import ModelSpec
     from realhf_tpu_torch.models.config import llama_config
@@ -4616,8 +4664,8 @@ def agreement(a, b) -> float:
 
 def phase_serve_gen(smi):
     """The ``gen`` experiment with ``use_inflight_batching`` and 4 slots
-    through ``GenerationConfig.build()`` and ``InlineRunner`` at 32-layer
-    LLaMA-7B: 8 prompts of 100-512 words, 128 greedy tokens. Gates: the
+    through ``GenerationConfig.build()`` and ``InlineRunner`` at LLaMA-7B,
+    ``SERVE_LAYERS`` layers: 8 prompts of 100-512 words, 128 greedy tokens. Gates: the
     returned log-probs against one teacher-forced forward of each
     sequence, each token the forward's argmax up to the tie margin,
     K1 = 32 x fills and K4 = 32 x decode steps. Reading: token agreement
@@ -4804,7 +4852,7 @@ def serve_run(model, serving, prompts, waves, push=None):
 
 
 def phase_serve(smi):
-    """The scheduler over the port's generator at 32-layer LLaMA-7B:
+    """The scheduler over the port's generator at LLaMA-7B, ``SERVE_LAYERS`` layers:
     24 requests (prompts of 100-512 tokens from a phrase book, 8 of them
     behind one 256-token prefix, 128 greedy tokens, no EOS) in 3 waves
     over 8 slots, chunk 8, in four configurations composed from
@@ -5305,13 +5353,16 @@ def packed_teacher_forced(cfg, params, items):
     """One packed forward (K1) of every (prompt, tokens, ...) item but
     its last token, each a segment of one stream: each token's log-prob
     at the position that emitted it, per item, and the stream offset of
-    each item."""
+    each item. ``params`` is a tree or a sharded engine's
+    ``MemberParams``."""
     import numpy as np
     import torch
     from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.sharding import MemberParams
     seqs = [np.concatenate([p, t])[:-1] for p, t, *_ in items]
     offs = np.cumsum([0] + [len(x) for x in seqs])
-    dev = params["embed"]["wte"].device
+    members = isinstance(params, MemberParams)
+    dev = params.devices[0] if members else params["embed"]["wte"].device
     ids = torch.as_tensor(np.concatenate(seqs).astype(np.int64),
                           device=dev)[None]
     seg = torch.as_tensor(np.concatenate(
@@ -5321,7 +5372,9 @@ def packed_teacher_forced(cfg, params, items):
         hidden, _ = T.forward(cfg, params, ids, seg)
         out = []
         for (p, t, *_), off in zip(items, offs):
-            rows = hidden[0, off + len(p) - 1:off + len(p) - 1 + len(t)]
+            at = slice(off + len(p) - 1, off + len(p) - 1 + len(t))
+            rows = (hidden.map(lambda h, at=at: h[0, at]) if members
+                    else hidden[0, at])
             lg = T.lm_logits(cfg, params, rows)
             tok = torch.as_tensor(np.asarray(t, np.int64), device=dev)
             out.append(torch.log_softmax(lg, -1).gather(
@@ -5340,7 +5393,7 @@ def tf_gaps(lps, items, pick=None):
                 tokens=int(d.size))
 
 
-def phase_mixtral_gen(smi, seed=1):
+def phase_mixtral_gen(smi, seed=1, keep=None):
     """The gen experiment at Mixtral-8x7B width, 16 of its 32 layers
     (bf16, random weights from ``seed``): 8 prompts of 100-512 words, 128
     new tokens, one greedy step and one sampled step. Gates: exact K1/K4
@@ -5350,7 +5403,8 @@ def phase_mixtral_gen(smi, seed=1):
     dropped) must exceed. Readings: the share of (token, layer) routings
     whose top-2 differ between decode and the teacher-forced pass, the
     tokens each expert of layers 0 and 15 took there, the group-size host
-    reads a decode step, times and the peak."""
+    reads a decode step, times and the peak. With ``keep`` (a dict), the
+    engine and the greedy step's items stay there for moe_tp."""
     import numpy as np
     import torch
     from realhf_tpu_torch.ops import moe
@@ -5434,6 +5488,8 @@ def phase_mixtral_gen(smi, seed=1):
                              for f in faults.values())
     rec["ok"] = (rec["launches_ok"] and outputs_ok and rec["tf_ok"]
                  and rec["faults_fail"] and len(stats) == 2)
+    if keep is not None:
+        keep.update(engine=eng, items=items)
     del runner, eng, routes, tf_routes
     gc.collect()
     torch.cuda.empty_cache()
@@ -5793,15 +5849,20 @@ def phase_mistral(smi, seed=1):
 
 
 def run_moe_phases(smi):
-    """phases 26-29, each freeing its models before the next"""
-    recs = {}
-    for name, fn in (("mixtral_gen", phase_mixtral_gen),
+    """phases 26-29, with moe_tp (43) right after mixtral_gen on its
+    engine, each freeing its models before the next"""
+    recs, kept = {}, {}
+    for name, fn in (("mixtral_gen", lambda s: phase_mixtral_gen(
+                         s, keep=kept)),
+                     ("moe_tp", lambda s: phase_moe_tp(
+                         s, kept.pop("engine"), kept.pop("items"))),
                      ("mixtral_sft", phase_mixtral_sft),
                      ("mixtral_parity", lambda _smi: phase_mixtral_parity()),
                      ("mistral", phase_mistral)):
         t0 = time.monotonic()
         recs[name] = fn(smi)
         recs[name]["phase_secs"] = time.monotonic() - t0
+        free()
         emit(name, **recs[name])
     return recs
 
@@ -6140,7 +6201,9 @@ def run_gemma_phases(smi):
 # ----------------------------------------------------------------------
 # Data and tensor parallelism, ZeRO-1 and parameter reallocation
 # ----------------------------------------------------------------------
-PAR_GEN_LAYERS = 32
+#: depth cut (the script's time): tp_gen and realloc at 4 of LLaMA-7B's
+#: 32 layers since the replicated-KV and MoE-over-members phases came
+PAR_GEN_LAYERS = 4
 PAR_NEW_TOKENS = 128
 PAR_FAULT_TOKENS = 16
 PAR_SFT_LAYERS = 4
@@ -6482,7 +6545,7 @@ def vocab_repad_shifted():
 
 
 def par_engine(layout, seed):
-    """An inference engine of the 32-layer LLaMA-7B (bf16) on
+    """An inference engine of LLaMA-7B at ``PAR_GEN_LAYERS`` layers (bf16) on
     ``layout``, its members on ``member_devices``, weights from
     ``seed``."""
     from realhf_tpu_torch.api.experiment import ModelSpec
@@ -6497,7 +6560,7 @@ def par_engine(layout, seed):
 
 
 def phase_realloc(smi, seed=1):
-    """The 32-layer LLaMA-7B moved (``parallel/realloc.reallocate``)
+    """LLaMA-7B at ``PAR_GEN_LAYERS`` layers moved (``parallel/realloc.reallocate``)
     around d1t1 -> d1t2 -> d2t1 -> d2t2 -> d1t1, each target built with
     other weights and each source dropped after its move. Gates: every
     target's canonical leaves read the first's position-weighted digest
@@ -6806,7 +6869,9 @@ def phase_kernels_par(segs):
 
 
 PP_SFT_LAYOUTS = (("p2", "1f1b"), ("p2t2", "1f1b"), ("p2", "gpipe"))
-PP_GEN_LAYERS = 32
+#: depth cut (the script's time): 8 of LLaMA-7B's 32 layers since the
+#: replicated-KV and MoE-over-members phases came
+PP_GEN_LAYERS = 8
 PP_NEW_TOKENS = 64
 PP_FAULT_TOKENS = 16
 PP_PERTURB_SEED = 101
@@ -7071,7 +7136,7 @@ def freed_by_drop(eng):
 
 def phase_pp_gen(smi, seed=1):
     """gen-7b-b8's prompt shape (8 prompts of 100-512 tokens, greedy, 64
-    new tokens) at LLaMA-7B width and depth (32 layers, 16 a stage):
+    new tokens) at LLaMA-7B width, ``PP_GEN_LAYERS`` layers (half a stage):
     a p2 engine generating through its default decode view (d2t1), then
     at g2 (view d1t2), and a c4 engine through its view at g4 (d1t4),
     members on ``member_devices``. Gates per case: exact K1/K4 counts on
@@ -7987,6 +8052,663 @@ def phase_kernels_cp(segs):
     return bwd, lse
 
 
+# ----------------------------------------------------------------------
+# phases 40-42: KV heads replicated over the model members (t not
+# dividing the KV heads; the decode's "seq" route) at google/gemma-2b,
+# and mixture-of-experts over members (t > 1, expert parallelism, router
+# losses over data and context shards) at Mixtral-8x7B width
+# ----------------------------------------------------------------------
+KV_REP_LAYOUTS = ("d1t2", "d1t4")
+#: depth cut (the script's time): kv_rep generates at 9 of Gemma-2B's 18
+#: layers; every layer runs the same "seq" route
+KV_REP_GEN_LAYERS = 9
+KV_REP_NEW_TOKENS = 64
+KV_REP_FAULT_TOKENS = 16
+#: depth cut of kv_rep's training (Gemma-2B has 18 layers): d1t1 and
+#: d1t2 train one after the other on one card, and the sft cell at 18
+#: layers peaks at 60.4 GB alone; 6 layers keep the phase's seconds and
+#: peak small, and every layer runs the same replicated-KV path
+KV_REP_SFT_LAYERS = 6
+MOE_TP_LAYOUTS = ("d1t2", "d1t4")
+MOE_TP_NEW_TOKENS = 64
+#: moe_sft_par's layouts: router losses over data shards (ragged), expert
+#: parallelism over the data index with capacity dispatch, and router
+#: losses over context shards (ragged, one stream a step)
+MOE_SFT_LAYOUTS = ("d2t1", "d2t2ep", "c2")
+MOE_EP_CAPACITY = 1.25
+#: about 3x the largest sound reading of ``scripts/torch_moe_par_phases.py
+#: --seeds 1 2 3 4 5`` (H100 80GB HBM3, 700 W), each with its planted
+#: fault above it (PERF.md, Findings, PR 18):
+#:   kv_rep_tf_*       greedy log-probs against d1t1's teacher-forced
+#:                     pass, max 0.024-0.096 and mean 0.0013-0.0035 at
+#:                     d1t2 / d1t4; member 1's partial dropped from the
+#:                     merge max 0.107-0.908, mean 0.016-0.074 (the
+#:                     attention of random weights moves a log-prob
+#:                     little, so the mean gates beside the max)
+#:   kv_sft_*          d1t2 against d1t1 over 3 steps: loss 3.4e-5-1.2e-4,
+#:                     grad norm 1.5e-4-2.0e-4, update 0.0071-0.0077;
+#:                     wk/wv gradients unsummed: 4.4e-3-5.3e-3 / 0.077-0.079
+#:   moe_tp_*          mean gap 0.54-0.72 (d1t2), 0.68-0.81 (d1t4); row
+#:                     partial dropped 4.85-5.34
+#:   moe_sft_*         d2t1 / d2t2ep / c2 against the replayed d1t1: loss
+#:                     up to 3.9e-4, grad norm 2.2e-3, update 0.040 (d2t1
+#:                     0.004-0.009, c2 0.017-0.023), aux 1.3e-3; routing
+#:                     per shard at d2t2ep: step-1 update 0.15-0.31 (its
+#:                     loss 2.3e-5-2.2e-3 and aux 1.9e-3-4.3e-3 move
+#:                     inside the sound spread on some seeds)
+MOE_PAR_LIMITS = dict(kv_rep_tf_logprob_abs=0.29,
+                      kv_rep_tf_logprob_mean_abs=0.0105,
+                      kv_sft_loss_rel=3.5e-4, kv_sft_grad_norm_rel=6e-4,
+                      kv_sft_update_rel=0.023,
+                      moe_tp_tf_logprob_mean_abs=2.4,
+                      moe_sft_loss_rel=1.2e-3, moe_sft_grad_norm_rel=6.7e-3,
+                      moe_sft_update_rel=0.12, moe_sft_aux_rel=3.9e-3)
+
+
+@contextlib.contextmanager
+def merge_partial_dropped(member=1):
+    """The planted "seq"-route fault: model member ``member``'s K4
+    partial left out of the flash merge."""
+    from realhf_tpu_torch.ops import decode_attention as da
+    real = da.seqsplit_merge
+
+    def faulty(parts, dtype):
+        return real([p for i, p in enumerate(parts) if i != member], dtype)
+
+    with patched(da, "seqsplit_merge", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def kv_grad_not_summed():
+    """The planted replicated-KV fault: each model member keeps its own
+    ``wk``/``wv`` gradient, not summed over the members that hold the
+    replicated leaf."""
+    from realhf_tpu_torch.engine.engine import Engine
+    real = Engine._sum_grads
+
+    def faulty(self, acc):
+        out = real(self, acc)
+        for k, (path, _, _) in enumerate(self._leaf_specs()):
+            if path[-1] in ("wk", "wv"):
+                for u, row in enumerate(out):
+                    row[k] = acc[u][k]
+        return out
+
+    with patched(Engine, "_sum_grads", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def routing_per_shard():
+    """The planted MoE fault, the port's routing before this slice: each
+    data or context shard routes as a batch of its own (its share of the
+    tokens for the capacity, queue positions from its own tokens alone),
+    and the router losses are the mean of each shard's own."""
+    import torch
+    from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.ops import moe
+
+    class PerShard(moe.MoEShards):
+        def base(self, layer, key):
+            own = self._counts[(layer, *key)]
+            return torch.cumsum(own, 0) - own
+
+        def losses(self, cfg_moe):
+            out = {}
+            n = len({k[1:] for k in self._stats})
+            for k in sorted(self._stats):
+                for name, val in moe.router_losses(
+                        cfg_moe, self._stats[k]).items():
+                    val = val.to(self.device) / n
+                    out[name] = out[name] + val if name in out else val
+            return out
+
+    real = T._moe_shards
+
+    def per_shard(cfg, mp, n_tokens):
+        s = real(cfg, mp, n_tokens)
+        if s is not None:
+            s.__class__ = PerShard
+            s.n_tokens = n_tokens // (mp.d * mp.c)
+        return s
+
+    with patched(T, "_moe_shards", per_shard):
+        yield
+
+
+def kv_gap_over(gap, lim) -> bool:
+    """Whether a ``tf_gaps`` reading exceeds kv_rep's max or mean limit."""
+    return (gap["max_abs"] > lim["kv_rep_tf_logprob_abs"]
+            or gap["mean_abs"] > lim["kv_rep_tf_logprob_mean_abs"])
+
+
+def greedy_items(eng, ids, seg, pos, new_tokens):
+    """One greedy generate of ``eng`` over left-padded prompts -> (items
+    (prompt, tokens, log-probs) per stream, the call's stats)."""
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    out = eng.generate(ids, seg, pos, None, GenerationHyperparameters(
+        max_new_tokens=new_tokens, greedy=True), None, 0).to_host()
+    items = [(ids[b][seg[b] != 0], out.tokens[b, :int(out.lengths[b])],
+              out.logprobs[b, :int(out.lengths[b])])
+             for b in range(ids.shape[0])]
+    return items, eng.generate_stats[-1]
+
+
+def decode_record(st, counts, want, smi):
+    return dict(decode_steps=st["decode_steps"],
+                prefill_secs=st["prefill_secs"],
+                decode_secs=st["decode_secs"],
+                decode_ms_per_token=st["decode_secs"]
+                / max(st["decode_steps"], 1) * 1e3,
+                launches=counts, launches_expected=want,
+                launches_ok=counts == want, card=smi)
+
+
+def model_sft_runner(data, layout, seed, model_config, overrides=None):
+    """The sft cell (``build_sft_spec``) at ``model_config`` on
+    ``layout``, its members on ``member_devices``."""
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.inline import InlineRunner
+    spec = build_sft_spec(data, model_config["n_layers"],
+                          model_config=model_config, overrides=overrides)
+    spec.seed = seed
+    par = parse_parallelism(layout)
+    spec.models["default"].parallel = par
+    t0 = time.monotonic()
+    runner = InlineRunner(without_saves(spec), role_devices={
+        "default": member_devices(par.world_size)})
+    sync_all()
+    return runner, time.monotonic() - t0
+
+
+def sft_launches(runner, n_layers, n_mb):
+    """K1-K3 counts of the sft cell on a d x t layout (``launches_of``:
+    each member's attention half one checkpoint region, so K1 twice a
+    layer a train pass, once an eval pass)."""
+    n = len(runner.models["default"].engine.members)
+    n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+    return launches_of(n_layers, n, fwd=2 * n_mb * PAR_SFT_STEPS + n_eval,
+                       bwd=n_mb * PAR_SFT_STEPS)
+
+
+def phase_kv_rep(smi, seed=1):
+    """``google/gemma-2b`` (8 q heads on one KV head of 256) at d1t2 and
+    d1t4, members on ``member_devices``: its KV weights held whole on
+    every model member. Generation: full width, ``KV_REP_GEN_LAYERS`` of
+    its 18 layers (random weights from ``seed``), gen-7b-b8's prompt
+    shape (8 prompts of 100-512 tokens), 64 greedy tokens through the
+    "seq" route (each
+    member its slice of the cache slots, K4 with statistics, the flash
+    merge). Gates per layout: exact K1/K4 counts (K4 with statistics
+    once a layer a member a decode step), and the greedy log-probs
+    against one packed teacher-forced K1 forward of the d1t1 model of
+    the same weights; planted fault: d1t2's tokens regenerated
+    (``KV_REP_FAULT_TOKENS``) with member 1's partial dropped from the
+    merge. Training: the sft cell's records at ``KV_REP_SFT_LAYERS``
+    layers (the depth cut), 3 steps at d1t2 against d1t1 of the same
+    seed: loss, grad norm and the masters' update; planted fault: the
+    replicated wk/wv gradients not summed over the model members.
+    Reported: decode ms a token, peaks, step seconds."""
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.models.transformer import round_cache_len
+    from realhf_tpu_torch.ops.decode_attention import seq_cache_len
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.model_host import build_model
+    lim = MOE_PAR_LIMITS
+    nl = KV_REP_GEN_LAYERS
+    mcfg = hf_random_init_config("gemma", GEMMA_2B, nl)
+    ref = build_model("default", ModelSpec(random_init_config=mcfg,
+                                           bf16=True), None,
+                      init_seed=seed).engine
+    cfg = ref.cfg
+    ids, seg, pos, _ = pp_prompts(seed, cfg.vocab_size)
+    rec = dict(n_layers=nl, seed=seed, card=smi, gen={}, limits=lim,
+               heads=[cfg.n_q_heads, cfg.n_kv_heads], head_dim=cfg.head_dim)
+    launches = []
+    for layout in KV_REP_LAYOUTS:
+        par = parse_parallelism(layout)
+        n = par.world_size
+        eng = Engine(cfg, ref.params, parallel=par,
+                     devices=member_devices(n))
+        reset_peaks(eng.members)
+        reset_counts()
+        items, st = greedy_items(eng, ids, seg, pos, KV_REP_NEW_TOKENS)
+        sync_all()
+        counts = read_counts()
+        want = launches_of(nl, n, fwd=1, decode=st["decode_steps"])
+        want["flash_decode_stats"] = want["flash_decode"]
+        r = decode_record(st, counts, want, smi)
+        r["cache_slots"] = seq_cache_len(round_cache_len(
+            ids.shape[1] + KV_REP_NEW_TOKENS), n)
+        r["slots_per_member"] = r["cache_slots"] // n
+        r["peak_mem_gb"] = read_peaks(eng.members)
+        r["tf"] = tf_gaps(packed_teacher_forced(cfg, ref.params, items)[0],
+                          items)
+        r["tf_ok"] = not kv_gap_over(r["tf"], lim)
+        if layout == KV_REP_LAYOUTS[0]:
+            with merge_partial_dropped():
+                fitems, _ = greedy_items(eng, ids, seg, pos,
+                                         KV_REP_FAULT_TOKENS)
+            r["planted_fault"] = dict(merge_partial_dropped=tf_gaps(
+                packed_teacher_forced(cfg, ref.params, fitems)[0], fitems))
+            r["fault_fails"] = kv_gap_over(
+                r["planted_fault"]["merge_partial_dropped"], lim)
+        r["ok"] = r["launches_ok"] and r["tf_ok"] and r.get("fault_fails",
+                                                            True)
+        launches.append(counts)
+        rec["gen"][layout] = r
+        del eng
+        free()
+    del ref
+    free()
+    # training at the depth cut, d1t2 against d1t1
+    scfg = hf_random_init_config("gemma", GEMMA_2B, KV_REP_SFT_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        base, setup = model_sft_runner(data, "d1t1", seed, scfg)
+        rec["sft_ref"], rmaster, _ = counted_run(base)
+        rec["sft_ref"]["setup_secs"] = setup
+        rmaster = to_host(rmaster)
+        del base
+        free()
+        runner, setup = model_sft_runner(data, "d1t2", seed, scfg)
+        r, master, _ = counted_run(runner)
+        r["setup_secs"] = setup
+        r["launches_expected"] = sft_launches(runner, KV_REP_SFT_LAYERS, 2)
+        r["launches_ok"] = r["launches"] == r["launches_expected"]
+        r["ok"] = held_against(r, rec["sft_ref"], master, rmaster, lim,
+                               "kv_sft") and r["launches_ok"]
+        launches.append(r["launches"])
+        del runner, master
+        free()
+        frunner, _ = model_sft_runner(data, "d1t2", seed, scfg)
+        with kv_grad_not_summed():
+            fault, fmaster, _ = counted_run(frunner)
+        fault["within_limits"] = held_against(fault, rec["sft_ref"], fmaster,
+                                              rmaster, lim, "kv_sft")
+        del frunner, fmaster, rmaster
+        free()
+    r["planted_fault"] = dict(kv_grad_not_summed={
+        k: fault[k] for k in ("losses", "grad_norms", "loss_rel",
+                              "grad_norm_rel", "update_rel")})
+    r["fault_fails"] = not fault["within_limits"]
+    r["card"] = smi
+    rec["sft"] = r
+    rec["sft_layers"] = KV_REP_SFT_LAYERS
+    rec["launches"] = add_counts(*launches)
+    rec["ok"] = (all(g["ok"] for g in rec["gen"].values()) and r["ok"]
+                 and r["fault_fails"])
+    return rec
+
+
+def phase_moe_tp(smi, ref_eng, ref_items):
+    """Mixtral-8x7B width at ``MIXTRAL_GEN_LAYERS`` (mixtral_gen's d1t1
+    engine ``ref_eng``, its weights waiting on the host while the
+    layouts run, so the 46 GB model is never built twice) reallocated to
+    d1t2 and d1t4 (members on ``member_devices``): each model member
+    holds its slice of every expert's FFN width and the router whole.
+    mixtral_gen's greedy prompts (``ref_items``), 64 greedy tokens.
+    Gates per layout: exact K1/K4 counts, and the tokens' log-probs
+    against one packed teacher-forced K1 forward of the d1t1 engine (the
+    mean gap, as mixtral_gen: routings of random weights flip under bf16
+    noise); planted fault: d1t2's tokens regenerated with member 1's
+    row-parallel partial dropped. Reported: the reallocation's seconds,
+    decode ms a token, the group-size host reads a decode step (each
+    member's ragged dispatch reads its own), peaks."""
+    from realhf_tpu_torch.engine import packing
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.ops import moe
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.parallel.realloc import reallocate
+    lim = MOE_PAR_LIMITS["moe_tp_tf_logprob_mean_abs"]
+    nl = ref_eng.cfg.n_layers
+    cfg = ref_eng.cfg
+    ids, seg, pos = packing.left_padded_prompts(
+        [p for p, *_ in ref_items], 0)
+    rec = dict(n_layers=nl, card=smi, layouts={}, limits=MOE_PAR_LIMITS)
+    t0 = time.monotonic()
+    ref_eng.offload()
+    rec["offload_secs"] = time.monotonic() - t0
+    runs = {}
+    for layout in MOE_TP_LAYOUTS:
+        par = parse_parallelism(layout)
+        n = par.world_size
+        eng = Engine(cfg, None, parallel=par, devices=member_devices(n))
+        realloc_secs = reallocate(cfg, ref_eng.params, eng)
+        reset_peaks(eng.members)
+        reset_counts()
+        moe.host_reads = 0
+        items, st = greedy_items(eng, ids, seg, pos, MOE_TP_NEW_TOKENS)
+        sync_all()
+        counts = read_counts()
+        reads = moe.host_reads
+        want = launches_of(nl, n, fwd=1, decode=st["decode_steps"])
+        r = decode_record(st, counts, want, smi)
+        r["realloc_secs"] = realloc_secs
+        r["peak_mem_gb"] = read_peaks(eng.members)
+        r["host_reads_per_prefill"] = nl * n
+        r["host_reads_per_decode_step"] = ((reads - nl * n)
+                                           / max(st["decode_steps"], 1))
+        fitems = None
+        if layout == MOE_TP_LAYOUTS[0]:
+            with row_partial_dropped():
+                fitems, _ = greedy_items(eng, ids, seg, pos,
+                                         PAR_FAULT_TOKENS)
+        runs[layout] = (r, items, fitems)
+        del eng
+        free()
+    t0 = time.monotonic()
+    ref_eng.ensure_on_device()
+    rec["onload_secs"] = time.monotonic() - t0
+    for layout, (r, items, fitems) in runs.items():
+        r["tf"] = tf_gaps(packed_teacher_forced(cfg, ref_eng.params,
+                                                items)[0], items)
+        r["tf_ok"] = r["tf"]["mean_abs"] <= lim
+        if fitems is not None:
+            r["planted_fault"] = dict(row_partial_dropped=tf_gaps(
+                packed_teacher_forced(cfg, ref_eng.params, fitems)[0],
+                fitems))
+            r["fault_fails"] = (r["planted_fault"]["row_partial_dropped"]
+                                ["mean_abs"] > lim)
+        r["ok"] = r["launches_ok"] and r["tf_ok"] and r.get("fault_fails",
+                                                            True)
+        rec["layouts"][layout] = r
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = all(r["ok"] for r in rec["layouts"].values())
+    return rec
+
+
+def moe_sft_config(layout):
+    """mixtral_sft's model (Mixtral-8x7B width, ``MIXTRAL_SFT_LAYERS``)
+    as ``layout`` runs it: the ragged dispatch, or for ``d2t2ep`` expert
+    parallelism with capacity dispatch at ``MOE_EP_CAPACITY``."""
+    mcfg = hf_random_init_config("mixtral", MIXTRAL_8X7B, MIXTRAL_SFT_LAYERS)
+    if layout.endswith("ep"):
+        mcfg["moe"] = dataclasses.replace(
+            mcfg["moe"], capacity_factor=MOE_EP_CAPACITY,
+            use_grouped_gemm=False, expert_parallel=True)
+    return mcfg
+
+
+def recorded_train_calls(eng):
+    """Keep every ``train_batch`` call's microbatches, loss function and
+    weights, in order: the reference replays them."""
+    calls = []
+    real = eng.train_batch
+
+    def keep(microbatches, loss_fn, loss_weights=None, loss_fn_key=None):
+        calls.append((microbatches, loss_fn, loss_weights))
+        return real(microbatches, loss_fn, loss_weights)
+
+    eng.train_batch = keep
+    return calls
+
+
+def replayed_reference(cfg, opt_cfg, schedule, start, calls):
+    """A d1t1 engine on cuda:0 from the canonical weights ``start`` (a
+    host tree) with a layout engine's optimizer settings ``opt_cfg`` and
+    ``schedule``, trained on ``calls`` -> the record ``held_against``
+    reads (losses, grad norms, aux losses, step seconds, peak, the
+    masters' update norm), its fp32 masters, those after the first step
+    and the start weights in fp32 (all on the card). The same
+    microbatches at the same streams, so the capacity (over the batch's
+    tokens) is the layout's."""
+    import torch
+    from realhf_tpu_torch.engine.engine import Engine, _leaves
+    ref = Engine(cfg, start, device="cuda:0", optimizer=opt_cfg,
+                 total_train_steps=1)
+    ref.optimizer.schedule = schedule
+    w0 = [p.detach().float().clone() for p in _leaves(ref.params)]
+    torch.cuda.reset_peak_memory_stats(0)
+    steps, secs, first = [], [], None
+    for mbs, loss_fn, weights in calls:
+        torch.cuda.synchronize(0)
+        t0 = time.monotonic()
+        steps.append(ref.train_batch(mbs, loss_fn, weights))
+        torch.cuda.synchronize(0)
+        secs.append(time.monotonic() - t0)
+        if first is None:
+            first = [m.clone() for m in canonical_masters(ref)]
+    master = canonical_masters(ref)
+    out = dict(losses=[s["loss"] for s in steps],
+               grad_norms=[s["grad_norm"] for s in steps],
+               aux=[s.get("moe_aux_loss") for s in steps],
+               step_secs=secs, update_norm=norm_of_diff(master, w0),
+               peak_mem_gb=torch.cuda.max_memory_allocated(0) / 2 ** 30)
+    del ref
+    free()
+    return out, master, first, w0
+
+
+def norm_of_diff(xs, ys) -> float:
+    """|xs - ys| over two lists of tensors (ys moved to xs' devices)."""
+    return math.sqrt(sum(float((x - y.to(x.device)).pow(2).sum())
+                         for x, y in zip(xs, ys)))
+
+
+def phase_moe_sft_par(smi, seed=1):
+    """mixtral_sft's model and records (Mixtral-8x7B width, 1 layer, the
+    16 prompt-answer records, 3 steps, lr 1e-5) through the sft
+    experiment at d2t1 (ragged: the router losses over data shards),
+    d2t2 with expert parallelism at capacity 1.25 (each data member 4 of
+    the 8 experts, each model member half their width; tokens dispatched
+    over the whole batch and sent to the experts' owners), and c2
+    (ragged, the 16 records as one stream a step: the router losses over
+    context shards, K6 and the ring's K2/K3), members on
+    ``member_devices``. Each is held against a d1t1 engine of the same
+    start weights replaying the same microbatches (``replayed_reference``;
+    the same streams, so the same capacity): loss, grad norm, the
+    ``moe_aux_loss`` term and the masters' update; exact kernel counts.
+    Planted fault: routing per shard (``routing_per_shard``, the port
+    before this slice) in a fresh d2t2ep runner's engine, trained on the
+    first step's microbatches, must miss the loss, aux or update limit
+    (the update of that one step against the reference's first). At c2
+    (ragged) the same fault moves only the aux term, by about its sound
+    spread (PERF.md, PR 18), so the CPU test holds it there."""
+    import torch
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    lim = MOE_PAR_LIMITS
+    rec = dict(n_layers=MIXTRAL_SFT_LAYERS, seed=seed, card=smi, layouts={},
+               limits=lim, ep_capacity=MOE_EP_CAPACITY)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        for layout in MOE_SFT_LAYOUTS:
+            lay = layout[:-2] if layout.endswith("ep") else layout
+            par = parse_parallelism(lay)
+            n_mb = 1 if par.context_parallel_size > 1 else 2
+            over = {"n_mbs": str(n_mb)}
+            mcfg = moe_sft_config(layout)
+            runner, setup = model_sft_runner(data, lay, seed, mcfg, over)
+            eng = runner.models["default"].engine
+            start = _tree_map(lambda a: a.detach().clone(),
+                              eng.gathered_params("cpu"))
+            calls = recorded_train_calls(eng)
+            r, master, mbs = counted_run(runner)
+            r["setup_secs"] = setup
+            r["aux"] = [s.get("moe_aux_loss") for s in sft_steps(runner)]
+            r["stream_lens"] = [int(mb["seg_ids"].shape[1]) for mb in mbs]
+            n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+            if par.context_parallel_size > 1:
+                want = cp_launches(MIXTRAL_SFT_LAYERS, 1, 2,
+                                   train_passes=PAR_SFT_STEPS,
+                                   infer_passes=n_eval)
+            else:
+                want = sft_launches(runner, MIXTRAL_SFT_LAYERS, n_mb)
+            r["launches_expected"] = want
+            r["launches_ok"] = r["launches"] == want
+            cfg, opt = eng.cfg, (eng.optimizer.cfg, eng.optimizer.schedule)
+            # the layout's masters wait on the host while the reference
+            # trains (the card then holds one engine and two master sets)
+            master = to_host(master)
+            del runner, eng, mbs
+            free()
+            r["mem_gb_before_ref"] = torch.cuda.memory_allocated(0) / 2 ** 30
+            ref, rmaster, rfirst, w0 = replayed_reference(cfg, *opt, start,
+                                                          calls)
+            first_call = calls[0]
+            del calls, start
+            r["ref"] = ref
+            master = [m.to(rmaster[0].device) for m in master]
+            ok = held_against(r, ref, master, rmaster, lim, "moe_sft")
+            del master, rmaster
+            free()
+            r["aux_rel"] = max(abs(a - b) / abs(b)
+                               for a, b in zip(r["aux"], ref["aux"]))
+            r["ok"] = (ok and r["aux_rel"] <= lim["moe_sft_aux_rel"]
+                       and r["launches_ok"])
+            if layout == "d2t2ep":
+                frunner, _ = model_sft_runner(data, lay, seed, mcfg, over)
+                feng = frunner.models["default"].engine
+                with routing_per_shard():
+                    fst = feng.train_batch(*first_call)
+                upd = norm_of_diff(canonical_masters(feng), rfirst)
+                del frunner, feng
+                free()
+                f = dict(loss=fst["loss"], aux=fst.get("moe_aux_loss"),
+                         loss_rel=abs(fst["loss"] - ref["losses"][0])
+                         / abs(ref["losses"][0]),
+                         aux_rel=abs(fst["moe_aux_loss"] - ref["aux"][0])
+                         / abs(ref["aux"][0]),
+                         update_rel=upd / norm_of_diff(rfirst, w0))
+                r["planted_fault"] = dict(routing_per_shard=f)
+                r["fault_fails"] = (f["loss_rel"] > lim["moe_sft_loss_rel"]
+                                    or f["aux_rel"] > lim["moe_sft_aux_rel"]
+                                    or f["update_rel"]
+                                    > lim["moe_sft_update_rel"])
+                r["ok"] &= r["fault_fails"]
+            r["card"] = smi
+            rec["layouts"][layout] = r
+            del rfirst, w0, first_call
+            free()
+    rec["launches"] = add_counts(*(r["launches"]
+                                   for r in rec["layouts"].values()))
+    rec["ok"] = all(r["ok"] for r in rec["layouts"].values())
+    return rec
+
+
+MOE_PAR_PHASES = (("kv_rep", phase_kv_rep),
+                  ("moe_sft_par", phase_moe_sft_par))
+
+
+def run_moe_par_phases(smi):
+    """kv_rep and moe_sft_par (moe_tp runs in ``run_moe_phases``), each
+    freeing its models before the next."""
+    recs = {}
+    for name, fn in MOE_PAR_PHASES:
+        t0 = time.monotonic()
+        recs[name] = fn(smi)
+        recs[name]["phase_secs"] = time.monotonic() - t0
+        free()
+        emit(name, **recs[name])
+    return recs
+
+
+def seq_kernel_cases(gen, lengths):
+    """K4 with statistics at the Gemma-2B "seq" route's slices (B 8, 8 q
+    heads on 1 KV head of 256): the gen traffic's 640-slot cache split in
+    two (slice 0 of 320 slots, where short prompts leave streams empty,
+    and slice 1) and a 768-slot cache in four (slice 1 of 192), each
+    held against the plain version: o, m and l; slice 0 timed."""
+    recs = []
+    for name, S_all, t, j, timed in (("t2_slice0", 640, 2, 0, True),
+                                     ("t2_slice1", 640, 2, 1, False),
+                                     ("t4_slice1", 768, 4, 1, False)):
+        s = S_all // t
+        lo = j * s
+        spans = []
+        for i, n in enumerate(lengths):
+            a, b = max(512 - n, lo), min(512 + 64, lo + s)
+            spans.append((a - lo, b - lo) if a < b and i != 5 else (0, 0))
+        r = check_flash_decode(f"gemma2b_seq_{name}_hd256", 8, s, 8, 1, 256,
+                               spans, gen, timed=timed)
+        r["kernel"] = "flash_decode_seq"
+        r["empty_streams"] = sum(sp == (0, 0) for sp in spans)
+        recs.append(r)
+    return recs
+
+
+def phase_mixtral_full_d1t4(smi, seed=1, new_tokens=64):
+    """Mixtral-8x7B at its full 32 layers (46.7 B parameters, 93 GB in
+    bf16: more than one card) at d1t4, one member a card: random weights
+    drawn on each member from ``seed`` as ``init_params`` draws them (std
+    0.02, the output projections 0.02 / sqrt(2 n_layers), norm scales
+    1; a replicated leaf the same on every member), then mixtral_gen's prompt shape (8 prompts of 100-512 tokens) and
+    ``new_tokens`` greedy tokens. Gates: exact K1/K4 counts, and the
+    greedy log-probs against one packed teacher-forced K1 forward of the
+    same engine (the mean gap, ``MOE_LIMITS``). Reported: the peak a
+    card, decode ms a token, the host reads a decode step, and the
+    shortest stream's first 16 tokens against the plain bf16 forward on
+    the host (the weights gathered there)."""
+    import torch
+    from realhf_tpu_torch.base import seeding
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.models import sharding
+    from realhf_tpu_torch.models.config import TransformerConfig
+    from realhf_tpu_torch.ops import moe
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    nl = MIXTRAL_8X7B["num_hidden_layers"]
+    cfg = TransformerConfig(**hf_random_init_config("mixtral", MIXTRAL_8X7B,
+                                                    nl))
+    cfg.param_dtype = cfg.compute_dtype = "bfloat16"
+    t0 = time.monotonic()
+    eng = Engine(cfg, None, parallel=parse_parallelism("d1t4"),
+                 devices=member_devices(4))
+    proj_std = 0.02 / (2 * nl) ** 0.5  # init_params' output projections
+    specs = {".".join(path): spec
+             for path, spec in sharding.flat_specs(cfg, 4)}
+    with torch.no_grad():
+        for i in eng.units:
+            # a replicated leaf (the router) draws the same values on
+            # every member, a split one its own
+            rep = seeding.generator(seed, eng.members[i])
+            own = seeding.generator(seed + 1 + i, eng.members[i])
+            for path, leaf in named_leaves(eng.params.trees[i]):
+                if path.endswith("scale"):
+                    leaf.fill_(1.0)
+                    continue
+                gen = own if sharding.split_dim(specs[path]) is not None \
+                    else rep
+                leaf.normal_(0.0, proj_std if path.endswith(
+                    ("attn.wo", "mlp.wd")) else 0.02, generator=gen)
+    sync_all()
+    init_secs = time.monotonic() - t0
+    ids, seg, pos, _ = pp_prompts(seed, cfg.vocab_size)
+    reset_peaks(eng.members)
+    reset_counts()
+    moe.host_reads = 0
+    items, st = greedy_items(eng, ids, seg, pos, new_tokens)
+    sync_all()
+    counts = read_counts()
+    reads = moe.host_reads
+    want = launches_of(nl, 4, fwd=1, decode=st["decode_steps"])
+    r = decode_record(st, counts, want, smi)
+    r.update(n_layers=nl, init_secs=init_secs,
+             n_params=sum(t.numel() for i in eng.units
+                          for t in _tree_leaves(eng.params.trees[i])),
+             members=[str(d) for d in eng.members],
+             peak_mem_gb=read_peaks(eng.members),
+             host_reads_per_decode_step=(reads - nl * 4)
+             / max(st["decode_steps"], 1))
+    r["tf_self"] = tf_gaps(packed_teacher_forced(cfg, eng.params,
+                                                 items)[0], items)
+    sub = [min(((p, t[:16], lp[:16]) for p, t, lp in items),
+               key=lambda it: len(it[0]))]
+    t0 = time.monotonic()
+    host = eng.gathered_params("cpu")
+    r["tf_host"] = tf_gaps(packed_teacher_forced(cfg, host, sub)[0], sub)
+    r["tf_host_secs"] = time.monotonic() - t0
+    r["ok"] = (r["launches_ok"] and r["tf_self"]["mean_abs"]
+               <= MOE_LIMITS["gen_tf_logprob_mean_abs"])
+    del eng, host
+    free()
+    return r
+
+
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
                  cp_bwd_recs, cp_lse_recs):
     """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
@@ -8047,6 +8769,13 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
     out = [fwd_row(*row, False, launches) for row in rows]
     out += list(bwd_rows(False, launches))
     out += [fwd_row(*row, True, wide_launches) for row in rows]
+    # of the hd 256 K4 launches, those with the softmax statistics: the
+    # "seq" route's slices
+    wide_launches["flash_decode_seq"] = wide_launches["flash_decode_stats"]
+    out.append(fwd_row("flash_decode_seq",
+                       "realhf_tpu_torch/csrc/flash_decode.cu",
+                       "realhf_tpu/ops/decode_attention.py:124", True,
+                       wide_launches))
     out += list(bwd_rows(True, wide_launches))
     t = next(r for r in cp_bwd_recs if "dq_ms" in r)
     for name, key, outs, replaces in (
@@ -8250,6 +8979,8 @@ def main(argv=None):
         print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
     RESULTS["kernels"] = kernel_recs + bwd_recs + ring_recs + cp_bwd + cp_lse
     ok &= all(r["ok"] for r in cp_bwd + cp_lse)
+    moe_par_recs = run_moe_par_phases(smi)
+    ok &= all(r["ok"] for r in moe_par_recs.values())
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -8271,12 +9002,15 @@ def main(argv=None):
         + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec,
                                        serve_gen_rec]
         + list(serve_rec["configs"].values())
-        + [moe_recs[k] for k in ("mixtral_gen", "mixtral_sft", "mistral")]
+        + [moe_recs[k] for k in ("mixtral_gen", "moe_tp", "mixtral_sft",
+                                 "mistral")]
         + [gemma_recs["gpt2_gen"]]
         + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")]
         + [pp_recs[k] for k in ("pp_sft", "pp_gen", "pp_ppo")]
-        + [cp_recs[k] for k in ("cp_sft", "sp_sft")],
-        [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"]], cp_bwd, cp_lse)))
+        + [cp_recs[k] for k in ("cp_sft", "sp_sft")]
+        + [moe_par_recs["moe_sft_par"]],
+        [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"],
+         moe_par_recs["kv_rep"]], cp_bwd, cp_lse)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,6 +87,8 @@ class Engine:
                  parallel: Optional[ParallelismConfig] = None,
                  devices: Optional[List[DeviceLike]] = None):
         T.check_supported(cfg)
+        T.check_expert_parallel(
+            cfg, (parallel or ParallelismConfig()).data_parallel_size)
         if (cfg.mlp_type == "moe" and cfg.moe.capacity_factor is None
                 and cfg.moe.num_experts > 4
                 and not ragged_dispatch_enabled(cfg)):
@@ -114,7 +116,8 @@ class Engine:
         #: more than one member: the weights are a ``MemberParams``
         self.sharded = n > 1
         if self.sharded:
-            T.check_layout(cfg, self.parallel.tensor_parallel_size)
+            T.check_layout(cfg, self.parallel.tensor_parallel_size,
+                           self.parallel.pipeline_parallel_size)
         self.pipeline_ctx = self._pipeline_ctx()
         #: bumped by every install of weights (``set_params``, a
         #: reallocation into this engine): with ``version``, what keys
@@ -203,9 +206,10 @@ class Engine:
                 self.cfg, self.members, d, t, p, pdt, c) if params is None
                 else params_from_numpy(params, dtype=pdt, cfg=self.cfg,
                                        devices=self.members, t=t, p=p, c=c))
-            self.params = MemberParams(trees, list(self.members), d, t, p,
-                                       self.pipeline_ctx, c,
-                                       par.sequence_parallel)
+            self.params = MemberParams(
+                trees, list(self.members), d, t, p, self.pipeline_ctx, c,
+                par.sequence_parallel,
+                sharding.expert_parallel(self.cfg) and d > 1)
             self.units = self.params.units()
             self.offloaded = False
             return
@@ -247,14 +251,17 @@ class Engine:
         block leaf is staged (split into layer slabs) at p > 1."""
         p = self.parallel.pipeline_parallel_size
         return [(path, spec, p > 1 and sharding.is_staged(path))
-                for path, spec in sharding.flat_specs(self.cfg)]
+                for path, spec in sharding.flat_specs(
+                    self.cfg, self.parallel.tensor_parallel_size)]
 
     def _zero1_slices(self, zero1: bool):
         """Per unit, per leaf: the slice of the shard whose optimizer
         state the unit holds (``zero1_moment_spec``'s data dim over the
         stage's logical shape, never the layer dim of a slab; JAX shards
         the moments over the data axis only, so context copies each hold
-        the same slice), or None for the whole shard."""
+        the same slice), or None for the whole shard (an expert-parallel
+        leaf, already split over the data index, is not split again: the
+        JAX package's ``zero1_moment_spec``)."""
         d, t = (self.parallel.data_parallel_size,
                 self.parallel.tensor_parallel_size)
         out = []
@@ -265,6 +272,9 @@ class Engine:
                 sd = sharding.split_dim(spec)
                 if sd is not None:
                     shape[sd] *= t
+                if sharding.data_dim(spec) is not None:
+                    row.append(None)
+                    continue
                 if staged:
                     spec = ("pipe",) + tuple(spec[1:])
                 zspec = sharding.zero1_moment_spec(
@@ -282,19 +292,22 @@ class Engine:
         """Each leaf's gradient summed over the units that hold its
         values (``mesh.holders``: a split leaf over its model index, a
         block leaf within its stage, over everything else it is
-        replicated on, data and context copies alike).
+        replicated on, data and context copies alike; an expert-parallel
+        leaf over its data index too).
         ``acc[unit][leaf]`` -> the same nesting; units on one device
         share the summed tensor."""
         unit_of = self._unit_of()
         out = [list(row) for row in acc]
         for k, (_, spec, staged) in enumerate(self._leaf_specs()):
             split = sharding.split_dim(spec) is not None
+            dsplit = sharding.data_dim(spec) is not None
             done = set()
             for i in self.units:
                 if unit_of[i] in done:
                     continue
                 grp = list(dict.fromkeys(
-                    unit_of[m] for m in holders(self.mesh, i, split, staged)))
+                    unit_of[m] for m in holders(self.mesh, i, split, staged,
+                                                dsplit)))
                 done.update(grp)
                 summed = C.all_reduce([acc[u][k] for u in grp],
                                       [self.members[self.units[u]]
@@ -304,20 +317,24 @@ class Engine:
         return out
 
     def _logical_norm(self, grads):
-        """The norm of the logical gradient: each element once (data and
-        context index 0; every model index of a split leaf; every stage
+        """The norm of the logical gradient: each element once (context
+        index 0; data index 0 but for an expert-parallel leaf, whose every
+        data slice counts; every model index of a split leaf; every stage
         of a block leaf)."""
         unit_of = self._unit_of()
         total = None
-        p, t = (self.parallel.pipeline_parallel_size,
-                self.parallel.tensor_parallel_size)
+        p, t, d = (self.parallel.pipeline_parallel_size,
+                   self.parallel.tensor_parallel_size,
+                   self.parallel.data_parallel_size)
         for k, (_, spec, staged) in enumerate(self._leaf_specs()):
             split = sharding.split_dim(spec) is not None
+            dsplit = sharding.data_dim(spec) is not None
             for s in (range(p) if staged else [0]):
-                for j in (range(t) if split else [0]):
-                    u = unit_of[member_at(self.mesh, s, 0, j)]
-                    sq = grads[u][k].float().pow(2).sum().to(self.device)
-                    total = sq if total is None else total + sq
+                for g in (range(d) if dsplit else [0]):
+                    for j in (range(t) if split else [0]):
+                        u = unit_of[member_at(self.mesh, s, g, j)]
+                        sq = grads[u][k].float().pow(2).sum().to(self.device)
+                        total = sq if total is None else total + sq
         return torch.sqrt(total)
 
     def _data_groups(self):
@@ -363,8 +380,9 @@ class Engine:
         canon = []
         for (path, spec, staged), leaf in zip(self._leaf_specs(),
                                               _leaves(self.params.trees[0])):
-            shape = list(sharding.canonical_shape(self.cfg, path, spec,
-                                                  leaf.shape, t))
+            shape = list(sharding.canonical_shape(
+                self.cfg, path, spec, leaf.shape, t,
+                self.parallel.data_parallel_size))
             if staged:
                 shape[0] *= p
             canon.append(tuple(shape))
@@ -398,25 +416,31 @@ class Engine:
     def _canonical_state(self, per_unit, device="cpu"):
         """Per (member, leaf) state tensors -> each leaf's canonical
         tensor on ``device``: data slices concatenated along the ZeRO-1
-        dim, model shards along the split dim, stage slabs along the
-        layer dim, the vocabulary unpadded."""
+        dim, model shards along the split dim, an expert-parallel leaf's
+        data slices along its expert dim, stage slabs along the layer
+        dim, the vocabulary unpadded."""
         k_leaves = len(self._zero1[0])
         par = self.parallel
-        p, t = par.pipeline_parallel_size, par.tensor_parallel_size
+        p, t, d = (par.pipeline_parallel_size, par.tensor_parallel_size,
+                   par.data_parallel_size)
         unit_of = self._unit_of()
         for k, (path, spec, staged) in enumerate(self._leaf_specs()):
+            dsplit = sharding.data_dim(spec) is not None
             parts = []
             for s in range(p if staged else 1):
                 row = []
-                for j in range(t):
-                    grp = [unit_of[m] for m in data_group(
-                        self.mesh, member_at(self.mesh, s, 0, j))]
-                    sl = self._zero1[grp[0]][k]
-                    ds = [per_unit[m * k_leaves + k].to(device) for m in grp]
-                    row.append(torch.cat(ds, dim=sl[0]) if sl is not None
-                               else ds[0])
+                for g in range(d if dsplit else 1):
+                    for j in range(t):
+                        at = member_at(self.mesh, s, g, j)
+                        grp = ([unit_of[at]] if dsplit else
+                               [unit_of[m] for m in data_group(self.mesh, at)])
+                        sl = self._zero1[grp[0]][k]
+                        ds = [per_unit[m * k_leaves + k].to(device)
+                              for m in grp]
+                        row.append(torch.cat(ds, dim=sl[0]) if sl is not None
+                                   else ds[0])
                 parts.append(row)
-            full = sharding.join_chunks(parts, path, spec)
+            full = sharding.join_chunks(parts, path, spec, d)
             yield sharding.repad_vocab_leaf(self.cfg, path, full, 1)
 
     def opt_state_numpy(self) -> list:
@@ -455,7 +479,8 @@ class Engine:
         for u, m in enumerate(self.units):
             shard = sharding.member_chunk(
                 full, path, spec, pipe_index(self.mesh, m),
-                model_index(self.mesh, m), p if staged else 1, t)
+                model_index(self.mesh, m), p if staged else 1, t,
+                data_index(self.mesh, m), par.data_parallel_size)
             sl = self._zero1[u][k]
             if sl is not None:
                 shard = shard.narrow(*sl)

@@ -44,19 +44,24 @@ def params_from_numpy(tree: Tree, device="cpu",
     of a dNcCtMpP layout, in (pipe, data, ctx, model) order), ``t``,
     ``p``, ``c`` and the model's ``cfg``: a canonical or tp-padded tree
     (numpy or tensors) -> a list of trees, member i's holding stage
-    ``i // (d * c * t)``'s layer slabs and model shard ``i % t`` on
+    ``i // (d * c * t)``'s layer slabs and model shard ``i % t`` (and,
+    under expert parallelism, data index ``i // (c * t) % d``'s experts) on
     ``devices[i]``; the members of one context group on one device share
     one copy (``sharding.shared_tree_key``), every other member has its
     own."""
     if devices is not None:
-        shards = sharding.shard_params(cfg, tree, t, p)
         per_stage = len(devices) // p
+        # only an expert-parallel model's trees differ over the data index
+        nd = per_stage // (c * t) if sharding.expert_parallel(cfg) else 1
+        shards = sharding.shard_params(cfg, tree, t, p, nd)
         out, made = [], {}
         for i, d in enumerate(devices):
             key = sharding.shared_tree_key(i, c, t, d)
             if key not in made:
+                g = (i // (c * t)) % nd
                 made[key] = _map(lambda a, d=d: _member_leaf(a, d, dtype),
-                                 shards[(i // per_stage) * t + i % t])
+                                 shards[((i // per_stage) * nd + g) * t
+                                        + i % t])
             out.append(made[key])
         return out
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)

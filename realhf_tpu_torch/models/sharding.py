@@ -11,7 +11,14 @@ dim its spec names ``"model"`` (``param_specs``, the same tuples as
 - ``wq/wk/wv/wg/wu`` and their biases by output columns;
 - ``wo/wd`` by input rows (their partial outputs are summed);
 - the LM head by vocabulary columns;
-- norms, ``wpe``, ``bo``/``bd`` and the critic's value head replicated.
+- norms, ``wpe``, ``bo``/``bd`` and the critic's value head replicated;
+- ``wk/wv`` and their biases replicated instead when ``t`` does not
+  divide the KV heads (``param_specs(cfg, t)``; each member computes the
+  one KV head its query heads read, ``ops/attention.member_heads``);
+- with expert parallelism (``MoEConfig.expert_parallel``) the expert
+  leaves split once more, their expert dim over the data index
+  (``"data"``): member (g, j) holds experts ``[g E/d, (g+1) E/d)``, the
+  JAX package's ``P(None, "data", ...)``.
 
 A vocabulary that ``t`` does not divide is zero-padded to the next
 multiple (``pad_vocab``), the padding in the last member's shard;
@@ -46,19 +53,24 @@ DATA = "data"
 Spec = Tuple[Optional[str], ...]
 
 
-def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+def param_specs(cfg: TransformerConfig, t: int = 1) -> Dict[str, Any]:
     """Per-leaf split tuples congruent with ``init_params`` output:
-    ``"model"`` marks the dim split over the model members (the JAX
-    package's ``param_pspecs(cfg)`` as tuples; no pipeline axis)."""
+    ``"model"`` marks the dim split over the model members, ``"data"``
+    the expert dim under expert parallelism (the JAX package's
+    ``param_pspecs(cfg)`` as tuples; no pipeline axis). At a ``t`` that
+    does not divide the KV heads, the KV leaves are replicated."""
     col = (None, None, MODEL)
     row = (None, MODEL, None)
     col_b = (None, MODEL)
     rep2 = (None, None)
+    kv, kv_b = col, col_b
+    if t > 1 and cfg.n_kv_heads % t:
+        kv, kv_b = (None, None, None), rep2
     specs: Dict[str, Any] = {
         "embed": {"wte": (MODEL, None)},
         "blocks": {
             "ln1": {"scale": rep2},
-            "attn": {"wq": col, "wk": col, "wv": col, "wo": row},
+            "attn": {"wq": col, "wk": kv, "wv": kv, "wo": row},
             "ln2": {"scale": rep2},
             "mlp": {},
         },
@@ -79,7 +91,7 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
         mlp["wu"], mlp["wd"] = col, row
     if cfg.use_attention_bias:
         a = specs["blocks"]["attn"]
-        a["bq"], a["bk"], a["bv"] = col_b, col_b, col_b
+        a["bq"], a["bk"], a["bv"] = col_b, kv_b, kv_b
     if cfg.use_attn_proj_bias:
         specs["blocks"]["attn"]["bo"] = rep2
     if cfg.use_mlp_bias and cfg.mlp_type is None:
@@ -101,17 +113,32 @@ def split_dim(spec: Spec) -> Optional[int]:
     return spec.index(MODEL) if MODEL in spec else None
 
 
+def data_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec splits over the data index (an expert-parallel
+    leaf's expert dim), or None."""
+    return spec.index(DATA) if DATA in spec else None
+
+
 def is_staged(path) -> bool:
     """A block leaf: split into layer slabs over the pipeline stages."""
     return path[0] == "blocks"
 
 
-def member_chunk(leaf, path, spec: Spec, s: int, j: int, p: int, t: int):
-    """Stage ``s``, model member ``j``'s part of a logical leaf (padded
-    for ``t``): its layer slab, then its model chunk. Tensor parts are
-    views, numpy parts copies."""
+def member_chunk(leaf, path, spec: Spec, s: int, j: int, p: int, t: int,
+                 g: int = 0, d: int = 1):
+    """Stage ``s``, data index ``g``, model member ``j``'s part of a
+    logical leaf (padded for ``t``): its layer slab, its data chunk (an
+    expert-parallel leaf), then its model chunk. Tensor parts are views,
+    numpy parts copies."""
     if p > 1 and is_staged(path):
         leaf = _chunk(leaf, 0, p, s)
+    dd = data_dim(spec)
+    if dd is not None and d > 1:
+        if leaf.shape[dd] % d:
+            raise ValueError(
+                f"expert_parallel needs num_experts ({leaf.shape[dd]}) "
+                f"divisible by data_parallel_size ({d}).")
+        leaf = _chunk(leaf, dd, d, g)
     sd = split_dim(spec)
     if sd is not None and t > 1:
         if leaf.shape[sd] % t:
@@ -122,10 +149,14 @@ def member_chunk(leaf, path, spec: Spec, s: int, j: int, p: int, t: int):
     return leaf
 
 
-def join_chunks(parts, path, spec: Spec):
-    """``parts[s][j]`` (stage-major, then model) -> the logical leaf, on
-    the first part's device: ``member_chunk``'s inverse."""
-    sd = split_dim(spec)
+def join_chunks(parts, path, spec: Spec, d: int = 1):
+    """``parts[s][g * t + j]`` (stage-major, then data, then model; ``d``
+    data indices given only for an expert-parallel leaf, else one) ->
+    the logical leaf, on the first part's device: ``member_chunk``'s
+    inverse."""
+    sd, dd = split_dim(spec), data_dim(spec)
+    if dd is None:
+        d = 1
 
     def cat(xs, dim):
         if len(xs) == 1:
@@ -134,15 +165,24 @@ def join_chunks(parts, path, spec: Spec):
             return torch.cat([x.to(xs[0].device) for x in xs], dim=dim)
         return np.concatenate(xs, axis=dim)
 
+    def model(row):
+        return cat(row, sd) if sd is not None else row[0]
+
+    def stage(row):
+        t = len(row) // d if dd is not None else len(row)
+        return cat([model(row[g * t:(g + 1) * t]) for g in range(d)], dd) \
+            if dd is not None else model(row)
+
     if not is_staged(path):
         parts = parts[:1]  # replicated over the stages
-    return cat([cat(row, sd) if sd is not None else row[0] for row in parts],
-               0)
+    return cat([stage(row) for row in parts], 0)
 
 
-def flat_specs(cfg: TransformerConfig) -> List[Tuple[Tuple[str, ...], Spec]]:
+def flat_specs(cfg: TransformerConfig, t: int = 1
+               ) -> List[Tuple[Tuple[str, ...], Spec]]:
     """(path, spec) of every leaf in sorted-key order (the order of
-    ``engine._leaves`` and ``parallel/param_stream.flatten_params``)."""
+    ``engine._leaves`` and ``parallel/param_stream.flatten_params``), at
+    a layout of ``t`` model members."""
     out = []
 
     def walk(tree, prefix):
@@ -152,8 +192,14 @@ def flat_specs(cfg: TransformerConfig) -> List[Tuple[Tuple[str, ...], Spec]]:
             else:
                 out.append((prefix + (k,), tree[k]))
 
-    walk(param_specs(cfg), ())
+    walk(param_specs(cfg, t), ())
     return out
+
+
+def expert_parallel(cfg: TransformerConfig) -> bool:
+    """Whether the expert leaves split over the data index."""
+    return (cfg.mlp_type == "moe" and cfg.moe is not None
+            and cfg.moe.expert_parallel)
 
 
 # ----------------------------------------------------------------------
@@ -226,12 +272,14 @@ def repad_vocab_leaf(cfg: TransformerConfig, path, arr, target_tp: int):
 
 
 def canonical_shape(cfg: TransformerConfig, path, spec: Spec, shard_shape,
-                    t: int) -> Tuple[int, ...]:
+                    t: int, d: int = 1) -> Tuple[int, ...]:
     """The logical, unpadded shape of a leaf from one member's shard."""
     shape = list(shard_shape)
-    sd = split_dim(spec)
+    sd, dd = split_dim(spec), data_dim(spec)
     if sd is not None:
         shape[sd] *= t
+    if dd is not None:
+        shape[dd] *= d
     if tuple(path) == ("embed", "wte"):
         shape[0] = cfg.vocab_size
     elif tuple(path) == ("head", "w") and _carries_vocab_head(cfg):
@@ -280,38 +328,44 @@ def _map_paths(fn, tree, prefix=()):
 
 
 def shard_params(cfg: TransformerConfig, params: Dict[str, Any],
-                 t: int, p: int = 1) -> List[Dict[str, Any]]:
-    """A canonical (or any tp-padded) tree -> ``p * t`` trees, stage
-    ``s``, model member ``j``'s at ``s * t + j``: its layer slab of each
-    block leaf and its chunk of each split leaf (``member_chunk``), the
-    whole of each replicated one. Tensor chunks are views (the caller
-    copies them where it places them); numpy chunks are copies."""
+                 t: int, p: int = 1, d: int = 1) -> List[Dict[str, Any]]:
+    """A canonical (or any tp-padded) tree -> ``p * d * t`` trees, stage
+    ``s``, data index ``g``, model member ``j``'s at ``(s * d + g) * t +
+    j``: its layer slab of each block leaf and its chunk of each split
+    leaf (``member_chunk``), the whole of each replicated one. Only an
+    expert-parallel leaf differs over g. Tensor chunks are views (the
+    caller copies them where it places them); numpy chunks are
+    copies."""
     params = normalize_vocab_padding(cfg, params, t)
-    specs = dict(flat_specs(cfg))
-    return [_map_paths(lambda path, a, s=s, j=j: member_chunk(
-                a, path, specs[path], s, j, p, t), params)
-            for s in range(p) for j in range(t)]
+    specs = dict(flat_specs(cfg, t))
+    return [_map_paths(lambda path, a, s=s, j=j, g=g: member_chunk(
+                a, path, specs[path], s, j, p, t, g, d), params)
+            for s in range(p) for g in range(d) for j in range(t)]
 
 
 def gather_params(cfg: TransformerConfig, trees: Sequence[Dict[str, Any]],
-                  p: int = 1) -> Dict[str, Any]:
-    """``p * t`` member trees (one model group of each stage, stage-major)
-    -> the canonical tree: every leaf joined on the first tree's device
+                  p: int = 1, d: int = 1) -> Dict[str, Any]:
+    """``p * d * t`` member trees (one model group of each stage and data
+    index, stage-major; ``d`` > 1 only for an expert-parallel model) ->
+    the canonical tree: every leaf joined on the first tree's device
     (``join_chunks``), replicated ones taken from the first stage's
     first member, vocabulary padding cut off."""
-    t = len(trees) // p
-    specs = dict(flat_specs(cfg))
+    t = len(trees) // (p * d)
+    specs = dict(flat_specs(cfg, t))
 
     def get(tree, path):
         for k in path:
             tree = tree[k]
         return tree
 
+    def row(s, path):
+        n = d * t if data_dim(specs[path]) is not None else t
+        return [get(trees[s * d * t + i], path) for i in range(n)]
+
     return unpad_vocab(cfg, _map_paths(
         lambda path, _: join_chunks(
-            [[get(trees[s * t + j], path) for j in range(t)]
-             for s in range(p if is_staged(path) else 1)], path,
-            specs[path]), trees[0]))
+            [row(s, path) for s in range(p if is_staged(path) else 1)],
+            path, specs[path], d), trees[0]))
 
 
 @dataclasses.dataclass
@@ -333,6 +387,8 @@ class MemberParams:
     pipeline: Any = None
     c: int = 1
     sp: bool = False
+    #: the expert leaves split over the data index (expert parallelism)
+    ep: bool = False
 
     def index(self, g: int, c: int = 0, j: int = 0,
               s: Optional[int] = None) -> int:
@@ -355,10 +411,18 @@ class MemberParams:
         stage, in stage order."""
         return [self.group(g, s) for s in range(self.p)]
 
+    @property
+    def gather_d(self) -> int:
+        """The data indices whose trees make up the logical weights: all
+        d under expert parallelism, else data group 0 alone."""
+        return self.d if self.ep else 1
+
     def canonical_trees(self) -> List[Dict[str, Any]]:
-        """Data group 0's model groups of every stage, stage-major: what
+        """The model groups of every stage (of data group 0, or of every
+        data index under expert parallelism), stage-major: what
         ``gather_params`` joins."""
-        return [tr for trees, _ in self.stages(0) for tr in trees]
+        return [tr for s in range(self.p) for g in range(self.gather_d)
+                for tr in self.group(g, s)[0]]
 
     def units(self) -> List[int]:
         """The first member of each distinct tree, in member order."""
@@ -387,7 +451,8 @@ def gather_member_params(cfg: TransformerConfig, mp: MemberParams,
     its first member's)."""
     dev = torch.device(device) if device is not None else mp.devices[0]
     return gather_params(cfg, [_map_paths(lambda _, a: a.to(dev), tr)
-                               for tr in mp.canonical_trees()], mp.p)
+                               for tr in mp.canonical_trees()], mp.p,
+                         mp.gather_d)
 
 
 def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
@@ -399,7 +464,7 @@ def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
     reallocation."""
     shapes = init_shapes(cfg)
     vp = padded_vocab_size(cfg, t)
-    specs = dict(flat_specs(cfg))
+    specs = dict(flat_specs(cfg, t))
     out, made = [], {}
     for i, dev in enumerate(devices):
         key = shared_tree_key(i, c, t, dev)
@@ -416,9 +481,12 @@ def empty_member_trees(cfg: TransformerConfig, devices: Sequence[torch.device],
                 shape[1] = vp
             if p > 1 and is_staged(path):
                 shape[0] //= p
-            sd = split_dim(specs[tuple(path)])
+            sd, dd = (split_dim(specs[tuple(path)]),
+                      data_dim(specs[tuple(path)]))
             if sd is not None:
                 shape[sd] //= t
+            if dd is not None:
+                shape[dd] //= d
             return torch.empty(shape, dtype=dtype, device=dev)
 
         made[key] = _map_paths(leaf, shapes)

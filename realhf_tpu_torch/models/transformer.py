@@ -32,6 +32,22 @@ rotary and attention (K1, K4) on the member's own heads, row-parallel
 come back as a ``MemberHidden``; a decode cache is one ``KVCache`` per
 member over its ``nkv / t`` heads.
 
+When ``t`` does not divide the KV heads (``nkv`` must divide ``t``), the
+KV weights are replicated on every model member and member j computes
+the one KV head its query heads read (``member_views``), so prefill and
+training run K1-K3 per member on its own heads; the decode takes the
+JAX package's "seq" route instead: member j's cache holds slots ``[j
+S/t, (j+1) S/t)`` of every KV head (``offset`` in the cache dict), the
+owner of a step's slot writes its K/V (computed from the replicated
+weights, all heads), q is gathered over the members, each member runs
+K4 with its softmax statistics over its slice, and the partials merge
+(``ops/decode_attention.seqsplit_merge``). A MoE model over members
+runs each member's slice of every expert's FFN width on the same
+routing (every member routes the same replicated input itself), its
+data groups and context shards routed as one batch
+(``ops/moe.MoEShards``), and under expert parallelism each member holds
+``E / d`` experts and sends each shard's buffer to their owners.
+
 Pipeline parallelism: given a ``MemberParams`` of ``p > 1`` stages (or a
 tree and a ``pipeline=`` context), ``forward`` embeds on the first
 stage's members, runs the block slabs through the schedule
@@ -73,13 +89,21 @@ from torch.utils.checkpoint import checkpoint
 
 from realhf_tpu_torch.models.config import TransformerConfig
 from realhf_tpu_torch.models.sharding import MemberParams
+from realhf_tpu_torch.ops import decode_attention as _decode
 from realhf_tpu_torch.ops.attention import (
     decode_attention,
+    kv_replicated,
     member_heads,
     packed_attention,
     stacked_decode_attention,
 )
-from realhf_tpu_torch.ops.moe import moe_mlp_with_losses
+from realhf_tpu_torch.ops.moe import (
+    MoEShard,
+    MoEShards,
+    moe_mlp_with_losses,
+    ragged_dispatch_enabled,
+    route_counts,
+)
 from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 from realhf_tpu_torch.parallel import collectives as C
@@ -97,10 +121,6 @@ def dtype_of(name: str) -> torch.dtype:
 
 def check_supported(cfg: TransformerConfig):
     """Raise for model features the port leaves out so far."""
-    if cfg.mlp_type == "moe" and cfg.moe.expert_parallel:
-        raise NotImplementedError(
-            "expert parallelism is deferred to the parallelism slice of "
-            "the port: ROADMAP.md, queue 1, item 4.")
     if cfg.mlp_type == "moe" and cfg.moe.input_jitter_eps:
         raise NotImplementedError(
             "MoE router input jitter needs a generator threaded through "
@@ -108,19 +128,39 @@ def check_supported(cfg: TransformerConfig):
             "ROADMAP.md, queue 1, item 3.")
 
 
-def check_layout(cfg: TransformerConfig, t: int):
-    """Raise for what a layout of ``t`` model members cannot run yet:
-    MoE at t > 1 (item 4, beside expert parallelism), KV heads that
-    ``t`` does not divide (item 4: KV heads replicated across model
-    members and K4's "seq" route), widths ``t`` does not divide."""
+def check_expert_parallel(cfg: TransformerConfig, d: int):
+    """The JAX engine's refusals of expert parallelism
+    (``realhf_tpu/engine/engine.py:113-130``), with its messages."""
+    if not (cfg.mlp_type == "moe" and cfg.moe.expert_parallel):
+        return
+    if ragged_dispatch_enabled(cfg):
+        raise ValueError(
+            "MoEConfig.expert_parallel requires the capacity "
+            "or dense dispatch mode (set capacity_factor, or "
+            "use_grouped_gemm=False); ragged grouped GEMMs "
+            "cannot shard the expert group dim.")
+    if cfg.moe.num_experts % d != 0:
+        raise ValueError(
+            f"expert_parallel needs num_experts "
+            f"({cfg.moe.num_experts}) divisible by "
+            f"data_parallel_size ({d}).")
+
+
+def check_layout(cfg: TransformerConfig, t: int, p: int = 1):
+    """Raise for what a layout of ``t`` model members (in stages of
+    ``p``) cannot run: query heads or widths ``t`` does not divide, KV
+    heads that neither divide nor are divided by ``t``
+    (``ops/attention.member_heads``), and MoE at t > 1 inside a
+    pipeline stage (item 4: the stage's d x t blocks carry no router
+    losses)."""
     check_supported(cfg)
     if t == 1:
         return
-    if cfg.mlp_type == "moe":
+    if cfg.mlp_type == "moe" and p > 1:
         raise NotImplementedError(
-            f"a mixture-of-experts model at t={t}: expert weights split "
-            "over model members come with expert parallelism, ROADMAP.md, "
-            "queue 1, item 4.")
+            f"a mixture-of-experts model at t={t} inside a pipeline stage "
+            f"(p={p}): the stage's model members carry no router losses "
+            "yet, ROADMAP.md, queue 1, item 4.")
     member_heads(cfg.n_q_heads, cfg.n_kv_heads, t)
     if cfg.intermediate_dim % t:
         raise ValueError(f"t={t} does not divide the MLP width "
@@ -225,6 +265,27 @@ def layer_views(blocks: Params, n_layers: int) -> List[Params]:
     return views
 
 
+def member_views(cfg: TransformerConfig, tree: Params, j: int, t: int
+                 ) -> List[Params]:
+    """Model member ``j`` of ``t``'s layer views for its attention and
+    MLP: ``layer_views``, with replicated KV weights (``t`` not dividing
+    the KV heads) narrowed to the columns of the one KV head its query
+    heads read (``member_heads``), so the member computes that head
+    alone and the other columns get no gradient from it."""
+    views = layer_views(tree["blocks"], _slab_len(tree))
+    if not kv_replicated(cfg.n_kv_heads, t):
+        return views
+    _, (k0, k1) = member_heads(cfg.n_q_heads, cfg.n_kv_heads, t, j)
+    hd = cfg.head_dim
+    for lp in views:
+        a = dict(lp["attn"])
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in a:
+                a[name] = a[name].narrow(-1, k0 * hd, (k1 - k0) * hd)
+        lp["attn"] = a
+    return views
+
+
 # ----------------------------------------------------------------------
 # Building blocks
 # ----------------------------------------------------------------------
@@ -262,18 +323,24 @@ def _activation(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_with_aux(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-                  seg_ids: Optional[torch.Tensor] = None):
+                  seg_ids: Optional[torch.Tensor] = None,
+                  shard: Optional[MoEShard] = None, out_bias: bool = True):
     """MLP -> (output, aux-loss dict); the dict is non-empty only for
     mixture-of-experts models (router load-balancing / z losses).
     ``seg_ids`` keeps padding out of MoE routing, capacity and losses;
-    a decode step's ``x`` is [B, H] and routes every row."""
+    a decode step's ``x`` is [B, H] and routes every row. ``shard``
+    makes the MoE call one token shard of a batch (``ops/moe.py``
+    ``MoEShards``); ``out_bias=False`` leaves a dense ``bd`` to the
+    caller (a model member's output is a partial sum)."""
     if cfg.mlp_type == "moe":
         squeeze = x.ndim == 2
         x3 = x[:, None, :] if squeeze else x
         valid = None if seg_ids is None else seg_ids != 0
-        out, aux = moe_mlp_with_losses(cfg, lp["mlp"], x3, valid_mask=valid)
+        out, aux = moe_mlp_with_losses(cfg, lp["mlp"], x3, valid_mask=valid,
+                                       shard=shard)
         return (out[:, 0] if squeeze else out), aux
-    return _dense_mlp(cfg, lp["mlp"], x, dtype_of(cfg.compute_dtype)), {}
+    return _dense_mlp(cfg, lp["mlp"], x, dtype_of(cfg.compute_dtype),
+                      out_bias), {}
 
 
 def _dense_mlp(cfg, m, x, cdt, out_bias=True):
@@ -501,7 +568,8 @@ def _stage_step(cfg: TransformerConfig, attention_fn):
     model members."""
 
     def step(s, trees, xs, segs, coss, sins):
-        views = [layer_views(tr["blocks"], _slab_len(tr)) for tr in trees]
+        views = [member_views(cfg, tr, j, len(trees))
+                 for j, tr in enumerate(trees)]
         first = s * len(views[0])
         if len(trees) == 1:
             y, aux = _layers(cfg, views[0], first, xs[0], segs[0], coss[0],
@@ -570,7 +638,10 @@ def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
     come from the whole streams. ``attention_fn`` replaces the ring at
     c > 1 (it takes the C members' shards), packed attention at c = 1.
     A prefill (``return_kv``) at c > 1 raises (generation runs on the
-    engine's decode view), as do MoE aux losses at c > 1 (item 4)."""
+    engine's decode view). A MoE model routes the data and context
+    shards as the JAX package routes the whole batch (``ops/moe.py``
+    ``MoEShards``): capacity and queue positions over the unpadded
+    ``S * L`` tokens, and the router losses from every shard's sums."""
     c = mp.c
     if mp.p > 1:
         raise NotImplementedError(
@@ -580,14 +651,11 @@ def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
         raise ValueError(
             "a KV-cache prefill on a context-parallel layout: generation "
             "runs on the engine's decode view (Engine.decode_engine).")
-    if return_aux and c > 1 and cfg.mlp_type == "moe":
-        raise NotImplementedError(
-            "router losses over context shards: MoE training at c > 1 comes "
-            "with expert parallelism, ROADMAP.md, queue 1, item 4.")
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
         positions = positions_from_segments(seg_ids)
     n_real = input_ids.shape[1]
+    moe = _moe_shards(cfg, mp, input_ids.shape[0] * n_real)
     mult = 8 * c * (mp.t if mp.sp else 1)
     pad = -n_real % mult
     if pad:
@@ -602,15 +670,17 @@ def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
             continue
         h, kv = _forward_ctx_group(
             cfg, mp, g, *(a[r0:r1] for a in (input_ids, seg_ids, positions)),
-            return_kv, attention_fn)
+            return_kv, attention_fn, moe)
         hs.append([x[:, :n_real] for x in h])
         kvs.extend(kv if kv is not None else [None] * (c * mp.t))
     out = MemberHidden(hs, rows), (kvs if return_kv else None)
-    return (*out, {}) if return_aux else out
+    if not return_aux:
+        return out
+    return (*out, moe.losses(cfg.moe) if moe is not None else {})
 
 
 def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
-                       attention_fn):
+                       attention_fn, moe=None):
     """Data group ``g``'s padded rows over its C x t members -> (each
     model member's final hidden states over the whole padded streams, on
     member (g, 0, j), and each member's stacked (k, v) at c = 1 when
@@ -623,10 +693,11 @@ def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
     starts = mp.vocab_starts(cfg)
     views = {}
     for row in trees:
-        for tr in row:
-            if id(tr) not in views:
-                views[id(tr)] = layer_views(tr["blocks"], cfg.n_layers)
-    layers = [[views[id(tr)] for tr in row] for row in trees]
+        for j, tr in enumerate(row):
+            if (id(tr), j) not in views:
+                views[(id(tr), j)] = member_views(cfg, tr, j, t)
+    layers = [[views[(id(tr), j)] for j, tr in enumerate(row)]
+              for row in trees]
     shard = [a.chunk(n_c, dim=1) for a in (ids, seg, pos)]
     segs = [C.broadcast(shard[1][ci].contiguous(), devs[ci])
             for ci in range(n_c)]
@@ -642,7 +713,8 @@ def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
         lps = [[lv[li] for lv in row] for row in layers]
         if n_c == 1:  # sequence parallelism alone: no ring
             xs[0], kv = _sp_block(cfg, lps[0], li, xs[0], segs[0],
-                                  tables[0], devs[0], attention_fn, run)
+                                  tables[0], devs[0], attention_fn, run,
+                                  (moe, li, (g, 0)))
             if return_kv:
                 for acc, (k, v) in zip(kvs[0], kv):
                     acc[0].append(k)
@@ -663,8 +735,11 @@ def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
                             for lp, x, (cos, sin) in
                             zip(lps[ci], xs[ci], tables[ci])])
         attn = _ring_attention(cfg, li, qkv, segs, attention_fn)
+        # one region of wo and a dense MLP; a MoE model's shards all
+        # route (``_register_routes``) before any of them dispatches
+        whole = t == 1 and not sp and moe is None
         for ci in range(n_c):
-            if t == 1 and not sp:
+            if whole:
                 xs[ci] = [run(_attn_out, cfg, lps[ci][0], xs[ci][0],
                               attn[ci][0], segs[ci][0])[0]]
                 continue
@@ -673,7 +748,13 @@ def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
             xs[ci] = _add_reduced(xs[ci], parts, [lp["attn"].get("bo")
                                                   for lp in lps[ci]],
                                   devs[ci], sp)
-            xs[ci] = _mlp_members(cfg, lps[ci], devs[ci], xs[ci], run, sp)
+        if whole:
+            continue
+        if moe is not None:
+            _register_routes(cfg, moe, li, g, lps, xs, segs, devs, sp)
+        for ci in range(n_c):
+            xs[ci] = _mlp_members(cfg, lps[ci], devs[ci], xs[ci], run, sp,
+                                  segs[ci], moe and (moe, li, (g, ci)))
     hs = []
     for j in range(t):
         col = []
@@ -692,7 +773,7 @@ def _forward_ctx_group(cfg, mp: MemberParams, g, ids, seg, pos, return_kv,
 
 
 def _sp_block(cfg, lps, layer_idx, xs, segs, tables, devs, attention_fn,
-              run):
+              run, moe=None):
     """One block over a model group whose residual is split along the
     tokens (``sp``, no ring) -> (the members' residual shards, each
     member's (k, v)): the norm on the shard, an all-gather, then each
@@ -706,7 +787,9 @@ def _sp_block(cfg, lps, layer_idx, xs, segs, tables, devs, attention_fn,
             for lp, h, seg, (cos, sin) in zip(lps, lns, segs, tables)]
     xs = _add_reduced(xs, [o[0] for o in outs],
                       [lp["attn"].get("bo") for lp in lps], devs, True)
-    return _mlp_members(cfg, lps, devs, xs, run, True), [o[1:] for o in outs]
+    return (_mlp_members(cfg, lps, devs, xs, run, True, segs,
+                         moe if moe and moe[0] is not None else None),
+            [o[1:] for o in outs])
 
 
 def _attn_proj(lp, x, attn):
@@ -841,32 +924,91 @@ def _attn_partial_normed(cfg, lp, layer_idx, ln1, seg, cos, sin, attn_impl):
         k, v
 
 
-def _mlp_partial(cfg, lp, x):
-    """One member's norm and MLP up to its ``wd`` partial."""
-    return _dense_mlp(cfg, lp["mlp"], _norm(cfg, x, lp["ln2"]["scale"],
-                                            lp["ln2"].get("bias")),
-                      dtype_of(cfg.compute_dtype), out_bias=False)
+def _mlp_partial(cfg, lp, x, seg=None, shard=None):
+    """One member's norm and MLP up to its ``wd`` partial (a MoE member's
+    slice of every expert's width, its router sums to ``shard``)."""
+    return _mlp_body(cfg, lp, _norm(cfg, x, lp["ln2"]["scale"],
+                                    lp["ln2"].get("bias")), seg, shard)
 
 
-def _mlp_members(cfg, lps, devs, xs, run=_call, sp=False):
+def _mlp_body(cfg, lp, h, seg=None, shard=None):
+    """``_mlp_partial`` after the norm."""
+    return _mlp_with_aux(cfg, lp, h, seg, shard, out_bias=False)[0]
+
+
+def _mlp_members(cfg, lps, devs, xs, run=_call, sp=False, segs=None,
+                 moe=None):
     """The MLP half over a model group; with ``sp`` each member's norm
     runs on its residual shard (a checkpoint region of its own under
-    ``run``) and an all-gather precedes the up projections."""
+    ``run``) and an all-gather precedes the up projections. ``moe`` is
+    (``MoEShards``, layer, shard key) for a MoE model over members: each
+    member runs its slice of every expert on the same routing. With
+    expert parallelism a member's MLP reaches the other data indices'
+    experts on their devices, so it is not checkpointed (a recompute
+    region spanning cards would be run by two autograd threads)."""
+    segs = segs or [None] * len(lps)
+    shards = [None] * len(lps)
+    if moe is not None:
+        ctx, layer, key = moe
+        shards = [MoEShard(ctx, layer, key, j) for j in range(len(lps))]
+        if ctx.experts is not None:
+            run = _call
     if sp:
         lns = C.all_gather([run(_norm, cfg, x, lp["ln2"]["scale"],
                                 lp["ln2"].get("bias"))
                             for lp, x in zip(lps, xs)], devs, dim=1)
-        cdt = dtype_of(cfg.compute_dtype)
-        parts = [run(_dense_mlp, cfg, lp["mlp"], h, cdt, False)
-                 for lp, h in zip(lps, lns)]
+        parts = [run(_mlp_body, cfg, lp, h, seg, sh)
+                 for lp, h, seg, sh in zip(lps, lns, segs, shards)]
     else:
-        parts = [run(_mlp_partial, cfg, lp, x) for lp, x in zip(lps, xs)]
+        parts = [run(_mlp_partial, cfg, lp, x, seg, sh)
+                 for lp, x, seg, sh in zip(lps, xs, segs, shards)]
     return _add_reduced(xs, parts, [lp["mlp"].get("bd") for lp in lps], devs,
                         sp)
 
 
+def _moe_shards(cfg, mp: MemberParams, n_tokens: int
+                ) -> Optional[MoEShards]:
+    """The ``MoEShards`` of one batch over ``mp``'s members (None for a
+    dense model): the capacity over ``n_tokens``, and under expert
+    parallelism, for each (context, model) index, every data index's
+    member's layer views and device."""
+    if cfg.mlp_type != "moe":
+        return None
+    experts = None
+    if mp.ep:
+        views, experts = {}, {}
+        for ci in range(mp.c):
+            for j in range(mp.t):
+                row = []
+                for g in range(mp.d):
+                    i = mp.index(g, ci, j)
+                    tr = mp.trees[i]
+                    if id(tr) not in views:
+                        views[id(tr)] = layer_views(tr["blocks"],
+                                                    _slab_len(tr))
+                    row.append((views[id(tr)], mp.devices[i]))
+                experts[(ci, j)] = row
+    return MoEShards(n_tokens, mp.c, mp.devices[0], experts)
+
+
+def _register_routes(cfg, moe, layer, g, lps, xs, segs, devs, sp):
+    """Register every context shard's per-row expert counts of data
+    group ``g`` at ``layer`` before any of them dispatches: a shard's
+    queue positions follow its rows' tokens in the shards before it (the
+    capacity dispatch alone reads them)."""
+    if cfg.moe.capacity_factor is None:
+        return
+    with torch.no_grad():
+        for ci, (x, seg) in enumerate(zip(xs, segs)):
+            lns = [_norm(cfg, xj, lp["ln2"]["scale"], lp["ln2"].get("bias"))
+                   for lp, xj in zip(lps[ci], x)]
+            ln2 = C.all_gather(lns, devs[ci], dim=1)[0] if sp else lns[0]
+            moe.register(layer, (g, ci), route_counts(
+                cfg, lps[ci][0]["mlp"], ln2, seg[0] != 0))
+
+
 def _block_members(cfg, lps, layer_idx, xs, segs, tables, devs,
-                   attention_fn=None, remat=False):
+                   attention_fn=None, remat=False, moe=None):
     """One block over a model group -> (the members' outputs, each
     member's (k, v)). Under ``remat`` each member's half-block is
     checkpointed on its own: a recompute spanning cards would be
@@ -880,12 +1022,14 @@ def _block_members(cfg, lps, layer_idx, xs, segs, tables, devs,
             for lp, x, seg, (cos, sin) in zip(lps, xs, segs, tables)]
     xs = _add_reduced(xs, [o[0] for o in outs],
                       [lp["attn"].get("bo") for lp in lps], devs)
-    return _mlp_members(cfg, lps, devs, xs, run), [o[1:] for o in outs]
+    return (_mlp_members(cfg, lps, devs, xs, run, False, segs, moe),
+            [o[1:] for o in outs])
 
 
 def _forward_group(cfg, trees, devs, starts, ids, seg, pos, return_kv,
-                   attention_fn):
-    """One data group's forward over its ``t > 1`` model members ->
+                   attention_fn, moe=None, g=0):
+    """One data group's forward over its model members (t > 1, or a MoE
+    model's one member, its shard of the batch's routing ``moe``) ->
     (each member's final hidden states, each member's stacked (k, v) or
     None)."""
     ids_m = C.broadcast(ids, devs)
@@ -893,12 +1037,14 @@ def _forward_group(cfg, trees, devs, starts, ids, seg, pos, return_kv,
     pos_m = C.broadcast(pos, devs)
     xs = _embed_members(cfg, trees, devs, ids_m, pos_m, starts)
     tables = [_rotary_tables(cfg, p) for p in pos_m]
-    layers = [layer_views(tr["blocks"], cfg.n_layers) for tr in trees]
+    layers = [member_views(cfg, tr, j, len(trees))
+              for j, tr in enumerate(trees)]
     remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
     kvs = [([], []) for _ in trees]
     for li in range(cfg.n_layers):
         xs, kv = _block_members(cfg, [lv[li] for lv in layers], li, xs,
-                                seg_m, tables, devs, attention_fn, remat)
+                                seg_m, tables, devs, attention_fn, remat,
+                                None if moe is None else (moe, li, (g, 0)))
         if return_kv:
             for acc, (k, v) in zip(kvs, kv):
                 acc[0].append(k)
@@ -919,8 +1065,12 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
     (k, v) or None[, aux]). Data group g runs rows ``data_rows(S,
     d)[g]``; at t = p = 1 that is ``forward`` on its one member's tree.
     At p > 1 each data group runs the pipeline of ``pipeline`` (default
-    ``mp.pipeline``) and the hidden states are the last stage's."""
-    check_layout(cfg, mp.t)
+    ``mp.pipeline``) and the hidden states are the last stage's. A MoE
+    model's data groups route as one batch (``MoEShards``): each group's
+    forward runs on its members in turn, registering its per-layer
+    expert counts for the groups after it, and the router losses come
+    from every group's sums."""
+    check_layout(cfg, mp.t, mp.p)
     if mp.c > 1 or (mp.sp and mp.t > 1):
         return forward_ctx(cfg, mp, input_ids, seg_ids, positions,
                            return_kv=return_kv, return_aux=return_aux,
@@ -936,6 +1086,8 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
     starts = mp.vocab_starts(cfg)
     hs, kvs = [], []
     aux_sum: Dict[str, torch.Tensor] = {}
+    moe = (None if pipe is not None else
+           _moe_shards(cfg, mp, input_ids.shape[0] * input_ids.shape[1]))
     for g, (r0, r1) in enumerate(rows):
         trees, devs = mp.group(g)
         if r1 == r0:
@@ -943,7 +1095,7 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
             kvs.extend([None] * mp.t)
             continue
         ids, seg, pos = (a[r0:r1] for a in (input_ids, seg_ids, positions))
-        if pipe is not None or mp.t == 1:
+        if pipe is not None or (mp.t == 1 and moe is None):
             if pipe is not None:
                 h, aux = _forward_pipeline(cfg, mp, pipe, g, ids, seg, pos,
                                            attention_fn)
@@ -957,16 +1109,18 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
                 kvs.append(kv)
             if aux and return_aux and mp.d > 1:
                 raise NotImplementedError(
-                    "router losses over data shards: MoE training at d > 1 "
-                    "comes with expert parallelism, ROADMAP.md, queue 1, "
-                    "item 4.")
+                    "router losses over data shards inside a pipeline: MoE "
+                    "training at d > 1 with p > 1 is a later part of "
+                    "ROADMAP.md, queue 1, item 4.")
             aux_sum = aux
             hs.append(h)
         else:
             h, kv = _forward_group(cfg, trees, devs, starts, ids, seg, pos,
-                                   return_kv, attention_fn)
+                                   return_kv, attention_fn, moe, g)
             hs.append(h)
             kvs.extend(kv if kv is not None else [None] * mp.t)
+    if moe is not None:
+        aux_sum = moe.losses(cfg.moe)
     out = MemberHidden(hs, rows), (kvs if return_kv else None)
     return (*out, aux_sum) if return_aux else out
 
@@ -1109,15 +1263,49 @@ def prefill(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor,
     total = round_cache_len(total_len if total_len is not None else lp)
     if not isinstance(params, MemberParams):
         return hidden, _cache_from_kv(cfg, kvs, seg_ids, total)
+    t = params.t
+    seq = kv_replicated(cfg.n_kv_heads, t)
+    if seq:
+        total = _decode.seq_cache_len(total, t)
     caches = []
     for i, kv in enumerate(kvs):
         if kv is None:
             caches.append(None)
             continue
-        r0, r1 = hidden.rows[i // params.t]
-        caches.append(_cache_from_kv(cfg, kv, seg_ids[r0:r1].to(
-            params.devices[i]), total))
+        r0, r1 = hidden.rows[i // t]
+        seg = seg_ids[r0:r1].to(params.devices[i])
+        caches.append(_seq_cache_from_kv(cfg, kvs, i, t, seg, total) if seq
+                      else _cache_from_kv(cfg, kv, seg, total))
     return hidden, caches
+
+
+def _seq_cache_from_kv(cfg, kvs, i, t, seg_ids, total) -> KVCache:
+    """Member ``i``'s cache in the "seq" route's layout: slots ``[j S/t,
+    (j+1) S/t)`` (j its model index, S = ``total``) of every KV head,
+    the prompt's part of them filled. Each member's prefill computed the
+    one KV head its query heads read; head h comes from the first model
+    member that reads it. ``offset`` is the slice's first slot."""
+    j, base = i % t, i - i % t
+    dev = kvs[i][0].device
+    per = t // cfg.n_kv_heads
+    k, v = (torch.cat([kvs[base + h * per][w].to(dev)
+                       for h in range(cfg.n_kv_heads)], dim=3)
+            for w in range(2))
+    nl, b, lp = k.shape[0], k.shape[1], k.shape[2]
+    s_loc = total // t
+    lo = j * s_loc
+    n = max(0, min(lo + s_loc, lp) - lo)
+    shape = (nl, b, cfg.n_kv_heads, s_loc, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=k.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=k.dtype, device=dev),
+             "valid": torch.zeros((b, s_loc), dtype=torch.bool, device=dev),
+             "length": torch.full((b,), lp, dtype=torch.int32, device=dev),
+             "offset": lo}
+    if n:
+        cache["k"][:, :, :, :n] = k[:, :, lo:lo + n].transpose(2, 3)
+        cache["v"][:, :, :, :n] = v[:, :, lo:lo + n].transpose(2, 3)
+        cache["valid"][:, :n] = seg_ids[:, lo:lo + n] != 0
+    return cache
 
 
 def _cache_from_kv(cfg, kv, seg_ids, total) -> KVCache:
@@ -1173,8 +1361,7 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: KVCache,
 
 
 def _advanced(cache: KVCache) -> KVCache:
-    return {"k": cache["k"], "v": cache["v"], "valid": cache["valid"],
-            "length": cache["length"] + 1}
+    return {**cache, "length": cache["length"] + 1}
 
 
 def _decode_slots(cache: KVCache, token: torch.Tensor, uniform_slot: bool):
@@ -1217,8 +1404,7 @@ def _decode_attend(cfg, li, q, k, v, cache, st):
             keep, k.to(k_all.dtype), k_all[li, rows, :, wpos])
         v_all[li, rows, :, wpos] = torch.where(
             keep, v.to(v_all.dtype), v_all[li, rows, :, wpos])
-    base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
-    scale = base / (li + 1) if cfg.scale_attn_by_inverse_layer_idx else base
+    scale = _decode_scale(cfg, li)
     if cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS:
         return stacked_decode_attention(
             q, k_all, v_all, valid, li, scale=scale,
@@ -1228,15 +1414,70 @@ def _decode_attend(cfg, li, q, k, v, cache, st):
                             slot=st["slot"])
 
 
+def _decode_scale(cfg, li):
+    base = cfg.head_dim ** -0.5 if cfg.scale_attn_weights else 1.0
+    return base / (li + 1) if cfg.scale_attn_by_inverse_layer_idx else base
+
+
+def _seq_slots(cache: KVCache, sliding_window):
+    """The "seq" route's ``_decode_slots``: each stream's slot (the
+    global ``length``) lies in one member's slice; that member marks it
+    valid and will write it. Returns the writes' rows, local slots and
+    owner mask, and the member's [B, S/t] keep mask (valid, and inside
+    the window by global slot index)."""
+    valid, slot, off = cache["valid"], cache["length"], cache["offset"]
+    b, s_loc = valid.shape
+    loc = slot - off
+    mine = (loc >= 0) & (loc < s_loc)
+    rows = torch.arange(b, device=valid.device)
+    wpos = loc.clamp(0, s_loc - 1).long()
+    valid[rows, wpos] = valid[rows, wpos] | mine
+    keep = valid
+    if sliding_window is not None:
+        idx = off + torch.arange(s_loc, device=valid.device)[None, :]
+        keep = keep & ((slot[:, None] - idx) < sliding_window)
+    return dict(rows=rows, wpos=wpos, mine=mine, keep=keep)
+
+
+def _seq_attend(cfg, li, lps, xs, tables, caches, sts, devs):
+    """Layer ``li``'s decode attention in the "seq" route -> each
+    member's ``wo`` partial: every member computes q of its own heads
+    and k/v of every KV head from its replicated weights, the owner of
+    the step's slot writes them, q is gathered over the members, each
+    member runs K4 with statistics over its slice of the slots, and the
+    partials merge (``ops/decode_attention.seqsplit_merge``) into the
+    output each member takes its own heads' rows of."""
+    qs = []
+    for lp, x, (cos, sin), c, st in zip(lps, xs, tables, caches, sts):
+        q, k, v = _attn_in(cfg, lp, x, cos, sin)
+        rows, wpos, keep = st["rows"], st["wpos"], st["mine"][:, None, None]
+        for w, new in ((c["k"], k), (c["v"], v)):
+            w[li, rows, :, wpos] = torch.where(keep, new.to(w.dtype),
+                                               w[li, rows, :, wpos])
+        qs.append(q)
+    stacked = cfg.n_layers > _DECODE_UNROLL_MAX_LAYERS
+    merged = C.broadcast(_decode.decode_attention_seqsplit(
+        torch.cat([q.to(devs[0]) for q in qs], dim=1),
+        *([c[w] if stacked else c[w][li] for c in caches] for w in "kv"),
+        [st["keep"] for st in sts], scale=_decode_scale(cfg, li),
+        layer_index=li if stacked else None), devs)
+    per = cfg.n_q_heads // len(lps)
+    return [o[:, j * per:(j + 1) * per].reshape(o.shape[0], -1)
+            @ lp["attn"]["wo"].to(x.dtype)
+            for j, (o, lp, x) in enumerate(zip(merged, lps, xs))]
+
+
 def _decode_members(cfg, mp: MemberParams, caches, token, positions,
                     uniform_slot):
-    check_layout(cfg, mp.t)
+    check_layout(cfg, mp.t, mp.p)
     if mp.p > 1:
         raise ValueError("a decode step on a pipeline layout: generation "
                          "runs on the engine's decode view "
                          "(Engine.decode_engine).")
     rows = data_rows(token.shape[0], mp.d)
     starts = mp.vocab_starts(cfg)
+    seq = kv_replicated(cfg.n_kv_heads, mp.t)
+    moe = _moe_shards(cfg, mp, token.shape[0])
     hs, new_caches = [], []
     for g, (r0, r1) in enumerate(rows):
         trees, devs = mp.group(g)
@@ -1246,28 +1487,39 @@ def _decode_members(cfg, mp: MemberParams, caches, token, positions,
             new_caches.extend(cs)
             continue
         tok, pos = token[r0:r1], positions[r0:r1]
-        if mp.t == 1:
+        if mp.t == 1 and moe is None:
             h, c = decode_step(cfg, trees[0], cs[0], tok.to(devs[0]),
                                pos.to(devs[0]), uniform_slot)
             hs.append([h])
             new_caches.append(c)
             continue
         tok_m, pos_m = C.broadcast(tok, devs), C.broadcast(pos, devs)
-        sts = [_decode_slots(c, x, uniform_slot) for c, x in zip(cs, tok_m)]
+        if seq:
+            _decode.choose_decode_route(cfg.n_kv_heads,
+                                        cs[0]["valid"].shape[1] * mp.t, mp.t)
+            sts = [_seq_slots(c, cfg.sliding_window) for c in cs]
+        else:
+            sts = [_decode_slots(c, x, uniform_slot)
+                   for c, x in zip(cs, tok_m)]
         xs = _embed_members(cfg, trees, devs, tok_m, pos_m, starts)
         tables = [_rotary_tables(cfg, p) for p in pos_m]
         layers = [layer_views(tr["blocks"], cfg.n_layers) for tr in trees]
         for li in range(cfg.n_layers):
             lps = [lv[li] for lv in layers]
-            parts = []
-            for lp, x, (cos, sin), c, st in zip(lps, xs, tables, cs, sts):
-                q, k, v = _attn_in(cfg, lp, x, cos, sin)
-                a = _decode_attend(cfg, li, q, k, v, c, st)
-                parts.append(a.reshape(*x.shape[:-1], -1)
-                             @ lp["attn"]["wo"].to(x.dtype))
+            if seq:
+                parts = _seq_attend(cfg, li, lps, xs, tables, cs, sts, devs)
+            else:
+                parts = []
+                for lp, x, (cos, sin), c, st in zip(lps, xs, tables, cs,
+                                                    sts):
+                    q, k, v = _attn_in(cfg, lp, x, cos, sin)
+                    a = _decode_attend(cfg, li, q, k, v, c, st)
+                    parts.append(a.reshape(*x.shape[:-1], -1)
+                                 @ lp["attn"]["wo"].to(x.dtype))
             xs = _add_reduced(xs, parts, [lp["attn"].get("bo")
                                           for lp in lps], devs)
-            xs = _mlp_members(cfg, lps, devs, xs)
+            xs = _mlp_members(cfg, lps, devs, xs, _call, False, None,
+                              None if moe is None else (moe, li, (g, 0)))
         hs.append([_norm(cfg, x, tr["ln_f"]["scale"],
                          tr["ln_f"].get("bias"))
                    for tr, x in zip(trees, xs)])

@@ -26,22 +26,37 @@ from realhf_tpu_torch.ops.flash_attention import (
 )
 
 
-def member_heads(n_q_heads: int, n_kv_heads: int, t: int):
-    """(query heads, KV heads) of each of ``t`` model members: the
-    counterpart of the JAX package's ``make_sharded_attention``
-    (``ops/attention.py:118``), whose members run the kernel on their
-    own contiguous heads. JAX falls back to its XLA path when ``t`` does
-    not divide the KV heads; the port runs no plain version on CUDA, so
-    that layout raises until KV heads are replicated across the model
-    members (and K4 gets its "seq" route): ROADMAP.md, queue 1, item
-    4."""
-    if n_kv_heads % t or n_q_heads % t:
-        raise NotImplementedError(
-            f"t={t} does not divide the {n_kv_heads} KV heads (and "
-            f"{n_q_heads} query heads): KV heads replicated across model "
-            "members and K4's 'seq' route are the next slice (ROADMAP.md, "
-            "queue 1, item 4).")
-    return n_q_heads // t, n_kv_heads // t
+def member_heads(n_q_heads: int, n_kv_heads: int, t: int, j: int = 0):
+    """((first, end) query head, (first, end) KV head) of model member
+    ``j`` of ``t``: the counterpart of the JAX package's
+    ``make_sharded_attention`` (``ops/attention.py:118``), whose members
+    run the kernel on their own contiguous heads. When ``t`` divides the
+    KV heads each member holds ``nkv / t`` of them; otherwise the KV
+    weights are replicated over the model members (``kv_replicated``)
+    and member j computes the one KV head its ``nq / t`` query heads
+    read, which needs ``nkv`` to divide ``t`` (else a member's query
+    heads would read parts of two KV heads' groups)."""
+    if n_q_heads % t:
+        raise ValueError(f"t={t} does not divide the {n_q_heads} query "
+                         "heads.")
+    nq = n_q_heads // t
+    q = (j * nq, (j + 1) * nq)
+    if n_kv_heads % t == 0:
+        per = n_kv_heads // t
+        return q, (j * per, (j + 1) * per)
+    if t % n_kv_heads:
+        raise ValueError(
+            f"t={t} neither divides the {n_kv_heads} KV heads nor is a "
+            "multiple of them: a model member's query heads would read "
+            "parts of two KV heads' groups.")
+    h = j // (t // n_kv_heads)
+    return q, (h, h + 1)
+
+
+def kv_replicated(n_kv_heads: int, t: int) -> bool:
+    """Whether a layout of ``t`` model members holds the KV weights whole
+    on every member (``t`` does not divide the KV heads)."""
+    return t > 1 and n_kv_heads % t != 0
 
 
 def packed_attention_plain(q, k, v, seg_ids, *, causal: bool = True,

@@ -19,6 +19,13 @@ The kernel walks each (stream, KV head) in one CTA of ``WARPS`` warps.
 warp takes, and ``decode_attention_split_plain`` computes the kernel's
 function that way: a partial softmax per warp and the flash merge of
 the parts.
+
+The "seq" route (``choose_decode_route``, the JAX package's
+``choose_decode_partitioning``): when the model members of a layout
+cannot split the KV heads, member j holds cache slots ``[j S/t, (j+1)
+S/t)`` of every head, runs K4 with its softmax statistics over them,
+and ``seqsplit_merge`` joins the members' partials with the JAX
+package's flash merge (``sharded_decode_attention_seqsplit``).
 """
 
 import ctypes
@@ -41,6 +48,9 @@ WARPS = 4
 #: (reset them to 0 to count the launches of one run)
 launches = 0
 stacked_launches = 0
+#: of those launches, the ones with the softmax statistics (the "seq"
+#: route's partials)
+stats_launches = 0
 _fn = None
 
 
@@ -162,6 +172,73 @@ def decode_attention_split_plain(q, k_cache, v_cache, keep, *,
     return out
 
 
+def choose_decode_route(n_kv_heads: int, cache_len: int, t: int) -> str:
+    """How ``t`` model members split a decode step's attention:
+    ``"heads"`` when t divides the KV heads (each member its own heads
+    and the whole cache), else ``"seq"`` when t divides the cache's
+    slots into whole 64-slot tiles of K4's walk (each member every head
+    and its slice of the slots). Anything else raises: the port runs no
+    plain version on the card."""
+    if n_kv_heads % t == 0:
+        return "heads"
+    if cache_len % t == 0 and (cache_len // t) % TILE == 0:
+        return "seq"
+    raise ValueError(
+        f"decode at t={t}: t divides neither the {n_kv_heads} KV heads "
+        f"nor the cache's {cache_len} slots into whole {TILE}-slot tiles "
+        "(seq_cache_len sizes a cache for the 'seq' route).")
+
+
+def seq_cache_len(n: int, t: int) -> int:
+    """``n`` slots rounded up so that ``t`` members each hold whole
+    64-slot tiles (the "seq" route's cache length)."""
+    step = TILE * t
+    return -(-n // step) * step
+
+
+def seqsplit_merge(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The members' K4 partials ``[(out [B, nq, hd], m, l [B, nq])]``,
+    on one device, -> the attention output in ``dtype``: the JAX
+    package's merge (``ops/decode_attention.py:488-497``). m_all = max
+    m; w = l exp(m - m_all), 0 where m <= NEG_INF / 2 (an empty slice:
+    K4 writes m = NEG_INF and l = S there, so l is never trusted);
+    out = sum w out / sum w, 0 where sum w = 0."""
+    m_all = torch.stack([m for _, m, _ in parts]).amax(0)
+    m_safe = torch.where(m_all > NEG_INF / 2, m_all, 0.0)
+    num = den = None
+    for o, m, l in parts:
+        w = torch.where(m > NEG_INF / 2, l * torch.exp(m - m_safe), 0.0)
+        o = o.to(torch.float32) * w[..., None]
+        num = o if num is None else num + o
+        den = w if den is None else den + w
+    safe = torch.where(den > 0, den, 1.0)
+    return torch.where(den[..., None] > 0, num / safe[..., None],
+                       0.0).to(dtype)
+
+
+def decode_attention_seqsplit(q, k_parts, v_parts, keep_parts, *,
+                              scale: Optional[float] = None,
+                              layer_index: Optional[int] = None):
+    """One decode step's attention over caches split along their slots
+    (the "seq" route; each part may lie on its own device): K4 with
+    statistics on each part (``k_parts[i]`` [B, nkv, S_i, hd], or
+    stacked [nl, B, nkv, S_i, hd] with ``layer_index``; ``keep_parts``
+    the global keep mask's [B, S_i] slices, windows already applied),
+    then ``seqsplit_merge`` on q's device."""
+    parts = []
+    for k, v, keep in zip(k_parts, v_parts, keep_parts):
+        qi = q.to(k.device)
+        if layer_index is None:
+            res = flash_decode_attention(qi, k, v, keep > 0, scale=scale,
+                                         return_stats=True)
+        else:
+            res = flash_decode_attention_stacked(
+                qi, k, v, keep > 0, layer_index, scale=scale,
+                return_stats=True)
+        parts.append(tuple(x.to(q.device) for x in res))
+    return seqsplit_merge(parts, q.dtype)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -266,8 +343,9 @@ def flash_decode_attention(q, k_cache, v_cache, valid_mask, *,
                                       scale=scale, return_stats=return_stats)
     res = _launch(q, k_cache, v_cache, valid_mask, sliding_window, slot,
                   scale, return_stats)
-    global launches
+    global launches, stats_launches
     launches += 1
+    stats_launches += bool(return_stats)
     return res
 
 
@@ -291,6 +369,7 @@ def flash_decode_attention_stacked(q, k_all, v_all, valid_mask,
                                       return_stats=return_stats)
     res = _launch(q, k_all[layer_index], v_all[layer_index], valid_mask,
                   sliding_window, slot, scale, return_stats)
-    global stacked_launches
+    global stacked_launches, stats_launches
     stacked_launches += 1
+    stats_launches += bool(return_stats)
     return res

@@ -86,3 +86,12 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
               ) -> List[torch.Tensor]:
     """``x`` on every member's device."""
     return _shared(x, devices)
+
+
+def all_to_all(send: Sequence[Sequence[torch.Tensor]],
+               devices: Sequence[torch.device]) -> List[List[torch.Tensor]]:
+    """``send[i][j]``, sender i's chunk for receiver j, arrives as
+    ``recv[j][i]`` on ``devices[j]`` (a copy only where it changes
+    device). The expert-parallel dispatch sends one shard's buffer
+    slices to the experts' owners, and their outputs back, this way."""
+    return [[row[j].to(d) for row in send] for j, d in enumerate(devices)]

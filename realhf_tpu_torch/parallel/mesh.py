@@ -28,8 +28,8 @@ more along its tokens over the model members (``models/transformer.py``).
 
 Context parallelism together with pipeline parallelism raises, with the
 JAX package's message (its engine refuses the pair too), as does
-sequence parallelism with pipeline parallelism; a MoE model at
-t > 1 raises in ``models/transformer.check_layout``. ``gen_tp_size``
+sequence parallelism with pipeline parallelism; a MoE model at t > 1
+inside a pipeline stage raises in ``models/transformer.check_layout``. ``gen_tp_size``
 (``g``) is the model degree of the decode view (``engine/engine.py``
 ``Engine.decode_engine``); it must divide the layout's device count.
 """
@@ -264,14 +264,19 @@ def data_group(mesh: Mesh, i: int) -> List[int]:
     return [member_at(mesh, s, g, j, c) for g in range(mesh.shape[DATA_AXIS])]
 
 
-def holders(mesh: Mesh, i: int, split: bool, staged: bool) -> List[int]:
+def holders(mesh: Mesh, i: int, split: bool, staged: bool,
+            data_split: bool = False) -> List[int]:
     """The members that hold the same values of a leaf as member ``i``:
     a leaf split over the model members (``split``) only on its model
-    index, a block leaf (``staged``) only in its stage; replicated over
-    everything else (data and context indices included)."""
+    index, a block leaf (``staged``) only in its stage, an
+    expert-parallel leaf (``data_split``) only on its data index;
+    replicated over everything else (data and context indices
+    included)."""
     return [k for k in range(len(mesh.devices))
             if (not split or model_index(mesh, k) == model_index(mesh, i))
-            and (not staged or pipe_index(mesh, k) == pipe_index(mesh, i))]
+            and (not staged or pipe_index(mesh, k) == pipe_index(mesh, i))
+            and (not data_split
+                 or data_index(mesh, k) == data_index(mesh, i))]
 
 
 @dataclasses.dataclass

@@ -4,11 +4,13 @@ The counterpart of the JAX package's ``parallel/realloc.py``. There,
 moving a model between two meshes is one ``jax.device_put`` onto the
 target shardings; here the port writes the move out leaf by leaf: each
 logical leaf is gathered from the source's first data group (its model
-shards and stage slabs joined on the target's first device), its
-vocabulary re-padded for the target's t
-(``models/sharding.repad_vocab_leaf``), and each target member's chunk
-(its stage's slab, its model chunk: ``sharding.member_chunk``) copied
-into that member's tensor in place. One leaf is in flight at a time, so the move needs the source,
+shards and stage slabs joined on the target's first device; an
+expert-parallel leaf from every data index), its vocabulary re-padded
+for the target's t (``models/sharding.repad_vocab_leaf``), and each
+target member's chunk (its stage's slab, its data and model chunk:
+``sharding.member_chunk``, under each side's own split rules, since a
+KV leaf split at one t is replicated at another) copied into that
+member's tensor in place. One leaf is in flight at a time, so the move needs the source,
 the target and one leaf of memory, never a second whole model.
 
 An ``eta`` below 1 merges instead of overwriting: ``target = eta *
@@ -42,28 +44,31 @@ def _get(tree, path):
 
 
 def _targets(engine):
-    """(member trees, [(stage, model index) of each], p, t) of an engine
-    at any layout: each distinct tree of a sharded engine once (context
-    copies on one device share one), else its one tree."""
+    """(member trees, [(stage, data, model index) of each], p, t, d) of an
+    engine at any layout: each distinct tree of a sharded engine once
+    (context copies on one device share one), else its one tree."""
     if getattr(engine, "sharded", False):
         mp = engine.params
         per = mp.d * mp.c * mp.t
         return ([mp.trees[i] for i in engine.units],
-                [(i // per, i % mp.t) for i in engine.units], mp.p, mp.t)
-    return [engine.params], [(0, 0)], 1, 1
+                [(i // per, (i // (mp.c * mp.t)) % mp.d, i % mp.t)
+                 for i in engine.units], mp.p, mp.t, mp.d)
+    return [engine.params], [(0, 0, 0)], 1, 1, 1
 
 
 def _source_leaf(src, path, spec, device):
     """The logical leaf at ``path`` (padded for the source's t) on
-    ``device``: the first data group's model shards and stage slabs
-    joined."""
+    ``device``: the model shards and stage slabs of the first data group
+    (of every data index for an expert-parallel leaf) joined."""
     if not isinstance(src, MemberParams):
         return _get(src, path).to(device)
     trees = src.canonical_trees()
     stages = range(src.p) if shard_rules.is_staged(path) else [0]
+    nd = src.gather_d
+    n = nd * src.t if shard_rules.data_dim(spec) is not None else src.t
     return shard_rules.join_chunks(
-        [[_get(trees[s * src.t + j], path).to(device) for j in range(src.t)]
-         for s in stages], path, spec)
+        [[_get(trees[s * nd * src.t + i], path).to(device) for i in range(n)]
+         for s in stages], path, spec, nd)
 
 
 def _ema(src: torch.Tensor, dst: torch.Tensor, eta: float) -> torch.Tensor:
@@ -75,12 +80,13 @@ def _install_leaf(cfg, target, path, spec, leaf, eta):
     """Re-pad ``leaf`` (a logical leaf, any padding) for the target's t
     and copy each member's chunk into its tensor in place (EMA when
     eta < 1). ``target`` is ``_targets``'s result."""
-    trees, coords, p, t = target
+    trees, coords, p, t, d = target
     leaf = shard_rules.repad_vocab_leaf(cfg, path, leaf, t)
-    for tree, (s, j) in zip(trees, coords):
+    for tree, (s, g, j) in zip(trees, coords):
         dst = _get(tree, path)
-        src = shard_rules.member_chunk(leaf, path, spec, s, j, p, t).to(
-            device=dst.device, dtype=dst.dtype)
+        src = shard_rules.member_chunk(leaf, path, spec, s, j, p, t, g,
+                                       d).to(device=dst.device,
+                                             dtype=dst.dtype)
         if dst.shape != src.shape:
             raise ValueError(f"{'/'.join(path)}: a {tuple(src.shape)} "
                              f"chunk for a {tuple(dst.shape)} member leaf")
@@ -109,8 +115,10 @@ def reallocate(cfg: TransformerConfig, src_params: Any, dst_engine,
     t0 = time.monotonic()
     target = _targets(dst_engine)
     dev = dst_engine.members[0]
-    for path, spec in shard_rules.flat_specs(cfg):
-        leaf = _source_leaf(src_params, path, spec, dev)
+    src_t = src_params.t if isinstance(src_params, MemberParams) else 1
+    src_specs = dict(shard_rules.flat_specs(cfg, src_t))
+    for path, spec in shard_rules.flat_specs(cfg, target[3]):
+        leaf = _source_leaf(src_params, path, src_specs[path], dev)
         _install_leaf(cfg, target, path, spec, leaf, eta)
     _synchronize(dst_engine)
     dt = time.monotonic() - t0
@@ -127,7 +135,7 @@ def install_param_chunks(cfg: TransformerConfig, dst_engine, n_chunks: int,
     dst_engine.ensure_on_device()
     t0 = time.monotonic()
     target = _targets(dst_engine)
-    specs = dict(shard_rules.flat_specs(cfg))
+    specs = dict(shard_rules.flat_specs(cfg, target[3]))
     seen, total = set(), 0
     for i in range(n_chunks):
         for path, arr in sorted(fetch_chunk(i).items()):
@@ -150,8 +158,8 @@ def offload_to_host(params: Any) -> Any:
     group (either installs with ``Engine.set_params``)."""
     if isinstance(params, MemberParams):
         trees = [_cpu_tree(tr) for tr in params.canonical_trees()]
-        return MemberParams(trees, [torch.device("cpu")] * len(trees), 1,
-                            params.t, params.p)
+        return MemberParams(trees, [torch.device("cpu")] * len(trees),
+                            params.gather_d, params.t, params.p, ep=params.ep)
     return _cpu_tree(params)
 
 

@@ -7,7 +7,8 @@
 Builds the kernels, runs the serving engine's kernel cases of phase
 ``kernels`` (K1 at batch 1 over the prefill buckets, K4 over the
 inflight slots' masks), then phase ``serve_gen`` (the ``gen`` experiment
-with inflight batching at 32-layer LLaMA-7B) and phase ``serve`` (the
+with inflight batching at LLaMA-7B, ``chip_smoke.SERVE_LAYERS`` layers)
+and phase ``serve`` (the
 continuous scheduler in four configurations, the KV check and its
 planted faults, prefill times). Prints each record and "OK" when every
 check passed. With ``--seeds``, phase ``serve`` runs once per model

@@ -154,26 +154,34 @@ def test_context_with_pipeline_raises_the_jax_message(weights):
 
 
 def test_moe_router_losses_at_c2_raise():
-    """A mixture-of-experts model trains at c2 no more than at d2: its
-    router losses over context shards come with expert parallelism."""
+    """A mixture-of-experts model trains at c2 (no longer refused): its
+    router losses are formed from both context shards' sums, so a train
+    step equals the d1t1 engine's (held against the JAX engine at c2 by
+    ``test_torch_moe_parallel.py``)."""
     from realhf_tpu_torch.models.config import MoEConfig
     cfg = TransformerConfig(**dict(CFG, mlp_type="moe",
-                                   moe=MoEConfig(num_experts=4, top_k=2)))
-    eng = Engine(cfg, T.init_params(cfg, torch.Generator().manual_seed(0)),
-                 device="cpu", parallel=parse_parallelism("c2"),
-                 devices=["cpu"] * 2, optimizer=OptimizerConfig(**OPT),
-                 total_train_steps=2)
+                                   moe=MoEConfig(num_experts=4, top_k=2,
+                                                 z_loss_coeff=1e-3)))
+    w = T.init_params(cfg, torch.Generator().manual_seed(0))
+    engs = [Engine(cfg, w, device="cpu", parallel=parse_parallelism(lay),
+                   devices=["cpu"] * n, optimizer=OptimizerConfig(**OPT),
+                   total_train_steps=2)
+            for lay, n in (("c2", 2), ("d1t1", 1))]
     ids, seg = _batch()
 
     def loss_fn(p, mb):
         _, _, aux = T.forward(cfg, p, mb["input_ids"], mb["seg_ids"],
                               return_aux=True)
-        return sum(aux.values()), {}
+        return sum(aux.values()), {k: v for k, v in aux.items()}
 
-    with pytest.raises(NotImplementedError, match="router losses over "
-                       "context shards"):
-        eng.train_batch([dict(input_ids=ids, seg_ids=seg)], loss_fn)
-    assert eng.forward_logprobs(ids, seg).shape == (2, 32)
+    got, want = (e.train_batch([dict(input_ids=ids, seg_ids=seg)], loss_fn)
+                 for e in engs)
+    assert set(got) >= {"moe_aux_loss", "moe_z_loss"}
+    for k in ("loss", "grad_norm", "moe_aux_loss", "moe_z_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(engs[0].forward_logprobs(ids, seg).numpy(),
+                               engs[1].forward_logprobs(ids, seg).numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_reallocation_round_trip_through_context_layouts(weights):

@@ -150,9 +150,20 @@ def test_ragged_counts_one_host_read_a_call_and_raises_what_is_not_wired():
     moe.moe_mlp_with_losses(tcfg, m, torch.from_numpy(
         rng.standard_normal((1, 5, 32)).astype(np.float32)))
     assert moe.host_reads == before + 1
-    for bad, match in ((dict(expert_parallel=True), "queue 1, item 4"),
-                       (dict(input_jitter_eps=0.01), "input_jitter_eps")):
-        cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
-                                                                **bad))
-        with pytest.raises(NotImplementedError, match=match):
-            moe.moe_mlp_with_losses(cfg, m, torch.zeros(1, 2, 32))
+    cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, input_jitter_eps=0.01))
+    with pytest.raises(NotImplementedError, match="input_jitter_eps"):
+        moe.moe_mlp_with_losses(cfg, m, torch.zeros(1, 2, 32))
+    # expert parallelism is a layout: one shard holding every expert
+    # computes what it computed without it
+    x = torch.from_numpy(rng.standard_normal((2, 3, 32)).astype(np.float32))
+    cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, expert_parallel=True))
+    for a, b in zip(moe.moe_mlp_with_losses(cfg, m, x),
+                    moe.moe_mlp_with_losses(tcfg, m, x)):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            a, b = list(a.values()), list(b.values())
+        for u, v in zip(a if isinstance(a, list) else [a],
+                        b if isinstance(b, list) else [b]):
+            assert torch.equal(u, v)

@@ -275,11 +275,18 @@ def test_sft_step_matches_jax(name):
 def test_check_supported_raises_only_what_is_not_wired():
     _, tcfg = _configs("mixtral")
     T.check_supported(tcfg)
-    for bad, match in ((dict(expert_parallel=True), "queue 1, item 4"),
-                       (dict(input_jitter_eps=0.01), "queue 1, item 3")):
-        cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
-                                                                **bad))
-        with pytest.raises(NotImplementedError, match=match):
-            T.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match=match):
-            Engine(cfg, params_numpy(_models("mixtral")[3]), device="cpu")
+    cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, input_jitter_eps=0.01))
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        T.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        Engine(cfg, params_numpy(_models("mixtral")[3]), device="cpu")
+    # expert parallelism is supported; with ragged dispatch the engine
+    # refuses it with the JAX engine's message, at any layout
+    cfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, expert_parallel=True))
+    T.check_supported(cfg)
+    assert cfg.moe.capacity_factor is None and cfg.moe.use_grouped_gemm
+    with pytest.raises(ValueError, match="requires the capacity or "
+                       "dense dispatch mode"):
+        Engine(cfg, params_numpy(_models("mixtral")[3]), device="cpu")

@@ -131,12 +131,18 @@ def test_shard_then_gather_is_exact(family, tp):
     trees = sharding.shard_params(cfg, params, tp)
     specs = jshard.param_pspecs(jcfg)
     padded = sharding.pad_vocab(cfg, params, tp)
+    port = dict(sharding.flat_specs(cfg, tp))
 
     def check(path, leaf, pspec):
         full = padded
         for k in path:
             full = full[k]
-        d = sharding.split_dim(tuple(pspec))
+        # JAX's split, but for KV leaves at a t that does not divide the
+        # KV heads: the port holds those whole on every model member
+        kv = path[-1] in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % tp
+        assert port[path] == ((None,) * len(pspec) if kv
+                              else tuple(pspec)), path
+        d = sharding.split_dim(port[path])
         for j, tr in enumerate(trees):
             mine = tr
             for k in path:
@@ -153,7 +159,7 @@ def test_shard_then_gather_is_exact(family, tp):
         cfg, params_numpy(params), tp))
     _walk(nback, params_numpy(params),
           lambda p, a, b: np.testing.assert_array_equal(a, b))
-    for (path, spec), leaf in zip(sharding.flat_specs(cfg),
+    for (path, spec), leaf in zip(sharding.flat_specs(cfg, tp),
                                   (x for _, x in param_stream.flatten_params(
                                       trees[0]))):
         assert sharding.canonical_shape(cfg, path, spec, leaf.shape, tp) == \

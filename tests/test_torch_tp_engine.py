@@ -328,11 +328,21 @@ def test_offload_moves_every_member_and_keeps_bits(jax_one):
 
 def test_layouts_of_later_parts_raise(jax_one):
     w = jax_one.params_numpy()
-    with pytest.raises(NotImplementedError, match="'seq' route"):
-        _port(dict(TINY, n_kv_heads=2), 1, 4, None)
+    # t not dividing the KV heads, and MoE at t > 1, infer as d1t1 (held
+    # against the JAX engine by test_torch_kv_replicated.py and
+    # test_torch_moe_parallel.py)
     moe = dict(TINY, mlp_type="moe", moe=MoEConfig(num_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        _port(moe, 1, 2, None)
+    ids, seg, _ = _batch(8)
+    for kw, t in ((dict(TINY, n_kv_heads=2), 4), (moe, 2)):
+        wk = params_numpy(T.init_params(TransformerConfig(**kw),
+                                        torch.Generator().manual_seed(3)))
+        np.testing.assert_allclose(
+            _port(kw, 1, t, wk).forward_logprobs(ids, seg).numpy(),
+            _port(kw, 1, 1, wk).forward_logprobs(ids, seg).numpy(),
+            atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="parts of two KV heads"):
+        _port(dict(TINY, n_kv_heads=3, n_q_heads=12, hidden_dim=96), 1, 4,
+              None)
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         Engine(TransformerConfig(**TINY), w, device="cpu",
                parallel=ParallelismConfig(tensor_parallel_size=2,
@@ -348,7 +358,8 @@ def test_layouts_of_later_parts_raise(jax_one):
             eos_token_id=None, pad_token_id=0, device="cpu")
     assert sharding.padded_vocab_size(eng.cfg, 2) == 108
     from realhf_tpu_torch.ops.attention import member_heads
-    assert member_heads(8, 4, 2) == (4, 2) and member_heads(8, 4, 4) == (2, 1)
+    assert member_heads(8, 4, 2, 1) == ((4, 8), (2, 4))
+    assert member_heads(8, 4, 4, 3) == ((6, 8), (3, 4))
 
 
 FAMILY_CFGS = {
@@ -390,17 +401,22 @@ def test_other_families_at_d2t2_match_d1t1(family):
 
 
 def test_moe_at_d2t1_infers_as_d1t1_and_refuses_training():
+    """MoE at d2t1 infers as d1t1, and (no longer refused) trains as
+    d1t1: the router losses come from both data shards' sums."""
     kw = dict(TINY, mlp_type="moe", moe=MoEConfig(num_experts=4, top_k=2))
     cfg = TransformerConfig(**kw)
     w = params_numpy(T.init_params(cfg, torch.Generator().manual_seed(9)))
-    one, eng = _port(kw, 1, 1, w), _port(kw, 2, 1, w, opt=OPT)
+    one, eng = _port(kw, 1, 1, w, opt=OPT), _port(kw, 2, 1, w, opt=OPT)
     ids, seg, _ = _batch(3)
     np.testing.assert_allclose(eng.forward_logprobs(ids, seg).numpy(),
                                one.forward_logprobs(ids, seg).numpy(),
                                atol=ATOL, rtol=0)
     mbs, weights = _sft_microbatches(2)
-    with pytest.raises(NotImplementedError, match="router losses"):
-        eng.train_batch(mbs, sft._make_loss_fn(cfg), weights)
+    mbs1, _ = _sft_microbatches(1)
+    got = eng.train_batch(mbs, sft._make_loss_fn(cfg), weights)
+    want = one.train_batch(mbs1, sft._make_loss_fn(cfg), weights)
+    for k in ("loss", "grad_norm", "moe_aux_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
 
 
 def test_kernel_launches_run_on_their_tensors_device(monkeypatch):

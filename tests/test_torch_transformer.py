@@ -174,23 +174,22 @@ def test_prefill_and_decode_steps(name, uniform_slot, stacked, monkeypatch):
 
 
 def test_moe_and_pipeline_are_deferred():
-    """Expert parallelism and a pipelined prefill (generation goes
-    through the decode view) still raise; a MoE model without expert
-    parallelism builds, with the JAX package's leaves."""
+    """A pipelined prefill (generation goes through the decode view)
+    still raises; a MoE model builds with the JAX package's leaves, with
+    and (no longer deferred) without expert parallelism, which is a
+    layout and leaves the tree as it is."""
     from realhf_tpu.models.config import MoEConfig as JMoE
     from realhf_tpu_torch.models.config import MoEConfig
     kw = dict(BASE, **CONFIGS["llama_gqa_linear"])
-    cfg = TransformerConfig(**dict(kw, mlp_type="moe"),
-                            moe=MoEConfig(expert_parallel=True))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
     moe_kw = dict(kw, mlp_type="moe")
-    got = T.init_params(TransformerConfig(**moe_kw, moe=MoEConfig()),
-                        torch.Generator().manual_seed(0))["blocks"]["mlp"]
-    want = JT.init_params(JConfig(**moe_kw, moe=JMoE()),
-                          jax.random.PRNGKey(0))["blocks"]["mlp"]
-    assert {k: tuple(v.shape) for k, v in got.items()} == {
-        k: tuple(v.shape) for k, v in want.items()}
+    for ep in (False, True):
+        got = T.init_params(
+            TransformerConfig(**moe_kw, moe=MoEConfig(expert_parallel=ep)),
+            torch.Generator().manual_seed(0))["blocks"]["mlp"]
+        want = JT.init_params(JConfig(**moe_kw, moe=JMoE(expert_parallel=ep)),
+                              jax.random.PRNGKey(0))["blocks"]["mlp"]
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in want.items()}
     tcfg = TransformerConfig(**kw)
     tp = T.init_params(tcfg, torch.Generator().manual_seed(0))
     ids = torch.zeros((1, 4), dtype=torch.int32)
