@@ -404,6 +404,32 @@ exits non-zero):
    before this slice) on a fresh d2t2/c2 runner's first step must miss
    the loss or aux limit.
 
+46. cp_gemma -- ``google/gemma-2b`` (8 q heads on one KV head of 256)
+   at 4 of its 18 layers on cp_sft's 16384-token stream, 3 steps at c2,
+   c4 and d1t2c2 (the KV head replicated over t) against d1t1: losses,
+   grad norms, the update (``CP_GEMMA_LIMITS``), exact K6 and ring
+   K2/K3 counts at hd 256; c4's log-probs against d1t1, which K6 with
+   direction 1's key offset one tile off must exceed.
+   kernels (the ring at hd 256) -- at each cp_gemma layout's shard
+   (``CP_GEMMA_KERNEL_SHARDS``: c4 lc 4096 8/1, c2 lc 8192 8/1, d1t2c2
+   lc 8192 4/1) on the stream it trained on: one whole K6 ring, K6's
+   lse, K2/K3 at the diagonal round and the crossing round (the k_off
+   fault must exceed the limits); a ring over documents at Gemma-7B's
+   16/16 with the ring's planted faults; small GQA, window and
+   recurring-id cases.
+47. moe_pp -- (after moe_tp) mixtral_gen's engine moved to d1t2p2 (MoE
+   at t2 in each of two stages, GPipe, M 4): the greedy streams'
+   log-probs against d1t2 on the same microbatches (max gap) and d1t1
+   (mean gap); a stage output handed to microbatch m - 1 and router
+   logits rounded to bf16 must exceed the d1t2 limit. Then its first 4
+   layers at d1t2p2 generate 64 greedy tokens through the decode view
+   (d2t2; at 16 layers two copies fit on no card): exact K1/K4 on the
+   view's members, the mean teacher-forced gap against d1t1, which the
+   view with member 1's row-parallel partial dropped must exceed.
+48. sp_pp -- the sft cell at 7B width, 2 layers, at t2p2s and d2t2p2s
+   (1F1B) against t2p2 and d2t2p2: forwards bit-equal, steps on
+   ``PAR_LIMITS``, exact K1-K3; the shifted reduce-scatter must fail.
+
 The kernel cases of phase 3 include K1-K4 at hd 256: K1 at the Gemma-7B
 prefill and the Gemma-2B sft stream, K2/K3 at that stream and at 16/16,
 K4 at the Gemma-7B and Gemma-2B decodes and K5 on a stacked layer at
@@ -419,11 +445,12 @@ interface), as they ran before the port could save.
 Then a ``{"kernels": [...]}`` line (launches summed over the gen, deep,
 sft, ppo, ctx, ppo_ctx, algorithm, checkpoint, serve, mixtral_gen,
 moe_tp, mixtral_sft, mistral, gpt2_gen, tp_gen, tp_sft, par_ppo, pp_sft,
-pp_gen, pp_ppo, cp_sft, sp_sft and moe_sft_par paths, each counted from
-0; rows ``*_hd256`` over gemma_gen, gemma_sft and kv_rep, of whose K4
-launches ``flash_decode_seq_hd256`` counts those with the statistics;
-rows ``flash_bwd_*_ring`` and ``ring_attention_lse`` for the ring's
-backward), the
+pp_gen, pp_ppo, cp_sft, sp_sft, moe_sft_par, moe_pp and sp_pp paths,
+each counted from 0; rows ``*_hd256`` over gemma_gen, gemma_sft, kv_rep
+and cp_gemma, of whose K4 launches ``flash_decode_seq_hd256`` counts
+those with the statistics; rows ``flash_bwd_*_ring`` and
+``ring_attention_lse`` for the ring's backward, ``*_ring_hd256`` and
+``ring_attention_hd256`` for the ring at hd 256), the
 ``nvidia-smi`` name/power line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -457,8 +484,15 @@ LIMITS = dict(flash_fwd_row_rel=0.1, flash_fwd_lse=6e-6,
 RESULTS = {}
 
 
+#: the script's start (``main``); each emitted record carries its seconds
+#: since then, so a run's stdout says where its time went
+START = None
+
+
 def emit(phase, **kw):
     rec = dict(phase=phase, **kw)
+    if START is not None:
+        rec["at_secs"] = time.monotonic() - START
     RESULTS[phase] = rec
     print(json.dumps(rec), flush=True)
 
@@ -1514,15 +1548,14 @@ def compare_ring(name, qs, ks, vs, segs, *, causal=True, window=None,
         with torch.no_grad():
             rec["ms"] = cuda_ms(call, iters=3, warmup=1)
             rec["plain_ms"] = cuda_ms(plain, iters=1, warmup=0)
-            if nq == nkv:
-                mask = segment_mask(seg, seg, causal, window)[:, None]
-                qt, kt, vt = (ring_gather(t).transpose(1, 2).contiguous()
-                              for t in (qs, ks, vs))
-                rec["library_ms"] = cuda_ms(lambda: tf.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=scale), iters=3, warmup=1)
-                del mask, qt, kt, vt
-            else:
-                rec["library_ms"] = None
+            mask = segment_mask(seg, seg, causal, window)[:, None]
+            qt, kt, vt = (ring_gather(t).transpose(1, 2).contiguous()
+                          for t in (qs, ks, vs))
+            gqa = dict(enable_gqa=True) if nq != nkv else {}
+            rec["library_ms"] = cuda_ms(lambda: tf.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale, **gqa), iters=3,
+                warmup=1)
+            del mask, qt, kt, vt
         rec["bound_ms"], rec["bound_by"], rec["bound_per_card"] = ring_bound(
             seg, devs, nq, nkv, hd, causal, window)
         if n > 1 and len(set(devs)) == 1:
@@ -4071,12 +4104,13 @@ def run_algo_phases(smi):
 # phases 22-23: checkpoint IO and resume
 # ----------------------------------------------------------------------
 CKPT_NEW_TOKENS = 32
-# ckpt_gen saves and loads the gen cell's model at 8 of its 32 layers
-# (~3.7 GB) and ckpt_resume at 2 of the sft cell's 4, to keep the script
+# ckpt_gen saves and loads the gen cell's model at 4 of its 32 layers
+# and ckpt_resume at 1 of the sft cell's 4 (8 and 2 before the hd 256
+# ring, MoE-in-pipeline and s-with-p phases came), to keep the script
 # inside its time: their checks are bit-equality, which depth does not
 # change; the load rate and host peak are read at that size
-CKPT_GEN_LAYERS = 8
-CKPT_RESUME_LAYERS = 2
+CKPT_GEN_LAYERS = 4
+CKPT_RESUME_LAYERS = 1
 #: a sound resume is bit-equal (reads 0); the planted fault (fresh
 #: moments) must move some parameter by at least ten times this share
 #: of the step's largest update
@@ -4534,11 +4568,12 @@ def phase_ckpt_resume(smi):
 # ----------------------------------------------------------------------
 # phase serve: the serving engine (inflight generator + scheduler)
 # ----------------------------------------------------------------------
-#: depth cut (the script's time): serve_gen and serve at 8 of
-#: LLaMA-7B's 32 layers since the replicated-KV and MoE-over-members
-#: phases came; the limits below were read at 32, where the bf16 drift
-#: they bound is larger
-SERVE_LAYERS = 8
+#: depth cut (the script's time): serve_gen and serve at 4 of
+#: LLaMA-7B's 32 layers (8 since the replicated-KV and MoE-over-members
+#: phases came, 4 since the hd 256 ring, MoE-in-pipeline and s-with-p
+#: ones); the limits below were read at 32, where the bf16 drift they
+#: bound is larger
+SERVE_LAYERS = 4
 SERVE_NEW_TOKENS = 128
 SERVE_SLOTS = 8
 SERVE_CHUNK = 8
@@ -5849,12 +5884,15 @@ def phase_mistral(smi, seed=1):
 
 
 def run_moe_phases(smi):
-    """phases 26-29, with moe_tp (43) right after mixtral_gen on its
-    engine, each freeing its models before the next"""
+    """phases 26-29, with moe_tp (43) and moe_pp (48) right after
+    mixtral_gen on its engine, each freeing its models before the
+    next"""
     recs, kept = {}, {}
     for name, fn in (("mixtral_gen", lambda s: phase_mixtral_gen(
                          s, keep=kept)),
                      ("moe_tp", lambda s: phase_moe_tp(
+                         s, kept["engine"], kept["items"])),
+                     ("moe_pp", lambda s: phase_moe_pp(
                          s, kept.pop("engine"), kept.pop("items"))),
                      ("mixtral_sft", phase_mixtral_sft),
                      ("mixtral_parity", lambda _smi: phase_mixtral_parity()),
@@ -6361,15 +6399,15 @@ def phase_tp_gen(smi, seed=1):
     return rec
 
 
-def sft_runner(data, layout, seed, schedule=None):
+def sft_runner(data, layout, seed, schedule=None, n_layers=PAR_SFT_LAYERS):
     """The sft cell (16 prompt-answer records, 2 microbatches, lr 1e-5,
-    3 epochs of one step) at 7B width and ``PAR_SFT_LAYERS`` layers on
+    3 epochs of one step) at 7B width and ``n_layers`` layers on
     ``layout`` (a pipeline layout under ``schedule`` when given), its
     members on ``member_devices``."""
     import dataclasses
     from realhf_tpu_torch.parallel.mesh import parse_parallelism
     from realhf_tpu_torch.system.inline import InlineRunner
-    spec = build_sft_spec(data, PAR_SFT_LAYERS)
+    spec = build_sft_spec(data, n_layers)
     spec.seed = seed
     par = parse_parallelism(layout)
     if schedule:
@@ -7436,6 +7474,11 @@ def phase_kernels_pp(segs):
 #: the members' shard boundaries
 CP_RECORDS = (3584, 1536, 3000, 2616, 2824, 2824)
 CP_LAYOUTS = ("c2", "c4", "d1t2c2s")
+#: depth cut (the script's time): cp_sft and sp_sft train 2 of the 7B
+#: width's layers (4 before the phases of the hd 256 ring, MoE in
+#: pipelines and s with p); every layer runs the same ring and the same
+#: sequence-parallel block, and the limits were read at 4
+CP_SFT_LAYERS = 2
 #: each sequence-parallel layout and the layout without ``s`` it is held
 #: against
 SP_LAYOUTS = (("d1t2s", "d1t2"), ("d2t2s", "d2t2"))
@@ -7561,14 +7604,15 @@ def write_cp_records(path, seed):
                                 "answer": " " + words(n - 1 - p)}) + "\n")
 
 
-def cp_runner(data, layout, seed):
+def cp_runner(data, layout, seed, model_config):
     """The sft experiment (``SFTConfig.build``) on the cp_sft records at
-    7B width and ``PAR_SFT_LAYERS`` layers, one microbatch of one stream
-    a step, 3 epochs of one step, on ``layout`` over
-    ``member_devices``."""
+    ``model_config``, one microbatch of one stream a step, 3 epochs of
+    one step, on ``layout`` over ``member_devices``."""
     from realhf_tpu_torch.parallel.mesh import parse_parallelism
     from realhf_tpu_torch.system.inline import InlineRunner
-    spec = build_sft_spec(data, PAR_SFT_LAYERS, overrides={
+    spec = build_sft_spec(data, model_config["n_layers"],
+                          model_config=model_config,
+                          overrides={
         "dataset.train_bs_n_seqs": str(len(CP_RECORDS)),
         "dataset.max_seqlen": str(max(CP_RECORDS)), "n_mbs": "1"})
     spec.seed = seed
@@ -7663,53 +7707,67 @@ def free():
 def phase_cp_sft(smi, seed=1):
     """The sft experiment on one 16384-token stream a step (six records
     of 1024-4096 tokens packed across the shard boundaries) at 7B width
-    and 4 layers, 3 steps, at c2, c4 and d1t2c2s (every member on
-    ``member_devices``), each against the d1t1 runner of the same seed on
-    the card. Gates per layout: each step's loss and grad norm
-    (relative), the fp32 master weights' update over the 3 steps, exact
-    K6 (plain and lse rounds), push and K2/K3 ring-entry counts
-    (``cp_launches``); for c4 also ``forward_logprobs`` of the trained
-    engine against a d1t1 engine of its weights, which K6 with every key
-    shard's offset one shard off must miss. Planted fault: a fresh
-    c2 runner whose ring backward sums round (i, src)'s dk/dv into shard
-    src + 1 (3 steps) must miss the loss, grad-norm or update limit (wk
-    and wv then learn from the wrong shard's keys). Reported: step
-    seconds and peak memory beside d1t1's. ``rec["_segs"]`` keeps each
-    layout's streams for ``phase_kernels_cp``."""
+    and ``CP_SFT_LAYERS`` layers, 3 steps, at c2, c4 and d1t2c2s
+    (``cp_phase`` on
+    ``CP_LIMITS``; c4's log-probs with every key shard's offset one shard
+    off must miss). Planted training fault: a fresh c2 runner whose ring
+    backward sums round (i, src)'s dk/dv into shard src + 1 (3 steps)
+    must miss the loss, grad-norm or update limit (wk and wv then learn
+    from the wrong shard's keys)."""
+    from realhf_tpu_torch.models.config import llama_config
+    return cp_phase(smi, seed, llama_config("7b", n_layers=CP_SFT_LAYERS),
+                    CP_SFT_LAYERS, CP_LAYOUTS, CP_LIMITS, "cp_sft",
+                    key_offsets_one_shard_off, dkv_fault=True)
+
+
+def cp_phase(smi, seed, model_config, n_layers, layouts, lim, prefix,
+             logprob_fault, dkv_fault=False):
+    """The sft experiment on the cp_sft stream (``model_config``, default
+    7B width, at ``n_layers`` layers), 3 steps, at each of ``layouts``
+    (every member on ``member_devices``), each against the d1t1 runner
+    of the same seed on the card. Gates per layout (``lim``, keys
+    ``prefix`` + ``_*``): each step's loss and grad norm (relative), the
+    fp32 master weights' update over the 3 steps, exact K6 (plain and lse
+    rounds), push and K2/K3 ring-entry counts (``cp_launches``); for c4
+    also ``forward_logprobs`` of the trained engine against a d1t1
+    engine of its weights, which the same forward under
+    ``logprob_fault()`` must miss. ``dkv_fault``: the planted training
+    fault of ``phase_cp_sft``. Reported: step seconds and peak memory
+    beside d1t1's. ``rec["_segs"]`` keeps each layout's streams for the
+    kernel phases."""
     from realhf_tpu_torch.engine.engine import Engine
-    lim = CP_LIMITS
-    rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi, layouts={},
+    rec = dict(n_layers=n_layers, seed=seed, card=smi, layouts={},
                records=list(CP_RECORDS), limits=lim)
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "cp.jsonl")
         write_cp_records(data, seed=3)
-        ref, setup = cp_runner(data, "d1t1", seed)
+        ref, setup = cp_runner(data, "d1t1", seed, model_config)
         rec["ref"], rmaster, _ = counted_run(ref)
         rmaster = to_host(rmaster)
         rec["ref"]["setup_secs"] = setup
         del ref
         free()
-        for layout in CP_LAYOUTS:
-            runner, setup = cp_runner(data, layout, seed)
+        for layout in layouts:
+            runner, setup = cp_runner(data, layout, seed, model_config)
             eng = runner.models["default"].engine
             r, master, mbs = counted_run(runner)
             r["setup_secs"] = setup
             n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
             par = eng.parallel
             r["launches_expected"] = cp_launches(
-                PAR_SFT_LAYERS, par.tensor_parallel_size,
+                n_layers, par.tensor_parallel_size,
                 par.context_parallel_size, train_passes=PAR_SFT_STEPS,
                 infer_passes=n_eval)
             r["launches_ok"] = r["launches"] == r["launches_expected"]
             r["stream_len"] = int(mbs[0]["seg_ids"].shape[1])
             r["ok"] = held_against(r, rec["ref"], master, rmaster, lim,
-                                   "cp_sft") and r["launches_ok"]
+                                   prefix) and r["launches_ok"]
             if layout == "c4":
                 one = Engine(eng.cfg, eng.gathered_params(), eng.device)
                 r["logprobs_abs"] = logprob_gap(eng, one, mbs[:1])
-                with key_offsets_one_shard_off():
+                with logprob_fault():
                     r["fault_logprobs_abs"] = logprob_gap(eng, one, mbs[:1])
-                r["ok"] &= (r["logprobs_abs"] <= lim["cp_sft_logprobs_abs"]
+                r["ok"] &= (r["logprobs_abs"] <= lim[f"{prefix}_logprobs_abs"]
                             < r["fault_logprobs_abs"])
                 del one
             rec.setdefault("_segs", {})[layout] = [mb["seg_ids"]
@@ -7718,51 +7776,71 @@ def phase_cp_sft(smi, seed=1):
             rec["layouts"][layout] = r
             del runner, eng, master, mbs
             free()
-        frunner, _ = cp_runner(data, "c2", seed)
-        with dkv_into_next_shard():
-            fault, fmaster, _ = counted_run(frunner)
-        fault["within_limits"] = held_against(fault, rec["ref"], fmaster,
-                                              rmaster, lim, "cp_sft")
-        del frunner, rmaster, fmaster
+        if dkv_fault:
+            frunner, _ = cp_runner(data, "c2", seed, model_config)
+            with dkv_into_next_shard():
+                fault, fmaster, _ = counted_run(frunner)
+            fault["within_limits"] = held_against(
+                fault, rec["ref"], fmaster, rmaster, lim, prefix)
+            rec["planted_fault"] = dict(dkv_into_next_shard={
+                k: fault[k] for k in ("losses", "grad_norms", "loss_rel",
+                                      "grad_norm_rel", "update_rel")})
+            rec["fault_fails"] = not fault["within_limits"]
+            del frunner, fmaster
+        del rmaster
         free()
-    rec["planted_fault"] = dict(dkv_into_next_shard={
-        k: fault[k] for k in ("losses", "grad_norms", "loss_rel",
-                              "grad_norm_rel", "update_rel")})
-    rec["fault_fails"] = not fault["within_limits"]
     rec["launches"] = add_counts(*(r["launches"]
                                    for r in rec["layouts"].values()))
-    rec["ok"] = rec["fault_fails"] and all(
+    rec["ok"] = rec.get("fault_fails", True) and all(
         r["ok"] for r in rec["layouts"].values())
     return rec
 
 
 def phase_sp_sft(smi, seed=1):
     """The sft cell's traffic (16 records a step, 2 microbatches) at 7B
-    width and 4 layers, 3 steps, at d1t2s and d2t2s, each against the
-    same layout without ``s`` (d1t2, d2t2) of the same seed on the card.
-    Gates: ``forward_logprobs`` of the untrained engines bit-equal
+    width and ``CP_SFT_LAYERS`` layers, 3 steps, at d1t2s and d2t2s,
+    each against the
+    same layout without ``s`` (d1t2, d2t2) of the same seed on the card
+    (``sp_phase``). Exact K1-K3 counts: K1 twice a layer a member a
+    train pass (each member's attention half is one checkpoint region,
+    as at d x t)."""
+    def launches(runner, eng):
+        n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+        n, n_mb = len(eng.members), 2
+        return launches_of(CP_SFT_LAYERS, n,
+                           fwd=2 * n_mb * PAR_SFT_STEPS + n_eval,
+                           bwd=n_mb * PAR_SFT_STEPS)
+
+    return sp_phase(smi, seed, SP_LAYOUTS, CP_SFT_LAYERS, launches)
+
+
+def sp_phase(smi, seed, layouts, n_layers, launches):
+    """Each sequence-parallel layout of ``layouts`` (the sft cell at 7B
+    width and ``n_layers`` layers, 3 steps) against the same layout
+    without ``s`` of the same seed on the card. Gates:
+    ``forward_logprobs`` of the untrained engines bit-equal
     (``sp_sft_forward_abs`` 0: the reduce-scatter sums in the
     all-reduce's order and the norms are per token), each step's loss and
     grad norm and the masters' update on ``PAR_LIMITS``' tp_sft limits,
-    exact K1-K3 counts (K1 twice a layer a member a train pass: each
-    member's attention half is one checkpoint region, as at d x t).
-    Planted fault: the
-    reduce-scatter handing member j the slice of member j + 1 must break
-    the forward's bit-equality and miss the loss limit. Reported: step
-    seconds and peak memory beside the layout without ``s``."""
+    exact kernel counts (``launches(runner, engine)``). Planted fault:
+    the reduce-scatter handing member j the slice of member j + 1 must
+    break each forward's bit-equality and miss the loss limit on the
+    first layout's first step. Reported: step seconds and peak memory
+    beside the layout without ``s``."""
     import numpy as np
     plim, lim = PAR_LIMITS, CP_LIMITS
-    rec = dict(n_layers=PAR_SFT_LAYERS, seed=seed, card=smi, layouts={},
+    rec = dict(n_layers=n_layers, seed=seed, card=smi, layouts={},
                limits=dict(sp_sft_forward_abs=lim["sp_sft_forward_abs"],
                            **{k: v for k, v in plim.items()
                               if k.startswith("tp_sft")}))
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "sft.jsonl")
         write_prompt_answers(data, 16, seed=3)
-        for layout, base in SP_LAYOUTS:
+        for layout, base in layouts:
             lps, runs = {}, {}
             for lay in (base, layout):
-                runner, setup = sft_runner(data, lay, seed)
+                runner, setup = sft_runner(data, lay, seed,
+                                           n_layers=n_layers)
                 eng = runner.models["default"].engine
                 # the first batch's tokens as two streams of one record
                 ids = next(iter(runner.dataloader)).data["packed_input_ids"]
@@ -7776,11 +7854,7 @@ def phase_sp_sft(smi, seed=1):
                                                    mb["seg_ids"]).cpu()
                 r, master, mbs = counted_run(runner)
                 r["setup_secs"] = setup
-                n, n_mb = len(eng.members), 2
-                n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
-                r["launches_expected"] = launches_of(
-                    PAR_SFT_LAYERS, n, fwd=2 * n_mb * PAR_SFT_STEPS + n_eval,
-                    bwd=n_mb * PAR_SFT_STEPS)
+                r["launches_expected"] = launches(runner, eng)
                 r["launches_ok"] = r["launches"] == r["launches_expected"]
                 runs[lay] = (r, to_host(master) if lay == base else master)
                 del runner, eng, mbs, master
@@ -7799,13 +7873,14 @@ def phase_sp_sft(smi, seed=1):
             rec["layouts"][layout] = r
             del master, base_master, runs
             free()
-        frunner, _ = sft_runner(data, "d1t2s", seed)
+        first = layouts[0][0]
+        frunner, _ = sft_runner(data, first, seed, n_layers=n_layers)
         batch = next(iter(frunner.dataloader))
         with reduce_scatter_shifted():
             floss = [frunner.run_step(batch)["trainDefault"]["loss"]]
         del frunner
         free()
-    ref_loss = rec["layouts"]["d1t2s"]["base"]["losses"][0]
+    ref_loss = rec["layouts"][first]["base"]["losses"][0]
     fault = dict(losses=floss, loss_rel=abs(floss[0] - ref_loss) / ref_loss)
     rec["planted_fault"] = dict(reduce_scatter_shifted=fault)
     rec["fault_fails"] = fault["loss_rel"] > plim["tp_sft_loss_rel"]
@@ -7834,16 +7909,17 @@ def run_cp_phases(smi):
     return recs, segs
 
 
-def cp_round_inputs(seg, n, gen, nq=32, hd=128):
+def cp_round_inputs(seg, n, gen, nq=32, hd=128, nkv=None):
     """Random bf16 q/k/v/do over the stream ``seg`` [1, L] of ``n``
-    shards, K1's o and lse over the whole stream (what K6's last round
-    gives the ring's backward) and delta."""
+    shards (``nkv`` KV heads, default ``nq``), K1's o and lse over the
+    whole stream (what K6's last round gives the ring's backward) and
+    delta."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     L = seg.shape[1]
     q, do = (torch.randn((1, L, nq, hd), generator=gen,
                          device="cuda").bfloat16() for _ in range(2))
-    k, v = (torch.randn((1, L, nq, hd), generator=gen,
+    k, v = (torch.randn((1, L, nkv or nq, hd), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
     o, lse = fa.flash_attention(q, k, v, seg)
     return q, k, v, do, o, lse, fa.attention_delta(o, do)
@@ -7948,20 +8024,23 @@ def sdpa_masked_backward_ms(q, k, v, do, mask) -> float:
                                                retain_graph=True))
 
 
-def check_ring_lse(name, seg, n, gen, nq=32, hd=128, timed=False):
-    """K6 with the lse output over ``member_devices(n)``: its lse row by
-    row against ``flash_attention_plain``'s over the gathered stream
-    (NEG_INF exactly on rows with no valid key; ``LIMITS["flash_fwd_lse"]``
-    on the others), and its o bit-equal to a launch without the lse.
-    Timed: the ring with and without the lse, the bound as
-    ``ring_bound``, SDPA's forward on the whole stream."""
+def check_ring_lse(name, seg, n, gen, nq=32, hd=128, timed=False,
+                   nkv=None):
+    """K6 with the lse output over ``member_devices(n)`` (``nkv`` KV
+    heads, default ``nq``): its lse row by row against
+    ``flash_attention_plain``'s over the gathered stream (NEG_INF exactly
+    on rows with no valid key; ``LIMITS["flash_fwd_lse"]`` on the
+    others), and its o bit-equal to a launch without the lse. Timed: the
+    ring with and without the lse, the bound as ``ring_bound``, SDPA's
+    forward on the whole stream."""
     import torch
     from realhf_tpu_torch.ops import flash_attention as fa
     from realhf_tpu_torch.ops import ring_attention_fused as rf
     devs = member_devices(n)
     L = seg.shape[1]
+    nkv = nkv or nq
     q = torch.randn((1, L, nq, hd), generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn((1, L, nq, hd), generator=gen,
+    k, v = (torch.randn((1, L, nkv, hd), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
     shards = [ring_shards(t, devs) for t in (q, k, v, seg)]
     opts = dict(causal=True, scale=hd ** -0.5, sliding_window=None,
@@ -7972,17 +8051,20 @@ def check_ring_lse(name, seg, n, gen, nq=32, hd=128, timed=False):
     got = torch.cat([x.to("cuda:0") for x in lses], dim=-1)
 
     def plain_lse(dtype=torch.float32):
-        # four heads at a time: the whole stream's fp32 scores of every
-        # head would not fit on the card
+        # a few KV heads at a time (four q heads, or one KV head's
+        # group): the whole stream's fp32 scores of every head would not
+        # fit on the card
+        g = nq // nkv
+        per = max(1, 4 // g)
         return torch.cat([fa.flash_attention_plain(
-            q[:, :, h:h + 4].to(dtype), k[:, :, h:h + 4].to(dtype),
-            v[:, :, h:h + 4].to(dtype), seg)[1] for h in range(0, nq, 4)],
-            dim=1)
+            q[:, :, h * g:(h + per) * g].to(dtype),
+            k[:, :, h:h + per].to(dtype), v[:, :, h:h + per].to(dtype),
+            seg)[1] for h in range(0, nkv, per)], dim=1)
 
     want = plain_lse()
     valid = (want > NEG_INF / 2)
     rec = dict(kernel="ring_attention_lse", case=name,
-               shape=[1, L // n, nq, nq, hd], members=n,
+               shape=[1, L // n, nq, nkv, hd], members=n,
                lse_max_abs_err=float((got - want).abs()[valid].max()),
                lse_limit=LIMITS["flash_fwd_lse"],
                empty_rows_neg_inf=bool((got[~valid] == NEG_INF).all()),
@@ -8000,12 +8082,13 @@ def check_ring_lse(name, seg, n, gen, nq=32, hd=128, timed=False):
         rec["plain_ms"] = cuda_ms(lambda: plain_lse(torch.bfloat16),
                                   iters=1, warmup=1)
         rec["bound_ms"], rec["bound_by"], _ = ring_bound(
-            seg, devs, nq, nq, hd, True, None)
+            seg, devs, nq, nkv, hd, True, None)
         mask = fa.segment_mask(seg, seg, True)[:, None]
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if nq != nkv else {}
         rec["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), iters=5)
+                qt, kt, vt, attn_mask=mask, **gqa), iters=5)
     del q, k, v, shards, outs, lses, plain_o
     torch.cuda.empty_cache()
     return rec
@@ -8059,18 +8142,22 @@ def phase_kernels_cp(segs):
 # losses over data and context shards) at Mixtral-8x7B width
 # ----------------------------------------------------------------------
 KV_REP_LAYOUTS = ("d1t2", "d1t4")
-#: depth cut (the script's time): kv_rep generates at 9 of Gemma-2B's 18
-#: layers; every layer runs the same "seq" route
-KV_REP_GEN_LAYERS = 9
+#: depth cut (the script's time): kv_rep generates at 6 of Gemma-2B's 18
+#: layers (9 before the hd 256 ring, MoE-in-pipeline and s-with-p phases
+#: came); every layer runs the same "seq" route
+KV_REP_GEN_LAYERS = 6
 KV_REP_NEW_TOKENS = 64
 KV_REP_FAULT_TOKENS = 16
 #: depth cut of kv_rep's training (Gemma-2B has 18 layers): d1t1 and
 #: d1t2 train one after the other on one card, and the sft cell at 18
-#: layers peaks at 60.4 GB alone; 6 layers keep the phase's seconds and
-#: peak small, and every layer runs the same replicated-KV path
-KV_REP_SFT_LAYERS = 6
+#: layers peaks at 60.4 GB alone; 4 layers (6 before the phases of the
+#: hd 256 ring, MoE in pipelines and s with p) keep the phase's seconds
+#: and peak small, and every layer runs the same replicated-KV path
+KV_REP_SFT_LAYERS = 4
 MOE_TP_LAYOUTS = ("d1t2", "d1t4")
-MOE_TP_NEW_TOKENS = 64
+#: the script's time: 32 greedy tokens a layout (64 before the phases of
+#: the hd 256 ring, MoE in pipelines and s with p)
+MOE_TP_NEW_TOKENS = 32
 #: moe_sft_par's layouts: router losses over data shards (ragged), expert
 #: parallelism over the data index with capacity dispatch, and router
 #: losses over context shards (ragged, one stream a step)
@@ -8205,15 +8292,19 @@ def decode_record(st, counts, want, smi):
                 launches_ok=counts == want, card=smi)
 
 
-def model_sft_runner(data, layout, seed, model_config, overrides=None):
+def model_sft_runner(data, layout, seed, model_config, overrides=None,
+                     schedule=None):
     """The sft cell (``build_sft_spec``) at ``model_config`` on
-    ``layout``, its members on ``member_devices``."""
+    ``layout`` (a pipeline layout under ``schedule`` when given), its
+    members on ``member_devices``."""
     from realhf_tpu_torch.parallel.mesh import parse_parallelism
     from realhf_tpu_torch.system.inline import InlineRunner
     spec = build_sft_spec(data, model_config["n_layers"],
                           model_config=model_config, overrides=overrides)
     spec.seed = seed
     par = parse_parallelism(layout)
+    if schedule:
+        par = dataclasses.replace(par, pipeline_schedule=schedule)
     spec.models["default"].parallel = par
     t0 = time.monotonic()
     runner = InlineRunner(without_saves(spec), role_devices={
@@ -8709,8 +8800,497 @@ def phase_mixtral_full_d1t4(smi, seed=1, new_tokens=64):
     return r
 
 
+# ----------------------------------------------------------------------
+# phases 47-50: hd 256 on the ring (Gemma-2B at c > 1: K6 and the ring's
+# K2/K3 at hd 256), MoE inside pipeline stages (Mixtral-8x7B width at
+# d1t2p2; its training at d2p2 with expert parallelism on four cards),
+# and sequence parallelism with pipeline parallelism (7B width)
+# ----------------------------------------------------------------------
+#: depth cut (the script's time): Gemma-2B trains 4 of its 18 layers at
+#: each context layout; every layer runs the same ring
+CP_GEMMA_LAYERS = 4
+CP_GEMMA_LAYOUTS = ("c2", "c4", "d1t2c2")
+#: about 3x the largest sound reading of ``scripts/torch_cp_phases.py
+#: --phases cp_gemma --seeds 1 2 3 4 5`` (H100 80GB HBM3, 700 W; PERF.md,
+#: Findings): c2, c4 and d1t2c2 against d1t1 over 3 steps, loss
+#: 8.6e-5-1.87e-4, grad norm 3.09e-3-4.27e-3 relative (K6's and the ring
+#: K2/K3's bf16 sums in another order than K1's and K2/K3's), the masters'
+#: update 0.0019-0.0032; c4's log-probs against d1t1 of its weights
+#: 0.084-0.100, with direction 1's key offset one tile off 5.3-8.1
+CP_GEMMA_LIMITS = dict(cp_gemma_loss_rel=5.6e-4, cp_gemma_grad_norm_rel=0.013,
+                       cp_gemma_update_rel=0.0096,
+                       cp_gemma_logprobs_abs=0.3)
+#: the pipelined MoE forward: mixtral_gen's engine moved to this layout
+MOE_PP_LAYOUT = "d1t2p2"
+#: its training on four cards (``scripts/torch_moe_par_phases.py
+#: --phases moe_pp_train``): Mixtral width at 2 layers, d2p2 with
+#: expert parallelism under GPipe, against p2 (d1t1p2) replaying the
+#: same microbatches
+MOE_PP_TRAIN_LAYERS = 2
+#: moe_pp: about 3x the largest sound mean gap of
+#: ``scripts/torch_moe_par_phases.py --phases moe_pp --seeds 1 2 3 4 5``
+#: (H100 80GB HBM3, 700 W): d1t2p2's pipelined forward against d1t1's,
+#: both teacher-forced, 0.51-0.62 (max 5.2-7.5: random experts' near-tie
+#: routings flip under bf16 order, as in mixtral_gen); a stage's output
+#: handed to microbatch m - 1 4.70-4.79. Against d1t2 run on the same
+#: microbatches (the same members' arithmetic on the same rows):
+#: bit-equal on every seed, so the limit is 0; router logits rounded to
+#: bf16 4.5-7.3 (max; against d1t1 its mean 0.48-0.62 passes that gate),
+#: the stage output to m - 1 8.6-9.6. The generation through the d2t2
+#: view at 4 layers, against d1t1 of those layers: mean gap 0.072-0.089
+#: (max 2.8-5.2), member 1's row-parallel partial dropped 4.67-4.98.
+#: moe_pp_train, about 3x the
+#: largest of ``--phases moe_pp_train --seeds 1 2 3 4 5`` on four cards:
+#: d2p2ep against p2 loss 1.09e-4-3.72e-4, grad norm 1.29e-3-3.46e-3,
+#: the update 0.0235-0.0287, aux 5.0e-4-2.44e-3 (relative); the first
+#: stage's router sums dropped 0.53-0.57 on the aux
+MOE_PP_LIMITS = dict(moe_pp_tf_logprob_mean_abs=1.85,
+                     moe_pp_tp_logprob_max_abs=0.0,
+                     moe_pp_gen_tf_logprob_mean_abs=0.27,
+                     moe_pp_train_loss_rel=1.1e-3,
+                     moe_pp_train_grad_norm_rel=0.0104,
+                     moe_pp_train_update_rel=0.086,
+                     moe_pp_train_aux_rel=7.3e-3)
+#: depth cut of moe_pp's generation: the decode view of d1t2p2 over one
+#: card's four members is d2t2, two copies of the model; at
+#: mixtral_gen's 16 layers the engine (46 GB) and its view (92 GB) fit
+#: on no card, and at 8 they leave too little for the move's leaf in
+#: flight (7.5 GB); at 4 layers the engine takes 12 GB and the view 24
+MOE_PP_VIEW_LAYERS = 4
+MOE_PP_NEW_TOKENS = 64
+#: each sequence-parallel pipeline layout and the layout without ``s``
+SP_PP_LAYOUTS = (("t2p2s", "t2p2"), ("d2t2p2s", "d2t2p2"))
+#: depth cut (the script's time): sp_pp trains 2 layers, one a stage;
+#: every layer runs the same sequence-parallel block
+SP_PP_LAYERS = 2
+
+
+@contextlib.contextmanager
+def one_direction_k_off_one_tile_off():
+    """The planted hd 256 ring fault: K6 takes direction 1's KV half at a
+    global offset 64 keys (one tile) later than it lies (the causal test
+    and the tile marks on wrong positions)."""
+    from realhf_tpu_torch.ops import ring_attention_fused as rf
+    real = rf.round_key_offsets
+
+    def shifted(member, rnd, n, lc, lch, n_dirs):
+        offs = list(real(member, rnd, n, lc, lch, n_dirs))
+        offs[-1] += 64 if n_dirs == 2 else 0
+        return offs
+
+    with patched(rf, "round_key_offsets", shifted):
+        yield
+
+
+def phase_cp_gemma(smi, seed=1):
+    """Gemma-2B (google/gemma-2b: 8 q heads on one KV head of 256, vocab
+    256000) at ``CP_GEMMA_LAYERS`` layers through ``cp_phase`` at c2, c4
+    and d1t2c2 (the KV head replicated over t, each member's ring
+    carrying it; K6 and the ring's K2/K3 at hd 256), on
+    ``CP_GEMMA_LIMITS``; c4's log-probs with K6 taking direction 1's key
+    offset one tile off must miss."""
+    return cp_phase(smi, seed,
+                    hf_random_init_config("gemma", GEMMA_2B, CP_GEMMA_LAYERS),
+                    CP_GEMMA_LAYERS, CP_GEMMA_LAYOUTS, CP_GEMMA_LIMITS,
+                    "cp_gemma", one_direction_k_off_one_tile_off)
+
+
+#: cp_gemma's ring shards that K6, its lse and the ring's K2/K3 at hd 256
+#: are held at: (layout, members a ring, q heads, KV heads of a member);
+#: the wide K2/K3 size their tile marks by the shard's length
+CP_GEMMA_KERNEL_SHARDS = (("c4", 4, 8, 1), ("c2", 2, 8, 1),
+                          ("d1t2c2", 2, 4, 1))
+
+
+def phase_kernels_cp_hd256(segs):
+    """K6 and the ring's K2/K3 at hd 256 against their plain versions
+    at each of cp_gemma's shard shapes (``CP_GEMMA_KERNEL_SHARDS``: B 1,
+    lc 4096 with Gemma-2B's 8/1 heads at c4, lc 8192 with 8/1 at c2 and
+    4/1, a model member's q heads on the replicated KV head, at
+    d1t2c2), each on the stream that layout trained on (``segs``:
+    layout -> its streams): one whole ring, K6's lse over the stream,
+    K2/K3 at the diagonal round of shard i and at the round of shard i
+    against shard i - 1 with the k_off fault, i the first shard a record
+    crosses into (shard 1 when none does); the c4 cases timed. Then one
+    ring over five documents of 16384 tokens at Gemma-7B's heads (16/16;
+    timed, with the planted faults: the first document crosses shard 1,
+    so member 1's round 1 has keys to see, which a training stream need
+    not give), and small cases (GQA 8/1 with ragged tiles and a padding
+    row, a window of 300, ids recurring across shards). Returns (K6
+    records, K2/K3 records), each marked ``hd256``."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    rng = np.random.default_rng(19)
+    k6, bwd = [], []
+    for layout, n, nq, nkv in CP_GEMMA_KERNEL_SHARDS:
+        timed = layout == "c4"
+        seg = torch.as_tensor(segs[layout][0], dtype=torch.int32,
+                              device="cuda")
+        lc = seg.shape[1] // n
+        k6.append(check_ring(f"cp_gemma_{layout}_hd256", 1, n, nq, nkv, 256,
+                             seg, gen, timed=timed))
+        i = next((j for j in range(1, n) if seg[0, j * lc] != 0
+                  and seg[0, j * lc - 1] == seg[0, j * lc]), 1)
+        inputs = cp_round_inputs(seg, n, gen, nq=nq, hd=256, nkv=nkv)
+        bwd += [check_ring_bwd_round(
+                    f"cp_gemma_{layout}_shard{i}_diagonal_hd256", inputs,
+                    seg, n, i, i, timed=timed),
+                check_ring_bwd_round(
+                    f"cp_gemma_{layout}_shard{i}_keys{i - 1}_hd256", inputs,
+                    seg, n, i, i - 1, plant_fault=True)]
+        del inputs
+        torch.cuda.empty_cache()
+        k6.append(check_ring_lse(f"cp_gemma_{layout}_hd256", seg, n, gen,
+                                 nq=nq, hd=256, nkv=nkv))
+        del seg
+        torch.cuda.empty_cache()
+    docs = doc_stream_seg((6144, 4096, 3072, 2048, 768), 256, "cuda")
+    k6 += [check_ring("docs_c4_gemma7b_hd256", 1, 4, 16, 16, 256, docs, gen,
+                      timed=True, plant_faults=True),
+           check_ring("gqa_8_1_ragged_hd256", 3, 4, 8, 1, 256,
+                      packed_seg(rng, 3, 800, 4, {1}, "cuda"), gen),
+           check_ring("window_300_hd256", 2, 4, 8, 2, 256,
+                      packed_seg(rng, 2, 2048, 3, set(), "cuda"), gen,
+                      window=300),
+           check_ring("recurring_ids_hd256", 2, 4, 8, 8, 256,
+                      recurring_seg(rng, 2, 2048, "cuda"), gen)]
+    for r in k6 + bwd:
+        r["hd256"] = True
+    del gen
+    torch.cuda.empty_cache()
+    return k6, bwd
+
+
+def moe_pp_batch(items):
+    """mixtral_gen's greedy streams (prompt, then its tokens) as one
+    right-padded batch -> (ids, seg, the token positions of each)."""
+    import numpy as np
+    seqs = [np.concatenate([p, t]) for p, t, *_ in items]
+    width = max(len(x) for x in seqs)
+    ids = np.zeros((len(seqs), width), np.int64)
+    seg = np.zeros((len(seqs), width), np.int32)
+    at = []
+    for b, ((p, t, *_), x) in enumerate(zip(items, seqs)):
+        ids[b, :len(x)], seg[b, :len(x)] = x, 1
+        at.append(slice(len(p) - 1, len(p) - 1 + len(t)))
+    return ids, seg, at
+
+
+@contextlib.contextmanager
+def router_logits_in_bf16():
+    """The small planted pipelined-MoE fault: every MoE layer takes its
+    top-2 from router logits rounded to bf16 (the near-tie routings flip
+    and the gates move by bf16's rounding, as a capacity or queue
+    position slip would move a few tokens)."""
+    from realhf_tpu_torch.ops import moe
+    real = moe.router_probs
+
+    def rounded(cfg_moe, logits):
+        return real(cfg_moe, logits.bfloat16().float())
+
+    with patched(moe, "router_probs", rounded):
+        yield
+
+
+def first_layers(tree, n):
+    """A model tree with its first ``n`` layers (views of its block
+    leaves)."""
+    def narrow(t):
+        return {k: narrow(v) if isinstance(v, dict) else v[:n]
+                for k, v in t.items()}
+
+    return dict(tree, blocks=narrow(tree["blocks"]))
+
+
+def phase_moe_pp(smi, ref_eng, ref_items):
+    """Mixtral-8x7B width at ``MIXTRAL_GEN_LAYERS`` (mixtral_gen's d1t1
+    engine ``ref_eng``, its weights on the host while the layouts run)
+    moved to ``MOE_PP_LAYOUT`` (two stages of two model members, MoE at
+    t2 inside each stage: each member's slice of every expert's width,
+    one routing per microbatch). mixtral_gen's 8 greedy streams, prompt
+    and tokens, through the pipelined GPipe forward (M 4, 2 streams a
+    microbatch) -> the tokens' log-probs, held against d1t2 (the same
+    model members' arithmetic without stages) run on each microbatch's
+    rows on the max gap (``moe_pp_tp_logprob_max_abs``), and against
+    ``ref_eng``'s K1 forward of the whole batch on the mean gap (both
+    teacher-forced: bf16 order and routing flips only). Gates: those
+    gaps, exact K1 counts (``pipeline_launches``); planted faults, each
+    of which must miss the d1t2 limit: each stage's output handed to the
+    next stage's microbatch m - 1 (also the d1t1 limit), and the router
+    logits rounded to bf16. Then generation through the layout's decode
+    view (d2t2 over the same four members) at the first
+    ``MOE_PP_VIEW_LAYERS`` layers (the depth cut): mixtral_gen's
+    prompts, ``MOE_PP_NEW_TOKENS`` greedy tokens, exact K1/K4 counts on
+    the view's members, the tokens' log-probs against one packed
+    teacher-forced K1 forward of the d1t1 model of those layers on the
+    mean gap; the view's member 1 of each group with its row-parallel
+    partial dropped must miss it. Reported: the moves' seconds, the
+    forward's seconds, the view's build ms and decode ms a token,
+    peaks."""
+    import dataclasses
+    import numpy as np
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.parallel.realloc import reallocate
+    lim = MOE_PP_LIMITS
+    cfg, nl = ref_eng.cfg, ref_eng.cfg.n_layers
+    ids, seg, at = moe_pp_batch(ref_items)
+    keep = np.zeros(seg.shape, bool)
+    for b, sl in enumerate(at):
+        keep[b, sl] = True
+    want = ref_eng.forward_logprobs(ids, seg).cpu().numpy()
+    ref_eng.offload()
+    par = dataclasses.replace(parse_parallelism(MOE_PP_LAYOUT),
+                              pipeline_schedule="gpipe")
+    eng = Engine(cfg, None, parallel=par, devices=member_devices(4))
+    rec = dict(layout=MOE_PP_LAYOUT, n_layers=nl, card=smi,
+               limits=MOE_PP_LIMITS, streams=int(ids.shape[0]),
+               tokens=int(keep.sum()))
+    rec["realloc_secs"] = reallocate(cfg, ref_eng.params, eng)
+    reset_peaks(eng.members)
+    reset_counts()
+    t0 = time.monotonic()
+    got = eng.forward_logprobs(ids, seg).cpu().numpy()
+    sync_all()
+    rec["forward_secs"] = time.monotonic() - t0
+    rec["launches"] = read_counts()
+    n_mb = eng.pipeline_ctx_infer.n_microbatches
+    rec["launches_expected"] = pipeline_launches(
+        nl, par.tensor_parallel_size, n_mb, infer_passes=1)
+    rec["launches_ok"] = rec["launches"] == rec["launches_expected"]
+    rec["peak_mem_gb"] = read_peaks(eng.members)
+    faults = {}
+    with output_to_previous_microbatch():
+        faults["output_to_previous_microbatch"] = eng.forward_logprobs(
+            ids, seg).cpu().numpy()
+    with router_logits_in_bf16():
+        faults["router_logits_in_bf16"] = eng.forward_logprobs(
+            ids, seg).cpu().numpy()
+    del eng
+    free()
+    # d1t2 on the pipeline's microbatches: rows [m Bm, (m + 1) Bm)
+    tp = Engine(cfg, None, parallel=parse_parallelism("d1t2"),
+                devices=member_devices(2))
+    rec["tp_realloc_secs"] = reallocate(cfg, ref_eng.params, tp)
+    bm = -(-ids.shape[0] // n_mb)
+    tp_want = np.concatenate([
+        tp.forward_logprobs(ids[r:r + bm], seg[r:r + bm]).cpu().numpy()
+        for r in range(0, ids.shape[0], bm)])
+    del tp
+    free()
+
+    def gaps(a, b):
+        g = np.abs(a - b)[keep]
+        return dict(max_abs=float(g.max()), mean_abs=float(g.mean()),
+                    tokens=int(g.size))
+
+    rec["tf"] = gaps(got, want)
+    rec["tp"] = gaps(got, tp_want)
+    rec["tp_bit_equal"] = bool(np.array_equal(got[keep], tp_want[keep]))
+    rec["planted_fault"] = {k: dict(tp=gaps(v, tp_want), tf=gaps(v, want))
+                            for k, v in faults.items()}
+    tp_lim = lim["moe_pp_tp_logprob_max_abs"]
+    rec["faults_fail"] = all(f["tp"]["max_abs"] > tp_lim
+                             for f in rec["planted_fault"].values())
+    rec["ok"] = (rec["launches_ok"] and rec["faults_fail"]
+                 and rec["tp"]["max_abs"] <= tp_lim
+                 and rec["tf"]["mean_abs"] <= lim["moe_pp_tf_logprob_mean_abs"]
+                 < rec["planted_fault"]["output_to_previous_microbatch"][
+                     "tf"]["mean_abs"])
+    rec["gen"] = moe_pp_view_gen(smi, ref_eng, ref_items, par)
+    rec["launches"] = add_counts(rec["launches"], rec["gen"]["launches"])
+    rec["launches_expected"] = add_counts(rec["launches_expected"],
+                                          rec["gen"]["launches_expected"])
+    rec["ok"] &= rec["gen"]["ok"]
+    return rec
+
+
+def moe_pp_view_gen(smi, ref_eng, ref_items, par):
+    """moe_pp's generation: the first ``MOE_PP_VIEW_LAYERS`` layers of
+    ``ref_eng``'s host weights on a ``par`` engine, ``MOE_PP_NEW_TOKENS``
+    greedy tokens through its decode view, then ``ref_eng`` back on the
+    card for the teacher-forced pass (``phase_moe_pp``)."""
+    import dataclasses
+    from realhf_tpu_torch.engine import packing
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.parallel.realloc import reallocate
+    lim = MOE_PP_LIMITS["moe_pp_gen_tf_logprob_mean_abs"]
+    nl = MOE_PP_VIEW_LAYERS
+    cfg = dataclasses.replace(ref_eng.cfg, n_layers=nl)
+    ids, seg, pos = packing.left_padded_prompts(
+        [p for p, *_ in ref_items], 0)
+    eng = Engine(cfg, None, parallel=par, devices=member_devices(4))
+    r = dict(n_layers=nl, new_tokens=MOE_PP_NEW_TOKENS,
+             limit=lim, realloc_secs=reallocate(
+                 cfg, first_layers(ref_eng.params, nl), eng))
+    reset_peaks(eng.members)
+    view, build_ms, st, items, counts = view_generate(
+        eng, ids, seg, pos, MOE_PP_NEW_TOKENS)
+    want = launches_of(nl, len(view.members), fwd=1,
+                       decode=st["decode_steps"])
+    r.update(decode_record(st, counts, want, smi), view=str(view.parallel),
+             view_build_ms=build_ms, peak_mem_gb=read_peaks(eng.members))
+    with row_partial_dropped():
+        fitems = view_generate(eng, ids, seg, pos, PAR_FAULT_TOKENS)[3]
+    del view, eng
+    free()
+    ref_eng.ensure_on_device()
+    tree = first_layers(ref_eng.params, nl)
+    r["tf"] = tf_gaps(packed_teacher_forced(cfg, tree, items)[0], items)
+    r["planted_fault"] = dict(row_partial_dropped=tf_gaps(
+        packed_teacher_forced(cfg, tree, fitems)[0], fitems))
+    r["fault_fails"] = (r["planted_fault"]["row_partial_dropped"]
+                        ["mean_abs"] > lim)
+    r["ok"] = (r["launches_ok"] and r["fault_fails"]
+               and r["tf"]["mean_abs"] <= lim)
+    return r
+
+
+@contextlib.contextmanager
+def stage_router_sums_dropped():
+    """The planted pipelined-MoE fault: the first stage's router sums are
+    left out of the microbatches' router losses."""
+    from realhf_tpu_torch.ops import moe
+    real = moe.MoEShards.layer_sums
+
+    def dropped(self, layers, key):
+        return {} if layers[0] == 0 else real(self, layers, key)
+
+    with patched(moe.MoEShards, "layer_sums", dropped):
+        yield
+
+
+def phase_moe_pp_train(smi, seed=1):
+    """Four cards: Mixtral-8x7B width at ``MOE_PP_TRAIN_LAYERS`` layers
+    (no card holds it with its optimizer state), the sft experiment (16
+    records, 2 microbatches, 3 steps) at d2p2 under GPipe with expert
+    parallelism at capacity ``MOE_EP_CAPACITY`` (each stage's data
+    members 4 of the 8 experts each; every microbatch routed over both
+    data groups' rows), against p2 (d1t1p2, GPipe, the same microbatch
+    count) replaying the same microbatches from the same weights: the
+    pipelined microbatches, their capacity and router losses are the
+    same, and experts over d and data groups move no number. Gates:
+    loss, grad norm, ``moe_aux_loss``, the masters' update
+    (``MOE_PP_LIMITS``); planted fault: a fresh runner's first step with
+    the first stage's router sums dropped must miss the aux limit."""
+    import dataclasses
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    lim = MOE_PP_LIMITS
+    mcfg = hf_random_init_config("mixtral", MIXTRAL_8X7B,
+                                 MOE_PP_TRAIN_LAYERS)
+    mcfg["moe"] = dataclasses.replace(
+        mcfg["moe"], capacity_factor=MOE_EP_CAPACITY, use_grouped_gemm=False,
+        expert_parallel=True)
+    rec = dict(n_layers=MOE_PP_TRAIN_LAYERS, seed=seed, card=smi,
+               limits=lim, layout="d2p2ep", reference="p2")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "sft.jsonl")
+        write_prompt_answers(data, 16, seed=3)
+        runner, setup = model_sft_runner(data, "d2p2", seed, mcfg,
+                                         {"n_mbs": "2"}, schedule="gpipe")
+        eng = runner.models["default"].engine
+        start = _tree_map(lambda a: a.detach().clone(),
+                          eng.gathered_params("cpu"))
+        calls = recorded_train_calls(eng)
+        r, master, _ = counted_run(runner)
+        r["setup_secs"] = setup
+        r["aux"] = [st.get("moe_aux_loss") for st in sft_steps(runner)]
+        cfg, opt_cfg = eng.cfg, eng.optimizer.cfg
+        schedule = eng.optimizer.schedule
+        n_mb = eng.pipeline_ctx.n_microbatches
+        master = to_host(master)
+        del runner, eng
+        free()
+        par = dataclasses.replace(parse_parallelism("p2"),
+                                  pipeline_schedule="gpipe",
+                                  pipeline_microbatches=n_mb)
+        ref = Engine(cfg, start, parallel=par, devices=member_devices(2),
+                     optimizer=opt_cfg, total_train_steps=1)
+        ref.optimizer.schedule = schedule
+        w0 = [m.clone() for m in canonical_masters(ref)]
+        steps, secs = [], []
+        for mbs, loss_fn, weights in calls:
+            sync_all()
+            t0 = time.monotonic()
+            steps.append(ref.train_batch(mbs, loss_fn, weights))
+            sync_all()
+            secs.append(time.monotonic() - t0)
+        rmaster = canonical_masters(ref)
+        rref = dict(losses=[st["loss"] for st in steps],
+                    grad_norms=[st["grad_norm"] for st in steps],
+                    aux=[st.get("moe_aux_loss") for st in steps],
+                    step_secs=secs, update_norm=norm_of_diff(rmaster, w0),
+                    peak_mem_gb=max(read_peaks(ref.members).values()))
+        del ref
+        free()
+        master = [m.to(rmaster[0].device) for m in master]
+        ok = held_against(r, rref, master, rmaster, lim, "moe_pp_train")
+        r["aux_rel"] = max(abs(a - b) / abs(b)
+                           for a, b in zip(r["aux"], rref["aux"]))
+        r["ok"] = ok and r["aux_rel"] <= lim["moe_pp_train_aux_rel"]
+        r["ref"] = rref
+        del master, rmaster, w0
+        free()
+        frunner, _ = model_sft_runner(data, "d2p2", seed, mcfg,
+                                      {"n_mbs": "2"}, schedule="gpipe")
+        feng = frunner.models["default"].engine
+        with stage_router_sums_dropped():
+            fst = feng.train_batch(*calls[0])
+        del frunner, feng, calls
+        free()
+    f = dict(aux=fst.get("moe_aux_loss"),
+             aux_rel=abs(fst["moe_aux_loss"] - rref["aux"][0])
+             / abs(rref["aux"][0]))
+    rec.update(r)
+    rec["planted_fault"] = dict(stage_router_sums_dropped=f)
+    rec["fault_fails"] = f["aux_rel"] > lim["moe_pp_train_aux_rel"]
+    rec["ok"] = r["ok"] and rec["fault_fails"]
+    return rec
+
+
+def phase_sp_pp(smi, seed=1):
+    """``sp_phase`` at t2p2s and d2t2p2s (1F1B, M 8: the stage boundary
+    passes each model member's token shard) against t2p2 and d2t2p2,
+    ``SP_PP_LAYERS`` layers. Exact K1-K3 counts (``pipeline_launches``
+    over the d x t members of a stage)."""
+    def launches(runner, eng):
+        n_eval = len(runner.eval_dataloader) * len(runner.eval_stats)
+        par = eng.parallel
+        return pipeline_launches(
+            SP_PP_LAYERS, par.data_parallel_size * par.tensor_parallel_size,
+            eng.pipeline_ctx.n_microbatches, train_passes=2 * PAR_SFT_STEPS,
+            infer_passes=n_eval)
+
+    return sp_phase(smi, seed, SP_PP_LAYOUTS, SP_PP_LAYERS, launches)
+
+
+def run_ring_pp_phases(smi):
+    """cp_gemma, then K6 and the ring's K2/K3 at hd 256 at each of its
+    layouts' shards (``phase_kernels_cp_hd256``), then sp_pp, each
+    freeing its models
+    before the next (moe_pp runs in ``run_moe_phases``). Returns the
+    records and the kernel records."""
+    recs = {}
+    t0 = time.monotonic()
+    recs["cp_gemma"] = phase_cp_gemma(smi)
+    recs["cp_gemma"]["phase_secs"] = time.monotonic() - t0
+    segs = recs["cp_gemma"].pop("_segs")
+    emit("cp_gemma", **recs["cp_gemma"])
+    ring256, bwd256 = phase_kernels_cp_hd256(segs)
+    t0 = time.monotonic()
+    recs["sp_pp"] = phase_sp_pp(smi)
+    recs["sp_pp"]["phase_secs"] = time.monotonic() - t0
+    free()
+    emit("sp_pp", **recs["sp_pp"])
+    return recs, ring256, bwd256
+
+
 def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
-                 cp_bwd_recs, cp_lse_recs):
+                 cp_bwd_recs, cp_lse_recs, ring_hd256_recs,
+                 cp_bwd_hd256_recs):
     """One row per kernel, and one per kernel at hd 256 (``_hd256``: its
     own instantiation, or its own kernel for K2/K3, timed on the hd 256
     cases). ``launches`` sums the kernel's counts over the paths at hd
@@ -8723,7 +9303,10 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
     ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft). The
     ``_ring`` rows are K2/K3 launched at a ring round (a round of the
     ring's backward, timed at cp_sft's c4 rounds) and
-    ``ring_attention_lse`` K6's last round with the lse output."""
+    ``ring_attention_lse`` K6's last round with the lse output; the
+    ``_ring_hd256`` rows and ``ring_attention_hd256`` are the same at hd
+    256, timed at cp_gemma's c4 stream, their launches from the hd 256
+    paths (cp_gemma among them)."""
     def sums(ps):
         keys = dict.fromkeys(k for p in ps for k in p["launches"])
         return {k: sum(p["launches"].get(k, 0) for p in ps) for k in keys}
@@ -8801,6 +9384,31 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
         max_abs_err=max(r["max_abs_err"] for r in cp_lse_recs), ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    t = next(r for r in cp_bwd_hd256_recs if "dq_ms" in r)
+    for name, key, outs, replaces in (
+            ("flash_bwd_dq_ring", "dq", ("dq",),
+             "realhf_tpu/ops/flash_attention.py:157"),
+            ("flash_bwd_dkv_ring", "dkv", ("dk", "dv"),
+             "realhf_tpu/ops/flash_attention.py:195")):
+        out.append(dict(
+            name=name + "_hd256", route="cuda",
+            source="realhf_tpu_torch/csrc/flash_bwd.cu", replaces=replaces,
+            launches=wide_launches[name],
+            max_abs_err=max(r[f"{o}_max_abs_err"] for r in cp_bwd_hd256_recs
+                            for o in outs),
+            ms=t[f"{key}_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"],
+            library_ms=t["library_ms"]))
+    recs = [r for r in ring_hd256_recs if r["kernel"] == "ring_attention"]
+    t = next(r for r in recs if "ms" in r)
+    out.append(dict(
+        name="ring_attention_hd256", route="cuda",
+        source="realhf_tpu_torch/csrc/ring_attention.cu",
+        replaces="realhf_tpu/ops/ring_attention_fused.py:103",
+        launches=wide_launches["ring_round"],
+        max_abs_err=max(r["max_abs_err"] for r in recs), ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"]))
     for name, count in (("ring_attention", "ring_round"),
                         ("ring_push", "ring_push")):
         recs = [r for r in ring_recs if r["kernel"] == name]
@@ -8821,6 +9429,8 @@ def main(argv=None):
     parser.add_argument("--out", default=None,
                         help="also write every phase's record to this file")
     args = parser.parse_args(argv)
+    global START
+    START = time.monotonic()
 
     import torch
     if not torch.cuda.is_available():
@@ -8981,6 +9591,13 @@ def main(argv=None):
     ok &= all(r["ok"] for r in cp_bwd + cp_lse)
     moe_par_recs = run_moe_par_phases(smi)
     ok &= all(r["ok"] for r in moe_par_recs.values())
+    ring_pp_recs, ring256, bwd256 = run_ring_pp_phases(smi)
+    ok &= all(r["ok"] for r in ring_pp_recs.values())
+    for r in ring256 + bwd256:
+        print(json.dumps(dict(phase="kernels", card=smi, **r)), flush=True)
+    RESULTS["kernels"] = (kernel_recs + bwd_recs + ring_recs + cp_bwd
+                          + cp_lse + ring256 + bwd256)
+    ok &= all(r["ok"] for r in ring256 + bwd256)
     ok &= (main_rec["ok"] and deep_rec["ok"] and par["ok"]
            and sft_rec["ok"] and lr_rec["ok"] and train_par["ok"]
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
@@ -9008,9 +9625,11 @@ def main(argv=None):
         + [par_recs[k] for k in ("tp_gen", "tp_sft", "par_ppo")]
         + [pp_recs[k] for k in ("pp_sft", "pp_gen", "pp_ppo")]
         + [cp_recs[k] for k in ("cp_sft", "sp_sft")]
-        + [moe_par_recs["moe_sft_par"]],
+        + [moe_par_recs["moe_sft_par"], moe_recs["moe_pp"],
+           ring_pp_recs["sp_pp"]],
         [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"],
-         moe_par_recs["kv_rep"]], cp_bwd, cp_lse)))
+         moe_par_recs["kv_rep"], ring_pp_recs["cp_gemma"]], cp_bwd, cp_lse,
+        ring256, bwd256)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

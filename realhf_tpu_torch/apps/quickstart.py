@@ -12,6 +12,10 @@ key=value overrides, run by the inline runner on the CUDA card
         dataset.train_bs_n_seqs=8 n_mbs=2 device=cpu \\
         save_freq_steps=1 recover_mode=auto
 
+``allocation_mode=heuristic n_devices=N`` plans each MFC's layout from
+the models' sizes (``experiments/heuristic.py``; ``n_devices`` defaults
+to the cards present, a ``device=cpu`` run gives it).
+
 A run saves its trained roles under ``$REALHF_TPU_ROOT/checkpoints``;
 the same command with ``recover_mode=resume`` continues it from the last
 save. ``<role>.path=<dir>`` loads an HF-layout checkpoint. Models without
@@ -71,6 +75,11 @@ def main(argv=None):
             "with the distributed runtime (ROADMAP.md, queue 1, item 5); "
             "drive serving/scheduler.py ContinuousScheduler in process "
             "until then.")
+    if cfg.allocation_mode == "heuristic":
+        from realhf_tpu_torch.experiments.heuristic import (
+            apply_heuristic_allocations,
+        )
+        apply_heuristic_allocations(spec, cfg.heuristic_devices())
     vocabs = [_vocab_size(m) for m in spec.models.values()
               if m.random_init_config or m.path]
     # an experiment names its model's checkpoint as the tokenizer path

@@ -115,8 +115,10 @@
 // once in fp32 before the single rounding to bf16. A plain call passes
 // segk = seg, offsets 0 and bf16 outputs: the same integer tests and the
 // same float arithmetic as before the ring round existed, so its bits are
-// unchanged. The hd 256 kernels take no offsets (the entries refuse a
-// ring round at hd 256).
+// unchanged. The hd 256 kernels take a ring round the same way: the keys'
+// ids in the marks, the tile loads and the key rows' summary, the offsets
+// in the marks, K2's tile count and each pair test, and fp32 stores of
+// the same products in the epilogue (no register is added to the walk).
 //
 // Left for later: a TMA producer warp (the copies are issued by the
 // consumer threads), a third stage, and one tile's elementwise work under
@@ -603,9 +605,10 @@ template <bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const int* __restrict__ seg,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dq, int L,
-                         int nq, int nkv, float scale, int causal, int window) {
+                         const int* __restrict__ segk, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int L, int nq, int nkv, float scale,
+                         int causal, int window, int q_pos, int k_pos, int out_f32) {
   constexpr int HD = 256, HALF = HD / 2;
   using LY = Layout<HD, WIDE_ROWS>;
   extern __shared__ unsigned char smem_raw[];
@@ -631,23 +634,29 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const bf16* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const int* segb = seg + (size_t)b * L;
+  const int* segkb = segk + (size_t)b * L;
   const size_t stat_off = ((size_t)b * nq + h) * L;
+  const int dpos = q_pos - k_pos;  // global row less global key of equal local index
 
-  // --- K1's marks for the CTA's 64 rows (summary group 0; group 1 empty) --
+  // --- K1's marks for the CTA's 64 rows (summary group 0; group 1 empty),
+  // on global positions ------------------------------------------------------
   int q_lo[NWG], q_hi[NWG];
   uint64_t q_bits[NWG];
   q_id_summary(segb, q0, q_end, tid, red, q_lo, q_hi, q_bits);
   const int n_all = (L + BK - 1) / BK;
-  const int n_tiles = causal ? min(n_all, (q_end - 1) / BK + 1) : n_all;
+  const int reach_end = q_end - 1 + dpos;  // last local key a row may see
+  const int n_tiles = !causal ? n_all : reach_end < 0 ? 0 : min(n_all, reach_end / BK + 1);
   const int nwords = (n_tiles + 31) >> 5;
   const bool seg_vec = (L & 3) == 0;
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int k0 = j * BK;
     const int n = min(BK, L - k0);
-    if (!tile_in_reach(k0, k0 + n - 1, q0, q_end - 1, causal, WIN ? window : -1)) return;
+    if (!tile_in_reach(k_pos + k0, k_pos + k0 + n - 1, q_pos + q0, q_pos + q_end - 1, causal,
+                       WIN ? window : -1))
+      return;
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
-    key_tile_ids(segb, k0, n, seg_vec, lo, hi, bits);
+    key_tile_ids(segkb, k0, n, seg_vec, lo, hi, bits);
     mark[0] = lo <= q_hi[0] && hi >= q_lo[0] && (bits & q_bits[0]) != 0;
   });
 
@@ -667,7 +676,7 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sK = sbase + LY::RING_A, sV = sbase + LY::RING_B;
   const uint32_t sSeg = sbase + LY::SEG;
   auto load = [&](int j, int st) {
-    load_kv_tile<HD>(sK, sV, sSeg, kb, vb, segb, kv_row, j * BK, L, st, tid);
+    load_kv_tile<HD>(sK, sV, sSeg, kb, vb, segkb, kv_row, j * BK, L, st, tid);
   };
 
   float acc[HALF / 2];
@@ -681,8 +690,8 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   walk_tiles(vis, nwords, 0, j0, load, [&](int j, int st) {
     const int k0 = j * BK;
-    const bool diag = causal && k0 + BK - 1 > q0;
-    const bool wide = WIN && q0 + WG_ROWS - 1 - k0 >= window;
+    const bool diag = causal && k0 + BK - 1 > q0 + dpos;
+    const bool wide = WIN && q0 + dpos + WG_ROWS - 1 - k0 >= window;
     const uint32_t sKt = sK + st * LY::TILE_BYTES, sVt = sV + st * LY::TILE_BYTES;
     const int* seg_tile = seg_s + st * BK;
 
@@ -709,8 +718,8 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * i + 2 * tq + e;
           const int id = e ? ids.y : ids.x;
-          const bool keep0 = keep_pair(sq0, id, qi0 - (k0 + c), diag, wide, window);
-          const bool keep1 = keep_pair(sq1, id, qi1 - (k0 + c), diag, wide, window);
+          const bool keep0 = keep_pair(sq0, id, qi0 + dpos - (k0 + c), diag, wide, window);
+          const bool keep1 = keep_pair(sq1, id, qi1 + dpos - (k0 + c), diag, wide, window);
           const float p0 = keep0 ? expf(s[4 * i + e] * scale - lse0) : 0.f;
           const float p1 = keep1 ? expf(s[4 * i + 2 + e] * scale - lse1) : 0.f;
           x[4 * h2 + e] = keep0 ? p0 * (dp[4 * i + e] - dl0) : 0.f;
@@ -732,6 +741,12 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   });
 
   // --- epilogue: dq = scale * acc; rows with no valid key hold 0 -----------
+  if (out_f32) {
+    float* out = reinterpret_cast<float*>(dq) + q_off + wg * HALF + 2 * tq;
+    if (qi0 < L) store_row_f32<HALF, 0>(out + (size_t)qi0 * q_row, acc, scale);
+    if (qi1 < L) store_row_f32<HALF, 2>(out + (size_t)qi1 * q_row, acc, scale);
+    return;
+  }
   bf16* out = dq + q_off + wg * HALF + 2 * tq;
   if (qi0 < L) store_row<HALF, 0>(out + (size_t)qi0 * q_row, acc, scale);
   if (qi1 < L) store_row<HALF, 2>(out + (size_t)qi1 * q_row, acc, scale);
@@ -742,10 +757,11 @@ template <bool WIN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const int* __restrict__ seg,
-                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int L, int nq, int nkv, float scale,
-                          int causal, int window) {
+                          const int* __restrict__ segk, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int nq,
+                          int nkv, float scale, int causal, int window, int q_pos,
+                          int k_pos, int out_f32) {
   constexpr int HD = 256;
   using LY = Layout<HD, WIDE_ROWS>;
   extern __shared__ unsigned char smem_raw[];
@@ -771,21 +787,24 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const size_t kv_row = (size_t)nkv * HD;
   const size_t kv_off = (size_t)b * L * kv_row + (size_t)kvh * HD;
   const int* segb = seg + (size_t)b * L;
+  const int* segkb = segk + (size_t)b * L;
+  const int dpos = q_pos - k_pos;  // global row less global key of equal local index
 
   // --- the CTA's 64 keys' range and residue set (summary group 0) --------
   int k_lo[NWG], k_hi[NWG];
   uint64_t k_bits[NWG];
-  q_id_summary(segb, k0, k_end, tid, red, k_lo, k_hi, k_bits);
+  q_id_summary(segkb, k0, k_end, tid, red, k_lo, k_hi, k_bits);
 
-  // --- the q tiles they need (K3's rule for one group of 64 keys) ---------
+  // --- the q tiles they need (K3's rule for one group of 64 keys, on
+  // global positions) -----------------------------------------------------
   const int n_tiles = (L + BK - 1) / BK;
   const int nwords = (n_tiles + 31) >> 5;
   const bool seg_vec = (L & 3) == 0;
   mark_tiles(n_tiles, nwords, tid, vis, [&](int j, bool (&mark)[NWG]) {
     const int t0 = j * BK;
     const int last = min(t0 + BK, L) - 1;
-    if (causal && last < k0) return;  // every query before every key
-    if (WIN && t0 - (k_end - 1) >= window) return;  // past the window
+    if (causal && last + dpos < k0) return;  // every query before every key
+    if (WIN && t0 + dpos - (k_end - 1) >= window) return;  // past the window
     int lo = INT_MAX, hi = INT_MIN;
     uint64_t bits = 0ull;
     key_tile_ids(segb, t0, min(BK, L - t0), seg_vec, lo, hi, bits);
@@ -796,8 +815,8 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int tq = lane & 3;
   const int kr0 = k0 + (warp & 3) * 16 + (lane >> 2);
   const int kr1 = kr0 + 8;
-  const int sk0 = kr0 < L ? segb[kr0] : 0;
-  const int sk1 = kr1 < L ? segb[kr1] : 0;
+  const int sk0 = kr0 < L ? segkb[kr0] : 0;
+  const int sk1 = kr1 < L ? segkb[kr1] : 0;
 
   // --- the walk over (q head of the group, marked q tile) ----------------
   const uint32_t sK = sbase + LY::OWN_A, sV = sbase + LY::OWN_B;
@@ -838,7 +857,7 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     if (jn >= 0) load(gn, jn, st ^ 1);
     {
-      const int q0 = j * BK;
+      const int q0 = j * BK + dpos;  // the tile's first row, on the keys' positions
       const bool diag = causal && q0 < k0 + WG_ROWS - 1;
       const bool wide = WIN && q0 + BK - 1 - k0 >= window;
       const uint32_t sQt = sQ + st * LY::TILE_BYTES, sDOt = sDO + st * LY::TILE_BYTES;
@@ -911,8 +930,14 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   // --- epilogue: dv = acc (warpgroup 0), dk = scale * acc (1); keys with no
   // valid query hold 0 ----------------------------------------------------
-  bf16* ob = (wg == 0 ? dv : dk) + kv_off + 2 * tq;
   const float mul = wg == 0 ? 1.f : scale;
+  if (out_f32) {
+    float* of = reinterpret_cast<float*>(wg == 0 ? dv : dk) + kv_off + 2 * tq;
+    if (kr0 < L) store_row_f32<HD, 0>(of + (size_t)kr0 * kv_row, acc, mul);
+    if (kr1 < L) store_row_f32<HD, 2>(of + (size_t)kr1 * kv_row, acc, mul);
+    return;
+  }
+  bf16* ob = (wg == 0 ? dv : dk) + kv_off + 2 * tq;
   if (kr0 < L) store_row<HD, 0>(ob + (size_t)kr0 * kv_row, acc, mul);
   if (kr1 < L) store_row<HD, 2>(ob + (size_t)kr1 * kv_row, acc, mul);
 }
@@ -963,8 +988,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg,
 
 template <bool WIN>
 int launch_dq_wide(const void* q, const void* k, const void* v, const void* seg,
-                   const void* dout, const void* lse, const void* delta, void* dq, int B, int L,
-                   int nq, int nkv, float scale, int causal, int window, cudaStream_t stream) {
+                   const void* segk, const void* dout, const void* lse, const void* delta,
+                   void* dq, int B, int L, int nq, int nkv, float scale, int causal,
+                   int window, int q_pos, int k_pos, int out_f32, cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<256, WIDE_ROWS>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dq_wide_kernel<WIN>, smem);
@@ -972,17 +998,18 @@ int launch_dq_wide(const void* q, const void* k, const void* v, const void* seg,
   dim3 grid((L + WIDE_ROWS - 1) / WIDE_ROWS, nq, B);
   flash_bwd_dq_wide_kernel<WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), L, nq, nkv, scale, causal, window);
+      static_cast<const int*>(seg), static_cast<const int*>(segk),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, nq, nkv, scale, causal,
+      window, q_pos, k_pos, out_f32);
   return (int)cudaGetLastError();
 }
 
 template <bool WIN>
 int launch_dkv_wide(const void* q, const void* k, const void* v, const void* seg,
-                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                    int B, int L, int nq, int nkv, float scale, int causal, int window,
-                    cudaStream_t stream) {
+                    const void* segk, const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int L, int nq, int nkv, float scale, int causal,
+                    int window, int q_pos, int k_pos, int out_f32, cudaStream_t stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
   const size_t smem = layout_bytes<256, WIDE_ROWS>((L + BK - 1) / BK);
   cudaError_t err = allow_smem(flash_bwd_dkv_wide_kernel<WIN>, smem);
@@ -990,9 +1017,10 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* seg
   dim3 grid((L + WIDE_ROWS - 1) / WIDE_ROWS, nkv, B);
   flash_bwd_dkv_wide_kernel<WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, nq, nkv, scale, causal, window);
+      static_cast<const int*>(seg), static_cast<const int*>(segk),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L,
+      nq, nkv, scale, causal, window, q_pos, k_pos, out_f32);
   return (int)cudaGetLastError();
 }
 
@@ -1000,9 +1028,9 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* seg
 
 // Both entry points return a cudaError_t code (0 = launched), allocate
 // nothing and run on `stream` without synchronising. A plain call passes
-// segk = seg, q_pos = k_pos = 0 and out_f32 = 0; a ring round (hd 64 or
-// 128) passes the keys' own ids, the two shards' global offsets and
-// out_f32 = 1 for fp32 outputs. The hd 256 kernels take no ring round.
+// segk = seg, q_pos = k_pos = 0 and out_f32 = 0; a ring round passes the
+// keys' own ids, the two shards' global offsets and out_f32 = 1 for fp32
+// outputs.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg,
                                  const void* segk, const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int L, int nq, int nkv,
@@ -1018,9 +1046,10 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
     return (win ? launch_dq<64, true> : launch_dq<64, false>)(
         q, k, v, seg, segk, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, q_pos,
         k_pos, out_f32, st);
-  if (hd == 256 && segk == seg && q_pos == 0 && k_pos == 0 && !out_f32)
+  if (hd == 256)
     return (win ? launch_dq_wide<true> : launch_dq_wide<false>)(
-        q, k, v, seg, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, st);
+        q, k, v, seg, segk, dout, lse, delta, dq, B, L, nq, nkv, scale, causal, window, q_pos,
+        k_pos, out_f32, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1039,8 +1068,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
     return (win ? launch_dkv<64, true> : launch_dkv<64, false>)(
         q, k, v, seg, segk, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window,
         q_pos, k_pos, out_f32, st);
-  if (hd == 256 && segk == seg && q_pos == 0 && k_pos == 0 && !out_f32)
+  if (hd == 256)
     return (win ? launch_dkv_wide<true> : launch_dkv_wide<false>)(
-        q, k, v, seg, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window, st);
+        q, k, v, seg, segk, dout, lse, delta, dk, dv, B, L, nq, nkv, scale, causal, window,
+        q_pos, k_pos, out_f32, st);
   return (int)cudaErrorInvalidValue;
 }

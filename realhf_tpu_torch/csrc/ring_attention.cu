@@ -77,7 +77,14 @@
 //    whose stored m is above NEG_INF / 2 and starts the others at 0, so
 //    memory the first round did not write never enters the arithmetic.
 // 4. Tiles and occupancy as K1: 256 threads, ~98 KB of shared memory at
-//    hd 128, one CTA per SM by registers; hd 64 halves Q, K and V.
+//    hd 128, one CTA per SM by registers; hd 64 halves Q, K and V. hd 256
+//    (Gemma at c > 1) is K1's hd 256 tile step (`wgmma_pv<256>`: two
+//    m64n128 products over one set of P fragments): Q 64 KB + 2 x (K 32 +
+//    V 32) KB = ~194 KB, one CTA an SM, O in 128 fp32 registers a thread.
+//    The state rows load into and store from those same registers
+//    (`load_row` / `store_row` walk O's layout), so the state path adds
+//    addresses and no array; the fp32 acc state is [B, nq, lc, 256], twice
+//    hd 128's bytes per round.
 //
 // ring_push: a grid-stride copy of up to six contiguous byte ranges (k, v
 // and seg of each direction) from this member's current slot into its
@@ -366,6 +373,10 @@ extern "C" int ring_round_bf16(const void* q, const void* segq, const void* k0,
     return launch_round<64>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, lse, B, lc,
                             lch, nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
                             causal, window, st);
+  if (hd == 256)
+    return launch_round<256>(q, segq, k0, v0, sk0, k1, v1, sk1, m, l, acc, o, lse, B, lc,
+                             lch, nq, nkv, q_off, k_off0, k_off1, n_dirs, first, last, scale,
+                             causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

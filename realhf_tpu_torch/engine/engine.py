@@ -116,8 +116,7 @@ class Engine:
         #: more than one member: the weights are a ``MemberParams``
         self.sharded = n > 1
         if self.sharded:
-            T.check_layout(cfg, self.parallel.tensor_parallel_size,
-                           self.parallel.pipeline_parallel_size)
+            T.check_layout(cfg, self.parallel.tensor_parallel_size)
         self.pipeline_ctx = self._pipeline_ctx()
         #: bumped by every install of weights (``set_params``, a
         #: reallocation into this engine): with ``version``, what keys

@@ -87,8 +87,12 @@ class CommonExperimentConfig:
     #: "cuda" (None) or "cpu"
     device: Optional[str] = None
     #: manual (the per-MFC ``*_alloc`` fields and the roles' own
-    #: layouts); "heuristic" raises until the next parallelism slice
+    #: layouts) | heuristic (size-based per-MFC layouts,
+    #: ``experiments/heuristic.py``, applied by the quickstart)
     allocation_mode: str = "manual"
+    #: the devices the heuristic plans for: None is
+    #: ``torch.cuda.device_count()``; a ``device=cpu`` run must give it
+    n_devices: Optional[int] = None
 
     def ctl(self) -> SaveEvalControl:
         return SaveEvalControl(
@@ -104,15 +108,31 @@ class CommonExperimentConfig:
 
     def mfc_allocations(self, fields: Dict[str, str]):
         """{MFC name: parsed layout} of the set ``*_alloc`` fields
-        (``fields`` maps an MFC to its field's name)."""
-        if self.allocation_mode != "manual":
+        (``fields`` maps an MFC to its field's name); under
+        ``allocation_mode=heuristic`` the quickstart's plan is added to
+        them after the build."""
+        if self.allocation_mode in ("search", "search_profiled"):
             raise NotImplementedError(
-                f"allocation_mode={self.allocation_mode!r}: the size-based "
-                "heuristic (the JAX package's experiments/heuristic.py) is "
-                "a later part of ROADMAP.md, queue 1, item 4; set the "
-                "*_alloc fields by hand.")
+                f"allocation_mode={self.allocation_mode!r}: the searched "
+                "allocation (the JAX package's realhf_tpu/search) is "
+                "ROADMAP.md, queue 1, item 7; use manual or heuristic.")
+        if self.allocation_mode not in ("manual", "heuristic"):
+            raise ValueError(f"Unknown allocation_mode "
+                             f"{self.allocation_mode!r}: manual or "
+                             "heuristic.")
         return {mfc: parse_parallelism(getattr(self, name))
                 for mfc, name in fields.items() if getattr(self, name)}
+
+    def heuristic_devices(self) -> int:
+        """The device count ``allocation_mode=heuristic`` plans for."""
+        if self.n_devices is not None:
+            return self.n_devices
+        if self.device == "cpu":
+            raise ValueError(
+                "allocation_mode=heuristic with device=cpu needs "
+                "n_devices=<member count> (there is no card to count).")
+        import torch
+        return torch.cuda.device_count()
 
 
 ALL_EXPERIMENT_CLASSES: Dict[str, Callable[[], CommonExperimentConfig]] = {}

@@ -53,10 +53,17 @@ tree and a ``pipeline=`` context), ``forward`` embeds on the first
 stage's members, runs the block slabs through the schedule
 (``parallel/pipeline.py`` GPipe, or ``parallel/schedule.py`` 1F1B when
 the context says so and autograd is on), each stage-tick a slab of
-``_block`` (t = 1) or ``_block_members`` (t > 1) on the stage's members,
-and applies the final norm on the last stage's members, whose trees the
-heads then use. A prefill (``return_kv``) or a decode step at p > 1
-raises: generation goes through the engine's decode view.
+``_block`` (t = 1, dense), ``_block_members`` (t > 1, or a MoE model)
+or ``_sp_block`` (with ``sp``: the stage boundary passes each model
+member's token shard) on the stage's members, and applies the final
+norm on the last stage's members, whose trees the heads then use. A MoE
+model's pipelined microbatch is the JAX package's, over every data
+group's rows of it (``_forward_members_pipeline``); its stage-ticks hand
+out router sums, from which the losses are formed per microbatch and
+weighted by its real-stream share (``_pipeline_router_losses``, on a
+tree too). A prefill
+(``return_kv``) or a decode step at p > 1 raises: generation goes
+through the engine's decode view.
 
 Context and sequence parallelism (``forward_ctx``, for a ``MemberParams``
 of ``c > 1`` or with ``sp``): member ``(g, c, j)`` holds data group g's
@@ -103,11 +110,16 @@ from realhf_tpu_torch.ops.moe import (
     moe_mlp_with_losses,
     ragged_dispatch_enabled,
     route_counts,
+    router_losses,
 )
 from realhf_tpu_torch.ops.ring_attention_fused import ring_attention_fused
 from realhf_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 from realhf_tpu_torch.parallel import collectives as C
-from realhf_tpu_torch.parallel.pipeline import ONE_F_ONE_B, pipeline_blocks
+from realhf_tpu_torch.parallel.pipeline import (
+    ONE_F_ONE_B,
+    microbatch_weights,
+    pipeline_blocks,
+)
 from realhf_tpu_torch.parallel.schedule import pipeline_blocks_1f1b
 
 Params = Dict[str, Any]
@@ -146,21 +158,13 @@ def check_expert_parallel(cfg: TransformerConfig, d: int):
             f"data_parallel_size ({d}).")
 
 
-def check_layout(cfg: TransformerConfig, t: int, p: int = 1):
-    """Raise for what a layout of ``t`` model members (in stages of
-    ``p``) cannot run: query heads or widths ``t`` does not divide, KV
-    heads that neither divide nor are divided by ``t``
-    (``ops/attention.member_heads``), and MoE at t > 1 inside a
-    pipeline stage (item 4: the stage's d x t blocks carry no router
-    losses)."""
+def check_layout(cfg: TransformerConfig, t: int):
+    """Raise for what a layout of ``t`` model members cannot run: query
+    heads or widths ``t`` does not divide, and KV heads that neither
+    divide nor are divided by ``t`` (``ops/attention.member_heads``)."""
     check_supported(cfg)
     if t == 1:
         return
-    if cfg.mlp_type == "moe" and p > 1:
-        raise NotImplementedError(
-            f"a mixture-of-experts model at t={t} inside a pipeline stage "
-            f"(p={p}): the stage's model members carry no router losses "
-            "yet, ROADMAP.md, queue 1, item 4.")
     member_heads(cfg.n_q_heads, cfg.n_kv_heads, t)
     if cfg.intermediate_dim % t:
         raise ValueError(f"t={t} does not divide the MLP width "
@@ -506,8 +510,12 @@ def forward(cfg: TransformerConfig, params: Params,
         per = cfg.n_layers // pipeline.n_stages
         stages = [([{"blocks": _tree_narrow(params["blocks"], s * per, per)}],
                    [x.device]) for s in range(pipeline.n_stages)]
-        hs, aux_sum = _run_pipeline(cfg, pipeline, stages, [x], seg_ids, cos,
-                                    sin, attention_fn)
+        moes, weights = _microbatch_moes(
+            cfg, x.shape[0], x.shape[1], pipeline.n_microbatches,
+            lambda n: MoEShards(n, 1, x.device))
+        hs, sums = _run_pipeline(cfg, pipeline, stages, [x], seg_ids, cos,
+                                 sin, attention_fn, moes=moes)
+        aux_sum = _pipeline_router_losses(cfg, sums, weights)
         x, kvs = hs[0], None
     else:
         kv = ([], []) if return_kv else None
@@ -562,26 +570,42 @@ def _check_pipelined(cfg: TransformerConfig, pipe, return_kv: bool):
                          f"{pipe.n_stages} pipeline stages.")
 
 
-def _stage_step(cfg: TransformerConfig, attention_fn):
+def _stage_step(cfg: TransformerConfig, attention_fn, sp: bool = False,
+                moes=None, g: int = 0):
     """The pipeline's ``block_step``: stage s's slab of ``n_layers / S``
-    blocks (global layer indices) on one microbatch, over the stage's
-    model members."""
+    blocks (global layer indices) on microbatch m, over the stage's
+    model members. With ``sp`` each member holds a token shard of the
+    residual and every block is ``_sp_block`` (the boundary passes the
+    shards). ``moes`` (a MoE model, on one tree or over members): each
+    microbatch's ``MoEShards``, which routes data group ``g``'s rows of
+    it together with the other groups' rows; the aux values are the
+    stage's router sums of the microbatch, keyed ``"layer/name"``, from
+    which the caller forms the losses (``_pipeline_router_losses``)."""
 
-    def step(s, trees, xs, segs, coss, sins):
+    def step(s, trees, xs, segs, coss, sins, m=0):
         views = [member_views(cfg, tr, j, len(trees))
                  for j, tr in enumerate(trees)]
         first = s * len(views[0])
-        if len(trees) == 1:
-            y, aux = _layers(cfg, views[0], first, xs[0], segs[0], coss[0],
-                             sins[0], attention_fn)
-            return [y], aux
+        if len(trees) == 1 and moes is None:  # dense: no aux values
+            y, _ = _layers(cfg, views[0], first, xs[0], segs[0], coss[0],
+                           sins[0], attention_fn)
+            return [y], {}
         remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
         devs = [x.device for x in xs]
         tables = list(zip(coss, sins))
-        for i in range(len(views[0])):
-            xs, _ = _block_members(cfg, [v[i] for v in views], first + i, xs,
-                                   segs, tables, devs, attention_fn, remat)
-        return xs, {}
+        moe = None if moes is None else moes[m]
+        layers = range(first, first + len(views[0]))
+        for i, li in enumerate(layers):
+            lps = [v[i] for v in views]
+            route = None if moe is None else (moe, li, (g, 0))
+            if sp:
+                xs, _ = _sp_block(cfg, lps, li, xs, segs, tables, devs,
+                                  attention_fn, _remat if remat else _call,
+                                  route)
+            else:
+                xs, _ = _block_members(cfg, lps, li, xs, segs, tables, devs,
+                                       attention_fn, remat, route)
+        return xs, {} if moe is None else moe.layer_sums(layers, (g, 0))
 
     return step
 
@@ -590,41 +614,131 @@ def _slab_len(tree) -> int:
     return tree["blocks"]["ln1"]["scale"].shape[0]
 
 
-def _run_pipeline(cfg, pipe, stages, xs, seg_ids, cos, sin, attention_fn):
+def _run_pipeline(cfg, pipe, stages, xs, seg_ids, cos, sin, attention_fn,
+                  sp=False, moes=None, g=0, mb_rows=None, ep=False):
     """The blocks over ``stages`` by ``pipe``'s schedule: 1F1B's own
     backward when it is asked for and autograd is on, else GPipe (with
     each stage-tick checkpointed as a whole under ``pipeline_remat ==
-    "tick"`` and gradient checkpointing)."""
-    step = _stage_step(cfg, attention_fn)
+    "tick"`` and gradient checkpointing). Under expert parallelism
+    (``ep``) a member's MLP reaches the other data indices' experts,
+    whose leaves no stage's custom backward node returns gradients for:
+    it trains under GPipe on autograd's graph, block checkpoints only."""
+    step = _stage_step(cfg, attention_fn, sp, moes, g)
+    kw = dict(return_aux=True, mb_rows=mb_rows)
     if pipe.schedule == ONE_F_ONE_B and torch.is_grad_enabled():
+        if ep:
+            raise NotImplementedError(
+                "expert parallelism inside a pipeline trains under GPipe "
+                "(pipeline_schedule='gpipe'): the 1F1B backward cannot "
+                "return the other data indices' expert gradients.")
         return pipeline_blocks_1f1b(pipe, stages, xs, seg_ids, cos, sin,
-                                    step, return_aux=True)
+                                    step, **kw)
     remat_tick = (cfg.gradient_checkpointing and cfg.pipeline_remat == "tick"
-                  and torch.is_grad_enabled())
+                  and torch.is_grad_enabled() and not ep)
     return pipeline_blocks(pipe, stages, xs, seg_ids, cos, sin, step,
-                           return_aux=True, remat_tick=remat_tick)
+                           remat_tick=remat_tick, **kw)
 
 
 def _forward_pipeline(cfg, mp: MemberParams, pipe, g, ids, seg, pos,
-                      attention_fn):
+                      attention_fn, moes=None, mb_rows=None):
     """Data group ``g``'s forward over its stages -> (the last stage's
-    members' final hidden states, aux)."""
+    members' final hidden states, aux). Under sequence parallelism the
+    embedding reduce-scatters onto the members' token shards, the
+    stages pass the shards, and the final norm runs on them before an
+    all-gather."""
     stages = mp.stages(g)
     trees0, devs0 = stages[0]
+    sp = mp.sp and mp.t > 1
     if mp.t == 1:
         dev = devs0[0]
         xs = [_embed(cfg, trees0[0], ids.to(dev).long(), pos.to(dev))]
     else:
         xs = _embed_members(cfg, trees0, devs0, C.broadcast(ids, devs0),
-                            C.broadcast(pos, devs0), mp.vocab_starts(cfg))
+                            C.broadcast(pos, devs0), mp.vocab_starts(cfg),
+                            sp=sp)
     dev = devs0[0]
     pos0 = pos.to(dev)
     cos, sin = _rotary_tables(cfg, pos0)
     hs, aux = _run_pipeline(cfg, pipe, stages, xs, seg.to(dev), cos, sin,
-                            attention_fn)
-    trees, _ = stages[-1]
-    return [_norm(cfg, h, tr["ln_f"]["scale"], tr["ln_f"].get("bias"))
-            for tr, h in zip(trees, hs)], aux
+                            attention_fn, sp, moes, g, mb_rows, mp.ep)
+    trees, devs = stages[-1]
+    fin = [_norm(cfg, h, tr["ln_f"]["scale"], tr["ln_f"].get("bias"))
+           for tr, h in zip(trees, hs)]
+    return (C.all_gather(fin, devs, dim=1) if sp else fin), aux
+
+
+def _forward_members_pipeline(cfg, mp: MemberParams, pipe, ids, seg, pos,
+                              return_aux, attention_fn):
+    """``forward_members`` at p > 1: each data group's rows through its
+    stages (``_forward_pipeline``); under sequence parallelism the
+    streams are padded to a multiple of 8t and cut back after. A MoE
+    model's microbatch m is the JAX package's: rows ``[m Bm, (m + 1)
+    Bm)`` of the whole batch (Bm = ceil(S / M), the last rows
+    padding), whichever data groups hold them. Each group runs its share
+    of every microbatch; one ``MoEShards`` per microbatch routes the
+    shares as one set (capacity over Bm * L tokens, queue positions
+    group after group), and each microbatch's router losses, formed from
+    every group's sums, weigh by its real-stream share
+    (``microbatch_weights``)."""
+    n_real = ids.shape[1]
+    sp = mp.sp and mp.t > 1
+    pad = -n_real % (8 * mp.t) if sp else 0
+    if pad:
+        ids, seg, pos = (F.pad(a, (0, pad)) for a in (ids, seg, pos))
+    n, n_mb = ids.shape[0], pipe.n_microbatches
+    moes, weights = _microbatch_moes(cfg, n, n_real, n_mb,
+                                     lambda k: _moe_shards(cfg, mp, k))
+    bm = -(-n // n_mb)
+    rows = data_rows(n, mp.d)
+    hs, sums = [], {}
+    for g, (r0, r1) in enumerate(rows):
+        if r1 == r0:
+            hs.append(None)
+            continue
+        mb_rows = None if moes is None else [
+            (min(max(m * bm, r0), r1) - r0, min(max((m + 1) * bm, r0), r1)
+             - r0) for m in range(n_mb)]
+        h, aux = _forward_pipeline(
+            cfg, mp, pipe, g, *(a[r0:r1] for a in (ids, seg, pos)),
+            attention_fn, moes, mb_rows)
+        hs.append([x[:, :n_real] for x in h] if pad else h)
+        for k, v in aux.items():
+            v = v.to(mp.devices[0])
+            sums[k] = sums[k] + v if k in sums else v
+    out = MemberHidden(hs, rows), None
+    if not return_aux:
+        return out
+    return (*out, _pipeline_router_losses(cfg, sums, weights))
+
+
+def _microbatch_moes(cfg, n: int, width: int, n_mb: int, make):
+    """A MoE model's pipelined batch of ``n`` streams of ``width``
+    tokens -> (one ``make(Bm * width)`` a microbatch, each microbatch's
+    real-stream share (``microbatch_weights``)), Bm = ceil(n / M); (None,
+    None) for a dense model."""
+    if cfg.mlp_type != "moe":
+        return None, None
+    bm = -(-n // n_mb)
+    return ([make(bm * width) for _ in range(n_mb)],
+            microbatch_weights(n, bm, n_mb))
+
+
+def _pipeline_router_losses(cfg, sums, weights) -> Dict[str, torch.Tensor]:
+    """Each router loss of a pipelined batch: per (microbatch, layer)
+    from the router sums ``sums[(m, "layer/name")]`` (every data group's
+    added), weighted by the microbatch's real-stream share, summed over
+    layers and microbatches (none for a dense model, whose ``sums`` are
+    empty)."""
+    by: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+    for (m, key), v in sums.items():
+        li, name = key.split("/")
+        by.setdefault((m, int(li)), {})[name] = v
+    out: Dict[str, torch.Tensor] = {}
+    for m, li in sorted(by):
+        for name, val in router_losses(cfg.moe, by[(m, li)]).items():
+            val = val * float(weights[m])
+            out[name] = out[name] + val if name in out else val
+    return out
 
 
 def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
@@ -645,8 +759,9 @@ def forward_ctx(cfg: TransformerConfig, mp: MemberParams,
     c = mp.c
     if mp.p > 1:
         raise NotImplementedError(
-            f"a c={c} or sequence-parallel layout with p={mp.p}: pipeline "
-            "parallelism combines with neither here.")
+            "pipeline parallelism cannot be combined with context "
+            "parallelism (ring attention) yet; use pp x tp x dp or "
+            "cp x tp x dp.")
     if return_kv and c > 1:
         raise ValueError(
             "a KV-cache prefill on a context-parallel layout: generation "
@@ -778,7 +893,10 @@ def _sp_block(cfg, lps, layer_idx, xs, segs, tables, devs, attention_fn,
     tokens (``sp``, no ring) -> (the members' residual shards, each
     member's (k, v)): the norm on the shard, an all-gather, then each
     member's attention half in its own checkpoint region (K1 recomputed,
-    as ``_block_members``), a reduce-scatter, and the MLP half."""
+    as ``_block_members``), a reduce-scatter, and the MLP half. A MoE
+    route ``moe`` is the group's one shard, which registers its expert
+    counts as it dispatches (only context shards of one group must all
+    register first, ``_register_routes``)."""
     lns = C.all_gather([run(_norm, cfg, x, lp["ln1"]["scale"],
                                 lp["ln1"].get("bias"))
                         for lp, x in zip(lps, xs)], devs, dim=1)
@@ -970,8 +1088,9 @@ def _moe_shards(cfg, mp: MemberParams, n_tokens: int
                 ) -> Optional[MoEShards]:
     """The ``MoEShards`` of one batch over ``mp``'s members (None for a
     dense model): the capacity over ``n_tokens``, and under expert
-    parallelism, for each (context, model) index, every data index's
-    member's layer views and device."""
+    parallelism, for each (context, model) index and each layer, every
+    data index's member's layer view and device (the member of the
+    layer's stage)."""
     if cfg.mlp_type != "moe":
         return None
     experts = None
@@ -979,15 +1098,18 @@ def _moe_shards(cfg, mp: MemberParams, n_tokens: int
         views, experts = {}, {}
         for ci in range(mp.c):
             for j in range(mp.t):
-                row = []
-                for g in range(mp.d):
-                    i = mp.index(g, ci, j)
-                    tr = mp.trees[i]
-                    if id(tr) not in views:
-                        views[id(tr)] = layer_views(tr["blocks"],
-                                                    _slab_len(tr))
-                    row.append((views[id(tr)], mp.devices[i]))
-                experts[(ci, j)] = row
+                layers = []
+                for s in range(mp.p):
+                    at = [mp.index(g, ci, j, s) for g in range(mp.d)]
+                    for i in at:
+                        tr = mp.trees[i]
+                        if id(tr) not in views:
+                            views[id(tr)] = layer_views(tr["blocks"],
+                                                        _slab_len(tr))
+                    layers += [[(views[id(mp.trees[i])][li], mp.devices[i])
+                                for i in at]
+                               for li in range(_slab_len(mp.trees[at[0]]))]
+                experts[(ci, j)] = layers
     return MoEShards(n_tokens, mp.c, mp.devices[0], experts)
 
 
@@ -1065,29 +1187,30 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
     (k, v) or None[, aux]). Data group g runs rows ``data_rows(S,
     d)[g]``; at t = p = 1 that is ``forward`` on its one member's tree.
     At p > 1 each data group runs the pipeline of ``pipeline`` (default
-    ``mp.pipeline``) and the hidden states are the last stage's. A MoE
-    model's data groups route as one batch (``MoEShards``): each group's
+    ``mp.pipeline``; ``_forward_members_pipeline``) and the hidden
+    states are the last stage's. A MoE model's data groups route as one
+    batch (``MoEShards``; at p > 1 one per microbatch): each group's
     forward runs on its members in turn, registering its per-layer
     expert counts for the groups after it, and the router losses come
     from every group's sums."""
-    check_layout(cfg, mp.t, mp.p)
-    if mp.c > 1 or (mp.sp and mp.t > 1):
+    check_layout(cfg, mp.t)
+    if mp.c > 1 or (mp.sp and mp.t > 1 and mp.p == 1):
         return forward_ctx(cfg, mp, input_ids, seg_ids, positions,
                            return_kv=return_kv, return_aux=return_aux,
                            attention_fn=attention_fn)
     seg_ids = seg_ids.to(torch.int32)
     if positions is None:
         positions = positions_from_segments(seg_ids)
-    pipe = None
     if mp.p > 1:
         pipe = pipeline or mp.pipeline
         _check_pipelined(cfg, pipe, return_kv)
+        return _forward_members_pipeline(cfg, mp, pipe, input_ids, seg_ids,
+                                         positions, return_aux, attention_fn)
     rows = data_rows(input_ids.shape[0], mp.d)
     starts = mp.vocab_starts(cfg)
     hs, kvs = [], []
     aux_sum: Dict[str, torch.Tensor] = {}
-    moe = (None if pipe is not None else
-           _moe_shards(cfg, mp, input_ids.shape[0] * input_ids.shape[1]))
+    moe = _moe_shards(cfg, mp, input_ids.shape[0] * input_ids.shape[1])
     for g, (r0, r1) in enumerate(rows):
         trees, devs = mp.group(g)
         if r1 == r0:
@@ -1095,25 +1218,13 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
             kvs.extend([None] * mp.t)
             continue
         ids, seg, pos = (a[r0:r1] for a in (input_ids, seg_ids, positions))
-        if pipe is not None or (mp.t == 1 and moe is None):
-            if pipe is not None:
-                h, aux = _forward_pipeline(cfg, mp, pipe, g, ids, seg, pos,
-                                           attention_fn)
-            else:
-                dev = devs[0]
-                h, kv, aux = forward(
-                    cfg, trees[0], ids.to(dev), seg.to(dev), pos.to(dev),
-                    return_kv=return_kv, return_aux=True,
-                    attention_fn=attention_fn)
-                h = [h]
-                kvs.append(kv)
-            if aux and return_aux and mp.d > 1:
-                raise NotImplementedError(
-                    "router losses over data shards inside a pipeline: MoE "
-                    "training at d > 1 with p > 1 is a later part of "
-                    "ROADMAP.md, queue 1, item 4.")
-            aux_sum = aux
-            hs.append(h)
+        if mp.t == 1 and moe is None:
+            dev = devs[0]
+            h, kv = forward(cfg, trees[0], ids.to(dev), seg.to(dev),
+                            pos.to(dev), return_kv=return_kv,
+                            attention_fn=attention_fn)
+            hs.append([h])
+            kvs.append(kv)
         else:
             h, kv = _forward_group(cfg, trees, devs, starts, ids, seg, pos,
                                    return_kv, attention_fn, moe, g)
@@ -1469,7 +1580,7 @@ def _seq_attend(cfg, li, lps, xs, tables, caches, sts, devs):
 
 def _decode_members(cfg, mp: MemberParams, caches, token, positions,
                     uniform_slot):
-    check_layout(cfg, mp.t, mp.p)
+    check_layout(cfg, mp.t)
     if mp.p > 1:
         raise ValueError("a decode step on a pipeline layout: generation "
                          "runs on the engine's decode view "

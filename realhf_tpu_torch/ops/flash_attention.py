@@ -25,8 +25,8 @@ A round of the ring's backward (``ops/ring_attention_fused.py``
 ids ``seg_k``, the global stream offsets ``q_off`` and ``k_off`` of the
 two shards (the causal and window tests read global positions) and
 ``out_dtype=torch.float32`` for fp32 partials; on CUDA the kernels take
-them at hd 64 or 128. With the defaults the kernels' bits are those of
-the kernels before the ring round existed.
+them at every head dim they are built for. With the defaults the
+kernels' bits are those of the kernels before the ring round existed.
 """
 
 import ctypes
@@ -329,11 +329,6 @@ def _ring_args(q, k, v, seg_ids, seg_k, q_off: int, k_off: int, out_dtype):
             and out_dtype in (None, q.dtype)):
         return seg_ids, (0, 0, 0), False
     seg_k = seg_ids if seg_k is None else seg_k
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(
-            f"a ring round of the backward kernels takes hd 64 or 128, got "
-            f"{q.shape[-1]}: hd 256 on the ring (K6 and the offset K2/K3) "
-            "is owed, ROADMAP.md, queue 1, item 4")
     if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
     if k.shape[1] != q.shape[1]:

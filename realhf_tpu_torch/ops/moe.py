@@ -212,8 +212,10 @@ class MoEShards:
     ``record`` keeps the model member 0 router sums of each (layer,
     shard), ``losses`` forms the batch's losses from them. Registering
     again (a checkpointed block's recompute) overwrites with equal
-    values. ``experts``, set for expert parallelism, maps (c, j) to the
-    (per-layer MLP views, device) of each data index's member."""
+    values. ``experts``, set for expert parallelism, maps (c, j) to each
+    layer's (layer view, device) of every data index's member.
+    ``layer_sums`` hands a pipeline stage's recorded sums to its caller
+    (``transformer._stage_step``)."""
 
     def __init__(self, n_tokens: int, n_ctx: int, device: torch.device,
                  experts=None):
@@ -241,6 +243,12 @@ class MoEShards:
 
     def record(self, layer: int, key, stats: Dict[str, torch.Tensor]):
         self._stats[(layer, *key)] = stats
+
+    def layer_sums(self, layers, key) -> Dict[str, torch.Tensor]:
+        """The router sums recorded for shard ``key`` at ``layers``,
+        keyed ``"layer/name"``."""
+        return {f"{li}/{name}": v for li in layers
+                for name, v in self._stats[(li, *key)].items()}
 
     def losses(self, moe: MoEConfig) -> Dict[str, torch.Tensor]:
         """Each router loss of the batch, summed over the layers: per
@@ -271,11 +279,11 @@ def _expert_parallel_ffn(cfg: TransformerConfig, shard: MoEShard,
     """The expert MLP of an [E, N, H] buffer whose experts lie split over
     the data index: each owner's slice goes to its device, runs there
     through its member's weights, and comes back (``all_to_all``)."""
-    owners = shard.shards.experts[(shard.key[1], shard.j)]
+    owners = shard.shards.experts[(shard.key[1], shard.j)][shard.layer]
     devs = [d for _, d in owners]
     recv = C.all_to_all([list(xs.chunk(len(owners), 0))], devs)
-    outs = [_expert_ffn(cfg, views[shard.layer]["mlp"], r[0])
-            for (views, _), r in zip(owners, recv)]
+    outs = [_expert_ffn(cfg, view["mlp"], r[0])
+            for (view, _), r in zip(owners, recv)]
     back = C.all_to_all([[o] for o in outs], [xs.device])[0]
     return torch.cat(back, 0)
 

@@ -390,11 +390,9 @@ def _check_members(qs, ks, vs, segs):
 
 def _check_cuda_members(qs, ks, vs, segs):
     hd = qs[0].shape[-1]
-    if hd not in (64, 128):
+    if hd not in (64, 128, 256):
         raise ValueError(
-            f"ring attention kernel supports hd 64 or 128, got {hd}: hd 256 "
-            "(Gemma) in K6 and the offset K2/K3 is owed, ROADMAP.md queue "
-            "1, item 4")
+            f"ring attention kernel supports hd 64, 128 or 256, got {hd}")
     for j, member in enumerate(zip(qs, ks, vs, segs)):
         for name, t in zip(("q", "k", "v", "seg"), member):
             if not t.is_contiguous():

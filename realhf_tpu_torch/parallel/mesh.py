@@ -27,9 +27,7 @@ disjoint streams and sum their gradients). With sequence parallelism
 more along its tokens over the model members (``models/transformer.py``).
 
 Context parallelism together with pipeline parallelism raises, with the
-JAX package's message (its engine refuses the pair too), as does
-sequence parallelism with pipeline parallelism; a MoE model at t > 1
-inside a pipeline stage raises in ``models/transformer.check_layout``. ``gen_tp_size``
+JAX package's message (its engine refuses the pair too). ``gen_tp_size``
 (``g``) is the model degree of the decode view (``engine/engine.py``
 ``Engine.decode_engine``); it must divide the layout's device count.
 """
@@ -168,8 +166,7 @@ def _check_device(d) -> torch.device:
 
 def check_layout(parallel: ParallelismConfig):
     """Raise ``NotImplementedError`` for a layout this port does not
-    build (context with pipeline parallelism, as the JAX package, and
-    sequence with pipeline parallelism), and
+    build (context with pipeline parallelism, as the JAX package), and
     ``ValueError`` for a decode-view degree that does not divide the
     layout."""
     if (parallel.context_parallel_size > 1
@@ -178,11 +175,6 @@ def check_layout(parallel: ParallelismConfig):
             "pipeline parallelism cannot be combined with context "
             "parallelism (ring attention) yet; use pp x tp x dp or "
             "cp x tp x dp.")
-    if parallel.sequence_parallel and parallel.pipeline_parallel_size > 1:
-        raise NotImplementedError(
-            f"Layout {parallel}: sequence parallelism together with "
-            "pipeline parallelism is a later part of ROADMAP.md, queue 1, "
-            "item 4.")
     g = parallel.gen_tp_size
     if g and parallel.world_size % g:
         raise ValueError(f"Layout {parallel}: gen_tp_size={g} does not "

@@ -17,15 +17,21 @@ stacked blocks (``models/sharding.py``), and their devices. The
 caller's ``block_step(s, trees, xs, segs, coss, sins) -> (ys, aux)``
 runs stage s's slab on one microbatch: ``xs`` are the members' copies of
 the residual, the metadata lists hold one entry per member, each on the
-member's device, and ``aux`` maps each MoE aux loss to a scalar summed
-over the slab. The embedding, final norm and heads run outside the
-pipeline, as in JAX.
+member's device, and ``aux`` maps each of the slab's aux values (a MoE
+model's router sums) to a tensor. The embedding, final norm and heads
+run outside the pipeline, as in JAX.
 
 Streams are padded to a multiple of M (``pad_streams``: segment id 0,
 so padding rows are masked out of attention and losses); microbatch m is
-rows ``[m * Bm, (m + 1) * Bm)``. Aux losses are weighted by each
-microbatch's real-stream share (``microbatch_weights``) and summed over
-ticks and stages.
+rows ``[m * Bm, (m + 1) * Bm)``. A caller that splits the streams
+itself passes each microbatch's rows (``mb_rows``, contiguous and in
+order, some perhaps empty): nothing is padded, and a microbatch with no
+rows runs no tick. Either way the aux values come back per microbatch,
+keyed ``(m, key)`` and summed over the stages; the caller weighs them
+(``microbatch_weights``: each microbatch's real-stream share) and forms
+the losses (a mixture-of-experts model's router sums,
+``models/transformer.py`` ``_pipeline_router_losses``). The step gets
+the microbatch index last.
 
 The backward of ``pipeline_blocks`` is autograd's, the leaves' gradients
 summed over the microbatches in fp32 (``_fp32_grad_sums``). With
@@ -131,27 +137,77 @@ def place_each(xs: Sequence[torch.Tensor], devices: Sequence[torch.device]
 
 class Microbatches:
     """Padded per-token metadata (segment ids and rotary tables) split
-    into microbatches, each placed on a stage's devices when first
-    asked for."""
+    into microbatches of ``bm`` rows, or along ``bounds`` ((start, stop)
+    of each), each placed on a stage's devices when first asked for."""
 
-    def __init__(self, seg, cos, sin, n_mb: int, stages: Sequence[Stage]):
+    def __init__(self, seg, cos, sin, n_mb: int, stages: Sequence[Stage],
+                 bounds=None):
         self.bm = seg.shape[0] // n_mb
+        self.bounds = bounds or [(m * self.bm, (m + 1) * self.bm)
+                                 for m in range(n_mb)]
         self.parts = (seg, cos, sin)
         self.stages = stages
         self._placed = {}
 
     def rows(self, m: int) -> slice:
-        return slice(m * self.bm, (m + 1) * self.bm)
+        return slice(*self.bounds[m])
+
+    def live(self, m: int) -> bool:
+        """Whether microbatch m has rows."""
+        return self.bounds[m][1] > self.bounds[m][0]
 
     def meta(self, s: int, m: int):
-        """(segs, coss, sins) of microbatch m, one per member of stage
-        s, on its device."""
+        """(segs, coss, sins, m) of microbatch m: the metadata one per
+        member of stage s, on its device, and the index. A row slice that
+        does not start on a 16-byte boundary (the kernels' loads of the
+        segment ids) is copied."""
         key = (s, m)
         if key not in self._placed:
             devs = self.stages[s][1]
-            self._placed[key] = tuple(
-                place(a[self.rows(m)], devs) for a in self.parts)
+            self._placed[key] = (*(place(_aligned(a[self.rows(m)]), devs)
+                                   for a in self.parts), m)
         return self._placed[key]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def split_microbatches(n_mb: int, stages: Sequence[Stage], xs, seg_ids,
+                       cos, sin, mb_rows=None):
+    """-> (xs, ``Microbatches``, the stream count to keep): padded to a
+    multiple of ``n_mb``, or along ``mb_rows`` unpadded."""
+    if mb_rows is not None:
+        return (list(xs), Microbatches(seg_ids, cos, sin, n_mb, stages,
+                                       mb_rows), seg_ids.shape[0])
+    padded, b_orig = pad_streams([*xs, seg_ids, cos, sin], n_mb)
+    xs, (seg_ids, cos, sin) = padded[:len(xs)], padded[len(xs):]
+    return xs, Microbatches(seg_ids, cos, sin, n_mb, stages), b_orig
+
+
+def collect_aux(total: Dict, aux: Dict[str, torch.Tensor], m: int,
+                device: torch.device):
+    """One stage-tick's aux values into ``total`` as ``(m, key)``, on
+    ``device``, added over the stages."""
+    for k in sorted(aux):
+        v = _to(aux[k], device)
+        total[(m, k)] = total[(m, k)] + v if (m, k) in total else v
+
+
+def aux_cotangents(g_aux: Dict, m: int) -> Dict[str, torch.Tensor]:
+    """The cotangents of microbatch m's stage-tick aux values from those
+    of the pipeline's aux outputs (``collect_aux``'s inverse)."""
+    return {k[1]: v for k, v in g_aux.items() if k[0] == m}
+
+
+def hidden_of(outs, n_keep: int):
+    """The last stage's outputs of the microbatches that ran, joined
+    member by member and cut to ``n_keep`` streams."""
+    ran = [o for o in outs if o is not None]
+    return [torch.cat([o[j] for o in ran])[:n_keep]
+            for j in range(len(ran[0]))]
 
 
 def block_leaves(tree: Tree) -> List[torch.Tensor]:
@@ -185,20 +241,11 @@ def _with_blocks(tree: Tree, leaves) -> Tree:
     return {"blocks": fill(tree["blocks"])}
 
 
-def add_aux(total: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
-            weight: float, device: torch.device):
-    """``total[k] += aux[k] * weight`` on ``device``, keys in sorted
-    order."""
-    for k in sorted(aux):
-        v = _to(aux[k] * weight, device)
-        total[k] = total[k] + v if k in total else v
-
-
 def stage_vjp(block_step: BlockStep, s: int, stage: Stage, xin, meta, gys,
               gaux: Dict[str, torch.Tensor]):
     """Stage s's slab recomputed on one microbatch's saved inputs
     ``xin`` under autograd (block checkpoints inside), with the
-    cotangents ``gys`` of its outputs and ``gaux`` of its aux losses
+    cotangents ``gys`` of its outputs and ``gaux`` of its aux values
     applied -> (the inputs' cotangents, the cotangents of the stage's
     leaves in ``stage_leaves`` order, None for a leaf the slab does not
     reach). Runs on stage s's first device."""
@@ -231,7 +278,7 @@ class _TickState:
 class _TickRemat(torch.autograd.Function):
     """One stage-tick of the GPipe forward, checkpointed as a whole:
     inputs are the members' residual copies and the stage's leaves;
-    outputs the members' outputs, then the aux losses in sorted key
+    outputs the members' outputs, then the aux values in sorted key
     order."""
 
     @staticmethod
@@ -284,46 +331,44 @@ def pipeline_blocks(pipe: PipelineContext, stages: Sequence[Stage],
                     xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor,
                     block_step: BlockStep, return_aux: bool = False,
-                    remat_tick: bool = False):
+                    remat_tick: bool = False, mb_rows=None):
     """Run the block stack as a GPipe pipeline over ``stages`` ->
     (the last stage's members' hidden states [B, L, H], aux).
 
     ``xs`` are stage 0's members' copies of the residual after the
-    embedding ([B, L, H], each on its member's device); ``seg_ids``
-    [B, L], ``cos``/``sin`` [B, L, hd/2] lie on stage 0's first device.
+    embedding ([B, L, H], or each member's token shard under sequence
+    parallelism; each on its member's device); ``seg_ids`` [B, L],
+    ``cos``/``sin`` [B, L, hd/2] lie on stage 0's first device.
     ``remat_tick`` checkpoints each stage-tick's slab as a whole
-    (``_TickRemat``)."""
+    (``_TickRemat``). ``mb_rows``: the caller's microbatches (the
+    module note)."""
     global last_saved_bytes
     S, M = pipe.n_stages, pipe.n_microbatches
     if len(stages) != S:
         raise ValueError(f"{len(stages)} stages for a {S}-stage pipeline")
-    padded, b_orig = pad_streams([*xs, seg_ids, cos, sin], M)
-    xs, (seg_ids, cos, sin) = padded[:len(xs)], padded[len(xs):]
     if torch.is_grad_enabled():
         stages = [_fp32_grad_sums(st) for st in stages]
-    mbs = Microbatches(seg_ids, cos, sin, M, stages)
-    w = microbatch_weights(b_orig, mbs.bm, M)
+    xs, mbs, n_keep = split_microbatches(M, stages, xs, seg_ids, cos, sin,
+                                         mb_rows)
     if remat_tick:
         last_saved_bytes = 0
     out_dev = stages[-1][1][0]
     outs = [None] * M
     inbox = {}
-    aux_tot: Dict[str, torch.Tensor] = {}
+    aux_tot: Dict = {}
     for t in range(M + S - 1):
         for s in range(S):
             m = t - s
-            if not 0 <= m < M:
+            if not 0 <= m < M or not mbs.live(m):
                 continue  # a bubble tick computes nothing
             xin = ([x[mbs.rows(m)] for x in xs] if s == 0
                    else inbox.pop((s, m)))
             with on_device(stages[s][1][0]):
                 ys, aux = _tick(block_step, s, stages[s], xin,
                                 mbs.meta(s, m), remat_tick)
-            add_aux(aux_tot, aux, float(w[m]), out_dev)
+            collect_aux(aux_tot, aux, m, out_dev)
             if s == S - 1:
                 outs[m] = ys
             else:
                 inbox[_next_key(s, m, M)] = place_each(ys, stages[s + 1][1])
-    hidden = [torch.cat([o[j] for o in outs])[:b_orig]
-              for j in range(len(xs))]
-    return hidden, (aux_tot if return_aux else {})
+    return hidden_of(outs, n_keep), (aux_tot if return_aux else {})

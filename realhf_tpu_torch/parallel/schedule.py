@@ -35,13 +35,13 @@ from realhf_tpu_torch.parallel.pipeline import (  # noqa: F401
     ONE_F_ONE_B,
     SCHEDULES,
     BlockStep,
-    Microbatches,
     PipelineContext,
     Stage,
-    add_aux,
-    microbatch_weights,
-    pad_streams,
+    aux_cotangents,
+    collect_aux,
+    hidden_of,
     place_each,
+    split_microbatches,
     stage_leaves,
     stage_vjp,
 )
@@ -185,9 +185,9 @@ def _dx_key(s: int, m: int, n_mb: int):
 class _Run:
     """What the 1F1B function needs beyond its tensor inputs."""
 
-    def __init__(self, pipe, stages, mbs, weights, block_step, n_x):
+    def __init__(self, pipe, stages, mbs, block_step, n_x):
         self.pipe, self.stages, self.mbs = pipe, stages, mbs
-        self.weights, self.block_step, self.n_x = weights, block_step, n_x
+        self.block_step, self.n_x = block_step, n_x
         self.leaf_counts = [len(stage_leaves(st)) for st in stages]
         self.aux_keys: List[str] = []
 
@@ -195,7 +195,7 @@ class _Run:
 class _OneFOneB(torch.autograd.Function):
     """Inputs: stage 0's members' padded residual copies, then every
     stage's leaves (stage-major, ``stage_leaves`` order). Outputs: the
-    last stage's members' hidden states, then the aux losses in sorted
+    last stage's members' hidden states, then the aux values in sorted
     key order."""
 
     @staticmethod
@@ -207,11 +207,11 @@ class _OneFOneB(torch.autograd.Function):
         streams = [forward_stage_stream(S, M, s) for s in range(S)]
         xsave = [[None] * M for _ in range(S)]
         outs, inbox = [None] * M, {}
-        aux_tot: Dict[str, torch.Tensor] = {}
+        aux_tot: Dict = {}
         for t in range(M + S - 1):
             for s in range(S):
                 tick = streams[s][t]
-                if tick.op != "F":
+                if tick.op != "F" or not mbs.live(tick.microbatch):
                     continue
                 m = tick.microbatch
                 xin = ([x[mbs.rows(m)] for x in xs] if s == 0
@@ -220,16 +220,17 @@ class _OneFOneB(torch.autograd.Function):
                 with on_device(run.stages[s][1][0]):
                     ys, aux = run.block_step(s, run.stages[s][0], xin,
                                              *mbs.meta(s, m))
-                add_aux(aux_tot, aux, float(run.weights[m]), out_dev)
+                collect_aux(aux_tot, aux, m, out_dev)
                 if s == S - 1:
                     outs[m] = ys
                 else:
                     inbox[(s + 1, m)] = place_each(ys, run.stages[s + 1][1])
         last_saved_bytes = sum(x.numel() * x.element_size()
-                               for row in xsave for xin in row for x in xin)
+                               for row in xsave for xin in row
+                               if xin is not None for x in xin)
         run.aux_keys = sorted(aux_tot)
         ctx.run, ctx.xsave = run, xsave
-        hidden = [torch.cat([o[j] for o in outs]) for j in range(run.n_x)]
+        hidden = hidden_of(outs, xs[0].shape[0])
         return (*hidden, *[aux_tot[k] for k in run.aux_keys])
 
     @staticmethod
@@ -247,13 +248,13 @@ class _OneFOneB(torch.autograd.Function):
             # the last stage leads; within a tick the stages are independent
             for s in reversed(range(S)):
                 tick = streams[s][t]
-                if tick.op != "B":
+                if tick.op != "B" or not mbs.live(tick.microbatch):
                     continue
                 m = tick.microbatch
                 devs = run.stages[s][1]
                 gy = (place_each([g[mbs.rows(m)] for g in g_out], devs)
                       if s == S - 1 else inbox.pop((s, m)))
-                ga = {k: v * float(run.weights[m]) for k, v in g_aux.items()}
+                ga = aux_cotangents(g_aux, m)
                 dxs, dleaves = stage_vjp(run.block_step, s, run.stages[s],
                                          xsave[s][m], mbs.meta(s, m), gy, ga)
                 xsave[s][m] = None
@@ -269,7 +270,7 @@ class _OneFOneB(torch.autograd.Function):
                 else:
                     inbox[_dx_key(s, m, M)] = place_each(
                         dxs, run.stages[s - 1][1])
-        dx = [torch.cat([d[j] for d in dx0]) for j in range(run.n_x)]
+        dx = hidden_of(dx0, g_out[0].shape[0])
         dleaves = [None if a is None else a.to(p.dtype)
                    for st, row in zip(run.stages, acc)
                    for a, p in zip(row, stage_leaves(st))]
@@ -279,23 +280,21 @@ class _OneFOneB(torch.autograd.Function):
 def pipeline_blocks_1f1b(pipe: PipelineContext, stages: Sequence[Stage],
                          xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,
                          cos: torch.Tensor, sin: torch.Tensor,
-                         block_step: BlockStep, return_aux: bool = False):
+                         block_step: BlockStep, return_aux: bool = False,
+                         mb_rows=None):
     """Run the block stack as a 1F1B-scheduled pipeline -> (hidden,
     aux), with the arguments and results of
     ``pipeline.pipeline_blocks``; differentiable through ``_OneFOneB``.
-    Aux losses are weighted by each microbatch's real-stream share, as
-    in GPipe."""
+    The aux values come back per microbatch, as in GPipe."""
     S, M = pipe.n_stages, pipe.n_microbatches
     if len(stages) != S:
         raise ValueError(f"{len(stages)} stages for a {S}-stage pipeline")
-    padded, b_orig = pad_streams([*xs, seg_ids, cos, sin], M)
-    xs, (seg_ids, cos, sin) = padded[:len(xs)], padded[len(xs):]
-    mbs = Microbatches(seg_ids, cos, sin, M, stages)
-    run = _Run(pipe, stages, mbs, microbatch_weights(b_orig, mbs.bm, M),
-               block_step, len(xs))
+    xs, mbs, n_keep = split_microbatches(M, stages, xs, seg_ids, cos, sin,
+                                         mb_rows)
+    run = _Run(pipe, stages, mbs, block_step, len(xs))
     leaves = [p for st in stages for p in stage_leaves(st)]
     out = _OneFOneB.apply(run, *xs, *leaves)
-    hidden = [h[:b_orig] for h in out[:len(xs)]]
+    hidden = [h[:n_keep] for h in out[:len(xs)]]
     aux = dict(zip(run.aux_keys, out[len(xs):]))
     return hidden, (aux if return_aux else {})
 

@@ -7,8 +7,13 @@ source file (another revision's ``flash_bwd.cu``), on the card.
 
 Builds this checkout's ``realhf_tpu_torch/csrc/flash_bwd.cu`` (through
 ``ops/_build``) and the other source with the same flags, then runs each
-K2/K3 case of ``chip_smoke.phase_kernels_bwd`` (the same q, k, v, dO and
-segment ids, o and lse from this checkout's K1) through both libraries.
+K2/K3 case of ``chip_smoke.phase_kernels_bwd`` and of
+``chip_smoke.phase_kernels_hd256`` (the hd 256 kernels at default
+arguments; the same q, k, v, dO and segment ids, o and lse from this
+checkout's K1) through both libraries, then K2/K3 at two hd 128 ring
+rounds of cp_sft's c4 shape (the keys' own ids, global offsets, fp32
+out; ``chip_smoke.cp_round_inputs`` on the ``CP_RECORDS`` stream) when
+the other source has the ring round's entry.
 One JSON line per case: each build's largest row error of dq, dk and dv
 against the plain backward in fp32 (``chip_smoke.row_rel_err``, the limit
 of phase ``kernels``), whether the two builds' outputs are bit-equal
@@ -59,24 +64,30 @@ def main(argv=None):
     cases = []
 
     def capture(name, b, L, nq, nkv, hd, seg, causal, gen, timed,
-                plant_fault=False):
+                plant_fault=False, window=None):
         dev = seg.device
         q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
                    for shape in ((b, L, nq, hd), (b, L, nkv, hd),
                                  (b, L, nkv, hd)))
         do = torch.randn((b, L, nq, hd), generator=gen, device=dev).bfloat16()
-        cases.append((name, q, k, v, do, seg, causal))
+        cases.append((name, q, k, v, do, seg, causal, window))
         return dict(ok=True)
 
     chip_smoke.check_flash_bwd = capture
     chip_smoke.phase_kernels_bwd()
+    stub = lambda *a, **kw: dict(ok=True)  # noqa: E731
+    chip_smoke.check_flash_fwd = chip_smoke.check_flash_decode = stub
+    chip_smoke.seq_kernel_cases = lambda *a, **kw: []
+    chip_smoke.phase_kernels_hd256()
+    ringed = "segk" in open(args.other).read()
 
     records = []
     ok = True
-    for name, q, k, v, do, seg, causal in cases:
-        o, lse = fa.flash_attention(q, k, v, seg, causal=causal)
+    for name, q, k, v, do, seg, causal, window in cases:
+        o, lse = fa.flash_attention(q, k, v, seg, causal=causal,
+                                    window=window)
         delta = fa.attention_delta(o, do)
-        kw = dict(causal=causal)
+        kw = dict(causal=causal, window=window)
 
         def dq_call():
             return fa.flash_bwd_dq(q, k, v, seg, do, lse, delta, **kw)
@@ -121,6 +132,8 @@ def main(argv=None):
         records.append(rec)
         print(json.dumps(rec), flush=True)
         torch.cuda.empty_cache()
+    if ringed:
+        records += ring_rounds(chip_smoke, fa, this, other, use)
     use(this)
     ptxas = dict(this=ptxas_lines(this_log), other=ptxas_lines(other_log))
     print(json.dumps(dict(ptxas=ptxas)), flush=True)
@@ -128,6 +141,53 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump(dict(cases=records, ptxas=ptxas), f, indent=1)
     return 0 if ok else 1
+
+
+def ring_rounds(chip_smoke, fa, this, other, use):
+    """K2/K3 at the c4 diagonal round of shard 1 and at shard 1 against
+    shard 0 (hd 128, 32/32 heads) through both builds: bit-equality and
+    each build's ms."""
+    import numpy as np
+    import torch
+    seg = np.zeros((1, sum(chip_smoke.CP_RECORDS)), np.int32)
+    off = 0
+    for i, n in enumerate(chip_smoke.CP_RECORDS):
+        seg[0, off:off + n] = i + 1
+        off += n
+    seg = torch.as_tensor(seg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    q, k, v, do, _, lse, delta = chip_smoke.cp_round_inputs(seg, 4, gen)
+    lc = seg.shape[1] // 4
+    out = []
+    for i, src in ((1, 1), (1, 0)):
+        rows, cols = (slice(i * lc, (i + 1) * lc),
+                      slice(src * lc, (src + 1) * lc))
+        args = (q[:, rows].contiguous(), k[:, cols].contiguous(),
+                v[:, cols].contiguous(), seg[:, rows].contiguous(),
+                do[:, rows].contiguous(), lse[:, :, rows].contiguous(),
+                delta[:, :, rows].contiguous())
+        kw = dict(causal=True, seg_k=seg[:, cols].contiguous(),
+                  q_off=i * lc, k_off=src * lc, out_dtype=torch.float32)
+        outs, ms = {}, {"this": [], "other": []}
+        for tag, lib in (("this", this), ("other", other)):
+            use(lib)
+            outs[tag] = (fa.flash_bwd_dq(*args, **kw),
+                         *fa.flash_bwd_dkv(*args, **kw))
+        for tag in ("other", "this", "this", "other"):
+            use(this if tag == "this" else other)
+            ms[tag].append(chip_smoke.cuda_ms(
+                lambda: fa.flash_bwd_dkv(*args, **kw)))
+        rec = dict(case=f"cp_sft_c4_shard{i}_keys{src}_ring", hd=128,
+                   ms_dkv_this=sum(ms["this"]) / 2,
+                   ms_dkv_other=sum(ms["other"]) / 2)
+        for key, a, b in zip(("dq", "dk", "dv"), outs["this"],
+                             outs["other"]):
+            rec[f"{key}_equal"] = bool(torch.equal(a, b))
+            rec[f"{key}_max_abs_diff"] = chip_smoke.max_err(a, b)
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+    return out
 
 
 if __name__ == "__main__":

@@ -3,20 +3,25 @@
 alone, on the card.
 
     python3 scripts/torch_cp_phases.py [--out records.json]
-        [--phases cp_sft sp_sft kernels] [--seeds 1 2 3 4 5]
+        [--phases cp_sft sp_sft kernels cp_gemma kernels_hd256]
+        [--seeds 1 2 3 4 5]
 
-Builds the kernels, then runs the phases ``cp_sft`` and ``sp_sft`` (or
+Builds the kernels, then runs the phases ``cp_sft``, ``sp_sft`` and
+``cp_gemma`` (Gemma-2B at c2, c4 and d1t2c2: the ring at hd 256) (or
 those ``--phases`` names), members on ``chip_smoke.member_devices``
 (every member on cuda:0 with one card, spread over cuda:0..3 with four),
 and ``kernels``: K2/K3 at ring rounds and K6's lse against their plain
 versions (``chip_smoke.phase_kernels_cp``) at each cp_sft layout's shard
 shape, on the stream that layout trained on, or, without cp_sft, on the
 ``CP_RECORDS`` packed in an order that puts a record across the first
-shard boundary. Prints each record
-and "OK" when every check passed. With ``--seeds``, ``cp_sft`` and
-``sp_sft`` run once per model seed instead and only the readings their
-limits (``chip_smoke.CP_LIMITS``, ``PAR_LIMITS``) rest on are printed,
-each sound reading beside its planted fault's.
+shard boundary; and ``kernels_hd256``: K6, its lse and the ring's K2/K3
+at hd 256 (``chip_smoke.phase_kernels_cp_hd256``) at each cp_gemma
+layout's shard shape, on the stream that layout trained on, or on that
+synthetic stream. Prints each record and "OK" when every check
+passed. With ``--seeds``, ``cp_sft``, ``sp_sft`` and ``cp_gemma`` run
+once per model seed instead and only the readings their limits
+(``chip_smoke.CP_LIMITS``, ``PAR_LIMITS``, ``CP_GEMMA_LIMITS``) rest on
+are printed, each sound reading beside its planted fault's.
 """
 
 import argparse
@@ -26,7 +31,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("cp_sft", "sp_sft", "kernels")
+PHASES = ("cp_sft", "sp_sft", "kernels", "cp_gemma", "kernels_hd256")
 #: the cp_sft records in their file order, whose second record crosses
 #: the first 4096-token shard boundary
 SYNTHETIC_ORDER = (3584, 1536, 3000, 2616, 2824, 2824)
@@ -39,11 +44,12 @@ def readings(name, rec):
             "step_secs_vs_ref", "peak_mem_vs_ref")
     return dict(layouts={lay: {k: r[k] for k in keys if k in r}
                          for lay, r in rec["layouts"].items()},
-                fault=rec["planted_fault"])
+                fault=rec.get("planted_fault"))
 
 
 def synthetic_segs():
-    """The stream of ``SYNTHETIC_ORDER`` for every cp_sft layout."""
+    """The stream of ``SYNTHETIC_ORDER`` for every cp_sft and cp_gemma
+    layout."""
     import chip_smoke
     import numpy as np
     seg = np.zeros((1, sum(SYNTHETIC_ORDER)), np.int32)
@@ -51,7 +57,8 @@ def synthetic_segs():
     for i, n in enumerate(SYNTHETIC_ORDER):
         seg[0, off:off + n] = i + 1
         off += n
-    return {layout: [seg] for layout in chip_smoke.CP_LAYOUTS}
+    return {layout: [seg] for layout in (*chip_smoke.CP_LAYOUTS,
+                                         *chip_smoke.CP_GEMMA_LAYOUTS)}
 
 
 def main(argv=None):
@@ -75,16 +82,19 @@ def main(argv=None):
     print(smi, flush=True)
     _build.build()
     calls = dict(cp_sft=lambda s: chip_smoke.phase_cp_sft(smi, s),
-                 sp_sft=lambda s: chip_smoke.phase_sp_sft(smi, s))
-    out, segs, ok = {}, None, True
+                 sp_sft=lambda s: chip_smoke.phase_sp_sft(smi, s),
+                 cp_gemma=lambda s: chip_smoke.phase_cp_gemma(smi, s))
+    out, segs, gemma_segs, ok = {}, None, None, True
     for name in args.phases:
-        if name == "kernels":
+        if name.startswith("kernels"):
             continue
         for seed in (args.seeds or [1]):
             t0 = time.monotonic()
             rec = calls[name](seed)
             rec["phase_secs"] = time.monotonic() - t0
-            if "_segs" in rec:
+            if "_segs" in rec and name == "cp_gemma":
+                gemma_segs = rec.pop("_segs")
+            elif "_segs" in rec:
                 segs = rec.pop("_segs")
             key = f"{name}.seed{seed}" if args.seeds else name
             out[key] = rec
@@ -100,6 +110,15 @@ def main(argv=None):
             print(json.dumps(r), flush=True)
         print(f"kernels: {time.monotonic() - t0:.0f} s", flush=True)
         ok &= all(r["ok"] for r in bwd + lse)
+    if "kernels_hd256" in args.phases and not args.seeds:
+        t0 = time.monotonic()
+        k6, bwd = chip_smoke.phase_kernels_cp_hd256(
+            gemma_segs or synthetic_segs())
+        out["kernels_hd256"] = k6 + bwd
+        for r in k6 + bwd:
+            print(json.dumps(r), flush=True)
+        print(f"kernels_hd256: {time.monotonic() - t0:.0f} s", flush=True)
+        ok &= all(r["ok"] for r in k6 + bwd)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

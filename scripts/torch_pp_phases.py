@@ -3,18 +3,20 @@
 card.
 
     python3 scripts/torch_pp_phases.py [--out records.json]
-        [--phases pp_sft pp_gen pp_ppo] [--seeds 1 2 3 4 5]
+        [--phases pp_sft pp_gen pp_ppo sp_pp] [--seeds 1 2 3 4 5]
 
-Builds the kernels, then runs the phases ``pp_sft``, ``pp_gen`` and
-``pp_ppo`` (or those ``--phases`` names), members on
+Builds the kernels, then runs the phases ``pp_sft``, ``pp_gen``,
+``pp_ppo`` and ``sp_pp`` (sequence parallelism with pipeline
+parallelism: t2p2s and d2t2p2s against t2p2 and d2t2p2) (or those
+``--phases`` names), members on
 ``chip_smoke.member_devices`` (every member on cuda:0 with one card,
 spread over cuda:0..3 with four), and, when pp_sft and pp_gen both ran,
 K1-K4 against their plain versions at the shapes their members launched
 (``chip_smoke.phase_kernels_pp``). Prints each record and "OK" when
-every check passed. With ``--seeds``, ``pp_sft`` and ``pp_gen`` run once
-per model seed instead and only the readings their limits
-(``chip_smoke.PP_LIMITS``) rest on are printed, each sound reading beside
-its planted fault's.
+every check passed. With ``--seeds``, ``pp_sft``, ``pp_gen`` and ``sp_pp``
+run once per model seed instead and only the readings their limits
+(``chip_smoke.PP_LIMITS``, ``PAR_LIMITS``) rest on are printed, each
+sound reading beside its planted fault's.
 """
 
 import argparse
@@ -24,13 +26,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("pp_sft", "pp_gen", "pp_ppo")
+PHASES = ("pp_sft", "pp_gen", "pp_ppo", "sp_pp")
 
 
 def readings(name, rec):
     """The numbers a phase's limits rest on."""
-    if name == "pp_sft":
-        keys = ("loss_rel", "grad_norm_rel", "update_rel", "logprobs_abs")
+    if name in ("pp_sft", "sp_pp"):
+        keys = ("loss_rel", "grad_norm_rel", "update_rel", "logprobs_abs",
+                "forward_abs", "fault_forward_abs")
         return dict(layouts={lay: {k: r[k] for k in keys if k in r}
                              for lay, r in rec["layouts"].items()},
                     fault=rec["planted_fault"])
@@ -63,7 +66,8 @@ def main(argv=None):
     _build.build()
     calls = dict(pp_sft=lambda s: chip_smoke.phase_pp_sft(smi, s),
                  pp_gen=lambda s: chip_smoke.phase_pp_gen(smi, s),
-                 pp_ppo=lambda s: chip_smoke.phase_pp_ppo(smi))
+                 pp_ppo=lambda s: chip_smoke.phase_pp_ppo(smi),
+                 sp_pp=lambda s: chip_smoke.phase_sp_pp(smi, s))
     out, segs, ok = {}, {}, True
     for name in args.phases:
         for seed in (args.seeds or [1]):

@@ -10,7 +10,8 @@ Builds this checkout's ``realhf_tpu_torch/csrc/ring_attention.cu``
 (through ``ops/_build``) and the other source with the same flags (the
 other's ``attn_tile.cuh`` beside it), then runs each ring case of
 ``chip_smoke.phase_kernels_ring`` (the same shards of q, k, v and segment
-ids, on ``member_devices(n)``) through both libraries. One JSON line per
+ids, on ``member_devices(n)``; hd 64 and 128, which older builds take)
+through both libraries. One JSON line per
 case: whether the gathered outputs are bit-equal (``torch.equal``), their
 largest difference, and the ms of one ring call of each (CUDA events over
 3 calls after 1, in the order other, this, this, other; the two readings

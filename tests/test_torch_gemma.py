@@ -8,7 +8,7 @@ checkpoint the JAX package wrote built into a port model with equal
 greedy tokens, and the inflight generator (dense and paged KV) against
 the JAX package's. Then the head-dim checks of the CUDA wrappers on tensors
 that say they are on the card: K1-K4 take hd 256 and refuse 96 and 512,
-and the ring (K6) refuses 256, naming the ROADMAP item that owes it.
+and the ring (K6) takes 256 and refuses 96.
 
 Tolerances: fp32 on the CPU on both sides, sums in different orders;
 the experiment helpers' (``test_torch_rw_dpo.py``), gradients 1e-4 of
@@ -278,16 +278,26 @@ def test_decode_wrapper_takes_hd_256_only_beside_64_and_128(hd, monkeypatch):
 
 
 def test_ring_refuses_hd_256_naming_its_roadmap_item(monkeypatch):
+    """K6 and the ring's K2/K3 rounds take hd 256 now (the ROADMAP item
+    that owed it is done): an hd 256 ring reaches the CUDA schedule, and
+    a head dim no kernel is built for (96) is still refused."""
     launched = []
-    monkeypatch.setattr(rf, "_run_ring", lambda *a, **kw: launched.append(a))
-    rng = np.random.default_rng(3)
-    members = []
-    for _ in range(2):
-        q = rng.standard_normal((1, 64, 4, 256))
-        k, v = (rng.standard_normal((1, 64, 1, 256)) for _ in range(2))
-        members.append((*_card(q, k, v),
+    monkeypatch.setattr(rf, "_run_ring", lambda *a, **kw: launched.append(a)
+                        or [a[0][0]] * len(a[0]))
+
+    def members(hd):
+        rng = np.random.default_rng(3)
+        out = []
+        for _ in range(2):
+            q = rng.standard_normal((1, 64, 4, hd))
+            k, v = (rng.standard_normal((1, 64, 1, hd)) for _ in range(2))
+            out.append((*_card(q, k, v),
                         _card(np.ones((1, 64)), dtype=torch.int32)[0]))
-    qs, ks, vs, segs = (list(t) for t in zip(*members))
-    with torch.no_grad(), pytest.raises(ValueError, match="item 4"):
-        rf.ring_attention_fused(qs, ks, vs, segs)
-    assert not launched
+        return (list(t) for t in zip(*out))
+
+    with torch.no_grad():
+        rf.ring_attention_fused(*members(256))
+    assert len(launched) == 1
+    with torch.no_grad(), pytest.raises(ValueError, match="64, 128 or 256"):
+        rf.ring_attention_fused(*members(96))
+    assert len(launched) == 1

@@ -118,14 +118,17 @@ def test_deferred_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # HF tokenizer
         main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
               "tokenizer_path=/nonexistent", "device=cpu"])
-    # t = 2, t = 2 with sequence parallelism and p = 2 (through the
-    # decode view) generate the same greedy answers as one device;
-    # sequence parallelism together with a pipeline still raises
+    # t = 2, t = 2 with sequence parallelism, p = 2 and t2p2s (both
+    # through the decode view) generate the same greedy answers as one
+    # device
     answers = []
     for extra in ([], ["model.parallel.tensor_parallel_size=2"],
                   ["model.parallel.tensor_parallel_size=2",
                    "model.parallel.sequence_parallel=true"],
-                  ["model.parallel.pipeline_parallel_size=2"]):
+                  ["model.parallel.pipeline_parallel_size=2"],
+                  ["model.parallel.tensor_parallel_size=2",
+                   "model.parallel.pipeline_parallel_size=2",
+                   "model.parallel.sequence_parallel=true"]):
         out = tmp_path / f"gen{len(answers)}.jsonl"
         main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
               "dataset.train_bs_n_seqs=4", "max_new_tokens=3",
@@ -134,8 +137,4 @@ def test_deferred_features_raise(tmp_path):
         answers.append([json.loads(line)["answer"]
                         for line in out.read_text().splitlines()])
     assert all(a == answers[0] for a in answers) and len(answers[0]) == 4
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        main(["gen", "model.random_init_size=tiny", f"dataset.path={path}",
-              "model.parallel.tensor_parallel_size=2",
-              "model.parallel.pipeline_parallel_size=2",
-              "model.parallel.sequence_parallel=true", "device=cpu"])
+    assert len(answers) == 5

@@ -7,7 +7,8 @@ Covered: the tick streams and the analytics, equal to JAX's for S in
 the pipelined forward and its gradients under both schedules against
 JAX's ``pipeline_blocks`` / ``pipeline_blocks_1f1b`` on a p2 mesh (M in
 {2, 4}, and a remainder stream); the MoE aux losses against JAX's
-pipelined ones, a padded microbatch included; the 1F1B stage inputs the
+pipelined ones, a padded microbatch included; both runners' aux values
+per microbatch and their cotangents; the 1F1B stage inputs the
 same at 4 and 8 layers, as ``fwd_residual_shapes`` says; and a CUDA stub
 that every stage's recompute runs on its own device.
 
@@ -209,6 +210,43 @@ def test_moe_aux_matches_jax_with_a_padded_microbatch():
         np.testing.assert_allclose(
             g, np.asarray(want_g["blocks"]["mlp"]["router"]), atol=1e-6,
             rtol=1e-4)
+
+
+@pytest.mark.parametrize("sched", ["gpipe", "1f1b"])
+def test_aux_values_come_back_per_microbatch(sched):
+    """Both runners hand back each microbatch's aux values keyed ``(m,
+    key)``, summed over the stages and not weighted (the caller weighs
+    them), a padded microbatch included; the cotangents the caller's
+    weighting gives them reach every stage's leaf."""
+    x = torch.randn(3, 4, 8, generator=torch.Generator().manual_seed(0))
+    seg = torch.ones(3, 4, dtype=torch.int32)
+    cos = sin = torch.zeros(3, 4, 1)
+    ws = [torch.randn(8, generator=torch.Generator().manual_seed(s + 1))
+          for s in range(2)]
+
+    def step(s, trees, xs, segs, coss, sins, m):
+        y = xs[0] * trees[0]["blocks"]["w"]
+        return [y], {"a": y.sum()}
+
+    leaves = [w.clone().requires_grad_() for w in ws]
+    stages = [([{"blocks": {"w": w}}], [torch.device("cpu")])
+              for w in leaves]
+    run = P.pipeline_blocks if sched == "gpipe" else S.pipeline_blocks_1f1b
+    h, aux = run(P.PipelineContext(2, 2, sched), stages, [x], seg, cos, sin,
+                 step, return_aux=True)
+    assert sorted(aux) == [(0, "a"), (1, "a")]
+    w0, w1 = (w.clone().requires_grad_() for w in ws)
+    y0 = x * w0
+    want = {m: (y0[r] + y0[r] * w1).sum()
+            for m, r in ((0, slice(0, 2)), (1, slice(2, 3)))}
+    for m in (0, 1):
+        torch.testing.assert_close(aux[(m, "a")], want[m])
+    torch.testing.assert_close(h[0], y0 * w1)
+    weights = P.microbatch_weights(3, 2, 2)
+    sum(float(weights[m]) * aux[(m, "a")] for m in (0, 1)).backward()
+    sum(float(weights[m]) * want[m] for m in (0, 1)).backward()
+    for got, ref in zip(leaves, (w0, w1)):
+        torch.testing.assert_close(got.grad, ref.grad)
 
 
 def test_1f1b_saved_inputs_do_not_grow_with_depth():

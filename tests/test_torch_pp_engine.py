@@ -320,22 +320,76 @@ def test_replicated_kv_heads_train_in_pipeline_stages_as_jax():
 
 
 def test_layouts_that_still_raise(weights):
+    """Context with pipeline parallelism (JAX's refusal, with its
+    message), layers the stages do not split, and a KV prefill on a
+    pipeline layout. Sequence parallelism and MoE in pipeline stages
+    build (below and ``test_torch_moe_pipeline.py``)."""
     with pytest.raises(ValueError, match="not divisible"):
         _port(dict(TINY, n_layers=3), "p2", None)
     with pytest.raises(NotImplementedError, match="cannot be combined with "
                        "context parallelism"):
         _port(TINY, "p2c2", weights)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        _port(TINY, "t2p2s", weights)
     moe = dict(TINY, mlp_type="moe", moe=MoEConfig(num_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="inside a pipeline stage"):
-        _port(moe, "t2p2", None)
     cfg = TransformerConfig(**moe)
     w = params_numpy(T.init_params(cfg, torch.Generator().manual_seed(9)))
+    for layout in ("t2p2s", "d1t2p2"):
+        assert _port(moe if layout == "d1t2p2" else TINY, layout,
+                     w if layout == "d1t2p2" else weights).params.p == 2
     eng = _port(moe, "d2t1p2", w, OPT)
-    mbs, wts = _sft_microbatches(eng.n_streams)
-    with pytest.raises(NotImplementedError, match="router losses"):
-        eng.train_batch(mbs, sft._make_loss_fn(cfg), wts)
     with pytest.raises(ValueError, match="decode view"):
         T.prefill(cfg, eng.params, torch.zeros((2, 4), dtype=torch.int32),
                   torch.ones((2, 4), dtype=torch.int32))
+
+
+def _jax_sp_engine(layout, params, opt):
+    """The JAX engine at ``layout`` with its sequence-parallel flag."""
+    jp = parse_parallelism(layout)
+    par = JPar(data_parallel_size=jp.data_parallel_size,
+               tensor_parallel_size=jp.tensor_parallel_size,
+               pipeline_parallel_size=jp.pipeline_parallel_size,
+               sequence_parallel=jp.sequence_parallel)
+    ctx = MeshContext(ModelName("m", 0), jmake_mesh(
+        par, jax.devices("cpu")[:par.world_size]), par)
+    return JEngine(JConfig(**TINY), ctx, params, optimizer=JOpt(**opt),
+                   total_train_steps=10)
+
+
+@pytest.mark.parametrize("layout", ["d1t2p2s", "d2t2p2s"])
+def test_sequence_parallel_with_pipeline_trains_as_jax(weights, layout):
+    """Two 1F1B steps at t2p2s / d2t2p2s against the JAX engine at the
+    same layout (``s`` is a sharding constraint there, so it moves no
+    number), the boundary passing each member's token shard."""
+    eng = _port(TINY, layout, weights, OPT)
+    assert eng.params.sp and eng.params.p == 2
+    jeng = _jax_sp_engine(layout, weights, OPT)
+    for _ in range(2):
+        mbs, w = _sft_microbatches(jeng.n_streams)
+        want = jeng.train_batch(mbs, jsft._make_loss_fn(jeng.cfg),
+                                loss_weights=w, loss_fn_key="sft")
+        got = eng.train_batch(mbs, sft._make_loss_fn(eng.cfg), w)
+        for k in ("loss", "grad_norm", "nll"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       err_msg=k)
+    _params_close(jeng.params_numpy(), eng, atol=1e-5)
+
+
+@pytest.mark.parametrize("sched", ["gpipe", "1f1b"])
+def test_sequence_parallel_with_pipeline_forward_is_bit_equal(weights,
+                                                              sched):
+    """t2p2s against t2p2 (both on fp32 CPU members): hidden states and
+    log-probs of the real tokens bit for bit, over streams of 24 tokens
+    (padded to a multiple of 8t under ``s``), under each schedule's
+    forward. (A padding token's hidden state is no output: ``s`` gives
+    it another value, as at d1t2s.)"""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, VOCAB, size=(5, 24)).astype(np.int32)
+    seg = np.ones((5, 24), np.int32)
+    seg[0, 10:] = 2
+    seg[4, 17:] = 0
+    with_s, without = (_port(TINY, lay, weights, schedule=sched)
+                       for lay in ("t2p2s", "t2p2"))
+    real = torch.from_numpy(seg != 0)
+    assert torch.equal(with_s.forward_hidden(ids, seg)[real],
+                       without.forward_hidden(ids, seg)[real])
+    assert torch.equal(with_s.forward_logprobs(ids, seg)[real],
+                       without.forward_logprobs(ids, seg)[real])

@@ -220,8 +220,12 @@ def test_hooks_and_allocations():
     assert spec.alloc_of("actor_gen").parallel.data_parallel_size == 2
     assert spec.alloc_of("ref_inf").parallel.tensor_parallel_size == 2
     assert spec.alloc_of("critic_inf") is None
-    with pytest.raises(NotImplementedError, match="heuristic"):
-        PPOConfig(allocation_mode="heuristic").build()
+    # the heuristic keeps the manual fields (the quickstart adds its
+    # plan after the build); the searched allocation is still owed
+    spec = PPOConfig(allocation_mode="heuristic", ref_inf_alloc="t2").build()
+    assert spec.alloc_of("ref_inf").parallel.tensor_parallel_size == 2
+    with pytest.raises(NotImplementedError, match="item 7"):
+        PPOConfig(allocation_mode="search").build()
 
 
 PAR_PPO = {"actor.parallel.tensor_parallel_size": "2",

@@ -270,7 +270,7 @@ def test_cuda_wrapper_checks_before_it_launches(monkeypatch):
     assert len(launched.pop()) == 4
     with pytest.raises(TypeError, match="bfloat16 q"):
         rf.ring_attention_fused(*_stub_members(inputs))
-    with pytest.raises(ValueError, match="hd 64 or 128"):
+    with pytest.raises(ValueError, match="hd 64, 128 or 256"):
         rf.ring_attention_fused(*_stub_members(make_inputs(), dtype=bf16))
     qs, ks, vs, segs = _stub_members(inputs, dtype=bf16)
     with pytest.raises(ValueError, match="seg must be contiguous"):

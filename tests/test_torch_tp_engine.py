@@ -343,12 +343,14 @@ def test_layouts_of_later_parts_raise(jax_one):
     with pytest.raises(ValueError, match="parts of two KV heads"):
         _port(dict(TINY, n_kv_heads=3, n_q_heads=12, hidden_dim=96), 1, 4,
               None)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        Engine(TransformerConfig(**TINY), w, device="cpu",
-               parallel=ParallelismConfig(tensor_parallel_size=2,
-                                          pipeline_parallel_size=2,
-                                          sequence_parallel=True),
-               devices=["cpu"] * 4)
+    # sequence parallelism with pipeline parallelism builds now (held
+    # against the JAX engine by test_torch_pp_engine.py)
+    sp_pp = Engine(TransformerConfig(**TINY), w, device="cpu",
+                   parallel=ParallelismConfig(tensor_parallel_size=2,
+                                              pipeline_parallel_size=2,
+                                              sequence_parallel=True),
+                   devices=["cpu"] * 4)
+    assert sp_pp.params.sp and sp_pp.params.p == 2
     from realhf_tpu_torch.engine.inflight import InflightBatchingGenerator
     eng = _port(TINY, 1, 2, w)
     with pytest.raises(NotImplementedError, match="serving engine"):
