@@ -4789,22 +4789,36 @@ def perturbed(params, seed):
     return walk(params)
 
 
-def serve_run(model, serving, prompts, waves, push=None):
+def serve_run(model, serving, prompts, waves, push=None, params=None):
     """``ContinuousScheduler`` over an ``InflightBatchingGenerator``
     composed from ``serving`` (a ``ServingSpec``) by the package's
-    ``serving/server.build_server``, as a rollout server composes them.
-    ``waves``: (step, request indices) submissions; ``push``: (step,
-    params, version) for ``WeightSync.push``. Returns the record, the
-    per-request results and the generator."""
+    ``serving/server.build_server``, as a rollout server composes them,
+    over ``params`` (default the model's; a ``MemberParams`` serves over
+    its members). ``waves``: (step, request indices) submissions;
+    ``push``: (step, params, version) for ``WeightSync.push``. Returns
+    the record, the per-request results and the generator. Expected
+    launches: K1 once a layer on each of the owning group's t members a
+    full fill, K4 once a layer on every member a decode step (with its
+    statistics on the "seq" route)."""
     import numpy as np
     import torch
+    from realhf_tpu_torch.models.sharding import MemberParams
     from realhf_tpu_torch.obs import tracing
     from realhf_tpu_torch.serving import protocol
     from realhf_tpu_torch.serving.request_queue import GenRequest
     from realhf_tpu_torch.serving.server import build_server
-    engine = build_server(serving, model.config, model.engine.params)
+    params = model.engine.params if params is None else params
+    engine = build_server(serving, model.config, params)
     gen, queue, ws = engine.generator, engine.queue, engine.weight_sync
     sched, kv_pool = engine.scheduler, engine.kv_pool
+    fills = []  # (slot, cached_len) of every fill the scheduler made
+    real_fill = gen.fill_slot
+
+    def fill(slot, *a, **kw):
+        real_fill(slot, *a, **kw)
+        fills.append((slot, gen.last_fill["cached_len"]))
+
+    gen.fill_slot = fill
     waves = {step: list(idx) for step, idx in waves}
     submitted, first_tok, done, streams, events = {}, {}, {}, {}, {}
     tracing.configure(enabled=True)
@@ -4875,14 +4889,24 @@ def serve_run(model, serving, prompts, waves, push=None):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     if kv_pool is not None:
         rec["pool"] = dict(kv_pool.stats())
-    nl = model.config.n_layers
-    rec["launches_ok"] = (
-        counts["flash_fwd"] == nl * gen.counts["full_prefills"]
-        and counts["flash_decode"] == nl * gen.counts["decode_steps"]
-        and all(counts[k] == 0 for k in counts
-                if k not in ("flash_fwd", "flash_decode")))
+    lay = gen._lay
+    t, n = ((params.t, len(params.trees)) if isinstance(params, MemberParams)
+            else (1, 1))
+    want = launches_of(model.config.n_layers, 1,
+                       fwd=t * gen.counts["full_prefills"],
+                       decode=n * gen.counts["decode_steps"])
+    if lay is not None and lay.seq:
+        want["flash_decode_stats"] = want["flash_decode"]
+    rec["members"] = [str(d) for d in lay.devices] if lay else ["one"]
+    rec["launches_expected"] = want
+    rec["launches_ok"] = counts == want
     if gen.counts["decode_steps"] == 0 and gen.spec_stats["rounds"] == 0:
         rec["launches_ok"] = False
+    rec["decode_ms_per_step"] = (sum(chunk_ms) / gen.counts["decode_steps"]
+                                 if gen.counts["decode_steps"] else None)
+    rec["prefix_hit_groups"] = sorted({lay.group_of(s)[0] if lay else 0
+                                       for s, c in fills if c > 0})
+    gen.fill_slot = real_fill
     return rec, results, gen
 
 
@@ -4998,6 +5022,8 @@ def phase_serve(smi):
         runs[name]["token_agreement_with_a_v0"] = agreement(
             [outs["a_dense_bf16"][x] for x in v0],
             [outs[name][x] for x in v0])
+    # (a)'s first wave on one device, for serve_par's agreement reading
+    rec["a_v0_tokens"] = {x: outs["a_dense_bf16"][x].tolist() for x in v0}
     rec["configs"] = runs
     rec["kv_check"] = serve_kv_check(model, prompts)
     rec["prefill_ms_per_bucket"] = serve_prefill_times(model)
@@ -5212,6 +5238,360 @@ def serve_prefill_times(model):
             gen.release_slot(0)
         out[str(gen.last_fill["bucket"])] = float(np.median(times[1:]))
     return out
+
+
+# ----------------------------------------------------------------------
+# the serving engine over members: serve_par, serve_rep, serve_gen_view
+# ----------------------------------------------------------------------
+SERVE_PAR_REQUESTS = 12
+SERVE_PAR_NEW_TOKENS = 64
+#: (step, request indices): wave 0 (r0 and r3 behind the shared prefix)
+#: fills slots 0-3, data group 0, and is harvested at step 7; wave 1 at
+#: step 10 takes slots 0-5 (r6's prefix hit lands in group 0, r9's in
+#: group 1); wave 2 the last two slots
+SERVE_PAR_WAVES = ((0, range(0, 4)), (10, range(4, 10)),
+                   (11, range(10, 12)))
+#: the weight push of configuration (a): after wave 0, before wave 1
+SERVE_PAR_PUSH_STEP = 9
+SERVE_PAR_FAULT_TOKENS = 16
+SERVE_REP_LAYERS = 6
+SERVE_REP_REQUESTS = 8
+SERVE_REP_NEW_TOKENS = 32
+SERVE_VIEW_NEW_TOKENS = 64
+
+
+@contextlib.contextmanager
+def slot_map_shifted():
+    """The planted serving-over-members fault: every slot's data group
+    shifted by one, so a fill writes its prompt into the other group's
+    caches (the row of another slot)."""
+    from realhf_tpu_torch.engine import inflight_members as M
+    real = M.Layout.group_of
+
+    def shifted(self, slot):
+        g, r = real(self, slot)
+        return (g + 1) % self.d, r
+
+    with patched(M.Layout, "group_of", shifted):
+        yield
+
+
+def layout_engine(cfg, params, layout):
+    """An optimizer-free engine at ``layout`` over ``params`` (a d1t1
+    tree), its members on ``member_devices``."""
+    from realhf_tpu_torch.engine.engine import Engine
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    par = parse_parallelism(layout)
+    return Engine(cfg, params, parallel=par,
+                  devices=member_devices(par.world_size))
+
+
+def phase_serve_par(smi, d1t1_tokens=None, only="abcd"):
+    """The continuous scheduler over the members of a layout at LLaMA-7B
+    width, ``SERVE_LAYERS`` layers: phase_serve's traffic cut to 12
+    requests (the first 12 of its prompts, r0, r3, r6 and r9 behind the
+    256-token prefix), 64 greedy tokens, 8 slots, chunk 8, in the waves
+    of ``SERVE_PAR_WAVES``, composed by ``build_server`` over the
+    engine's ``MemberParams``: (a) dense bf16 at d2t2 with a push of
+    perturbed weights (version 1, a canonical tree the generator shards)
+    at step 9 under max_staleness 1, (b) paged bf16 with the pooled
+    prefix cache at d2t2, (c) paged int8 at d1t4, (d) dense with
+    ``spec_decode_k=4`` at d1t4. Gates: every sequence's log-probs
+    against one teacher-forced K1 forward of the d1t1 model with the
+    same weights (``SERVE_LIMITS``); in (a) the requests submitted after
+    the push equal a direct d2t2 generator under version 1 and the
+    versions are stamped as in phase_serve; in (b) prefix hits taken in
+    both data groups (the donor's blocks copied into group 1's arenas);
+    exact K1/K4 counts. Planted fault: the slot-to-group map shifted by
+    one must fail the teacher-forced gate. Reading: token agreement on
+    wave 0 with phase_serve's d1t1 run (``d1t1_tokens``, its
+    ``a_v0_tokens``). ``only`` picks configurations by letter."""
+    import numpy as np
+    import torch
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.experiments.serve_exp import ServeConfig
+    from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
+    rec = dict(card=smi, n_layers=SERVE_LAYERS,
+               new_tokens=SERVE_PAR_NEW_TOKENS, limits=SERVE_LIMITS)
+    t_phase = time.monotonic()
+    model = serve_model()
+    cfg, params = model.config, model.engine.params
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(11)
+    shared = rng.integers(2, vocab - 2, size=SERVE_SHARED_PREFIX)
+    prompts = serve_prompts(rng, SERVE_REQUESTS, vocab,
+                            shared)[:SERVE_PAR_REQUESTS]
+    waves = list(SERVE_PAR_WAVES)
+    base = dict(n_slots=SERVE_SLOTS, chunk_size=SERVE_CHUNK,
+                max_prompt_len=SERVE_PROMPT_LEN, max_staleness=1,
+                greedy=True, max_new_tokens=SERVE_PAR_NEW_TOKENS,
+                prefix_cache_bytes=0)
+    configs = dict(
+        a_d2t2_dense_bf16=("d2t2", dict(kv_cache_dtype="bf16")),
+        b_d2t2_paged_bf16=("d2t2", dict(
+            paged_kv=True, kv_cache_dtype="bf16", kv_block_len=16,
+            kv_pool_blocks=480, prefix_cache_bytes=4 << 30)),
+        c_d1t4_paged_int8=("d1t4", dict(paged_kv=True,
+                                        kv_cache_dtype="int8",
+                                        kv_block_len=16)),
+        d_d1t4_dense_spec4=("d1t4", dict(kv_cache_dtype="bf16",
+                                         spec_decode_k=4)))
+    runs, eng, eng_layout = {}, None, None
+    for name, (layout, over) in configs.items():
+        if name[0] not in only:
+            continue
+        if layout != eng_layout:
+            eng = None
+            free()
+            eng, eng_layout = layout_engine(cfg, params, layout), layout
+        serving = ServeConfig(**dict(base, **over)).build().serving
+        push = ((SERVE_PAR_PUSH_STEP, perturbed(params, seed=2), 1)
+                if name.startswith("a_") else None)
+        r, results, gen = serve_run(model, serving, prompts, waves, push,
+                                    params=eng.params)
+        r["layout"] = layout
+        items = {x: (prompts[int(x[1:])], res.tokens, res.logprobs)
+                 for x, res in results.items()}
+        if name.startswith("a_"):
+            early = [f"r{i}" for i in waves[0][1]]
+            late = [f"r{i}" for w in waves[1:] for i in w[1]]
+            r["versions"] = {x: [results[x].weight_version,
+                                 results[x].weight_version_final]
+                             for x in sorted(results,
+                                             key=lambda x: int(x[1:]))}
+            r["versions_ok"] = (
+                all(results[x].weight_version == 1 for x in late)
+                and all(results[x].weight_version_final == 0
+                        for x in early))
+            direct = inflight.InflightBatchingGenerator(
+                cfg, gen.params, gen.g, n_slots=SERVE_SLOTS,
+                max_prompt_len=SERVE_PROMPT_LEN, eos_token_id=None,
+                pad_token_id=0, chunk_size=SERVE_CHUNK,
+                kv_cache_dtype="bf16")
+            want = direct.generate_all([prompts[int(x[1:])] for x in late])
+            r["v1_tokens_equal_direct"] = all(
+                np.array_equal(results[x].tokens, w.tokens)
+                for x, w in zip(late, want))
+            r["tf_v1"] = tf_readings(cfg, push[1], [items[x] for x in late])
+            r["tf_v0"] = tf_readings(cfg, params, [items[x] for x in early])
+            r["ok_checks"] = (r["versions_ok"] and r["v1_tokens_equal_direct"]
+                              and tf_ok(r["tf_v1"]) and tf_ok(r["tf_v0"]))
+            if d1t1_tokens:
+                r["token_agreement_with_serve_d1t1_v0"] = agreement(
+                    [d1t1_tokens[x] for x in early],
+                    [results[x].tokens for x in early])
+            del direct, want
+            push = None
+            free()
+            # the planted fault: a direct d2t2 generator under version 0
+            # with the slot map shifted by one
+            fault = inflight.InflightBatchingGenerator(
+                cfg, eng.params, GenerationHyperparameters(
+                    max_new_tokens=SERVE_PAR_FAULT_TOKENS, greedy=True,
+                    force_no_logits_mask=True),
+                n_slots=SERVE_SLOTS, max_prompt_len=SERVE_PROMPT_LEN,
+                eos_token_id=None, pad_token_id=0, chunk_size=SERVE_CHUNK,
+                kv_cache_dtype="bf16")
+            fps = prompts[:SERVE_SLOTS]
+            with slot_map_shifted():
+                fins = fault.generate_all(fps)
+            r["planted_fault"] = dict(slot_map_shifted=tf_readings(
+                cfg, params, [(p, f.tokens, f.logprobs)
+                              for p, f in zip(fps, fins)]))
+            r["fault_fails"] = not tf_ok(r["planted_fault"][
+                "slot_map_shifted"])
+            r["ok_checks"] &= r["fault_fails"]
+            del fault, fins
+        else:
+            key = ("int8_tf_logprob_abs" if "int8" in name
+                   else "tf_logprob_abs")
+            r["tf"] = tf_readings(cfg, params, list(items.values()))
+            r["ok_checks"] = tf_ok(r["tf"], key)
+            if name.startswith("b_"):
+                r["ok_checks"] &= (r["prefix_hit_groups"] == [0, 1]
+                                   and r["fill_stats"]
+                                   ["prefill_tokens_saved"] > 0)
+            if name.startswith("d_"):
+                sc = r["scheduler_stats"]
+                r["spec_accept_rate"] = (sc["spec_accepted"]
+                                         / max(sc["spec_proposed"], 1))
+        r["ok"] = (r["ok_checks"] and r["launches_ok"]
+                   and r["one_terminal_each"] and r["streams_in_order"]
+                   and r["finished"] == SERVE_PAR_REQUESTS)
+        runs[name] = r
+        print(f"serve_par {name}: " + json.dumps({k: r[k] for k in (
+            "layout", "tokens_per_s", "decode_ms_per_step",
+            "decode_chunk_ms_mean", "ttft_p50_s", "latency_p50_s",
+            "peak_mem_gb", "launches", "prefix_hit_groups", "ok")})
+            + f" ({smi})", flush=True)
+        del gen, results, items
+        free()
+    rec["configs"] = runs
+    rec["secs"] = time.monotonic() - t_phase
+    rec["ok"] = all(r["ok"] for r in runs.values())
+    del model, params, eng
+    free()
+    return rec
+
+
+def phase_serve_rep(smi, seed=1):
+    """``google/gemma-2b`` (8 q heads on one KV head of 256) served at
+    d1t2, where t does not divide the KV heads: the "seq" route (each
+    member every KV head over its half of the cache slots, K4 with
+    statistics and the flash merge), ``SERVE_REP_LAYERS`` of its 18
+    layers, 8 requests of 100-512 tokens in one wave, 32 greedy tokens,
+    dense bf16, through ``build_server``. Gates: every sequence's
+    log-probs against one teacher-forced K1 forward of the d1t1 model
+    (``GEMMA_LIMITS``), exact K1/K4 counts with every K4 launch taking
+    the statistics entry."""
+    import numpy as np
+    from realhf_tpu_torch.api.experiment import ModelSpec
+    from realhf_tpu_torch.experiments.serve_exp import ServeConfig
+    from realhf_tpu_torch.system.model_host import build_model
+    mcfg = hf_random_init_config("gemma", GEMMA_2B, SERVE_REP_LAYERS)
+    model = build_model("default", ModelSpec(random_init_config=mcfg,
+                                             bf16=True), None,
+                        init_seed=seed, total_steps=1)
+    cfg, params = model.config, model.engine.params
+    eng = layout_engine(cfg, params, "d1t2")
+    prompts = serve_prompts(np.random.default_rng(12), SERVE_REP_REQUESTS,
+                            cfg.vocab_size)
+    serving = ServeConfig(
+        n_slots=SERVE_SLOTS, chunk_size=SERVE_CHUNK,
+        max_prompt_len=SERVE_PROMPT_LEN, greedy=True,
+        max_new_tokens=SERVE_REP_NEW_TOKENS, kv_cache_dtype="bf16",
+        prefix_cache_bytes=0).build().serving
+    r, results, gen = serve_run(model, serving, prompts,
+                                [(0, range(SERVE_REP_REQUESTS))],
+                                params=eng.params)
+    lay = gen._lay
+    r.update(layout="d1t2", n_layers=SERVE_REP_LAYERS, card=smi,
+             heads=[cfg.n_q_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+             seq_route=lay.seq, cache_slots=lay.slots,
+             slots_per_member=lay.s_loc, limits=GEMMA_LIMITS)
+    r["tf"] = tf_readings(cfg, params, [
+        (prompts[int(x[1:])], res.tokens, res.logprobs)
+        for x, res in results.items()])
+    r["tf_ok"] = (r["tf"]["tf_logprob_max_abs"]
+                  <= GEMMA_LIMITS["gemma_tf_logprob_abs"])
+    r["stats_launches"] = r["launches"]["flash_decode_stats"]
+    r["ok"] = (r["tf_ok"] and r["launches_ok"] and lay.seq
+               and r["stats_launches"] > 0 and r["one_terminal_each"]
+               and r["finished"] == SERVE_REP_REQUESTS)
+    del gen, results, model, params, eng
+    free()
+    return r
+
+
+@contextlib.contextmanager
+def measuring_drops(out):
+    """Appends (``decode_view_param_bytes``, the bytes the allocator got
+    back) of every ``Engine.drop_decode_view`` call to ``out``."""
+    import torch
+    from realhf_tpu_torch.engine.engine import Engine
+    real = Engine.drop_decode_view
+
+    def measured(self):
+        devs = list(dict.fromkeys(self.members))
+        held = self.decode_view_param_bytes()
+        gc.collect()
+        sync_all()
+        before = sum(torch.cuda.memory_allocated(d) for d in devs)
+        real(self)
+        gc.collect()
+        sync_all()
+        out.append((held, before - sum(torch.cuda.memory_allocated(d)
+                                       for d in devs)))
+
+    with patched(Engine, "drop_decode_view", measured):
+        yield
+
+
+def phase_serve_gen_view(smi, seed=1):
+    """The ``gen`` experiment with ``use_inflight_batching`` (8 prompts of
+    100-512 words, one batch, 8 slots, 64 greedy tokens) at LLaMA-7B
+    width, ``SERVE_LAYERS`` layers, on a p2 engine through its default
+    decode view (d2t1) and on a c4 engine through its g4 view (d1t4),
+    with ``drop_decode_view_after_rollout``, members on
+    ``member_devices``. Gates: every sequence's log-probs against one
+    teacher-forced K1 forward of the d1t1 model with the same weights
+    (``SERVE_LIMITS``), exact K1/K4 counts on the view's members, the
+    generator holding no weights after the call, and the drop returning
+    exactly ``decode_view_param_bytes`` to the allocator."""
+    import numpy as np
+    from realhf_tpu_torch.engine import inflight
+    from realhf_tpu_torch.parallel.mesh import parse_parallelism
+    from realhf_tpu_torch.system.inline import InlineRunner
+    rec = dict(card=smi, n_layers=SERVE_LAYERS,
+               new_tokens=SERVE_VIEW_NEW_TOKENS, cases={})
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "prompts.jsonl")
+        write_prompts(data, 8, seed=seed)
+        for layout in ("p2", "c4g4"):
+            spec, vocab = build_gen_spec(data, SERVE_LAYERS,
+                                         SERVE_VIEW_NEW_TOKENS, 1, seed=seed)
+            par = parse_parallelism(layout)
+            mspec = spec.models["default"]
+            mspec.parallel = par
+            mspec.drop_decode_view_after_rollout = True
+            spec.mfcs[0].interface_impl.args.update(
+                use_inflight_batching=True)
+            runner = InlineRunner(spec, role_devices={
+                "default": member_devices(par.world_size)})
+            eng = runner.models["default"].engine
+            seen, drops = [], []
+            real = inflight.InflightBatchingGenerator.generate_all
+
+            def watched(self, prompts, generator=None):
+                out = real(self, prompts, generator)
+                seen.append((self, [np.asarray(p) for p in prompts], out))
+                return out
+
+            sync_all()
+            reset_counts()
+            t0 = time.monotonic()
+            with patched(inflight.InflightBatchingGenerator, "generate_all",
+                         watched), measuring_drops(drops):
+                runner.run()
+            sync_all()
+            secs = time.monotonic() - t0
+            counts = read_counts()
+            gen, prompts, fins = seen[0]
+            lay = gen._lay
+            want = launches_of(SERVE_LAYERS, 1,
+                               fwd=lay.t * gen.counts["full_prefills"],
+                               decode=lay.d * lay.t
+                               * gen.counts["decode_steps"])
+            n_tok = sum(len(f.tokens) for f in fins)
+            ref = eng.gathered_params()
+            r = dict(layout=layout, view=f"d{lay.d}t{lay.t}", secs=secs,
+                     generated_tokens=n_tok, tokens_per_s=n_tok / secs,
+                     decode_steps=gen.counts["decode_steps"],
+                     fills=gen.counts["full_prefills"], launches=counts,
+                     launches_expected=want, launches_ok=counts == want,
+                     outputs_in_range=check_gen_output(runner, vocab),
+                     generator_holds_no_weights=gen.params is None,
+                     drops=len(drops))
+            r.update(tf_readings(eng.cfg, ref, [
+                (p, f.tokens, f.logprobs) for p, f in zip(prompts, fins)]))
+            r["view_param_bytes"], r["freed_bytes"] = drops[0] if drops \
+                else (0, 0)
+            r["drop_ok"] = (len(drops) == 1
+                            and r["freed_bytes"] == r["view_param_bytes"] > 0)
+            r["ok"] = (r["launches_ok"] and r["outputs_in_range"]
+                       and tf_ok(r) and r["drop_ok"]
+                       and r["generator_holds_no_weights"] and len(fins) == 8
+                       and all(len(f.tokens) == SERVE_VIEW_NEW_TOKENS
+                               for f in fins))
+            rec["cases"][layout] = r
+            print(f"serve_gen_view {layout}: " + json.dumps({k: r[k] for k in (
+                "view", "tokens_per_s", "tf_logprob_max_abs", "launches",
+                "view_param_bytes", "freed_bytes", "ok")}) + f" ({smi})",
+                flush=True)
+            del runner, eng, seen, gen, ref
+            free()
+    rec["ok"] = all(r["ok"] for r in rec["cases"].values())
+    return rec
 
 
 # ----------------------------------------------------------------------
@@ -9297,10 +9677,12 @@ def kernels_line(kernel_recs, bwd_recs, ring_recs, paths, hd256_paths,
     64 and 128 (gen, deep, sft, the two ppo steps, ctx, ppo_ctx, rw,
     dpo, grpo, reinforce, agentic, profile_exp, ckpt_gen's load,
     ckpt_resume's resumed step, serve_gen, the four serve
-    configurations, mixtral_gen, mixtral_sft, mistral, gpt2_gen, tp_gen,
+    configurations, the four serve_par configurations, serve_gen_view's
+    two cases, mixtral_gen, mixtral_sft, mistral, gpt2_gen, tp_gen,
     tp_sft, par_ppo, pp_sft, pp_gen, pp_ppo, cp_sft and sp_sft), each
     counted from 0 just before its path and read just after it; an
-    ``_hd256`` row sums the hd 256 paths (gemma_gen and gemma_sft). The
+    ``_hd256`` row sums the hd 256 paths (gemma_gen, gemma_sft, kv_rep,
+    cp_gemma and serve_rep). The
     ``_ring`` rows are K2/K3 launched at a ring round (a round of the
     ring's backward, timed at cp_sft's c4 rounds) and
     ``ring_attention_lse`` K6's last round with the lse output; the
@@ -9556,7 +9938,14 @@ def main(argv=None):
     serve_gen_rec = phase_serve_gen(smi)
     emit("serve_gen", **serve_gen_rec)
     serve_rec = phase_serve(smi)
+    d1t1_tokens = serve_rec.pop("a_v0_tokens")
     emit("serve", **serve_rec)
+    serve_par_rec = phase_serve_par(smi, d1t1_tokens)
+    emit("serve_par", **serve_par_rec)
+    serve_rep_rec = phase_serve_rep(smi)
+    emit("serve_rep", **serve_rep_rec)
+    serve_view_rec = phase_serve_gen_view(smi)
+    emit("serve_gen_view", **serve_view_rec)
     moe_recs = run_moe_phases(smi)
     ok &= all(r["ok"] for r in moe_recs.values())
     gemma_recs = run_gemma_phases(smi)
@@ -9603,7 +9992,9 @@ def main(argv=None):
            and ppo_rec["ok"] and ppo_par["ok"] and ctx_rec["ok"]
            and ppo_ctx_rec["ok"] and all(r["ok"] for r in algo_recs.values())
            and ckpt_gen_rec["ok"] and ckpt_resume_rec["ok"]
-           and serve_gen_rec["ok"] and serve_rec["ok"])
+           and serve_gen_rec["ok"] and serve_rec["ok"]
+           and serve_par_rec["ok"] and serve_rep_rec["ok"]
+           and serve_view_rec["ok"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -9619,6 +10010,8 @@ def main(argv=None):
         + list(algo_recs.values()) + [ckpt_gen_rec, ckpt_resume_rec,
                                        serve_gen_rec]
         + list(serve_rec["configs"].values())
+        + list(serve_par_rec["configs"].values())
+        + list(serve_view_rec["cases"].values())
         + [moe_recs[k] for k in ("mixtral_gen", "moe_tp", "mixtral_sft",
                                  "mistral")]
         + [gemma_recs["gpt2_gen"]]
@@ -9628,7 +10021,8 @@ def main(argv=None):
         + [moe_par_recs["moe_sft_par"], moe_recs["moe_pp"],
            ring_pp_recs["sp_pp"]],
         [gemma_recs["gemma_gen"], gemma_recs["gemma_sft"],
-         moe_par_recs["kv_rep"], ring_pp_recs["cp_gemma"]], cp_bwd, cp_lse,
+         moe_par_recs["kv_rep"], ring_pp_recs["cp_gemma"], serve_rep_rec],
+        cp_bwd, cp_lse,
         ring256, bwd256)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

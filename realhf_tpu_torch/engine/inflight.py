@@ -24,6 +24,12 @@ forward (``_extend_rows``, plain attention over the slot rows); radix
 prefix-cache hits seed a slot's first rows from a donor and run only
 the uncached suffix through that same forward.
 
+Over the members of a ``dNtM`` layout (``params`` a
+``models/sharding.MemberParams``) the slots are split over the data
+groups as a batch of ``n_slots`` rows is, every decode step runs on
+every member, and a fill runs on the owning group's members alone
+(``engine/inflight_members.py``).
+
 Each chunk pays one bundled device-to-host transfer (``_host_view``),
 not one per slot. The PPO logits-mask replay is not supported here
 (use the batch ``generate`` path).
@@ -41,6 +47,7 @@ from realhf_tpu_torch.base.safetensors_io import (
     numpy_to_tensor,
     tensor_to_numpy,
 )
+from realhf_tpu_torch.engine import inflight_members as M
 from realhf_tpu_torch.engine import kv_pool as _kvp
 from realhf_tpu_torch.models import transformer as T
 from realhf_tpu_torch.models.config import TransformerConfig
@@ -73,11 +80,6 @@ _HOST_FIELDS = ("active", "unfinished", "emitted", "hit_eos",
                 "spec_proposed", "spec_accepted", "out_tokens",
                 "out_logprobs")
 
-#: ``_extend_rows`` writes up to this many lanes one lane at a time (in
-#: lane order); wider calls write in one indexed put (suffix prefill,
-#: whose kept rows are distinct)
-_SEQUENTIAL_LANES = 16
-
 
 @dataclasses.dataclass
 class FinishedSequence:
@@ -100,7 +102,9 @@ class FinishedSequence:
 
 class InflightBatchingGenerator:
     """Slot-machine generation over a queue of prompts. ``params`` live
-    on ``device`` (default the card, ``base/device.py``)."""
+    on ``device`` (default the card, ``base/device.py``), or are a
+    ``MemberParams`` of a dNtM layout (their members' devices; the
+    per-slot bookkeeping on the first)."""
 
     #: the serving scheduler feature-detects the prefix-fill / KV-export
     #: extensions on this attribute
@@ -120,21 +124,27 @@ class InflightBatchingGenerator:
                 "mask; set force_no_logits_mask=True or use the batch "
                 "generate path.")
         T.check_supported(cfg)
-        if isinstance(params, MemberParams):
-            raise NotImplementedError(
-                f"the serving engine over a d{params.d}t{params.t} layout: "
-                "inflight batching and the continuous scheduler run on one "
-                "device until a later part of ROADMAP.md, queue 1, item 4.")
         self.cfg = cfg
-        self.params = params
         self.g = gconfig
         self.n_slots = n_slots
         self.eos = eos_token_id
         self.pad = pad_token_id
         self.chunk = chunk_size
-        self.device = resolve_device(device)
         self.cache_len = T.round_cache_len(
             max_prompt_len + gconfig.max_new_tokens)
+        #: where the slots live over a member layout (None on one device)
+        self._lay: Optional[M.Layout] = None
+        if isinstance(params, MemberParams):
+            params = M.member_view(params)
+            self._lay = M.layout_of(cfg, params, n_slots, self.cache_len)
+            self.device = self._lay.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device}: the generator's "
+                                 f"bookkeeping lives on its first member's "
+                                 f"device, {self.device}")
+        else:
+            self.device = resolve_device(device)
+        self.params = params
         self.kv_pool = kv_pool
         if kv_cache_dtype is not None \
                 and kv_cache_dtype not in _kvp.KV_CACHE_DTYPES:
@@ -149,7 +159,13 @@ class InflightBatchingGenerator:
             if kv_pool.cfg is None:
                 raise ValueError("paged decoding needs a device-"
                                  "backed KVPool (not host_only)")
-            if kv_pool.device != self.device:
+            if self._lay is not None:
+                M.check_pool(kv_pool, self._lay)
+                #: per block, the data groups whose arenas hold its rows
+                #: (a bit each; set when a group's slot takes the block)
+                self._block_groups = np.zeros(kv_pool.n_blocks + 1,
+                                              np.int64)
+            elif kv_pool.t != 1 or kv_pool.device != self.device:
                 raise ValueError(f"KV pool on {kv_pool.device}, "
                                  f"generator on {self.device}")
             self._blen = kv_pool.block_len
@@ -190,14 +206,17 @@ class InflightBatchingGenerator:
                         "bf16": torch.bfloat16}[kv_cache_dtype]
             kv_state = dict(cache=T.init_kv_cache(
                 cfg, n_slots, self.cache_len, dtype=dense_dt,
-                device=self.device))
+                device=self.device) if self._lay is None else
+                M.init_caches(cfg, self._lay, dense_dt or T.dtype_of(
+                    cfg.compute_dtype)))
         i32 = dict(dtype=torch.int32, **dev)
         b = dict(dtype=torch.bool, **dev)
+        cdt = T.dtype_of(cfg.compute_dtype)
         self.state = dict(
             **kv_state,
-            last_hidden=torch.zeros((n_slots, cfg.hidden_dim),
-                                    dtype=T.dtype_of(cfg.compute_dtype),
-                                    **dev),
+            last_hidden=torch.zeros((n_slots, cfg.hidden_dim), dtype=cdt,
+                                    **dev) if self._lay is None
+            else M.init_hidden(cfg, self._lay, cdt),
             prompt_len=torch.zeros((n_slots,), **i32),
             emitted=torch.zeros((n_slots,), **i32),
             active=torch.zeros((n_slots,), **b),
@@ -285,12 +304,38 @@ class InflightBatchingGenerator:
             need = self.kv_pool.blocks_for_rows(cap_rows) - have
             if need > 0:
                 new = self.kv_pool.alloc(need)  # may raise KVPoolOOM
+                self._own_blocks(slot, new)
                 self._slot_blocks[slot].extend(new)
                 self._bt_host[slot, have:have + len(new)] = new
                 self._bt_dev = None
             self._slot_rows_ub[slot] = cap_rows
             need_max = max(need_max, cap_rows)
         return self._win_for(need_max)
+
+    def _own_blocks(self, slot: int, blocks):
+        """Fresh blocks of ``slot``: over members, held by its group's
+        arenas alone."""
+        if self._lay is not None and blocks:
+            self._block_groups[blocks] = 1 << self._lay.group_of(slot)[0]
+
+    def _share_blocks(self, slot: int, blocks):
+        """Aliased blocks of another group's slot copied into the arenas
+        of ``slot``'s group (one pool block id, one copy per group)."""
+        if self._lay is None or self._lay.d == 1:
+            return
+        g = self._lay.group_of(slot)[0]
+        by_src: Dict[int, List[int]] = {}
+        for blk in blocks:
+            have = int(self._block_groups[blk])
+            if have >> g & 1:
+                continue
+            if have == 0:
+                raise RuntimeError(f"pool block {blk} is held by no group")
+            src = (have & -have).bit_length() - 1
+            by_src.setdefault(src, []).append(blk)
+            self._block_groups[blk] = have | 1 << g
+        for src, blks in by_src.items():
+            M.copy_blocks(self.kv_pool, self._lay, blks, src, g)
 
     def _warange(self, win: int) -> torch.Tensor:
         return torch.arange(win, dtype=torch.int32, device=self.device)
@@ -301,8 +346,8 @@ class InflightBatchingGenerator:
             return
         self.state, steps = _paged_decode_chunk(
             self.cfg, self.g, self.eos, self.pad, self.chunk,
-            self.kv_pool.meta, self.params, self.kv_pool.arrays(),
-            self.state, self._bt_device(), self._warange(win), generator)
+            self.kv_pool.meta, self.params, self.kv_pool, self.state,
+            self._bt_device(), self._warange(win), generator, self._lay)
         self.counts["decode_steps"] += steps
 
     def kv_pool_stats(self) -> Dict:
@@ -362,18 +407,44 @@ class InflightBatchingGenerator:
                     win = self._ensure_capacity(self._spec_k + 1)
                     self.state = _paged_verify(
                         self.cfg, self.g, self.eos, self._spec_k,
-                        self.kv_pool.meta, self.params,
-                        self.kv_pool.arrays(), self.state,
-                        self._bt_device(), self._warange(win), d)
+                        self.kv_pool.meta, self.params, self.kv_pool,
+                        self.state, self._bt_device(), self._warange(win), d,
+                        self._lay)
                 else:
                     _verify_chunk(self.cfg, self.g, self.eos, self._spec_k,
-                                  self.params, self.state, d)
+                                  self.params, self.state, d, self._lay)
             self.spec_stats["rounds"] += 1
 
     def swap_params(self, params):
         """Use ``params`` from the next decode/prefill on (between
-        ``decode_chunk`` calls)."""
-        self.params = params
+        ``decode_chunk`` calls). Over members: a ``MemberParams`` of the
+        generator's layout, or a canonical tree (what a one-device
+        trainer pushes), sharded onto the generator's members."""
+        if self._lay is None:
+            self.params = params
+            return
+        lay = self._lay
+        if isinstance(params, MemberParams):
+            params = M.member_view(params)
+            if not M.fits(params, lay):
+                raise ValueError(
+                    f"swap_params: weights of a d{params.d}t{params.t}"
+                    f"p{params.p}c{params.c} layout on "
+                    f"{[str(x) for x in params.devices]} for a generator "
+                    f"over d{lay.d}t{lay.t} on "
+                    f"{[str(x) for x in lay.devices]}")
+            self.params = params
+            return
+        if not isinstance(params, dict):
+            raise TypeError("swap_params takes a MemberParams of the "
+                            "generator's layout or a canonical param tree, "
+                            f"not {type(params).__name__}")
+        from realhf_tpu_torch.models.convert import params_from_numpy
+        self.params = None  # the old copies go before the new ones come
+        self.params = MemberParams(
+            params_from_numpy(params, cfg=self.cfg, devices=lay.devices,
+                              t=lay.t), list(lay.devices), lay.d, lay.t,
+            ep=lay.ep)
 
     def release_slot(self, slot: int):
         """Abort the sequence in ``slot``: the slot is free at once and
@@ -465,6 +536,10 @@ class InflightBatchingGenerator:
         if export_kv and slots:
             if self.kv_pool is not None:
                 self._export_pool_kv(out, slots, host)
+            elif self._lay is not None:
+                for fs, kv in zip(out, M.export_dense_kv(
+                        self._lay, self.state["cache"], slots)):
+                    fs.kv = kv
             else:
                 self._export_dense_kv(out, slots)
         for slot in slots:
@@ -497,6 +572,10 @@ class InflightBatchingGenerator:
             w = np.arange(rows)
             flats.append(self._bt_host[slot, w // blen] * blen + w % blen)
             counts.append(rows)
+        if self._lay is not None:
+            for fs, slot, flat in zip(out, slots, flats):
+                fs.kv = M.export_pool_kv(self.kv_pool, self._lay, slot, flat)
+            return
         all_rows = torch.from_numpy(np.concatenate(flats).astype(
             np.int64)).to(self.device)
         arrays = self.kv_pool.arrays()
@@ -593,30 +672,33 @@ class InflightBatchingGenerator:
                               prompt_len=n, bucket=lp):
                 ids, seg, pos = self._prompt_window(prompt, lp, 0)
                 _prefill_into_slot(self.cfg, self.params, self.state, slot,
-                                   ids, seg, pos, n)
+                                   ids, seg, pos, n, self._lay)
             self.last_fill = dict(bucket=lp, prompt_len=n,
                                   cached_len=0, prefilled=n)
             self.fill_stats["prefill_tokens"] += n
             self.counts["full_prefills"] += 1
         else:
             s = n - c
-            cache = self.state["cache"]
-            kdt = cache["k"].dtype
-            shape = (self.cfg.n_layers, self.cfg.n_kv_heads, c_b,
-                     self.cfg.head_dim)
-            dk = torch.zeros(shape, dtype=kdt)
-            dv = torch.zeros(shape, dtype=kdt)
-            dk[:, :, :c] = numpy_to_tensor(
-                np.asarray(prefix_kv[0])[:, :, :c]).to(kdt)
-            dv[:, :, :c] = numpy_to_tensor(
-                np.asarray(prefix_kv[1])[:, :, :c]).to(kdt)
-            donor = torch.stack([dk, dv]).to(self.device)
+            dk, dv = (numpy_to_tensor(np.asarray(x)[:, :, :c])
+                      for x in prefix_kv)
             with tracing.span("serve:prefill", slot=slot,
                               prompt_len=n, bucket=s_b, cached_len=c):
                 ids, seg, pos = self._prompt_window(prompt[c:], s_b, c)
-                _prefill_suffix_into_slot(
-                    self.cfg, self.params, self.state, slot, donor[0],
-                    donor[1], c, ids, seg, pos, s)
+                if self._lay is None:
+                    kdt = self.state["cache"]["k"].dtype
+                    donor = torch.zeros((2, self.cfg.n_layers,
+                                         self.cfg.n_kv_heads, c_b,
+                                         self.cfg.head_dim), dtype=kdt)
+                    donor[0, :, :, :c] = dk.to(kdt)
+                    donor[1, :, :, :c] = dv.to(kdt)
+                    donor = donor.to(self.device)
+                    _prefill_suffix_into_slot(
+                        self.cfg, self.params, self.state, slot, donor[0],
+                        donor[1], c, ids, seg, pos, s)
+                else:
+                    _prefill_suffix_members(
+                        self.cfg, self.params, self._lay, self.state, slot,
+                        dk, dv, c, c_b, ids, seg, pos, s)
             self.last_fill = dict(bucket=s_b, prompt_len=n,
                                   cached_len=c, prefilled=s)
             self.fill_stats["prefill_tokens"] += s
@@ -662,6 +744,8 @@ class InflightBatchingGenerator:
             # a bad alias chain must not leak the fresh blocks
             self.kv_pool.free(own)
             raise
+        self._own_blocks(slot, own)
+        self._share_blocks(slot, alias)
         blocks = alias + own
         self._slot_blocks[slot] = blocks
         self._bt_host[slot, :] = 0
@@ -680,9 +764,16 @@ class InflightBatchingGenerator:
             with tracing.span("serve:prefill", slot=slot,
                               prompt_len=n, bucket=lp, paged=True):
                 ids, seg, pos = self._prompt_window(prompt, lp, 0)
-                _paged_prefill(self.cfg, meta, self.params, arrays,
-                               self.state, slot, ids, seg, pos, bt_row,
-                               self._warange(lp), n)
+                if self._lay is None:
+                    _paged_prefill(self.cfg, meta, self.params, arrays,
+                                   self.state, slot, ids, seg, pos, bt_row,
+                                   self._warange(lp), n)
+                else:
+                    hs = M.paged_prefill(self.cfg, meta, self.params,
+                                         self.kv_pool, self._lay, slot, ids,
+                                         seg, pos, bt_row, n)
+                    self.state["length"][slot] = n
+                    _reset_slot(self.state, slot, hs, n, self._lay)
             self.last_fill = dict(bucket=lp, prompt_len=n,
                                   cached_len=0, prefilled=n)
             self.fill_stats["prefill_tokens"] += n
@@ -693,9 +784,17 @@ class InflightBatchingGenerator:
                               prompt_len=n, bucket=s_b, cached_len=c,
                               paged=True):
                 ids, seg, pos = self._prompt_window(prompt[c:], s_b, c)
-                _paged_prefill_suffix(
-                    self.cfg, meta, self.params, arrays, self.state, slot,
-                    bt_row, self._warange(c_b), c, ids, seg, pos, s)
+                if self._lay is None:
+                    _paged_prefill_suffix(
+                        self.cfg, meta, self.params, arrays, self.state,
+                        slot, bt_row, self._warange(c_b), c, ids, seg, pos,
+                        s)
+                else:
+                    hs = M.paged_prefill_suffix(
+                        self.cfg, meta, self.params, self.kv_pool, self._lay,
+                        slot, bt_row, c, c_b, ids, seg, pos, s)
+                    self.state["length"][slot] = c + s
+                    _reset_slot(self.state, slot, hs, c + s, self._lay)
             self.last_fill = dict(bucket=s_b, prompt_len=n,
                                   cached_len=c, prefilled=s)
             self.fill_stats["prefill_tokens"] += s
@@ -724,9 +823,13 @@ class InflightBatchingGenerator:
 # ----------------------------------------------------------------------
 # device pieces: functions over the state dict, updating it in place
 # ----------------------------------------------------------------------
-def _reset_slot(state, slot: int, hidden: torch.Tensor, plen: int):
-    """A freshly filled slot's per-slot fields."""
-    state["last_hidden"][slot] = hidden
+def _reset_slot(state, slot: int, hidden, plen: int, lay=None):
+    """A freshly filled slot's per-slot fields (``hidden``: its last
+    hidden state, over members each of its group's members' rows)."""
+    if lay is None:
+        state["last_hidden"][slot] = hidden
+    else:
+        M.set_hidden(state, lay, slot, hidden)
     state["prompt_len"][slot] = plen
     state["emitted"][slot] = 0
     state["active"][slot] = True
@@ -739,9 +842,13 @@ def _reset_slot(state, slot: int, hidden: torch.Tensor, plen: int):
 
 
 def _prefill_into_slot(cfg, params, state, slot: int, ids, seg, pos,
-                       plen: int):
+                       plen: int, lay=None):
     """Batch-1 prefill written into ``slot``'s cache rows: rows past the
     bucket are zeroed, the bucket's left padding is invalid."""
+    if lay is not None:
+        _reset_slot(state, slot, M.prefill_into_slot(
+            cfg, params, lay, state, slot, ids, seg, pos), plen, lay)
+        return
     hidden, pcache = T.prefill(cfg, params, ids, seg, pos)
     lp = ids.shape[1]
     cache = state["cache"]
@@ -752,28 +859,6 @@ def _prefill_into_slot(cfg, params, state, slot: int, ids, seg, pos,
     cache["valid"][slot, :lp] = seg[0] != 0
     cache["length"][slot] = lp  # write index
     _reset_slot(state, slot, hidden[0, -1], plen)
-
-
-def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor,
-                new: torch.Tensor, keep: torch.Tensor):
-    """Write ``new`` [B, m, nkv, hd] at rows ``rows`` [B, m] of one
-    layer's cache [B, nkv, S, hd] where ``keep`` [B, m]; masked lanes
-    leave their row as it is. Narrow calls write lane by lane in lane
-    order, so a masked lane clamped onto a kept lane's row never undoes
-    that write; wide calls write once (their kept rows are distinct and
-    their masked lanes write only rows no kept lane writes)."""
-    b, m = rows.shape
-    barr = torch.arange(b, device=rows.device)
-    new = new.to(cache_l.dtype)
-    if m <= _SEQUENTIAL_LANES:
-        for j in range(m):
-            r = rows[:, j].long()
-            cache_l[barr, :, r] = torch.where(
-                keep[:, j, None, None], new[:, j], cache_l[barr, :, r])
-        return
-    r = rows.long()
-    cache_l[barr[:, None], :, r] = torch.where(
-        keep[:, :, None, None], new, cache_l[barr[:, None], :, r])
 
 
 def _extend_rows(cfg, params, k_all, v_all, valid0, tokens, positions,
@@ -793,31 +878,15 @@ def _extend_rows(cfg, params, k_all, v_all, valid0, tokens, positions,
     PyTorch (fp32 scores masked per query: rows valid before the call
     plus the new rows of lanes <= the query's lane), as the JAX package
     computes it with an einsum outside any Pallas kernel."""
-    b, m = tokens.shape
-    s_len = valid0.shape[1]
-    dev = tokens.device
     x = T._embed(cfg, params, tokens.long(), positions)
     cos, sin = T._rotary_tables(cfg, positions)
-    sidx = torch.arange(s_len, device=dev)
-    written = (rows[:, :, None] == sidx[None, None, :]) & tok_mask[:, :, None]
-    upto = torch.cumsum(written.to(torch.int32), dim=1) > 0
-    qmask = valid0[:, None, :] | upto                      # [B, m, S]
-    if cfg.sliding_window is not None:
-        qmask = qmask & ((rows[:, :, None] - sidx[None, None, :])
-                         < cfg.sliding_window)
-    group = cfg.n_q_heads // cfg.n_kv_heads
-    hd = cfg.head_dim
+    qmask = M.query_mask(cfg, dict(valid=valid0), rows, tok_mask)
+    cache = dict(k=k_all, v=v_all)
     for li, lp in enumerate(T.layer_views(params["blocks"], cfg.n_layers)):
         q, k, v = T._attn_in(cfg, lp, x, cos, sin)
-        k_l, v_l = k_all[li], v_all[li]
-        _write_rows(k_l, rows, k, tok_mask)
-        _write_rows(v_l, rows, v, tok_mask)
-        qg = q.reshape(b, m, cfg.n_kv_heads, group, hd)
-        scores = torch.einsum("bmhgd,bhsd->bmhgs", qg.to(torch.float32),
-                              k_l.to(torch.float32)) * T._attn_scale(cfg, li)
-        scores = torch.where(qmask[:, :, None, None, :], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bmhgs,bhsd->bmhgd", probs.to(v_l.dtype), v_l)
+        M.write_rows(k_all[li], rows, k, tok_mask)
+        M.write_rows(v_all[li], rows, v, tok_mask)
+        attn = M.attend(cfg, li, q, cache, qmask)
         x, _ = T._attn_out(cfg, lp, x, attn.to(x.dtype))
     return T._norm(cfg, x, params["ln_f"]["scale"],
                    params["ln_f"].get("bias"))
@@ -854,6 +923,27 @@ def _prefill_suffix_into_slot(cfg, params, state, slot: int, donor_k,
     _reset_slot(state, slot, hidden[0, -1], c + s)
 
 
+def _prefill_suffix_members(cfg, mp, lay, state, slot: int, dk, dv, c: int,
+                            c_b: int, ids, seg, pos, s: int):
+    """``_prefill_suffix_into_slot`` over members, in the slot's own
+    cache row: the donor's first ``c`` rows seed it, the left-padded
+    suffix runs ``extend_rows`` on the owning group at rows [c_b, c_b +
+    s_b)."""
+    caches = state["cache"]
+    M.write_donor(cfg, lay, caches, slot, dk, dv, c)
+    s_b = ids.shape[1]
+    rows = (c_b + torch.arange(s_b, dtype=torch.int32,
+                               device=ids.device))[None, :]
+    tok_mask = seg != 0
+    g, r = lay.group_of(slot)
+    hidden = M.extend_rows(cfg, mp, lay, M.row_views(lay, caches, slot), ids,
+                           pos, rows, tok_mask, [(g, 0, 1)], s_b)
+    M.set_valid(lay, caches, slot, c_b, tok_mask[0])
+    for i in lay.members(g):
+        caches[i]["length"][r] = c_b + s_b  # write index
+    _reset_slot(state, slot, hidden.hs[g], c + s, lay)
+
+
 # ----------------------------------------------------------------------
 # paged pieces: gather the live window from the pool, run the dense
 # compute above on it, scatter the written rows back. The pool changes
@@ -884,41 +974,58 @@ def _scatter_written(meta, pool, rows, cache, len0, m, mask_extra):
     _kvp.pool_scatter(meta, pool, flat, kw, vw, mask)
 
 
-def _windowed_state(cfg, meta, pool, state, bt, warange):
-    rows, cache = _paged_window(cfg, meta, pool, bt, warange,
-                                state["length"])
+def _windowed_state(cfg, meta, pool, state, bt, warange, lay):
+    """(flat pool rows or None, the state over dense window caches): one
+    cache, or over members ``inflight_members.paged_window``'s."""
+    if lay is None:
+        rows, cache = _paged_window(cfg, meta, pool.arrays(), bt, warange,
+                                    state["length"])
+    else:
+        rows, cache = None, M.paged_window(cfg, meta, pool, lay, bt,
+                                           warange.shape[0], state["length"])
     st = {k: v for k, v in state.items() if k != "length"}
     st["cache"] = cache
     return rows, st
 
 
+def _written_back(meta, pool, lay, rows, cache, bt, win, len0, m, mask):
+    """Window rows ``[len0, len0 + m)`` where ``mask`` back into the pool;
+    returns the caches' new write indices."""
+    if lay is None:
+        _scatter_written(meta, pool.arrays(), rows, cache, len0, m, mask)
+        return cache["length"]
+    M.scatter_written(meta, pool, lay, cache, bt, win, len0, m, mask)
+    return M.lengths(lay, cache)
+
+
 def _paged_decode_chunk(cfg, g, eos, pad, chunk, meta, params, pool, state,
-                        bt, warange, generator):
+                        bt, warange, generator, lay=None):
     """gather -> dense ``_decode_chunk`` -> scatter the <= ``chunk`` new
     rows of each slot back into the pool -> (state, steps taken)."""
-    rows, st = _windowed_state(cfg, meta, pool, state, bt, warange)
+    rows, st = _windowed_state(cfg, meta, pool, state, bt, warange, lay)
     steps = _decode_chunk(cfg, g, eos, pad, chunk, params, st, generator)
     cache = st.pop("cache")
-    len0, len1 = state["length"], cache["length"]
+    len0 = state["length"]
+    len1 = cache["length"] if lay is None else M.lengths(lay, cache)
     j = torch.arange(chunk, dtype=torch.int32, device=len0.device)[None, :]
-    _scatter_written(meta, pool, rows, cache, len0, chunk,
-                     j < (len1 - len0)[:, None])
-    st["length"] = len1
+    st["length"] = _written_back(meta, pool, lay, rows, cache, bt,
+                                 warange.shape[0], len0, chunk,
+                                 j < (len1 - len0)[:, None])
     return st, steps
 
 
 def _paged_verify(cfg, g, eos, k_spec, meta, params, pool, state, bt,
-                  warange, drafts):
+                  warange, drafts, lay=None):
     """gather -> dense ``_verify_chunk`` -> scatter the round's <= k+1
     rows of each live slot back."""
     live = (state["active"] & state["unfinished"]
             & (state["emitted"] < g.max_new_tokens))
-    rows, st = _windowed_state(cfg, meta, pool, state, bt, warange)
-    _verify_chunk(cfg, g, eos, k_spec, params, st, drafts)
+    rows, st = _windowed_state(cfg, meta, pool, state, bt, warange, lay)
+    _verify_chunk(cfg, g, eos, k_spec, params, st, drafts, lay)
     cache = st.pop("cache")
-    _scatter_written(meta, pool, rows, cache, state["length"], 1 + k_spec,
-                     live[:, None])
-    st["length"] = cache["length"]
+    st["length"] = _written_back(meta, pool, lay, rows, cache, bt,
+                                 warange.shape[0], state["length"],
+                                 1 + k_spec, live[:, None])
     return st
 
 
@@ -988,7 +1095,7 @@ def _suppress_eos(g, eos, logits, emitted_ahead):
     return torch.where(sup, NEG_INF, logits)
 
 
-def _verify_chunk(cfg, g, eos, k_spec, params, st, drafts):
+def _verify_chunk(cfg, g, eos, k_spec, params, st, drafts, lay=None):
     """One speculative round, in place on ``st``: commit the greedy
     token from ``last_hidden`` (no forward needed), then verify the k
     drafts behind it in ONE ``_extend_rows`` forward. A draft is
@@ -999,7 +1106,10 @@ def _verify_chunk(cfg, g, eos, k_spec, params, st, drafts):
     nm = g.max_new_tokens
     m = 1 + k_spec
     cache = st["cache"]
-    s_len = cache["valid"].shape[1]
+    if lay is None:
+        s_len, length = cache["valid"].shape[1], cache["length"]
+    else:
+        s_len, length = M.total_slots(lay, cache), M.lengths(lay, cache)
     b = drafts.shape[0]
     dev = drafts.device
     barr = torch.arange(b, device=dev)
@@ -1015,11 +1125,16 @@ def _verify_chunk(cfg, g, eos, k_spec, params, st, drafts):
     j = torch.arange(m, dtype=torch.int32, device=dev)[None, :]
     allowed = (nm - emitted).clamp(0, m)
     write_mask = live[:, None] & (j < allowed[:, None])
-    rows = (cache["length"][:, None] + j).clamp(max=s_len - 1)
+    rows = (length[:, None] + j).clamp(max=s_len - 1)
     positions = st["prompt_len"][:, None] + emitted[:, None] + j
 
-    hidden = _extend_rows(cfg, params, cache["k"], cache["v"], cache["valid"],
-                          tokens_seq, positions, rows, write_mask)
+    if lay is None:
+        hidden = _extend_rows(cfg, params, cache["k"], cache["v"],
+                              cache["valid"], tokens_seq, positions, rows,
+                              write_mask)
+    else:
+        hidden = M.extend_rows(cfg, params, lay, cache, tokens_seq, positions,
+                               rows, write_mask, M.group_rows(lay), b * m)
     # candidate j is drawn with emitted + j + 1 tokens out
     logits = _suppress_eos(g, eos, T.lm_logits(cfg, params, hidden).float(),
                            emitted[:, None] + j + 1)
@@ -1056,11 +1171,16 @@ def _verify_chunk(cfg, g, eos, k_spec, params, st, drafts):
     st["hit_eos"] = st["hit_eos"] | hit_now
     kept = ((rows[:, :, None] == torch.arange(s_len, device=dev)[None, None])
             & emit_mask[:, :, None]).any(dim=1)
-    cache["valid"] = cache["valid"] | kept
-    cache["length"] = cache["length"] + n_emit
-    st["last_hidden"] = torch.where(
-        live[:, None], hidden[barr, (n_emit - 1).clamp(min=0).long()],
-        st["last_hidden"])
+    last = (n_emit - 1).clamp(min=0)
+    if lay is None:
+        cache["valid"] = cache["valid"] | kept
+        cache["length"] = cache["length"] + n_emit
+        st["last_hidden"] = torch.where(
+            live[:, None], hidden[barr, last.long()], st["last_hidden"])
+    else:
+        M.commit(lay, cache, kept, n_emit)
+        st["last_hidden"] = M.select_hidden(lay, hidden, last, live,
+                                            st["last_hidden"])
     st["spec_proposed"] = st["spec_proposed"] + torch.where(
         live, k_spec, 0).to(torch.int32)
     st["spec_accepted"] = st["spec_accepted"] + (n_emit - 1).clamp(min=0)

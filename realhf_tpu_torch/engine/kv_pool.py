@@ -27,13 +27,22 @@ kv-head, row): per-row amax scales keep the round-trip error within
 ``amax / 254`` per row. Quantize-on-write and dequantize-on-read live
 in ``pool_scatter`` / ``pool_gather``, so the compute never sees int8.
 
+Over the members of a ``dNtM`` layout (``devices``, ``t``) every
+member keeps an arena of every block over its own ``nkv / t`` KV heads
+(where t does not divide the KV heads, every head: the "seq" route's
+members each gather their slice of a window), on its device. The int8
+scales are per (layer, head, row), so splitting the heads changes no
+stored value. One allocator serves every data group; the generator
+copies a block aliased into another group's slot into that group's
+arenas (``engine/inflight_members.copy_blocks``).
+
 The allocator (``alloc``/``free``/``incref``) is plain host Python
 that runs between device calls. :meth:`KVPool.host_only` builds a pool
 without device tensors, for fakes and scheduler tests.
 """
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,7 +81,8 @@ class KVPool:
     to the card (``base/device.py``)."""
 
     def __init__(self, cfg, n_blocks: int, block_len: int,
-                 dtype: str = "fp32", device: DeviceLike = None):
+                 dtype: str = "fp32", device: DeviceLike = None, *,
+                 devices: Optional[Sequence] = None, t: int = 1):
         if dtype not in KV_CACHE_DTYPES:
             raise ValueError(
                 f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}, "
@@ -91,22 +101,30 @@ class KVPool:
         self._ref[0] = 1  # the scratch block is never allocatable
         self.stats_counters = dict(allocs=0, frees=0, oom=0)
 
-        self._arrays: Optional[Dict[str, torch.Tensor]] = None
+        self._members: List[Dict[str, torch.Tensor]] = []
         self.device = None
+        self.t = int(t)
+        self.devices: List[torch.device] = []
         if cfg is not None:
-            self.device = resolve_device(device)
+            self.devices = ([torch.device(x) for x in devices]
+                            if devices is not None
+                            else [resolve_device(device)])
+            self.device = self.devices[0]
             nl, nkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+            heads = nkv // self.t if nkv % self.t == 0 else nkv
             rows = (self.n_blocks + 1) * self.block_len
             sdt = _STORE[dtype]
-            z = dict(device=self.device)
-            self._arrays = dict(
-                k=torch.zeros((nl, nkv, rows, hd), dtype=sdt, **z),
-                v=torch.zeros((nl, nkv, rows, hd), dtype=sdt, **z))
-            if self.meta.quant:
-                self._arrays["k_scale"] = torch.zeros(
-                    (nl, nkv, rows), dtype=torch.float32, **z)
-                self._arrays["v_scale"] = torch.zeros(
-                    (nl, nkv, rows), dtype=torch.float32, **z)
+            for dev in self.devices:
+                z = dict(device=dev)
+                arr = dict(
+                    k=torch.zeros((nl, heads, rows, hd), dtype=sdt, **z),
+                    v=torch.zeros((nl, heads, rows, hd), dtype=sdt, **z))
+                if self.meta.quant:
+                    arr["k_scale"] = torch.zeros(
+                        (nl, heads, rows), dtype=torch.float32, **z)
+                    arr["v_scale"] = torch.zeros(
+                        (nl, heads, rows), dtype=torch.float32, **z)
+                self._members.append(arr)
             itemsize = torch.empty((), dtype=sdt).element_size()
             self._bytes_per_row = 2 * nl * nkv * (
                 hd * itemsize + (4 if self.meta.quant else 0))
@@ -122,10 +140,15 @@ class KVPool:
         return pool
 
     def arrays(self) -> Dict[str, torch.Tensor]:
-        """The device tensors (``pool_scatter`` writes them in place)."""
-        if self._arrays is None:
+        """The device tensors (``pool_scatter`` writes them in place); of
+        the first member over members."""
+        return self.member_arrays(0)
+
+    def member_arrays(self, i: int) -> Dict[str, torch.Tensor]:
+        """Member ``i``'s arena."""
+        if not self._members:
             raise RuntimeError("host_only pool has no device arrays")
-        return self._arrays
+        return self._members[i]
 
     # -- allocator ------------------------------------------------------
     @property

@@ -47,6 +47,7 @@ class GenerationInterface(model_api.ModelInterface):
             self.gconfig = GenerationHyperparameters(**self.gconfig)
         self._calls = 0
         self._inflight = None
+        self._inflight_layout = None
 
     def generate(self, model: model_api.Model, input_: SequenceSample,
                  n_mbs: Optional[int] = None) -> SequenceSample:
@@ -101,13 +102,20 @@ class GenerationInterface(model_api.ModelInterface):
 
     def _generate_inflight(self, model: model_api.Model, prompts, gen):
         """All prompts through the continuous-batching generator ->
-        (tokens [B, max generated] padded, lengths [B])."""
+        (tokens [B, max generated] padded, lengths [B]). It runs on the
+        engine's decode view (``Engine.decode_engine``) at pipeline,
+        context-parallel and ``g != t`` layouts, as batch generation
+        does; a change of the view's layout rebuilds it."""
         from realhf_tpu_torch.engine.inflight import (
             InflightBatchingGenerator,
             _bucket,
         )
+        from realhf_tpu_torch.models.sharding import MemberParams
         tok = model.tokenizer
-        eng = model.engine
+        eng = model.engine.decode_engine()
+        mp = eng.params
+        layout = ((mp.d, mp.t, tuple(mp.devices))
+                  if isinstance(mp, MemberParams) else None)
         # bucket the cache so slowly growing prompt lengths reuse the
         # generator instead of rebuilding it every batch
         need = _bucket(max(64, max(len(p) for p in prompts)))
@@ -115,16 +123,18 @@ class GenerationInterface(model_api.ModelInterface):
         if (self._inflight is None
                 or self._inflight.cache_len
                 - self.gconfig.max_new_tokens < need
-                or self._inflight.n_slots != n_slots):
+                or self._inflight.n_slots != n_slots
+                or self._inflight_layout != layout):
             # a later batch may carry longer prompts, or (with
             # inflight_slots=0, "the batch size") another prompt count
             self._inflight = InflightBatchingGenerator(
                 model.config, eng.params, self.gconfig, n_slots=n_slots,
                 max_prompt_len=need, eos_token_id=tok.eos_token_id,
                 pad_token_id=tok.pad_token_id, device=eng.device)
-        self._inflight.params = eng.params  # fresh weights
+            self._inflight_layout = layout
+        self._inflight.swap_params(eng.params)  # fresh weights
         finished = self._inflight.generate_all(prompts, gen)
-        # hold no reference to the weights between calls
+        # hold no reference to the weights (the view's) between calls
         self._inflight.params = None
         lengths = np.asarray([len(f.tokens) for f in finished])
         maxg = max(1, int(lengths.max()))

@@ -1181,11 +1181,14 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
                     input_ids: torch.Tensor, seg_ids: torch.Tensor,
                     positions: Optional[torch.Tensor] = None, *,
                     return_kv: bool = False, return_aux: bool = False,
-                    attention_fn=None, pipeline=None):
+                    attention_fn=None, pipeline=None,
+                    group: Optional[int] = None):
     """``forward`` over the members of a ``dNtMpP`` layout: ``[S, L]``
     inputs (on any device) -> (``MemberHidden``, per-member stacked
     (k, v) or None[, aux]). Data group g runs rows ``data_rows(S,
-    d)[g]``; at t = p = 1 that is ``forward`` on its one member's tree.
+    d)[g]`` (all S rows when ``group`` is g, none when it is another
+    group: the serving engine fills one slot on its owning group); at
+    t = p = 1 that is ``forward`` on its one member's tree.
     At p > 1 each data group runs the pipeline of ``pipeline`` (default
     ``mp.pipeline``; ``_forward_members_pipeline``) and the hidden
     states are the last stage's. A MoE model's data groups route as one
@@ -1206,7 +1209,9 @@ def forward_members(cfg: TransformerConfig, mp: MemberParams,
         _check_pipelined(cfg, pipe, return_kv)
         return _forward_members_pipeline(cfg, mp, pipe, input_ids, seg_ids,
                                          positions, return_aux, attention_fn)
-    rows = data_rows(input_ids.shape[0], mp.d)
+    n = input_ids.shape[0]
+    rows = (data_rows(n, mp.d) if group is None else
+            [(0, 0)] * group + [(0, n)] + [(n, n)] * (mp.d - group - 1))
     starts = mp.vocab_starts(cfg)
     hs, kvs = [], []
     aux_sum: Dict[str, torch.Tensor] = {}
@@ -1361,15 +1366,21 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 def prefill(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor,
             seg_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
-            *, total_len: Optional[int] = None, attention_fn=None
-            ) -> Tuple[torch.Tensor, KVCache]:
+            *, total_len: Optional[int] = None, attention_fn=None,
+            group: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
     """Packed forward plus a KV cache whose first L slots hold the
     prompt's keys/values. ``total_len`` sizes the cache for the whole
     generation (prompt + new tokens, rounded) in one allocation. Given
     ``MemberParams``: (``MemberHidden``, one cache per member over its
-    rows and its KV heads, None for a member of an empty group)."""
-    hidden, kvs = forward(cfg, params, input_ids, seg_ids, positions,
-                          return_kv=True, attention_fn=attention_fn)
+    rows and its KV heads, None for a member of an empty group); with
+    ``group`` every row runs on that data group (``forward_members``)."""
+    if group is not None:
+        hidden, kvs = forward_members(cfg, params, input_ids, seg_ids,
+                                      positions, return_kv=True,
+                                      attention_fn=attention_fn, group=group)
+    else:
+        hidden, kvs = forward(cfg, params, input_ids, seg_ids, positions,
+                              return_kv=True, attention_fn=attention_fn)
     lp = input_ids.shape[1]
     total = round_cache_len(total_len if total_len is not None else lp)
     if not isinstance(params, MemberParams):

@@ -45,10 +45,15 @@ def build_server(serving, cfg, params, *, device: DeviceLike = None,
     rows and to dense parity (``n_slots * ceil(cache_len /
     kv_block_len)`` blocks); a paged engine pairs with the pooled prefix
     cache, a dense one with the host cache, and ``prefix_cache_bytes``
-    0 with none. ``device`` defaults to the card."""
+    0 with none. ``device`` defaults to the card. ``params`` may be the
+    ``MemberParams`` of a dNtM layout: the engine then runs over those
+    members, each member's pool arena on its device; a pipeline or
+    context-parallel layout raises, since a server serves its model's
+    weights as they are, without a decode view."""
     from realhf_tpu_torch.engine.inflight import InflightBatchingGenerator
     from realhf_tpu_torch.engine.kv_pool import KVPool
     from realhf_tpu_torch.models import transformer as T
+    from realhf_tpu_torch.models.sharding import MemberParams
     from realhf_tpu_torch.ops.sampling import GenerationHyperparameters
     from realhf_tpu_torch.serving.prefix_cache import (
         PooledPrefixCache,
@@ -58,6 +63,16 @@ def build_server(serving, cfg, params, *, device: DeviceLike = None,
     from realhf_tpu_torch.serving.scheduler import ContinuousScheduler
     from realhf_tpu_torch.serving.weight_sync import WeightSync
     sv = serving
+    members = {}
+    if isinstance(params, MemberParams):
+        if params.p > 1 or params.c > 1:
+            raise ValueError(
+                f"build_server over a p{params.p} c{params.c} layout: a "
+                "rollout server generates on its model's weights as they "
+                "are, with no decode view, as the JAX package's rollout "
+                "worker does, and such weights are laid out for a pipeline "
+                "or a context ring; serve the model on a dNtM layout.")
+        members = dict(devices=params.devices, t=params.t)
     gconfig = GenerationHyperparameters(**dict(sv.gconfig,
                                                force_no_logits_mask=True))
     paged = sv.paged_kv or sv.kv_cache_dtype == "int8"
@@ -68,7 +83,8 @@ def build_server(serving, cfg, params, *, device: DeviceLike = None,
         n_blocks = sv.kv_pool_blocks or sv.n_slots * (
             -(-cache_len // sv.kv_block_len))
         kv_pool = KVPool(cfg, n_blocks, sv.kv_block_len,
-                         dtype=sv.kv_cache_dtype or "fp32", device=device)
+                         dtype=sv.kv_cache_dtype or "fp32", device=device,
+                         **members)
     gen = InflightBatchingGenerator(
         cfg, params, gconfig, n_slots=sv.n_slots,
         max_prompt_len=sv.max_prompt_len, eos_token_id=sv.eos_token_id,

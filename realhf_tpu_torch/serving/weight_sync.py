@@ -18,13 +18,25 @@ logger = logging.getLogger("serving.weight_sync")
 
 def _snapshot_tree(params):
     """A copy of a param tree: every tensor leaf cloned on its own
-    device, numpy leaves copied, anything else kept. The caller may then
-    update its own tree in place (a training step does) without changing
-    the pending swap."""
+    device, numpy leaves copied, each member's tree of a ``MemberParams``
+    copied so (members sharing a tree share its copy), anything else
+    kept. The caller may then update its own tree in place (a training
+    step does) without changing the pending swap."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from realhf_tpu_torch.models.sharding import MemberParams
+
     def snap(x):
+        if isinstance(x, MemberParams):
+            copies = {}
+            for tr in x.trees:
+                if id(tr) not in copies:
+                    copies[id(tr)] = snap(tr)
+            return dataclasses.replace(
+                x, trees=[copies[id(tr)] for tr in x.trees])
         if isinstance(x, dict):
             return {k: snap(v) for k, v in x.items()}
         if isinstance(x, torch.Tensor):

@@ -351,13 +351,22 @@ def test_layouts_of_later_parts_raise(jax_one):
                                               sequence_parallel=True),
                    devices=["cpu"] * 4)
     assert sp_pp.params.sp and sp_pp.params.p == 2
+    # the serving engine runs over members (held against the JAX
+    # generator on the mesh by test_torch_serving_members.py): it builds
+    # at d1t2 and one decode chunk steps both slots
     from realhf_tpu_torch.engine.inflight import InflightBatchingGenerator
     eng = _port(TINY, 1, 2, w)
-    with pytest.raises(NotImplementedError, match="serving engine"):
-        InflightBatchingGenerator(
-            eng.cfg, eng.params, GenerationHyperparameters(
-                force_no_logits_mask=True), n_slots=2, max_prompt_len=8,
-            eos_token_id=None, pad_token_id=0, device="cpu")
+    gen = InflightBatchingGenerator(
+        eng.cfg, eng.params, GenerationHyperparameters(
+            max_new_tokens=4, greedy=True, force_no_logits_mask=True),
+        n_slots=2, max_prompt_len=8, eos_token_id=None, pad_token_id=0,
+        chunk_size=2, device="cpu")
+    for slot in range(2):
+        gen.fill_slot(slot, slot, ids[slot, :6])
+    gen.decode_chunk()
+    assert gen.counts == dict(decode_steps=2, full_prefills=2,
+                              suffix_prefills=0)
+    assert [len(gen.snapshot_slot(s)[0]) for s in range(2)] == [2, 2]
     assert sharding.padded_vocab_size(eng.cfg, 2) == 108
     from realhf_tpu_torch.ops.attention import member_heads
     assert member_heads(8, 4, 2, 1) == ((4, 8), (2, 4))
